@@ -1,0 +1,55 @@
+"""Registry of the dense configs the port serves (values copied from
+``repro/configs/<id>.py``)."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs.base import ArchConfig
+
+QWEN3_32B = ArchConfig(
+    name="qwen3-32b", family="dense", n_layers=64, d_model=5120,
+    n_heads=64, n_kv_heads=8, head_dim=128, d_ff=25600, vocab=151936,
+    norm="rmsnorm", gated_ffn=True, act="silu", rope_theta=1_000_000.0,
+    supports_decode=True, subquadratic=False,
+    source="arXiv:2505.09388 (paper eval model)")
+
+LLAMA31_70B = ArchConfig(
+    name="llama-3.1-70b", family="dense", n_layers=80, d_model=8192,
+    n_heads=64, n_kv_heads=8, d_ff=28672, vocab=128256, norm="rmsnorm",
+    gated_ffn=True, act="silu", rope_theta=500_000.0, supports_decode=True,
+    subquadratic=False, source="arXiv:2407.21783 (paper eval model)")
+
+QWEN2_0_5B = ArchConfig(
+    name="qwen2-0.5b", family="dense", n_layers=24, d_model=896,
+    n_heads=14, n_kv_heads=2, d_ff=4864, vocab=151936, qkv_bias=True,
+    norm="rmsnorm", gated_ffn=True, act="silu", tie_embeddings=True,
+    rope_theta=1_000_000.0, supports_decode=True, subquadratic=False,
+    source="arXiv:2407.10671; hf")
+
+INTERNLM2_1_8B = ArchConfig(
+    name="internlm2-1.8b", family="dense", n_layers=24, d_model=2048,
+    n_heads=16, n_kv_heads=8, d_ff=8192, vocab=92544, norm="rmsnorm",
+    gated_ffn=True, act="silu", rope_theta=1_000_000.0,
+    supports_decode=True, subquadratic=False,
+    source="arXiv:2403.17297; hf")
+
+H2O_DANUBE3_4B = ArchConfig(
+    name="h2o-danube-3-4b", family="dense", n_layers=24, d_model=3840,
+    n_heads=32, n_kv_heads=8, d_ff=10240, vocab=32000, swa_window=4096,
+    norm="rmsnorm", gated_ffn=True, act="silu", rope_theta=10_000.0,
+    supports_decode=True, subquadratic=True,
+    source="arXiv:2401.16818; unverified")
+
+REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in (
+    QWEN3_32B, LLAMA31_70B, QWEN2_0_5B, INTERNLM2_1_8B, H2O_DANUBE3_4B)}
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in REGISTRY:
+        raise KeyError(
+            f"unknown arch {name!r}; repro_torch serves {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+__all__ = ["ArchConfig", "REGISTRY", "get_config"]

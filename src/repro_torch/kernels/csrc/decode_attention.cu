@@ -1,0 +1,140 @@
+// Paged GQA decode attention for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel repro/kernels/decode_attention.py
+// `decode_attention_paged` (`_dec_paged_kernel`): one query token per row
+// against the block pool (n_blocks, block, nkv, d) read through the row's
+// block table, causal by `pos`, optional sliding window, GQA, online
+// softmax in fp32.
+//
+// Bound on the card: BYTES. Each row streams its whole K/V history once
+// per step and does 4*g*d flops per key (g = query heads per KV head), far
+// below the ~295 flops/byte where H100 bf16 turns compute-bound.
+//
+// What the design does about it:
+//  * one CTA per (row, KV head) owns all g query heads of that KV head, so
+//    each K/V block is read once for the group (the Pallas grid (b, nh, mb)
+//    read it once per query head: 8x the bytes at Qwen3-32B's 64/8 heads);
+//  * the CTA walks only the keys the row can see: from the window's first
+//    position (SWA) to `pos`, not all `mb` virtual blocks, so the trash
+//    tail of the table is never read;
+//  * the CTA loads its own block-table entries (no scalar prefetch);
+//  * split-KV (flash-decoding): each row's visible keys are cut into
+//    splits of `split` keys, one CTA each, so a batch of 8 rows puts
+//    hundreds of CTAs in flight instead of B x nkv = 64 (the card has 132
+//    SMs and a decode CTA is latency-bound on its K/V loads); a second
+//    kernel merges the splits' (acc, max, sum) partials.
+#include "attn_common.cuh"
+
+namespace {
+
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* tbl;
+  const int* pos;
+  void* out;
+  float* part_acc;     // (B, nh, nsplit, d) unnormalised partial outputs
+  float* part_ml;      // (B, nh, nsplit, 2) partial (max, denominator)
+  int B, nh, nkv, bs, mb, window, split, nsplit;
+  float scale;
+};
+
+template <typename T, int D>
+struct DecodeP {
+  const T* q;
+  const int* tbl_row;
+  float* acc_base;
+  float* ml_base;
+  int b, nh, g, bs, split_idx, nsplit;
+  int rows, nkv, kvh, kv_lo, kv_hi, causal, window, pos;
+  float scale;
+  __device__ long long row(int r) const {
+    return ((long long)b * nh + kvh * g + r) * nsplit + split_idx;
+  }
+  __device__ const T* q_row(int r) const {
+    return q + ((long long)b * nh + kvh * g + r) * D;
+  }
+  __device__ float* part_acc(int r) const { return acc_base + row(r) * D; }
+  __device__ float* part_ml(int r) const { return ml_base + row(r) * 2; }
+  __device__ int q_pos(int) const { return pos; }
+  __device__ int kv_row(int t) const {
+    return tbl_row[t / bs] * bs + t % bs;
+  }
+};
+
+// Pass 1: CTA (split, KV head, row) attends keys
+// [lo + split * a.split, lo + (split + 1) * a.split) of the row's visible
+// range [lo, hi) and writes its partial (acc, m, l) for the g query heads.
+template <typename T, int D>
+__global__ void __launch_bounds__(rt::kThreads)
+decode_split_kernel(DecodeArgs a) {
+  const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int g = a.nh / a.nkv;
+  const int pos = a.pos[b];
+  DecodeP<T, D> p;
+  p.q = static_cast<const T*>(a.q);
+  p.tbl_row = a.tbl + (long long)b * a.mb;
+  p.acc_base = a.part_acc;
+  p.ml_base = a.part_ml;
+  p.b = b; p.nh = a.nh; p.g = g; p.bs = a.bs;
+  p.split_idx = sp; p.nsplit = a.nsplit;
+  p.rows = g; p.nkv = a.nkv; p.kvh = kvh;
+  p.causal = 1; p.window = a.window; p.pos = pos; p.scale = a.scale;
+  // visible keys [lo, hi): the window's first position through pos,
+  // clamped to the table width (a frozen dead row may sit one past its
+  // last block); this CTA takes its split of them (possibly none)
+  const int lo = a.window > 0 ? max(0, pos - a.window + 1) : 0;
+  const int hi = min(pos + 1, a.mb * a.bs);
+  p.kv_lo = lo + sp * a.split;
+  p.kv_hi = min(hi, lo + (sp + 1) * a.split);
+  rt::attend<T, D, true>(p, static_cast<const T*>(a.k),
+                         static_cast<const T*>(a.v));
+}
+
+// Pass 2: one CTA per (query head, row), one thread per dim, merges the
+// splits' partials: out = sum_s e^{m_s - M} acc_s / sum_s e^{m_s - M} l_s.
+template <typename T, int D>
+__global__ void decode_combine_kernel(DecodeArgs a) {
+  const int h = blockIdx.x, b = blockIdx.y, c = threadIdx.x;
+  const long long row = (long long)b * a.nh + h;
+  const float* ml = a.part_ml + row * a.nsplit * 2;
+  const float* acc = a.part_acc + row * a.nsplit * D;
+  float M = rt::kNegInf;
+  for (int s = 0; s < a.nsplit; ++s) M = fmaxf(M, ml[2 * s]);
+  float L = 0.f, A = 0.f;
+  for (int s = 0; s < a.nsplit; ++s) {
+    const float w = expf(ml[2 * s] - M);
+    L += w * ml[2 * s + 1];
+    A += w * acc[s * D + c];
+  }
+  static_cast<T*>(a.out)[row * D + c] = rt::from_f<T>(A / fmaxf(L, 1e-30f));
+}
+
+template <typename T, int D>
+cudaError_t run(const DecodeArgs& a, cudaStream_t s) {
+  const int g = a.nh / a.nkv;
+  cudaError_t e = rt::launch<decode_split_kernel<T, D>>(
+      dim3(a.nsplit, a.nkv, a.B), rt::kThreads, rt::smem_bytes(g, D), a, s);
+  if (e != cudaSuccess) return e;
+  return rt::launch<decode_combine_kernel<T, D>>(dim3(a.nh, a.B), D, 0, a,
+                                                 s);
+}
+
+}  // namespace
+
+extern "C" int rt_decode_attention_paged(
+    const void* q, const void* k, const void* v, const void* tbl,
+    const void* pos, void* out, void* part_acc, void* part_ml, int B,
+    int nh, int nkv, int d, int bs, int mb, int window, int split,
+    int nsplit, float scale, int is_bf16, void* stream) {
+  cudaGetLastError();  // clear a stale error so the return is this launch's
+  DecodeArgs a{q, k, v, static_cast<const int*>(tbl),
+               static_cast<const int*>(pos), out,
+               static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+               B, nh, nkv, bs, mb, window, split, nsplit, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = is_bf16 ? RT_DISPATCH_D(d, __nv_bfloat16, run, a, s)
+                          : RT_DISPATCH_D(d, float, run, a, s);
+  return static_cast<int>(e);
+}

@@ -1,0 +1,56 @@
+"""Attention dispatch (port of ``repro/kernels/ops.py``).
+
+The device decides, not a switch: a CUDA tensor always goes through the
+hand-written kernel (which raises on what it does not take), a CPU tensor
+through the kernel's plain PyTorch version. There is no fallback from a
+failed build or launch to the plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+
+from repro_torch.kernels import chunk_attention as _ca
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
+
+KERNEL_MODULES = {"decode_attention_paged": _da,
+                  "chunk_attention_paged": _ca,
+                  "flash_attention": _fa}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None
+                    ) -> torch.Tensor:
+    fn = _fa.flash_attention if q.is_cuda else _fa.flash_attention_plain
+    return fn(q, k, v, causal=causal, window=window)
+
+
+def decode_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, block_tbl: torch.Tensor,
+                           pos: Union[int, torch.Tensor], *,
+                           window: Optional[int] = None) -> torch.Tensor:
+    fn = (_da.decode_attention_paged if q.is_cuda
+          else _da.decode_attention_paged_plain)
+    return fn(q, cache_k, cache_v, block_tbl, pos, window=window)
+
+
+def chunk_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,
+                          cache_v: torch.Tensor, block_tbl: torch.Tensor,
+                          bases: Union[int, torch.Tensor], *,
+                          window: Optional[int] = None) -> torch.Tensor:
+    fn = (_ca.chunk_attention_paged if q.is_cuda
+          else _ca.chunk_attention_paged_plain)
+    return fn(q, cache_k, cache_v, block_tbl, bases, window=window)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    return {n: m.launch_count for n, m in KERNEL_MODULES.items()}
+
+
+def reset_launch_counts() -> None:
+    for m in KERNEL_MODULES.values():
+        m.launch_count = 0

@@ -1,0 +1,180 @@
+"""Attention parity: the port's plain PyTorch attention (the CPU path and the
+oracle of the CUDA kernels) against the JAX oracles in
+``repro/models/attention.py`` and, for the three kernel modules, against the
+Pallas kernels run in interpret mode as tests/test_kernels.py runs them.
+
+Inputs come from a numpy seed and go to both frameworks; tolerances are
+those of tests/test_kernels.py (fp32 2e-5, bf16 2e-2).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.chunk_attention import \
+    chunk_attention_paged as pallas_chunk_paged
+from repro.kernels.decode_attention import \
+    decode_attention_paged as pallas_decode_paged
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import attention as jattn
+from repro_torch.kernels import chunk_attention as tca
+from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ops as tops
+from repro_torch.models import attention as tattn
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name):
+    return dict(atol=2e-2, rtol=2e-2) if name == "bfloat16" \
+        else dict(atol=2e-5, rtol=2e-5)
+
+
+def _pair(a: np.ndarray, name: str):
+    """The same values in both frameworks (bf16 rounding is identical)."""
+    jd, td = DTYPES[name]
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+
+
+def _close(t_out, j_out, name):
+    np.testing.assert_allclose(t_out.float().numpy(),
+                               np.asarray(j_out, np.float32), **_tol(name))
+
+
+def _pool(rng, b, mb, block, nkv, d):
+    """Random pool + per-row table of distinct blocks (0 = trash)."""
+    n_blocks = 1 + b * mb
+    pk = rng.randn(n_blocks, block, nkv, d).astype(np.float32)
+    pv = rng.randn(n_blocks, block, nkv, d).astype(np.float32)
+    tbl = (rng.permutation(b * mb).reshape(b, mb) + 1).astype(np.int32)
+    return pk, pv, tbl
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,nh,nkv,d,window", [
+    (2, 32, 4, 2, 16, None),        # GQA
+    (1, 32, 4, 4, 16, 8),           # MHA, SWA
+    (2, 24, 4, 1, 32, None),        # ragged length, d=32
+])
+def test_flash_attention_plain(dtype, b, s, nh, nkv, d, window):
+    rng = np.random.RandomState(0)
+    q, k, v = (rng.randn(b, s, n, d).astype(np.float32)
+               for n in (nh, nkv, nkv))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, k, v))
+    out = tfa.flash_attention_plain(tq, tk, tv, causal=True, window=window)
+    _close(out, jattn.prefill_attention(jq, jk, jv, causal=True,
+                                        window=window), dtype)
+    _close(out, pallas_flash(jq, jk, jv, causal=True, window=window,
+                             interpret=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,nh,nkv,d,window,vecpos", [
+    (2, 4, 2, 16, None, True),      # GQA, per-row positions
+    (3, 4, 4, 16, 8, True),         # MHA, SWA
+    (2, 8, 2, 32, None, False),     # scalar position
+])
+def test_decode_attention_paged_plain(dtype, b, nh, nkv, d, window, vecpos):
+    rng = np.random.RandomState(1)
+    block, mb = 8, 4
+    pk, pv, tbl = _pool(rng, b, mb, block, nkv, d)
+    q = rng.randn(b, 1, nh, d).astype(np.float32)
+    pos = (rng.randint(1, block * mb, (b,)).astype(np.int32) if vecpos
+           else np.int32(block * mb - 3))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, pk, pv))
+    out = tda.decode_attention_paged_plain(tq, tk, tv, torch.from_numpy(tbl),
+                                           torch.as_tensor(pos),
+                                           window=window)
+    jpos = jnp.asarray(pos)
+    _close(out, jattn.decode_attention_paged(jq, jk, jv, jnp.asarray(tbl),
+                                             jpos, window=window), dtype)
+    _close(out, pallas_decode_paged(jq, jk, jv, jnp.asarray(tbl), jpos,
+                                    window=window, interpret=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,c,nh,nkv,d,window,vecbase", [
+    (2, 16, 4, 4, 16, None, False),  # MHA, scalar base
+    (2, 16, 4, 2, 16, None, True),   # GQA, per-row bases
+    (1, 12, 4, 2, 32, 8, False),     # SWA, ragged chunk
+])
+def test_chunk_attention_paged_plain(dtype, b, c, nh, nkv, d, window,
+                                     vecbase):
+    rng = np.random.RandomState(2)
+    block, mb = 8, 4
+    pk, pv, tbl = _pool(rng, b, mb, block, nkv, d)
+    q = rng.randn(b, c, nh, d).astype(np.float32)
+    s_virt = block * mb
+    bases = (rng.randint(0, s_virt - c + 1, (b,)).astype(np.int32) if vecbase
+             else np.int32(s_virt - c - 3))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, pk, pv))
+    out = tca.chunk_attention_paged_plain(tq, tk, tv, torch.from_numpy(tbl),
+                                          torch.as_tensor(bases),
+                                          window=window)
+    q_pos = (np.broadcast_to(bases, (b,))[:, None]
+             + np.arange(c)[None]).astype(np.int32)
+    _close(out, jattn.chunk_attention_paged(jq, jk, jv, jnp.asarray(tbl),
+                                            jnp.asarray(q_pos),
+                                            window=window), dtype)
+    _close(out, pallas_chunk_paged(jq, jk, jv, jnp.asarray(tbl),
+                                   jnp.asarray(bases), window=window,
+                                   interpret=True), dtype)
+
+
+@pytest.mark.parametrize("vecbase", [False, True])
+def test_cache_writes_match_jax(vecbase):
+    """Token and chunk writes through the block table land where the JAX
+    writes land (trash block 0 excluded: pad columns race there), and the
+    chunk write clamps columns past the table width like JAX."""
+    rng = np.random.RandomState(3)
+    b, c, nkv, d, block, mb = 2, 6, 2, 16, 8, 3
+    pk, pv, tbl = _pool(rng, b, mb, block, nkv, d)
+    k = rng.randn(b, c, nkv, d).astype(np.float32)
+    v = rng.randn(b, c, nkv, d).astype(np.float32)
+    base = (np.array([5, 19], np.int32) if vecbase else np.int32(17))
+    lens = np.array([6, 4], np.int32)
+    jk, jv = jattn.cache_write_chunk_paged(
+        jnp.asarray(pk), jnp.asarray(pv), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(base), jnp.asarray(tbl), lens=jnp.asarray(lens))
+    tk, tv = torch.from_numpy(pk.copy()), torch.from_numpy(pv.copy())
+    tattn.cache_write_chunk_paged(tk, tv, torch.from_numpy(k),
+                                  torch.from_numpy(v), torch.as_tensor(base),
+                                  torch.from_numpy(tbl),
+                                  lens=torch.from_numpy(lens))
+    np.testing.assert_array_equal(tk.numpy()[1:], np.asarray(jk)[1:])
+    np.testing.assert_array_equal(tv.numpy()[1:], np.asarray(jv)[1:])
+    pos = np.array([3, 23], np.int32)
+    jk, jv = jattn.cache_write_token_paged(
+        jk, jv, jnp.asarray(k[:, :1]), jnp.asarray(v[:, :1]),
+        jnp.asarray(pos), jnp.asarray(tbl))
+    tattn.cache_write_token_paged(tk, tv, torch.from_numpy(k[:, :1]),
+                                  torch.from_numpy(v[:, :1]),
+                                  torch.from_numpy(pos),
+                                  torch.from_numpy(tbl))
+    np.testing.assert_array_equal(tk.numpy()[1:], np.asarray(jk)[1:])
+    np.testing.assert_array_equal(tv.numpy()[1:], np.asarray(jv)[1:])
+
+
+def test_ops_dispatch_cpu_goes_plain_and_kernels_refuse_cpu():
+    """A CPU tensor takes the plain version (no launch counted); a kernel
+    wrapper handed a CPU tensor raises instead of falling back."""
+    rng = np.random.RandomState(4)
+    pk, pv, tbl = _pool(rng, 1, 2, 8, 2, 16)
+    q = torch.from_numpy(rng.randn(1, 1, 4, 16).astype(np.float32))
+    tk, tv, tt = (torch.from_numpy(x) for x in (pk, pv, tbl))
+    tops.reset_launch_counts()
+    out = tops.decode_attention_paged(q, tk, tv, tt, 5)
+    ref = tda.decode_attention_paged_plain(q, tk, tv, tt, 5)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert tops.launch_counts() == {"decode_attention_paged": 0,
+                                    "chunk_attention_paged": 0,
+                                    "flash_attention": 0}
+    with pytest.raises(ValueError):
+        tda.decode_attention_paged(q, tk, tv, tt, 5)
+    with pytest.raises(ValueError):
+        tca.chunk_attention_paged(q, tk, tv, tt, 5)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q, q)
