@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA card.
 
     python3 chip_smoke.py                  # all phases, one card
     python3 chip_smoke.py --cpu-rehearsal  # tiny CPU rehearsal, no card
@@ -10,28 +10,46 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and power limit; turn TF32 off for matmuls and cuDNN (fp32 stays fp32);
 2. build the hand-written kernels (``src/repro_torch/kernels/csrc``) with
    nvcc and print the build seconds and the ptxas register report;
-3. kernels vs plain on the card: each kernel against its plain PyTorch
-   version on identical inputs, at the Qwen3-32B main-path shapes in bf16
-   (atol=rtol=2e-2) and at small fp32 shapes (atol=rtol=1e-4: the kernel
-   sums in another order than the plain version's einsum); GQA and MHA,
-   SWA, scalar and per-row bases, ragged chunk / sequence lengths. At the
-   main shapes it times the kernel, the plain version and, as a yardstick
-   the port never calls, ``F.scaled_dot_product_attention`` on the
-   gathered / repeated K/V, and computes the bound (bytes over 3.35 TB/s
-   vs operations over 989 TFLOP/s bf16; only the blocks each row reaches);
-4. engine parity, fp32: reduced qwen3-32b, one init, the same requests
-   through the Engine on the card (kernels) and on the CPU (plain):
-   bucketed prefill, direct-to-pool chunked prefill, and an overcommitted
-   pool that grows and preempts; greedy tokens and counters must match and
-   every kernel must have launched;
-5. the main path at full width, bf16: Qwen3-32B's widths (d_model 5120,
-   64/8 heads, head dim 128, d_ff 25600, vocab 151936) with depth cut to
-   ``--layers``, random weights from a seeded generator on the card; 16
-   requests of 64-2048 prompt tokens (some past ``prefill_chunk=512``),
-   32 new tokens each; one untimed warm-up pass of that traffic, then
-   ``--repeats`` timed runs (median wall reported), each on a fresh
-   Engine with launch counts zeroed just before and read just after, and
-   every kernel must have launched in each;
+3. kernels vs plain on the card: each of the five kernels against its
+   plain PyTorch version evaluated in fp32 on the same input values (the
+   bf16 plain version's own error is logged beside it), at the shapes
+   each serving path of phase 5 gives it and at small ragged shapes, in
+   bf16
+   (atol=5e-3, rtol=2e-2) and fp32 (atol=rtol=1e-4: the kernel sums in
+   another order than the plain version's einsum); GQA and MHA, SWA,
+   scalar and per-row positions / bases, ragged chunk, sequence and cache
+   lengths, dead decode rows. At each kernel's main shape it times the
+   kernel, the plain version and, as a yardstick the port never calls,
+   ``F.scaled_dot_product_attention`` on the gathered / head-repeated K/V,
+   and computes the bound (bytes over 3.35 TB/s vs operations over 989
+   TFLOP/s bf16; only the keys each row reaches, each byte once);
+4. engine parity, fp32: reduced configs, one init each, the same requests
+   through the Engine on the card (kernels) and on the CPU (plain): paged
+   bucketed, direct-to-pool chunked and overcommitted (grow + preempt)
+   qwen3-32b; contig bucketed and contig chunked qwen3-32b; phi3.5-moe and
+   granite-moe on their auto (contig) layout with more requests than
+   slots. Greedy tokens and counters must match, every kernel must have
+   launched, and for MoE the smallest gap between the k-th and (k+1)-th
+   router probability is logged (a routing flip on a near-tie is then told
+   apart from a bug);
+5. three serving paths at full width, bf16, random weights from a seeded
+   generator on the card, the same traffic (16 requests of 64-2048 prompt
+   tokens, some past ``prefill_chunk=512``, 32 new tokens each,
+   ``max_len`` 2080, 8 slots); for each, one untimed warm-up pass, then
+   ``--repeats`` timed runs (median wall reported), each on a fresh Engine
+   with launch counts zeroed just before and read just after, and the
+   kernels that path runs must have launched in each run:
+   main   Qwen3-32B widths (d_model 5120, 64/8 heads, head dim 128, d_ff
+          25600, vocab 151936), depth ``--layers``, paged layout: paged
+          decode, paged chunk, flash;
+   contig the same widths and depth on ``kv_layout="contig"`` (the A/B
+          baseline of the paged layout): contig decode, contig chunk,
+          flash;
+   moe    Phi-3.5-MoE widths (d_model 4096, 32/8 heads, head dim 128, 16
+          experts top-2, expert d_ff 6400, vocab 32064), depth
+          ``--moe-layers``, auto (contig) layout, batch-1 exact-length
+          admission: contig decode, flash.
+   Each model's params are freed before the next path is built;
 6. a JSON line of per-kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -40,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -60,13 +79,37 @@ from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.serving import Engine, ServeRequest  # noqa: E402
 
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s (data sheet)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense FLOP/s
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
-QWEN = dict(nh=64, nkv=8, d=128, bs=16)       # Qwen3-32B attention geometry
+# (atol, rtol) of a kernel against its plain version evaluated in fp32 on
+# the same input values. bf16: the kernel rounds P and the output to bf16,
+# about one ulp of the element (2^-7 of it, inside rtol) and well under 5e-3
+# elsewhere; one key too many or too few moves an element of an n-key row by
+# about |v| / n, past the limit in the short rows every causal case has. The
+# bf16 plain version is not the yardstick: it rounds the normalised
+# probabilities to bf16 and is itself up to ~2e-2 off in rows of a few keys.
+# fp32: the kernel sums in another order than the plain version's einsum.
+TOL = {torch.bfloat16: (5e-3, 2e-2), torch.float32: (1e-4, 1e-4)}
+QWEN = dict(nh=64, nkv=8, d=128)              # Qwen3-32B attention geometry
+PHI = dict(nh=32, nkv=8, d=128)               # Phi-3.5-MoE attention geometry
+BS = 16                       # the serving paths' KV block size
 MAX_LEN = 2080                # 2048-token prompt + 32 new tokens
+MOE = "phi3.5-moe-42b-a6.6b"
+# serving paths of phase 5: the config, the Engine's layout and the kernels
+# the path must launch; a config's depth flag is DEPTH_FLAG[config]
+PATHS = {
+    "main": ("qwen3-32b", "auto",
+             ("decode_attention_paged", "chunk_attention_paged",
+              "flash_attention")),
+    "contig": ("qwen3-32b", "contig",
+               ("decode_attention", "chunk_attention", "flash_attention")),
+    "moe": (MOE, "auto", ("decode_attention", "flash_attention")),
+}
+DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers"}
+ALL_PHASES = ("build", "kernels", "parity") + tuple(PATHS)
 
 
 def log(msg: str = "") -> None:
@@ -101,11 +144,12 @@ def phase_device() -> dict:
 # -- phase 2: build --------------------------------------------------------------
 def phase_build() -> None:
     t0 = time.perf_counter()
-    _build.load()
+    lib = _build.load()
     dt = time.perf_counter() - t0
     d = _build.build_dir()
     log(f"[build] {'built' if _build.build_info['built'] else 'loaded'} "
-        f"{_build.build_info['path']} in {dt:.1f} s")
+        f"{_build.build_info['path']} in {dt:.1f} s; entry points "
+        f"{sorted(n for n in _build.SIGNATURES if getattr(lib, n))}")
     logf = d / "build.log"
     if logf.exists():
         for line in logf.read_text().splitlines():
@@ -166,40 +210,46 @@ class Cases:
         return pk, pv, tbl
 
 
-def _visible(qpos: np.ndarray, s_virt: int, window) -> np.ndarray:
+def _visible(qpos: np.ndarray, s_virt: int, window) -> tuple:
     lo = np.maximum(0, qpos - window + 1) if window else np.zeros_like(qpos)
     return np.minimum(qpos, s_virt - 1) - lo + 1, lo
 
 
-def _pool_bytes(tbl, lo, hi, bs, nkv, d, esz) -> int:
-    """Bytes of the block pool and table that rows reaching keys
-    ``lo[r]..hi[r]`` must read: each distinct pool block once (K and V),
-    however many rows or table entries point at it (dead rows all point at
-    trash block 0), plus the table entries each row reads."""
+def _kv_bytes(lo, hi, nkv, d, esz, tbl=None, bs=0) -> int:
+    """Bytes of K/V that rows reaching keys ``lo[r]..hi[r]`` must read, each
+    byte once: a contiguous row its own keys; through a block table each
+    distinct pool block once, however many rows or table entries point at
+    it (dead rows all point at trash block 0), plus the table entries each
+    row reads."""
+    if tbl is None:
+        return int((hi - lo + 1).sum()) * nkv * d * 2 * esz
     ids = [tbl[r, l // bs:h // bs + 1] for r, (l, h) in enumerate(zip(lo, hi))]
     distinct = len(np.unique(np.concatenate(ids)))
     return distinct * bs * nkv * d * 2 * esz + 4 * sum(map(len, ids))
 
 
-def decode_work(tbl, pos, nh, nkv, d, bs, window, esz):
-    b, mb = tbl.shape
-    pos = np.broadcast_to(np.asarray(pos), (b,)).astype(np.int64)
-    vis, lo = _visible(pos, mb * bs, window)
-    hi = np.minimum(pos, mb * bs - 1)
-    nbytes = (2 * b * nh * d * esz + _pool_bytes(tbl, lo, hi, bs, nkv, d, esz)
+def decode_work(pos, s, nh, nkv, d, window, esz, tbl=None, bs=0):
+    """Bytes and operations of one decode call over ``s`` (virtual) keys
+    per row; a pool's when ``tbl`` is given, else a contiguous cache's."""
+    pos = np.asarray(pos).astype(np.int64)
+    b = pos.shape[0]
+    vis, lo = _visible(pos, s, window)
+    hi = np.minimum(pos, s - 1)
+    nbytes = (2 * b * nh * d * esz + _kv_bytes(lo, hi, nkv, d, esz, tbl, bs)
               + 4 * b)
     return nbytes, 4.0 * nh * d * vis.sum()
 
 
-def chunk_work(tbl, bases, c, nh, nkv, d, bs, window, esz):
-    b, mb = tbl.shape
+def chunk_work(bases, b, c, s, nh, nkv, d, window, esz, tbl=None, bs=0):
+    """Each row reads its keys from the first query's window start through
+    the last query's position, once each."""
     bases = np.broadcast_to(np.asarray(bases), (b,)).astype(np.int64)
     qpos = bases[:, None] + np.arange(c)[None, :]
-    vis, _ = _visible(qpos, mb * bs, window)
+    vis, _ = _visible(qpos, s, window)
     lo = np.maximum(0, bases - window + 1) if window else np.zeros(b, int)
-    hi = np.minimum(bases + c - 1, mb * bs - 1)
+    hi = np.minimum(bases + c - 1, s - 1)
     nbytes = (2 * b * c * nh * d * esz
-              + _pool_bytes(tbl, lo, hi, bs, nkv, d, esz) + 4 * b)
+              + _kv_bytes(lo, hi, nkv, d, esz, tbl, bs) + 4 * b)
     return nbytes, 4.0 * nh * d * vis.sum()
 
 
@@ -217,149 +267,230 @@ def _sdpa_inputs(q, k, v, mask):
             tr(v.repeat_interleave(g, dim=2)), mask)
 
 
-def check(name, out, ref, dtype, label) -> float:
-    err = (out.float() - ref.float()).abs().max().item()
-    tol = TOL[dtype]
-    ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
+def check(name, out, ref, dtype, label, plain_err: float) -> float:
+    err = (out.float() - ref).abs().max().item()
+    atol, rtol = TOL[dtype]
+    ok = torch.allclose(out.float(), ref, atol=atol, rtol=rtol)
     finite = bool(torch.isfinite(out.float()).all())
     log(f"[kernels] {name:24s} {label:44s} max_abs_err={err:.3e} "
-        f"tol={tol:g} {'ok' if ok and finite else 'FAIL'}")
+        f"(plain in {str(dtype)[6:]}: {plain_err:.3e}) atol={atol:g} "
+        f"rtol={rtol:g} {'ok' if ok and finite else 'FAIL'}")
     if not (ok and finite):
         raise SystemExit(f"chip_smoke: {name} disagrees with its plain "
                          f"version ({label})")
     return err
 
 
+def in_fp32(fn):
+    """``fn`` evaluated in fp32 on the same input values (integer tables
+    and positions as they are)."""
+    def run(*args, **kw):
+        return fn(*(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                    else a for a in args), **kw)
+    return run
+
+
+def compare(name, run, plain, cases) -> tuple:
+    """Each case ``(label, dtype, args, kw)`` through the kernel, held
+    against its plain version evaluated in fp32 on the same input values
+    (the error of the plain version in the case's dtype is logged beside
+    it); returns the first case's args and error (the main shape, which is
+    timed with the default keywords)."""
+    main = None
+    for label, dtype, args, kw in cases:
+        ref = in_fp32(plain)(*args, **kw).float()
+        plain_err = (plain(*args, **kw).float() - ref).abs().max().item()
+        err = check(name, run(*args, **kw), ref, dtype, label, plain_err)
+        main = main or (args, err)
+    return main
+
+
+def measure(name, module, run, plain, args, err, library, work, shape,
+            plain_iters: int = 5) -> dict:
+    """Time the kernel, its plain version and the library yardstick on the
+    main case; the bound comes from ``work`` (bytes, operations)."""
+    ms = time_ms(lambda: run(*args))
+    plain_ms = time_ms(lambda: plain(*args), iters=plain_iters,
+                       warmup=min(3, plain_iters))
+    lib_ms = time_ms(library)
+    b_ms, b_by = bound(*work, torch.bfloat16)
+    return dict(name=name, route="cuda", source=module.SOURCE,
+                replaces=module.REPLACES[name], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=shape)
+
+
+def kv_inputs(cs, paged, b, s, nkv, d, bs, dtype) -> tuple:
+    """K/V of ``b`` rows of ``s`` positions: a shuffled block pool of
+    ``bs``-token blocks and its table (``s`` rounded up to whole blocks),
+    or a contiguous cache. Returns (the kernel's K/V arguments, s)."""
+    if paged:
+        pk, pv, tbl = cs.pool(b, -(-s // bs), bs, nkv, d, dtype)
+        return (pk, pv, tbl), tbl.shape[1] * bs
+    return (cs.randn(b, s, nkv, d, dtype=dtype),
+            cs.randn(b, s, nkv, d, dtype=dtype)), s
+
+
+def dense_kv(kv_args, b) -> tuple:
+    """Each row's K/V as (b, s, nkv, d), gathered through the table of a
+    pool; for the library yardstick."""
+    if len(kv_args) == 2:
+        return kv_args
+    pk, pv, tbl = kv_args
+    return tuple(x[tbl.long()].reshape(b, -1, *x.shape[2:]) for x in (pk, pv))
+
+
+def _geometry(geo: dict, rehearsal: bool) -> tuple:
+    return (4, 2, 16) if rehearsal else (geo["nh"], geo["nkv"], geo["d"])
+
+
+def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
+    """Decode attention against 8 rows of ``max_len`` 2080 with ragged
+    positions and one dead row (paged: on the trash table; contiguous:
+    frozen one past the end of its row, where the kernel clamps its reach).
+    Paged (kernel 1) at the main path's Qwen3-32B heads; contiguous (kernel
+    4) at Phi-3.5-MoE's 32/8 heads (MoE path, timed) and Qwen3-32B's 64/8
+    (contig path)."""
+    name = "decode_attention_paged" if paged else "decode_attention"
+    plain = getattr(da, name + "_plain")
+    run = in_fp32(plain) if rehearsal else getattr(da, name)
+    bf, f32 = torch.bfloat16, torch.float32
+    geos = [QWEN] if paged else [PHI, QWEN]
+    B, S = 8, (64 if rehearsal else MAX_LEN)
+    nh, nkv, d = _geometry(geos[0], rehearsal)
+    specs = [(bf, (*_geometry(g, rehearsal), B, S, BS), None, True,
+              f"main GQA {g['nh']}/{g['nkv']} bf16") for g in geos] + [
+        (bf, (nh, nkv, d, B, S, BS), 256, True, "main SWA=256 bf16"),
+        (bf, (4, 2, 16, 3, 37, 8), None, True, "GQA 4/2 d16 S=37 bf16"),
+        (f32, (4, 2, 16, 3, 37, 8), None, True, "GQA 4/2 d16 S=37 fp32"),
+        (f32, (4, 4, 32, 3, 40, 8), 8, False, "MHA d32 SWA=8 scalar pos fp32"),
+        (f32, (8, 2, 64, 2, 300, 16), None, True, "GQA 8/2 d64 S=300 fp32")]
+
+    def cases():
+        for dtype, (h, kv, dd, b, s, bs), win, vec, label in specs:
+            kvs, s = kv_inputs(cs, paged, b, s, kv, dd, bs, dtype)
+            q = cs.randn(b, 1, h, dd, dtype=dtype)
+            pos = cs.randint(0, s, (b,)) if vec else s - 3
+            if paged:
+                kvs[2][-1] = 0          # a dead row: trash table, frozen pos
+            elif vec:
+                pos[-1] = s             # a dead row, frozen past its row's end
+            yield label, dtype, (q, *kvs, pos), dict(window=win)
+    args, err = compare(name, run, plain, cases())
+    q, pos = args[0], args[-1]
+    k, v = dense_kv(args[1:-1], B)
+    s = k.shape[1]
+    mask = (torch.arange(s, device=dev)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    sq, sk, sv, sm = _sdpa_inputs(q, k, v, mask)
+    tbl = args[3].cpu().numpy() if paged else None
+    work = decode_work(pos.cpu().numpy(), s, nh, nkv, d, None, 2, tbl, BS)
+    kv_shape = (f"pool=({args[1].shape[0]},{BS},{nkv},{d}) tbl=({B},"
+                f"{tbl.shape[1]})" if paged else f"cache=({B},{s},{nkv},{d})")
+    return measure(name, da, run, plain, args, err,
+                   lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                          attn_mask=sm),
+                   work, f"q=({B},1,{nh},{d}) {kv_shape} ragged pos, one "
+                   f"dead row bf16")
+
+
+def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
+    """Chunk attention of Qwen3-32B's 512-token chunk at base 1024 against
+    4 rows of ``max_len`` 2080: paged (kernel 2, main path) or contiguous
+    (kernel 5, the contig path's transient group cache)."""
+    name = "chunk_attention_paged" if paged else "chunk_attention"
+    plain = getattr(ca, name + "_plain")
+    run = in_fp32(plain) if rehearsal else getattr(ca, name)
+    bf, f32 = torch.bfloat16, torch.float32
+    nh, nkv, d = _geometry(QWEN, rehearsal)
+    B, S, C = (4, 64, 16) if rehearsal else (4, MAX_LEN, 512)
+    base = 2 * C
+    specs = [
+        (bf, (nh, nkv, d, B, C, S, BS), base, None,
+         "main GQA scalar base bf16"),
+        (bf, (nh, nkv, d, B, C, S, BS), "rows", None,
+         "main GQA per-row bases bf16"),
+        (bf, (nh, nkv, d, B, 11 if rehearsal else 300, S, BS), "rows", 256,
+         "ragged C, SWA=256, per-row bf16"),
+        (bf, (4, 2, 16, 2, 13, 37, 8), 20, None, "GQA 4/2 d16 C=13 S=37 bf16"),
+        (f32, (4, 2, 16, 2, 13, 37, 8), 20, None,
+         "GQA 4/2 d16 C=13 S=37 fp32"),
+        (f32, (4, 4, 32, 2, 16, 64, 8), "rows", 8,
+         "MHA d32 SWA=8 per-row fp32"),
+        (f32, (8, 2, 64, 2, 24, 100, 16), 40, None,
+         "GQA 8/2 d64 S=100 fp32")]
+
+    def cases():
+        for dtype, (h, kv, dd, b, c, s, bs), bases, win, label in specs:
+            kvs, s = kv_inputs(cs, paged, b, s, kv, dd, bs, dtype)
+            q = cs.randn(b, c, h, dd, dtype=dtype)
+            if bases == "rows":
+                bases = cs.randint(0, s - c + 1, (b,))
+            yield label, dtype, (q, *kvs, bases), dict(window=win)
+    args, err = compare(name, run, plain, cases())
+    q = args[0]
+    k, v = dense_kv(args[1:-1], B)
+    s = k.shape[1]
+    qpos = base + torch.arange(C, device=dev)
+    mask = (torch.arange(s, device=dev)[None, :] <= qpos[:, None])[None, None]
+    sq, sk, sv, sm = _sdpa_inputs(q, k, v, mask)
+    tbl = args[3].cpu().numpy() if paged else None
+    work = chunk_work(base, B, C, s, nh, nkv, d, None, 2, tbl, BS)
+    kv_shape = (f"pool=({args[1].shape[0]},{BS},{nkv},{d})" if paged
+                else f"cache=({B},{s},{nkv},{d})")
+    return measure(name, ca, run, plain, args, err,
+                   lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                          attn_mask=sm),
+                   work, f"q=({B},{C},{nh},{d}) base={base} {kv_shape} bf16",
+                   plain_iters=3)
+
+
+def kernel_flash(cs, dev, rehearsal) -> dict:
+    """Causal prefill attention: the dense paths' 4-prompt group at the
+    512-token bucket (Qwen3-32B heads, timed), and the MoE path's batch-1
+    exact-length prompts at Phi-3.5-MoE's 32/8 heads (2048 and 1281
+    tokens, the workload's longest two)."""
+    plain = fa.flash_attention_plain
+    run = in_fp32(plain) if rehearsal else fa.flash_attention
+    bf, f32 = torch.bfloat16, torch.float32
+    nh, nkv, d = _geometry(QWEN, rehearsal)
+    B, S = (4, 32) if rehearsal else (4, 512)
+    n1, n2, n3 = (40, 23, 19) if rehearsal else (2048, 1281, 300)
+    specs = [
+        (bf, (nh, nkv, d, B, S), True, None, "main GQA causal bf16"),
+        (bf, (*_geometry(PHI, rehearsal), 1, n1), True, None,
+         f"MoE prompt 32/8 S={n1} bf16"),
+        (bf, (*_geometry(PHI, rehearsal), 1, n2), True, None,
+         f"MoE prompt 32/8 S={n2} bf16"),
+        (bf, (nh, nkv, d, 2, n3), True, 128, "ragged S, SWA=128 bf16"),
+        (bf, (4, 2, 16, 2, 37), True, None, "GQA 4/2 d16 S=37 bf16"),
+        (f32, (4, 2, 16, 2, 37), True, None, "GQA 4/2 d16 S=37 fp32"),
+        (f32, (4, 4, 32, 2, 40), True, 8, "MHA d32 SWA=8 fp32"),
+        (f32, (8, 2, 64, 1, 70), False, None, "GQA 8/2 d64 non-causal fp32")]
+
+    def cases():
+        for dtype, (h, kv, dd, b, s), causal, win, label in specs:
+            q = cs.randn(b, s, h, dd, dtype=dtype)
+            k = cs.randn(b, s, kv, dd, dtype=dtype)
+            v = cs.randn(b, s, kv, dd, dtype=dtype)
+            yield label, dtype, (q, k, v), dict(causal=causal, window=win)
+    args, err = compare("flash_attention", run, plain, cases())
+    sq, sk, sv, _ = _sdpa_inputs(*args, None)
+    return measure("flash_attention", fa, run, plain, args, err,
+                   lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                          is_causal=True),
+                   flash_work(B, S, nh, nkv, d, None, 2),
+                   f"q=({B},{S},{nh},{d}) k/v=({B},{S},{nkv},{d}) causal "
+                   f"bf16")
+
+
 def phase_kernels(dev, rehearsal: bool) -> list:
     cs = Cases(dev)
-    bf, f32 = torch.bfloat16, torch.float32
-    nh, nkv, d, bs = QWEN["nh"], QWEN["nkv"], QWEN["d"], QWEN["bs"]
-    if rehearsal:       # CPU: tiny geometry, plain vs plain
-        nh, nkv, d, bs = 4, 2, 16, 8
-    mb = -(-MAX_LEN // bs) if not rehearsal else 8
-    run_dec = (da.decode_attention_paged_plain if rehearsal
-               else da.decode_attention_paged)
-    run_chk = (ca.chunk_attention_paged_plain if rehearsal
-               else ca.chunk_attention_paged)
-    run_fa = fa.flash_attention_plain if rehearsal else fa.flash_attention
-    rows = []
-
-    # ---- decode_attention_paged -------------------------------------------
-    B = 8
-    s_virt = mb * bs
-    for dtype, (h, kv, dd, b_, mb_, bs_), win, label in [
-            (bf, (nh, nkv, d, B, mb, bs), None, "main GQA bf16"),
-            (bf, (nh, nkv, d, B, mb, bs), 256, "main SWA=256 bf16"),
-            (f32, (4, 2, 16, 3, 6, 8), None, "GQA 4/2 d16 fp32"),
-            (f32, (4, 4, 32, 3, 6, 8), 8, "MHA d32 SWA=8 fp32"),
-            (f32, (8, 2, 64, 2, 5, 16), None, "GQA 8/2 d64 fp32")]:
-        pk, pv, tbl = cs.pool(b_, mb_, bs_, kv, dd, dtype)
-        q = cs.randn(b_, 1, h, dd, dtype=dtype)
-        pos = cs.randint(0, mb_ * bs_, (b_,))
-        tbl[-1] = 0                 # a dead row: trash table, frozen pos
-        args = (q, pk, pv, tbl, pos)
-        out = run_dec(*args, window=win)
-        ref = da.decode_attention_paged_plain(*args, window=win)
-        err = check("decode_attention_paged", out, ref, dtype, label)
-        if label == "main GQA bf16":
-            main = (args, err)
-    (q, pk, pv, tbl, pos), err = main
-    ms = time_ms(lambda: run_dec(q, pk, pv, tbl, pos))
-    plain_ms = time_ms(lambda: da.decode_attention_paged_plain(
-        q, pk, pv, tbl, pos), iters=5)
-    gk, gv = (x[tbl.long()].reshape(B, s_virt, nkv, d) for x in (pk, pv))
-    mask = (torch.arange(s_virt, device=dev)[None, :]
-            <= pos.long()[:, None])[:, None, None, :]
-    sq, sk, sv, sm = _sdpa_inputs(q, gk, gv, mask)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        sq, sk, sv, attn_mask=sm))
-    nb, fl = decode_work(tbl.cpu().numpy(), pos.cpu().numpy(), nh, nkv, d,
-                         bs, None, 2)
-    b_ms, b_by = bound(nb, fl, bf)
-    rows.append(dict(
-        name="decode_attention_paged", route="cuda", source=da.SOURCE,
-        replaces=da.REPLACES, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        shape=f"q=({B},1,{nh},{d}) pool=({pk.shape[0]},{bs},{nkv},{d}) "
-              f"tbl=({B},{mb}) bf16"))
-
-    # ---- chunk_attention_paged --------------------------------------------
-    B, C = 4, (512 if not rehearsal else 16)
-    base_main = 2 * C
-    for dtype, (h, kv, dd, b_, c_, mb_, bs_), bases, win, label in [
-            (bf, (nh, nkv, d, B, C, mb, bs), base_main, None,
-             "main GQA scalar base bf16"),
-            (bf, (nh, nkv, d, B, C, mb, bs), "rows", None,
-             "main GQA per-row bases bf16"),
-            (bf, (nh, nkv, d, B, 300 if not rehearsal else 11, mb, bs),
-             "rows", 256, "ragged C, SWA=256, per-row bf16"),
-            (f32, (4, 2, 16, 2, 13, 8, 8), 20, None,
-             "GQA 4/2 d16 ragged C=13 fp32"),
-            (f32, (4, 4, 32, 2, 16, 8, 8), "rows", 8,
-             "MHA d32 SWA=8 per-row fp32"),
-            (f32, (8, 2, 64, 2, 24, 6, 16), 40, None, "GQA 8/2 d64 fp32")]:
-        pk, pv, tbl = cs.pool(b_, mb_, bs_, kv, dd, dtype)
-        q = cs.randn(b_, c_, h, dd, dtype=dtype)
-        if bases == "rows":
-            bases = cs.randint(0, mb_ * bs_ - c_ + 1, (b_,))
-        args = (q, pk, pv, tbl, bases)
-        out = run_chk(*args, window=win)
-        ref = ca.chunk_attention_paged_plain(*args, window=win)
-        err = check("chunk_attention_paged", out, ref, dtype, label)
-        if label == "main GQA scalar base bf16":
-            main = (args, err)
-    (q, pk, pv, tbl, bases), err = main
-    ms = time_ms(lambda: run_chk(q, pk, pv, tbl, bases))
-    plain_ms = time_ms(lambda: ca.chunk_attention_paged_plain(
-        q, pk, pv, tbl, bases), iters=3, warmup=1)
-    gk, gv = (x[tbl.long()].reshape(B, s_virt, nkv, d) for x in (pk, pv))
-    qpos = base_main + torch.arange(C, device=dev)
-    mask = (torch.arange(s_virt, device=dev)[None, :]
-            <= qpos[:, None])[None, None]
-    sq, sk, sv, sm = _sdpa_inputs(q, gk, gv, mask)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        sq, sk, sv, attn_mask=sm))
-    nb, fl = chunk_work(tbl.cpu().numpy(), base_main, C, nh, nkv, d, bs,
-                        None, 2)
-    b_ms, b_by = bound(nb, fl, bf)
-    rows.append(dict(
-        name="chunk_attention_paged", route="cuda", source=ca.SOURCE,
-        replaces=ca.REPLACES, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        shape=f"q=({B},{C},{nh},{d}) base={base_main} "
-              f"pool=({pk.shape[0]},{bs},{nkv},{d}) bf16"))
-
-    # ---- flash_attention --------------------------------------------------
-    B, S = 4, (512 if not rehearsal else 32)
-    for dtype, (h, kv, dd, b_, s_), causal, win, label in [
-            (bf, (nh, nkv, d, B, S), True, None, "main GQA causal bf16"),
-            (bf, (nh, nkv, d, 2, 300 if not rehearsal else 19), True, 128,
-             "ragged S, SWA=128 bf16"),
-            (f32, (4, 2, 16, 2, 37), True, None, "GQA 4/2 d16 S=37 fp32"),
-            (f32, (4, 4, 32, 2, 40), True, 8, "MHA d32 SWA=8 fp32"),
-            (f32, (8, 2, 64, 1, 70), False, None,
-             "GQA 8/2 d64 non-causal fp32")]:
-        q = cs.randn(b_, s_, h, dd, dtype=dtype)
-        k = cs.randn(b_, s_, kv, dd, dtype=dtype)
-        v = cs.randn(b_, s_, kv, dd, dtype=dtype)
-        out = run_fa(q, k, v, causal=causal, window=win)
-        ref = fa.flash_attention_plain(q, k, v, causal=causal, window=win)
-        err = check("flash_attention", out, ref, dtype, label)
-        if label == "main GQA causal bf16":
-            main = ((q, k, v), err)
-    (q, k, v), err = main
-    ms = time_ms(lambda: run_fa(q, k, v))
-    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v), iters=5)
-    sq, sk, sv, _ = _sdpa_inputs(q, k, v, None)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        sq, sk, sv, is_causal=True))
-    nb, fl = flash_work(B, S, nh, nkv, d, None, 2)
-    b_ms, b_by = bound(nb, fl, bf)
-    rows.append(dict(
-        name="flash_attention", route="cuda", source=fa.SOURCE,
-        replaces=fa.REPLACES, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        shape=f"q=({B},{S},{nh},{d}) k/v=({B},{S},{nkv},{d}) causal bf16"))
+    rows = [kernel_decode(cs, dev, rehearsal, paged=True),
+            kernel_chunk(cs, dev, rehearsal, paged=True),
+            kernel_flash(cs, dev, rehearsal),
+            kernel_decode(cs, dev, rehearsal, paged=False),
+            kernel_chunk(cs, dev, rehearsal, paged=False)]
     for r in rows:
         log(f"[kernels] {r['name']:24s} kernel {r['ms']:.4f} ms  plain "
             f"{r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  bound "
@@ -374,15 +505,47 @@ def _requests(specs, vocab, seed):
                          max_new_tokens=m) for n, m in specs]
 
 
+_BUCKETED = [(5, 8), (12, 6), (27, 9), (33, 4), (9, 7)]
+_CHUNKED = [(40, 6), (17, 5), (3, 12), (29, 8)]
+_MOE = [(5, 8), (12, 6), (27, 9), (9, 7), (20, 5)]
 PARITY = [
-    ("bucketed", dict(max_batch=4, max_len=64),
-     [(5, 8), (12, 6), (27, 9), (33, 4), (9, 7)]),
-    ("chunked", dict(max_batch=4, max_len=64, prefill_chunk=8),
-     [(40, 6), (17, 5), (3, 12), (29, 8)]),
-    ("overcommit", dict(max_batch=4, max_len=64, block_size=8, n_blocks=11,
-                        kv_overcommit=2.5, prefill_chunk=8),
+    ("bucketed", "qwen3-32b", dict(max_batch=4, max_len=64), _BUCKETED),
+    ("chunked", "qwen3-32b", dict(max_batch=4, max_len=64, prefill_chunk=8),
+     _CHUNKED),
+    ("overcommit", "qwen3-32b",
+     dict(max_batch=4, max_len=64, block_size=8, n_blocks=11,
+          kv_overcommit=2.5, prefill_chunk=8),
      [(9, 20), (11, 20), (13, 20)]),
+    ("contig", "qwen3-32b", dict(max_batch=4, max_len=64,
+                                 kv_layout="contig"), _BUCKETED),
+    ("contig_chunked", "qwen3-32b",
+     dict(max_batch=4, max_len=64, kv_layout="contig", prefill_chunk=8),
+     _CHUNKED),
+    ("moe_phi", MOE, dict(max_batch=2, max_len=64), _MOE),
+    ("moe_granite", "granite-moe-3b-a800m", dict(max_batch=2, max_len=64),
+     _MOE),
 ]
+
+
+class RouterGap:
+    """While active, the smallest gap between the k-th and (k+1)-th router
+    probability over every token routed (how close a routing flip was)."""
+
+    def __enter__(self):
+        self.min = float("inf")
+        self._orig = moe_mod.moe_apply
+
+        def tracked(*a, **kw):
+            out, probs, idx = self._orig(*a, **kw)
+            k = idx.shape[1]
+            top = torch.sort(probs, dim=-1, descending=True).values
+            self.min = min(self.min, (top[:, k - 1] - top[:, k]).min().item())
+            return out, probs, idx
+        moe_mod.moe_apply = tracked
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.moe_apply = self._orig
 
 
 def _serve(eng, reqs, timing: dict | None = None) -> None:
@@ -404,26 +567,39 @@ def _serve(eng, reqs, timing: dict | None = None) -> None:
 
 
 def phase_engine_parity(dev) -> None:
-    cfg = get_config("qwen3-32b").reduced()          # fp32, 4 layers, d16
-    cpu_params = build_model(cfg, device="cpu").init(seed=0)
-    dev_params = _tree_to(cpu_params, dev)
+    params = {}
     ops.reset_launch_counts()
-    for name, kw, specs in PARITY:
-        out = {}
-        for where, params in (("dev", dev_params), ("cpu", cpu_params)):
-            eng = Engine(cfg, params, device=dev if where == "dev" else "cpu",
+    for name, arch, kw, specs in PARITY:
+        cfg = get_config(arch).reduced()            # fp32, 4 layers, d16
+        if arch not in params:
+            cpu = build_model(cfg, device="cpu").init(seed=0)
+            params[arch] = {"cpu": cpu, "dev": _tree_to(cpu, dev)}
+        out, gaps = {}, {}
+        for where in ("dev", "cpu"):
+            eng = Engine(cfg, params[arch][where],
+                         device=dev if where == "dev" else "cpu",
                          victim_policy="fewest", **kw)
             reqs = _requests(specs, cfg.vocab, seed=1)
-            _serve(eng, reqs)
+            with RouterGap() as gap:
+                _serve(eng, reqs)
             assert all(r.done for r in reqs), name
             out[where] = ([list(r.generated) for r in reqs],
                           dataclasses.asdict(eng.stats))
+            gaps[where] = gap.min
         same = out["dev"] == out["cpu"]
-        log(f"[engine-parity] {name:10s} tokens+stats identical={same} "
-            f"stats={out['dev'][1]}")
+        extra = ""
+        if cfg.n_experts:
+            assert eng._group == 1 and eng.kv_layout == "contig", name
+            extra = (f" min_router_gap dev={gaps['dev']:.3e} "
+                     f"cpu={gaps['cpu']:.3e}")
+        log(f"[engine-parity] {name:14s} {eng.kv_layout:6s} tokens+stats "
+            f"identical={same} stats={out['dev'][1]}{extra}")
         if not same:
             raise SystemExit(f"chip_smoke: engine parity failed ({name}): "
                              f"{out}")
+        if name == "contig_chunked" and not out["dev"][1]["chunk_scatters"]:
+            raise SystemExit("chip_smoke: contig chunked parity ran no "
+                             "chunk scatter")
     counts = ops.launch_counts()
     log(f"[engine-parity] launches {counts}")
     if str(dev) != "cpu" and not all(counts.values()):
@@ -436,23 +612,27 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
-# -- phase 5: full width main path -----------------------------------------------
-def main_workload(layers: int, seed: int, rehearsal: bool):
-    """The main path's config, Engine keywords and a maker of its requests.
+# -- phase 5: full-width serving paths -------------------------------------------
+def path_workload(path: str, depth: int, seed: int, rehearsal: bool):
+    """A serving path's config, Engine keywords, a maker of its requests,
+    the new tokens per request and the kernels it must launch.
 
-    Phase 5 and its optional profile serve exactly this traffic."""
+    Every path serves the same traffic (prompt lengths and new tokens from
+    ``seed``; prompt tokens from the config's vocab), and its optional
+    profile serves exactly this traffic too."""
+    arch, layout, required = PATHS[path]
     if rehearsal:
-        cfg = get_config("qwen3-32b").reduced()
+        cfg = get_config(arch).reduced()
         n_req, lo, hi, chunk, max_len, new = 6, 4, 40, 8, 64, 4
     else:
-        cfg = dataclasses.replace(get_config("qwen3-32b"), n_layers=layers)
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
         n_req, lo, hi, chunk, max_len, new = 16, 64, 2048, 512, MAX_LEN, 32
     eng_kw = dict(max_batch=8, max_len=max_len, prefill_chunk=chunk,
-                  block_size=16, victim_policy="fewest")
+                  block_size=16, victim_policy="fewest", kv_layout=layout)
     rng = np.random.RandomState(seed)
     lens = rng.randint(lo, hi + 1, n_req)
-    # both admission paths run: three prompts past prefill_chunk (chunked,
-    # direct to the pool), three within it (bucketed flash prefill)
+    # both admission paths run (MoE admits exact length, never chunked):
+    # three prompts past prefill_chunk, three within it
     lens[:3] = [hi, (hi + chunk) // 2 + 1, chunk + 1]
     lens[3:6] = rng.randint(lo, chunk + 1, 3)
     prompts = [rng.randint(0, cfg.vocab, int(n)).tolist() for n in lens]
@@ -460,7 +640,7 @@ def main_workload(layers: int, seed: int, rehearsal: bool):
     def make_requests():
         return [ServeRequest(prompt=list(p), max_new_tokens=new)
                 for p in prompts]
-    return cfg, eng_kw, make_requests, new
+    return cfg, eng_kw, make_requests, new, required
 
 
 def _sync(dev) -> None:
@@ -468,10 +648,11 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def _timed_run(cfg, params, dev, eng_kw, reqs, new) -> dict:
+def _timed_run(cfg, params, dev, eng_kw, reqs, new, required) -> dict:
     """Serve ``reqs`` on a fresh Engine; launch counts are zeroed just
     before and read just after. Fails unless every request finished with
-    its token count and finite logits."""
+    its token count and finite logits, and every kernel in ``required``
+    launched."""
     eng = Engine(cfg, params, device=dev, **eng_kw)
     finite = []
     logits_fn = eng.model.logits
@@ -492,46 +673,52 @@ def _timed_run(cfg, params, dev, eng_kw, reqs, new) -> dict:
     all_finite = bool(torch.stack(finite).all())
     done = all(r.done and len(r.generated) == new for r in reqs)
     if not (done and all_finite):
-        raise SystemExit("chip_smoke: main path did not finish every "
-                         "request with finite logits")
-    if dev.type == "cuda" and not all(counts.values()):
-        raise SystemExit(f"chip_smoke: a kernel never launched on the main "
-                         f"path: {counts}")
-    return dict(timing, wall=wall, counts=counts,
+        raise SystemExit(f"chip_smoke: {cfg.name} path did not finish every "
+                         f"request with finite logits")
+    missing = [k for k in required if not counts[k]]
+    if dev.type == "cuda" and missing:
+        raise SystemExit(f"chip_smoke: {missing} never launched on the "
+                         f"{cfg.name} path: {counts}")
+    return dict(timing, wall=wall, counts=counts, layout=eng.kv_layout,
                 stats=dataclasses.asdict(eng.stats))
 
 
-def phase_main_path(dev, layers: int, seed: int, rehearsal: bool,
-                    repeats: int, profile_dir: Path | None = None) -> dict:
-    cfg, eng_kw, make_requests, new = main_workload(layers, seed, rehearsal)
+def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
+               repeats: int, profile_dir: Path | None = None) -> dict:
+    cfg, eng_kw, make_requests, new, required = path_workload(
+        path, depth, seed, rehearsal)
+    tag = f"[{path}]"
     model = build_model(cfg, device=dev)
     t0 = time.perf_counter()
     params = model.init(seed=seed)
     warm = Engine(cfg, params, device=dev, **eng_kw)
     _sync(dev)
-    pool = warm.cache["k"]
-    log(f"[main] {cfg.name} widths, {cfg.n_layers} layers, "
-        f"{model.param_count() / 1e9:.3f} B params ({cfg.dtype}), pool "
-        f"{2 * pool.numel() * pool.element_size() / 1e9:.3f} GB, init "
+    cache = warm.cache["k"]
+    param_gb = model.param_count() * cache.element_size() / 1e9
+    log(f"{tag} {cfg.name} widths, {cfg.n_layers} of "
+        f"{get_config(cfg.name).n_layers} layers, "
+        f"{model.param_count() / 1e9:.3f} B params ({param_gb:.3f} GB "
+        f"{cfg.dtype}), {warm.kv_layout} KV "
+        f"{2 * cache.numel() * cache.element_size() / 1e9:.3f} GB, init "
         f"{time.perf_counter() - t0:.1f} s")
     # warm-up: one untimed pass of the same traffic, so the timed runs do
     # not pay for first-use cuBLAS setup, allocator growth or first launches
     t0 = time.perf_counter()
     _serve(warm, make_requests())
-    del warm, pool
+    del warm, cache
     _sync(dev)
-    log(f"[main] warm-up pass (untimed workload) {time.perf_counter() - t0:.3f}"
-        f" s")
+    log(f"{tag} warm-up pass (untimed workload) "
+        f"{time.perf_counter() - t0:.3f} s")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     runs = []
     for i in range(repeats):
         reqs = make_requests()
-        r = _timed_run(cfg, params, dev, eng_kw, reqs, new)
+        r = _timed_run(cfg, params, dev, eng_kw, reqs, new, required)
         runs.append(r)
         st = r["stats"]
         step_tokens = st["tokens_out"] - st["prefills"]
-        log(f"[main] run {i}: wall_s={r['wall']:.3f} "
+        log(f"{tag} run {i}: wall_s={r['wall']:.3f} "
             f"admit_s={r['admit_s']:.3f} step_s={r['step_s']:.3f} "
             f"steps={r['steps']} out_tok_per_s={st['tokens_out'] / r['wall']:.2f}"
             f" step_tok_per_s={step_tokens / max(r['step_s'], 1e-9):.2f}")
@@ -539,29 +726,32 @@ def phase_main_path(dev, layers: int, seed: int, rehearsal: bool,
     st = runs[0]["stats"]
     walls = sorted(r["wall"] for r in runs)
     wall = float(np.median(walls))
-    log(f"[main] requests={len(lens)} prompt_tokens={int(lens.sum())} "
+    log(f"{tag} requests={len(lens)} prompt_tokens={int(lens.sum())} "
         f"(min {int(lens.min())}, max {int(lens.max())}) "
         f"tokens_out={st['tokens_out']} per run; {repeats} warm runs, "
         f"wall_s median={wall:.3f} min={walls[0]:.3f} max={walls[-1]:.3f}")
-    log(f"[main] out_tok_per_s median={st['tokens_out'] / wall:.2f} "
+    log(f"{tag} out_tok_per_s median={st['tokens_out'] / wall:.2f} "
         f"(step_tok_per_s: tokens emitted by step() over the time spent "
         f"in step())")
     if dev.type == "cuda":
-        log(f"[main] peak_mem_GB="
+        log(f"{tag} peak_mem_GB="
             f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
-    log(f"[main] stats {st}")
-    counts = runs[0]["counts"]
-    log(f"[main] launches per run {[r['counts'] for r in runs]} "
-        f"all_finite=True all_done=True")
+    log(f"{tag} stats {st}")
+    log(f"{tag} launches per run {[r['counts'] for r in runs]} "
+        f"required={list(required)} all_finite=True all_done=True")
     if profile_dir is not None:
-        phase_profile(cfg, params, dev, eng_kw, make_requests(), wall,
+        phase_profile(path, cfg, params, dev, eng_kw, make_requests(), wall,
                       profile_dir)
-    return counts
+    del params, model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return runs[0]["counts"]
 
 
-# -- optional: profiler breakdown of the main path ------------------------------
+# -- optional: profiler breakdown of each path -----------------------------------
 KERNEL_NAMES = ("decode_split_kernel", "decode_combine_kernel",
-                "chunk_paged_kernel", "flash_kernel")
+                "chunk_kernel", "flash_kernel")
 
 
 def _category(name: str) -> str:
@@ -577,11 +767,11 @@ def _category(name: str) -> str:
     return "other elementwise / reduction"
 
 
-def phase_profile(cfg, params, dev, eng_kw, reqs, unprofiled_wall: float,
-                  out_dir: Path) -> None:
-    """Serve the main-path traffic once more (after phase 5's warm-up and
-    timed runs) under torch.profiler; print the device time by category and
-    the device's idle share against both the profiled wall and phase 5's
+def phase_profile(path, cfg, params, dev, eng_kw, reqs,
+                  unprofiled_wall: float, out_dir: Path) -> None:
+    """Serve a path's traffic once more (after its warm-up and timed runs)
+    under torch.profiler; print the device time by category and the
+    device's idle share against both the profiled wall and the path's
     median unprofiled wall (opt-in: ``--profile``)."""
     from torch.profiler import ProfilerActivity, profile
     eng = Engine(cfg, params, device=dev, **eng_kw)
@@ -603,40 +793,52 @@ def phase_profile(cfg, params, dev, eng_kw, reqs, unprofiled_wall: float,
             dt = evt.self_cuda_time_total
         cats[_category(evt.key)] = cats.get(_category(evt.key), 0) + dt
     busy = sum(cats.values()) / 1e6
-    log(f"[profile] profiled wall_s={wall:.3f} device_busy_s={busy:.3f} "
+    tag = f"[profile:{path}]"
+    log(f"{tag} profiled wall_s={wall:.3f} device_busy_s={busy:.3f} "
         f"idle_share={max(0.0, 1 - busy / wall):.3f}; against the median "
         f"unprofiled warm wall_s={unprofiled_wall:.3f}: "
         f"idle_share={max(0.0, 1 - busy / unprofiled_wall):.3f}")
     for c, t in sorted(cats.items(), key=lambda kv: -kv[1]):
-        log(f"[profile] {c:32s} {t / 1e3:10.1f} ms  {t / 1e6 / busy:.3f}")
+        log(f"{tag} {c:32s} {t / 1e3:10.1f} ms  {t / 1e6 / busy:.3f}")
     table = prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=25)
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "profile_table.txt").write_text(table)
-    log(f"[profile] top kernels in {out_dir / 'profile_table.txt'}")
+    (out_dir / f"profile_table_{path}.txt").write_text(table)
+    log(f"{tag} top kernels in {out_dir / f'profile_table_{path}.txt'}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=8,
-                    help="depth of the full-width model (phase 5)")
+                    help="depth of the full-width Qwen3-32B model on the "
+                         "paged main and contig paths (phase 5)")
+    ap.add_argument("--moe-layers", type=int, default=8,
+                    help="depth of the full-width Phi-3.5-MoE model on the "
+                         "MoE path (phase 5)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the phases that need no card on the CPU at a "
                          "tiny size with the plain versions; never prints "
                          "the ok line")
-    ap.add_argument("--phases", default="build,kernels,parity,main",
-                    help="comma list of phases after 'device' (a partial "
-                         "run never prints the ok line)")
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma list of phases after 'device'; the serving "
+                         "paths run in the order given (a partial run "
+                         "never prints the ok line)")
     ap.add_argument("--repeats", type=int, default=3,
-                    help="timed runs of the main path after its warm-up "
+                    help="timed runs of each serving path after its warm-up "
                          "pass (phase 5); the median wall is reported")
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
-                    help="after phase 5's timed runs, serve its traffic "
-                         "once more under torch.profiler and write the "
-                         "kernel table to DIR (off by default)")
+                    help="after each serving path's timed runs, serve its "
+                         "traffic once more under torch.profiler and write "
+                         "the kernel table to DIR (off by default)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
+    unknown = phases - set(ALL_PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
+    depth = {p: getattr(args, DEPTH_FLAG[PATHS[p][0]]) for p in PATHS}
+    # serving paths run in the order --phases names them
+    paths = [p for p in args.phases.split(",") if p in PATHS]
     if args.cpu_rehearsal:
         dev = torch.device("cpu")
         log("[rehearsal] CPU, plain versions, tiny sizes; no ok line")
@@ -644,9 +846,9 @@ def main(argv=None) -> int:
             phase_kernels(dev, rehearsal=True)
         if "parity" in phases:
             phase_engine_parity(dev)
-        if "main" in phases:
-            phase_main_path(dev, args.layers, args.seed, rehearsal=True,
-                            repeats=args.repeats)
+        for p in paths:
+            phase_path(dev, p, depth[p], args.seed, rehearsal=True,
+                       repeats=args.repeats)
         log("[rehearsal] done")
         return 0
     info = phase_device()
@@ -659,17 +861,21 @@ def main(argv=None) -> int:
         rows = phase_kernels(dev, rehearsal=False)
     if "parity" in phases:
         phase_engine_parity(dev)
-    if "main" in phases:
-        counts = phase_main_path(dev, args.layers, args.seed,
-                                 rehearsal=False, repeats=args.repeats,
-                                 profile_dir=args.profile)
-    if phases != {"build", "kernels", "parity", "main"}:
+    for p in paths:
+        counts[p] = phase_path(dev, p, depth[p], args.seed,
+                               rehearsal=False, repeats=args.repeats,
+                               profile_dir=args.profile)
+    if phases != set(ALL_PHASES):
         log("[partial] phases run: " + ",".join(sorted(phases)))
         return 0
     for r in rows:
-        r["launches"] = counts[r["name"]]
-    keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape"]
+        # launches: each path's first timed run, summed over the paths
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()
+                                 if c[r["name"]]}
+        r["launches"] = sum(r["launches_by_path"].values())
+    keys = ["name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shape"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Registry of the dense configs the port serves (values copied from
-``repro/configs/<id>.py``)."""
+"""Registry of the configs the port serves, dense GQA and MoE (values
+copied from ``repro/configs/<id>.py``)."""
 
 from __future__ import annotations
 
@@ -41,8 +41,24 @@ H2O_DANUBE3_4B = ArchConfig(
     supports_decode=True, subquadratic=True,
     source="arXiv:2401.16818; unverified")
 
+PHI35_MOE_42B_A6_6B = ArchConfig(
+    name="phi3.5-moe-42b-a6.6b", family="moe", n_layers=32, d_model=4096,
+    n_heads=32, n_kv_heads=8, d_ff=6400, vocab=32064, n_experts=16,
+    moe_top_k=2, norm="layernorm", gated_ffn=True, act="silu",
+    rope_theta=10_000.0, supports_decode=True, subquadratic=False,
+    source="hf:microsoft/Phi-3.5-MoE-instruct; hf")
+
+GRANITE_MOE_3B_A800M = ArchConfig(
+    name="granite-moe-3b-a800m", family="moe", n_layers=32, d_model=1536,
+    n_heads=24, n_kv_heads=8, d_ff=512, vocab=49155, n_experts=40,
+    moe_top_k=8, norm="rmsnorm", gated_ffn=True, act="silu",
+    tie_embeddings=True, rope_theta=10_000.0, supports_decode=True,
+    subquadratic=False,
+    source="hf:ibm-granite/granite-3.0-3b-a800m-base; hf")
+
 REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in (
-    QWEN3_32B, LLAMA31_70B, QWEN2_0_5B, INTERNLM2_1_8B, H2O_DANUBE3_4B)}
+    QWEN3_32B, LLAMA31_70B, QWEN2_0_5B, INTERNLM2_1_8B, H2O_DANUBE3_4B,
+    PHI35_MOE_42B_A6_6B, GRANITE_MOE_3B_A800M)}
 
 
 def get_config(name: str) -> ArchConfig:

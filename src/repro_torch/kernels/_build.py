@@ -41,8 +41,12 @@ _F = ctypes.c_float
 SIGNATURES: Dict[str, List] = {
     "rt_decode_attention_paged":
         [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+    "rt_decode_attention":
+        [_P] * 7 + [_I] * 8 + [_F, _I, _P],
     "rt_chunk_attention_paged":
         [_P, _P, _P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P],
+    "rt_chunk_attention":
+        [_P] * 5 + [_I] * 7 + [_F, _I, _P],
     "rt_flash_attention":
         [_P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P],
 }
@@ -159,6 +163,19 @@ def expect(cond: bool, what: str) -> None:
     """Raise on an input the kernels do not take."""
     if not cond:
         raise ValueError(what)
+
+
+def expect_attention(name: str, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> None:
+    """q (B, Sq, nh, d) against K/V (rows, ..., nkv, d) the kernels take:
+    one dtype of fp32 / bf16, a supported head dim, nh a multiple of nkv."""
+    ok = (q.ndim == 4 and k.ndim == 4 and v.shape == k.shape
+          and k.shape[3] == q.shape[3] and q.shape[3] in HEAD_DIMS
+          and q.shape[2] % k.shape[2] == 0)
+    expect(ok, f"{name}: unsupported shapes q={tuple(q.shape)} "
+               f"k/v={tuple(k.shape)}")
+    expect(q.dtype in DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
+           f"{name}: q, k and v must share fp32 or bf16")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

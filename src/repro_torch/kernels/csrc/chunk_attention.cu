@@ -1,11 +1,19 @@
-// Paged chunk-prefill attention for Hopper (sm_90a).
+// Chunk-prefill attention for Hopper (sm_90a), paged and contiguous.
 //
-// Replaces the Pallas TPU kernel repro/kernels/chunk_attention.py
-// `chunk_attention_paged` (`_chunk_paged_kernel` -> `_chunk_kernel`): a
-// chunk of C new queries per row, at absolute positions bases[b] + j,
-// against that row's paged prefix (already holding the chunk's own K/V),
-// causal on absolute positions, optional sliding window, GQA, online
-// softmax in fp32. `bases` is per row; the wrapper broadcasts a scalar.
+// Replaces two Pallas TPU kernels of repro/kernels/chunk_attention.py:
+//  * `chunk_attention_paged` (`_chunk_paged_kernel` -> `_chunk_kernel`): the
+//    row's prefix lives in the block pool, read through its block table
+//    (entry point rt_chunk_attention_paged);
+//  * `chunk_attention` (`_chunk_kernel`): the prefix lives in a contiguous
+//    cache (B, S, nkv, d), key t of row b at row b * S + t (entry point
+//    rt_chunk_attention; the engine's contig chunked prefill writes each
+//    chunk into a transient group cache and attends it here).
+// Both: a chunk of C new queries per row, at absolute positions
+// bases[b] + j, against that row's prefix (already holding the chunk's own
+// K/V), causal on absolute positions, optional sliding window, GQA, online
+// softmax in fp32. `bases` is per row; the wrapper broadcasts a scalar. The
+// layout is a template flag: one body, one __global__ instantiation per
+// entry point, and the contiguous one reads no table.
 //
 // Bound on the card: OPERATIONS at the engine's 512-token chunks (each
 // K/V byte serves 512 queries x 8 query heads at Qwen3-32B's 64/8 heads:
@@ -16,10 +24,13 @@
 //  * one CTA per (row, KV head, tile of TQ queries) holds TQ x g query
 //    rows (g query heads share one KV head), so each staged K/V tile feeds
 //    64 query rows instead of one query head's;
-//  * the CTA walks the row's pool blocks through tbl[b, t / block] only up
-//    to the tile's last query position, and from the window's first
-//    position under SWA; the Pallas grid walked all `mb` table entries;
-//  * ragged C needs no padding: the last query tile simply has fewer rows;
+//  * the CTA walks the row's keys (paged: pool blocks through
+//    tbl[b, t / block]) only up to the tile's last query position, and from
+//    the window's first position under SWA; the Pallas grids walked all
+//    `mb` table entries, or all S / block_kv blocks of the contiguous row;
+//  * ragged C and S need no padding: the last query tile simply has fewer
+//    rows, and the last key tile is masked (the Pallas wrapper sent shapes
+//    that do not tile to the jnp oracle instead);
 //  * bf16 runs the products on the tensor cores (rt::attend_mma: mma.sync
 //    m16n8k16, fp32 accumulators); fp32 keeps the FP32-pipe body.
 // Columns past a row's real length (the prompt's last chunk) still compute;
@@ -36,19 +47,20 @@ struct ChunkArgs {
   const void* q;
   const void* k;
   const void* v;
-  const int* tbl;
+  const int* tbl;      // paged: (B, mb) block table; contiguous: unused
   const int* bases;
   void* out;
   int B, C, nh, nkv, bs, mb, window, tq;
+  int S;               // keys a row can hold: mb * bs paged, S contiguous
   float scale;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kPaged>
 struct ChunkP {
   const T* q;
   T* o;
   const int* tbl_row;
-  int b, C, nh, g, bs, j0, base;
+  int b, C, nh, g, bs, S, j0, base;
   int rows, nkv, kvh, kv_lo, kv_hi, causal, window;
   float scale;
   __device__ long long idx(int r) const {
@@ -59,28 +71,30 @@ struct ChunkP {
   __device__ T* o_row(int r) const { return o + idx(r); }
   __device__ int q_pos(int r) const { return base + j0 + r / g; }
   __device__ int kv_row(int t) const {
-    return tbl_row[t / bs] * bs + t % bs;
+    if constexpr (kPaged) return tbl_row[t / bs] * bs + t % bs;
+    else return b * S + t;
   }
 };
 
-template <typename T, int D, bool kMma>
+template <typename T, int D, bool kMma, bool kPaged>
 __global__ void __launch_bounds__(rt::kThreads)
-chunk_paged_kernel(ChunkArgs a) {
+chunk_kernel(ChunkArgs a) {
   const int it = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int g = a.nh / a.nkv;
   const int j0 = it * a.tq;
   const int nq = min(a.tq, a.C - j0);
-  ChunkP<T, D> p;
+  ChunkP<T, D, kPaged> p;
   p.q = static_cast<const T*>(a.q);
   p.o = static_cast<T*>(a.out);
-  p.tbl_row = a.tbl + (long long)b * a.mb;
-  p.b = b; p.C = a.C; p.nh = a.nh; p.g = g; p.bs = a.bs; p.j0 = j0;
+  p.tbl_row = kPaged ? a.tbl + (long long)b * a.mb : nullptr;
+  p.b = b; p.C = a.C; p.nh = a.nh; p.g = g; p.bs = a.bs; p.S = a.S;
+  p.j0 = j0;
   p.base = a.bases[b];
   p.rows = nq * g; p.nkv = a.nkv; p.kvh = kvh;
   p.causal = 1; p.window = a.window; p.scale = a.scale;
   const int first = p.base + j0, last = p.base + j0 + nq - 1;
   p.kv_lo = a.window > 0 ? max(0, first - a.window + 1) : 0;
-  p.kv_hi = min(last + 1, a.mb * a.bs);
+  p.kv_hi = min(last + 1, a.S);
   if constexpr (kMma)
     rt::attend_mma<D>(p, static_cast<const T*>(a.k),
                       static_cast<const T*>(a.v));
@@ -89,17 +103,34 @@ chunk_paged_kernel(ChunkArgs a) {
                      static_cast<const T*>(a.v));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPaged>
 cudaError_t run(const ChunkArgs& a, cudaStream_t s) {
   const dim3 grid((a.C + a.tq - 1) / a.tq, a.nkv, a.B);
   const int rows = a.tq * (a.nh / a.nkv);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (rows <= rt::kMmaRows)         // bf16: tensor cores
-      return rt::launch<chunk_paged_kernel<T, D, true>>(
+      return rt::launch<chunk_kernel<T, D, true, kPaged>>(
           grid, 32 * rt::kMmaWarps, rt::mma_smem_bytes(D), a, s);
   }
-  return rt::launch<chunk_paged_kernel<T, D, false>>(
+  return rt::launch<chunk_kernel<T, D, false, kPaged>>(
       grid, rt::kThreads, rt::smem_bytes(rows, D), a, s);
+}
+
+template <typename T, int D>
+cudaError_t run_paged(const ChunkArgs& a, cudaStream_t s) {
+  return run<T, D, true>(a, s);
+}
+
+template <typename T, int D>
+cudaError_t run_contig(const ChunkArgs& a, cudaStream_t s) {
+  return run<T, D, false>(a, s);
+}
+
+// query positions per CTA: g query heads share one KV head, so a tile of
+// tq queries is tq * g rows
+inline int query_tile(int nh, int nkv) {
+  const int g = nh / nkv;
+  return g >= kRows ? 1 : kRows / g;
 }
 
 }  // namespace
@@ -109,13 +140,24 @@ extern "C" int rt_chunk_attention_paged(
     const void* bases, void* out, int B, int C, int nh, int nkv, int d,
     int bs, int mb, int window, float scale, int is_bf16, void* stream) {
   cudaGetLastError();
-  const int g = nh / nkv;
-  const int tq = g >= kRows ? 1 : kRows / g;
   ChunkArgs a{q, k, v, static_cast<const int*>(tbl),
               static_cast<const int*>(bases), out, B, C, nh, nkv, bs, mb,
-              window, tq, scale};
+              window, query_tile(nh, nkv), mb * bs, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = is_bf16 ? RT_DISPATCH_D(d, __nv_bfloat16, run, a, s)
-                          : RT_DISPATCH_D(d, float, run, a, s);
+  cudaError_t e = is_bf16 ? RT_DISPATCH_D(d, __nv_bfloat16, run_paged, a, s)
+                          : RT_DISPATCH_D(d, float, run_paged, a, s);
+  return static_cast<int>(e);
+}
+
+extern "C" int rt_chunk_attention(
+    const void* q, const void* k, const void* v, const void* bases,
+    void* out, int B, int C, int nh, int nkv, int d, int S, int window,
+    float scale, int is_bf16, void* stream) {
+  cudaGetLastError();
+  ChunkArgs a{q, k, v, nullptr, static_cast<const int*>(bases), out, B, C,
+              nh, nkv, 0, 0, window, query_tile(nh, nkv), S, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = is_bf16 ? RT_DISPATCH_D(d, __nv_bfloat16, run_contig, a, s)
+                          : RT_DISPATCH_D(d, float, run_contig, a, s);
   return static_cast<int>(e);
 }

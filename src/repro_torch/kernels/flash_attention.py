@@ -18,9 +18,10 @@ from repro_torch.kernels import _build
 from repro_torch.models import attention as _attn
 
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
-REPLACES = "src/repro/kernels/flash_attention.py:77"
+REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:77"}
 
-launch_count = 0          # kernel launches (plain-version calls excluded)
+# kernel launches (plain-version calls excluded)
+launch_counts = {"flash_attention": 0}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -35,20 +36,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """Kernel launch. q: (B,Sq,nh,d), k/v: (B,Sk,nkv,d) -> (B,Sq,nh,d).
     CUDA tensors only."""
-    global launch_count
     name = "flash_attention"
     _build.require_cuda(name, q, k, v)
-    _build.expect(q.ndim == 4 and k.ndim == 4 and v.shape == k.shape,
-                  f"{name}: q (B,Sq,nh,d) and k/v (B,Sk,nkv,d) expected")
+    _build.expect_attention(name, q, k, v)
     b, sq, nh, d = q.shape
-    _, sk, nkv, dk = k.shape
-    _build.expect(q.dtype in _build.DTYPES and k.dtype == q.dtype
-                  and v.dtype == q.dtype,
-                  f"{name}: q, k, v must share fp32 or bf16")
-    _build.expect(k.shape[0] == b and dk == d and d in _build.HEAD_DIMS
-                  and nh % nkv == 0,
-                  f"{name}: unsupported shapes q={tuple(q.shape)} "
-                  f"k={tuple(k.shape)}")
+    _, sk, nkv, _ = k.shape
+    _build.expect(k.shape[0] == b, f"{name}: k/v batch {k.shape[0]} != "
+                  f"q batch {b}")
     out = torch.empty_like(q)
     if b == 0 or sq == 0:
         return out
@@ -58,5 +52,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         nh, nkv, d, int(causal), window or 0, 1.0 / math.sqrt(d),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
     _build.check(rc, name)
-    launch_count += 1
+    launch_counts[name] += 1
     return out

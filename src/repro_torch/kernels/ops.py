@@ -16,8 +16,11 @@ from repro_torch.kernels import chunk_attention as _ca
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 
+# every kernel by name -> the module holding its wrapper and launch count
 KERNEL_MODULES = {"decode_attention_paged": _da,
+                  "decode_attention": _da,
                   "chunk_attention_paged": _ca,
+                  "chunk_attention": _ca,
                   "flash_attention": _fa}
 
 
@@ -46,11 +49,25 @@ def chunk_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,
     return fn(q, cache_k, cache_v, block_tbl, bases, window=window)
 
 
+def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: Union[int, torch.Tensor], *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    fn = _da.decode_attention if q.is_cuda else _da.decode_attention_plain
+    return fn(q, cache_k, cache_v, pos, window=window)
+
+
+def chunk_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                    cache_v: torch.Tensor, bases: Union[int, torch.Tensor], *,
+                    window: Optional[int] = None) -> torch.Tensor:
+    fn = _ca.chunk_attention if q.is_cuda else _ca.chunk_attention_plain
+    return fn(q, cache_k, cache_v, bases, window=window)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {n: m.launch_count for n, m in KERNEL_MODULES.items()}
+    return {n: m.launch_counts[n] for n, m in KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for m in KERNEL_MODULES.values():
-        m.launch_count = 0
+    for n, m in KERNEL_MODULES.items():
+        m.launch_counts[n] = 0

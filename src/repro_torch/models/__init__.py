@@ -1,4 +1,4 @@
-"""Model definitions of the port (dense GQA family)."""
+"""Model definitions of the port (dense GQA and MoE families)."""
 
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import LM

@@ -1,4 +1,5 @@
-"""Model construction (port of ``repro/models/api.py``, dense family)."""
+"""Model construction (port of ``repro/models/api.py``, dense and MoE
+families)."""
 
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Attention, plain PyTorch (port of ``repro/models/attention.py``, paged
-and full-sequence paths).
+"""Attention, plain PyTorch (port of ``repro/models/attention.py``:
+full-sequence, contiguous-cache and paged paths).
 
 These functions are the CPU path of the port and the oracles the CUDA
 kernels in ``repro_torch/kernels`` are held against. Three properties of
@@ -79,6 +79,79 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = (causal_mask(q.shape[1], k.shape[1], 0, window, q.device)
             if causal else None)
     return sdpa(q, k, v, mask)
+
+
+# ---------------------------------------------------------------------------
+# Contiguous (linear) KV cache
+#
+# Each row owns ``cache_k/v: (B, S, nkv, d)`` (a per-layer slice of the
+# stacked ``(L, B, max_len, nkv, d)`` engine cache); key position t lives at
+# ``[b, t]``. Sliding windows apply by masking. The reference's ring caches
+# (``slot_pos``) are not an engine path (the engine always allocates linear
+# caches), so they are not ported.
+# ---------------------------------------------------------------------------
+def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos: IntLike,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention. q: (B,1,nh,d); cache_k/v: (B,S,nkv,d); ``pos``
+    scalar or (B,), the position of the current (already written) token."""
+    pos = _row_vector(pos, q.shape[0], q.device)
+    kpos = torch.arange(cache_k.shape[1], device=q.device)
+    valid = kpos[None, :] <= pos[:, None]                     # (B, S)
+    if window is not None:
+        valid &= kpos[None, :] > (pos[:, None] - window)
+    mask = valid[:, None, None, None, :]
+    if cache_k.dtype != q.dtype:
+        cache_k, cache_v = cache_k.to(q.dtype), cache_v.to(q.dtype)
+    return sdpa(q, cache_k, cache_v, mask)
+
+
+def chunk_attention(q: torch.Tensor, cache_k: torch.Tensor,
+                    cache_v: torch.Tensor, q_pos: torch.Tensor,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Chunk attention against a linear cache: q (B,C,nh,d) whose K/V are
+    already written at their absolute positions ``q_pos`` (B,C); query i
+    sees keys at positions <= q_pos[i] (and > q_pos[i] - window)."""
+    kpos = torch.arange(cache_k.shape[1], device=q.device)
+    valid = kpos[None, None, :] <= q_pos[:, :, None]          # (B, C, S)
+    if window is not None:
+        valid &= kpos[None, None, :] > (q_pos[:, :, None] - window)
+    mask = valid[:, None, None, :, :]
+    if cache_k.dtype != q.dtype:
+        cache_k, cache_v = cache_k.to(q.dtype), cache_v.to(q.dtype)
+    return sdpa(q, cache_k, cache_v, mask)
+
+
+def cache_write_token(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor, pos: IntLike
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write one token's K/V (B,1,nkv,d) at position ``pos`` (scalar or
+    (B,), row by row) of a linear cache, in place. The slot clamps to
+    ``S - 1`` as the reference's does, so a frozen dead row whose position
+    sits at the cache end writes there instead of raising."""
+    rows = torch.arange(k.shape[0], device=k.device)
+    slot = torch.clamp(_row_vector(pos, k.shape[0], k.device),
+                       max=cache_k.shape[1] - 1)
+    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def cache_write_chunk(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor, base: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write a C-token chunk's K/V (B,C,nkv,d) at positions [base, base+C)
+    of a linear cache, in place. ``base`` is one scalar for every row, as
+    the reference's ``dynamic_update_slice`` takes it; a chunk running past
+    the cache end raises (the reference would shift it back silently, and
+    the engine never asks for it)."""
+    c, s = k.shape[1], cache_k.shape[1]
+    if not 0 <= base <= s - c:
+        raise ValueError(f"chunk [{base}, {base + c}) outside a cache of "
+                         f"{s} positions")
+    cache_k[:, base:base + c] = k.to(cache_k.dtype)
+    cache_v[:, base:base + c] = v.to(cache_v.dtype)
+    return cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

@@ -1,27 +1,33 @@
-"""Decoder-only LM, dense GQA family (port of ``repro/models/transformer.py``).
+"""Decoder-only LM, dense GQA and MoE families (port of
+``repro/models/transformer.py``).
 
 Entry points, as in the reference:
 
   * ``prefill(params, inputs, cache=paged)`` — prompt -> (last logits,
-    cache with the prompt K/V written through the block tables);
-  * ``prefill_chunk(...)`` — a C-token chunk written straight into the
-    engine pool through per-row table snapshots (engine-direct mode);
-  * ``decode_step(params, cache, tokens)`` — one token per row against the
-    paged cache.
+    cache with the prompt K/V written through the block tables); without
+    a paged cache, a fresh contiguous cache at ``max_len``;
+  * ``prefill_chunk(...)`` — a C-token chunk, either written straight into
+    the engine pool through per-row table snapshots (engine-direct mode)
+    or appended to a contiguous cache;
+  * ``decode_step(params, cache, tokens)`` — one token per row against a
+    paged or contiguous cache.
 
-The KV pool keeps the reference's stacked ``(L, n_blocks, block, nkv, d)``
-layout. Where JAX scans the layers and donates the pool across the jit
-boundary, this port loops over the layer index and writes each layer's
-pool slice IN PLACE, so a dispatch never copies the pool: the cache dict a
-caller passes in is updated and handed back.
+Two KV layouts, both the reference's: the paged pool
+``(L, n_blocks, block, nkv, d)`` with per-row block tables, and the
+contiguous ``(L, B, max_len, nkv, d)`` with per-row positions (linear only:
+sliding windows by masking; the reference's ring caches are not an engine
+path and raise). Where JAX scans the layers and donates the cache across
+the jit boundary, this port loops over the layer index and writes each
+layer's cache slice IN PLACE, so a dispatch never copies the cache: the
+cache dict a caller passes in is updated and handed back.
 
 Attention goes through ``repro_torch.kernels.ops``: the hand-written CUDA
 kernels for tensors on the card, the plain versions for CPU tensors. The
 QKV / O / FFN / LM-head projections stay ``@`` (the JAX package leaves them
 to XLA outside any Pallas kernel).
 
-Only the dense family on the paged layout is ported: MoE, SSM, hybrid,
-enc-dec and the contiguous cache raise ``NotImplementedError``.
+The dense and MoE families are ported; SSM, hybrid (kernel 6,
+``ssd_scan``), enc-dec and M-RoPE raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamDef, apply_rope, init_params,
                                        make_norm, norm_schema, param_count,
                                        schema_shapes, stack_schema)
@@ -50,9 +57,11 @@ def _unported(what: str) -> NotImplementedError:
 
 class LM:
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
-        if cfg.family != "dense" or cfg.n_experts > 0 or cfg.is_encdec:
-            raise _unported(f"the {cfg.family} family "
-                            f"({cfg.name}; kernels 4-6 and their paths)")
+        if cfg.family in ("ssm", "hybrid"):
+            raise _unported(f"the {cfg.family} family ({cfg.name}; kernel "
+                            f"6, ssd_scan, and its paths)")
+        if cfg.family not in ("dense", "moe") or cfg.is_encdec:
+            raise _unported(f"the {cfg.family} family ({cfg.name})")
         if cfg.m_rope:
             raise _unported("M-RoPE inputs (VLM)")
         self.cfg = cfg
@@ -88,9 +97,13 @@ class LM:
             "ln_attn": norm_schema(c.norm, c.d_model),
             "attn": self._attn_schema(),
             "ln_mlp": norm_schema(c.norm, c.d_model),
-            "mlp": ffn_mod.ffn_schema(c.d_model, c.d_ff, c.gated_ffn,
-                                      c.mlp_bias),
         }
+        if c.n_experts > 0:
+            layer["moe"] = moe_mod.moe_schema(c.d_model, c.d_ff, c.n_experts,
+                                              c.gated_ffn)
+        else:
+            layer["mlp"] = ffn_mod.ffn_schema(c.d_model, c.d_ff, c.gated_ffn,
+                                              c.mlp_bias)
         s = {
             "embed": {"tok": ParamDef((c.padded_vocab, c.d_model),
                                       ("vocab", "embed"))},
@@ -173,10 +186,23 @@ class LM:
                                         window=self.cfg.swa_window)
         return self._out_proj(p, o)
 
-    def _mlp(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    def _attn_decode(self, p: Dict, x: torch.Tensor, pos, ck, cv):
+        """One-token attention against this layer's contiguous cache: write
+        the token at ``pos`` (clamped to the row end, in place), attend
+        the row's keys up to ``pos``."""
+        q, k, v = self._qkv(p, x, pos[:, None])
+        attn.cache_write_token(ck, cv, k, v, pos)
+        o = kops.decode_attention(q, ck, cv, pos, window=self.cfg.swa_window)
+        return self._out_proj(p, o)
+
+    def _mlp_or_moe(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
         h = self.norm(x, p["ln_mlp"])
-        return ffn_mod.ffn_apply(p["mlp"], h, self.cfg.act,
-                                 self.cfg.gated_ffn)
+        if c.n_experts > 0:
+            out, _, _ = moe_mod.moe_apply(p["moe"], h, c.moe_top_k, c.act,
+                                          c.gated_ffn)
+            return out
+        return ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn)
 
     @staticmethod
     def _layer(params: Dict, i: int) -> Dict:
@@ -188,19 +214,27 @@ class LM:
         return pick(params["layers"])
 
     def _dense_layer_chunk(self, p: Dict, x, q_pos, ck, cv, base,
-                           block_tbl, lens=None):
-        """Chunked-prefill layer body against a block pool: write the
-        chunk's K/V at [base, base+C) through ``block_tbl`` (columns past
-        ``lens`` to the trash block), attend every query under its
-        absolute position."""
+                           block_tbl=None, lens=None, start=None):
+        """Chunked-prefill layer body: write the chunk's K/V at
+        [base, base+C) — through ``block_tbl`` into a block pool (columns
+        past ``lens`` to the trash block), or into a contiguous cache from
+        the host-side scalar ``start`` — and attend every query under its
+        absolute position (``base``, per row, on the device)."""
+        w = self.cfg.swa_window
         h = self.norm(x, p["ln_attn"])
         q, k, v = self._qkv(p["attn"], h, q_pos)
-        attn.cache_write_chunk_paged(ck, cv, k, v, base, block_tbl,
-                                     lens=lens)
-        o = kops.chunk_attention_paged(q, ck, cv, block_tbl, base,
-                                       window=self.cfg.swa_window)
+        if block_tbl is not None:
+            attn.cache_write_chunk_paged(ck, cv, k, v, base, block_tbl,
+                                         lens=lens)
+            o = kops.chunk_attention_paged(q, ck, cv, block_tbl, base,
+                                           window=w)
+        else:
+            if lens is not None:
+                raise ValueError("column masking requires the paged path")
+            attn.cache_write_chunk(ck, cv, k, v, start)
+            o = kops.chunk_attention(q, ck, cv, base, window=w)
         x = x + self._out_proj(p["attn"], o)
-        return x + self._mlp(p, x)
+        return x + self._mlp_or_moe(p, x)
 
     def _last(self, params: Dict, x: torch.Tensor,
               last_pos: Optional[torch.Tensor]) -> torch.Tensor:
@@ -215,27 +249,39 @@ class LM:
     # ------------------------------------------------------------------ #
     # public: caches / prefill / decode
     # ------------------------------------------------------------------ #
-    def init_cache(self, batch: int, max_len: int, kv_layout: str = "paged",
-                   n_blocks: int = 0, block_size: int = 16) -> Dict:
-        """Zero paged cache: a pool of ``n_blocks`` ``block_size``-token
-        blocks (L, n_blocks, block, nkv, d) shared by all rows, a per-row
-        ``block_tbl`` (batch, ceil(max_len/block)) whose entry 0 is the
-        reserved trash block, and per-row positions ``pos`` (batch,)."""
-        if kv_layout != "paged":
-            raise _unported("the contiguous KV layout")
+    def init_cache(self, batch: int, max_len: int, kv_layout: str = "contig",
+                   n_blocks: int = 0, block_size: int = 16,
+                   ring: bool = False) -> Dict:
+        """Zero cache with per-row positions ``pos`` (batch,).
+
+        ``kv_layout="contig"``: each row owns a linear ``max_len`` slice,
+        ``k``/``v`` (L, batch, max_len, nkv, d); sliding windows apply by
+        masking (``ring=True``, the reference's windowed ring cache, is not
+        an engine path and raises).
+
+        ``kv_layout="paged"``: a pool of ``n_blocks`` ``block_size``-token
+        blocks (L, n_blocks, block, nkv, d) shared by all rows, and a
+        per-row ``block_tbl`` (batch, ceil(max_len/block)) whose entry 0
+        is the reserved trash block."""
         c = self.cfg
         dev = self.device
-        max_blocks = -(-max_len // block_size)
-        if n_blocks <= 0:
-            n_blocks = batch * max_blocks + 1       # capacity == contig
-        shape = (c.n_layers, n_blocks, block_size, c.n_kv_heads, c.hd)
-        return {
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
-            "k": torch.zeros(shape, dtype=self.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=self.dtype, device=dev),
-            "block_tbl": torch.zeros((batch, max_blocks), dtype=torch.int32,
-                                     device=dev),
-        }
+        if kv_layout not in ("contig", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if ring and c.swa_window:
+            raise _unported("the ring (sliding-window) KV cache")
+        cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+        if kv_layout == "contig":
+            shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.hd)
+        else:
+            max_blocks = -(-max_len // block_size)
+            if n_blocks <= 0:
+                n_blocks = batch * max_blocks + 1       # capacity == contig
+            shape = (c.n_layers, n_blocks, block_size, c.n_kv_heads, c.hd)
+            cache["block_tbl"] = torch.zeros((batch, max_blocks),
+                                             dtype=torch.int32, device=dev)
+        cache["k"] = torch.zeros(shape, dtype=self.dtype, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=self.dtype, device=dev)
+        return cache
 
     def prefill_kv(self, params: Dict, tokens: torch.Tensor,
                    last_pos: Optional[torch.Tensor] = None
@@ -252,7 +298,7 @@ class LM:
             h = self.norm(x, p["ln_attn"])
             a, k, v = self._attn_full(p["attn"], h, positions)
             x = x + a
-            x = x + self._mlp(p, x)
+            x = x + self._mlp_or_moe(p, x)
             ks.append(k)
             vs.append(v)
         return self._last(params, x, last_pos), torch.stack(ks), \
@@ -260,58 +306,79 @@ class LM:
 
     def prefill(self, params: Dict, inputs: Dict,
                 last_pos: Optional[torch.Tensor] = None,
-                cache: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict]:
-        """Prompt -> (last-position logits (B, Vpad), paged cache). The
-        prompt K/V are written through ``cache``'s block tables (from
-        ``init_cache`` with allocated tables), in place."""
-        if cache is None or "block_tbl" not in cache:
-            raise _unported("prefill into a fresh contiguous cache")
+                cache: Optional[Dict] = None, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+        """Prompt -> (last-position logits (B, Vpad), cache). With a paged
+        ``cache`` (from ``init_cache`` with allocated tables) the prompt K/V
+        are written through its block tables, in place; otherwise into a
+        fresh contiguous cache of ``max_len`` (default: the prompt length)
+        positions per row."""
         tokens = inputs["tokens"]
+        b, s = tokens.shape
         logits, k, v = self.prefill_kv(params, tokens, last_pos)
-        attn.cache_write_prefill_paged(cache["k"], cache["v"], k, v,
-                                       cache["block_tbl"])
-        cache["pos"] = torch.full_like(cache["pos"], tokens.shape[1])
+        if cache is not None and "block_tbl" in cache:
+            attn.cache_write_prefill_paged(cache["k"], cache["v"], k, v,
+                                           cache["block_tbl"])
+        else:
+            cache = self.init_cache(b, max_len or s)
+            cache["k"][:, :, :s] = k.to(self.dtype)
+            cache["v"][:, :, :s] = v.to(self.dtype)
+        cache["pos"] = torch.full_like(cache["pos"], s)
         return logits, cache
 
     def prefill_chunk(self, params: Dict, cache: Dict, tokens: torch.Tensor,
-                      base: IntLike, block_tbl: torch.Tensor,
-                      last_pos: Optional[torch.Tensor] = None,
+                      base: IntLike, last_pos: Optional[torch.Tensor] = None,
+                      block_tbl: Optional[torch.Tensor] = None,
                       lens: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, Dict]:
-        """Incremental prefill straight into the engine's pool: a C-token
-        chunk per row at absolute positions [base, base+C), each of the B
-        rows written through its own ``block_tbl`` row (engine-direct mode
-        of the reference; the cache's own tables are not used). ``lens``
-        masks columns >= lens into the trash block; the per-slot ``pos``
-        update is the caller's. Returns (logits at ``last_pos`` (default:
-        last chunk column), the cache, updated in place)."""
+        """Incremental prefill: a C-token chunk per row at absolute
+        positions [base, base+C); queries attend the whole prefix under
+        per-position masks, so consecutive chunks equal one full prefill.
+
+        Two destinations, as the engine uses them: with ``block_tbl`` the
+        ENGINE's pool, each of the B rows written through its own table row
+        (engine-direct mode; ``lens`` masks columns >= lens into the trash
+        block; the per-slot ``pos`` update is the caller's); without it a
+        contiguous cache (one scalar ``base`` for every row), whose ``pos``
+        becomes ``base + C``. Returns (logits at ``last_pos`` (default: last
+        chunk column), the cache, updated in place)."""
         x = self.embed(params, tokens)
         b, cl = tokens.shape
+        direct = block_tbl is not None
         base_t = torch.as_tensor(base, device=x.device).long()
+        if not direct and ("block_tbl" in cache or base_t.ndim != 0):
+            raise ValueError("without block_tbl the cache must be contiguous "
+                             "and the base one scalar")
         bases = base_t.expand(b) if base_t.ndim == 0 else base_t
         q_pos = bases[:, None] + torch.arange(cl, device=x.device)[None, :]
+        start = None if direct else int(base)
         for i in range(self.cfg.n_layers):
             x = self._dense_layer_chunk(self._layer(params, i), x, q_pos,
                                         cache["k"][i], cache["v"][i], bases,
-                                        block_tbl, lens=lens)
+                                        block_tbl=block_tbl, lens=lens,
+                                        start=start)
+        if not direct:
+            cache["pos"] = torch.full_like(cache["pos"], int(base) + cl)
         return self._last(params, x, last_pos), cache
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict]:
         """One new token for every row. tokens: (B, 1). Writes the tokens'
-        K/V into the pool in place; returns (logits (B,1,Vpad), cache with
-        ``pos`` advanced)."""
-        if "block_tbl" not in cache:
-            raise _unported("decode on a contiguous cache")
+        K/V into the cache (paged or contiguous) in place; returns (logits
+        (B,1,Vpad), cache with ``pos`` advanced)."""
         x = self.embed(params, tokens)
         pos = cache["pos"]
-        tbl = cache["block_tbl"]
+        tbl = cache.get("block_tbl")
         for i in range(self.cfg.n_layers):
             p = self._layer(params, i)
             h = self.norm(x, p["ln_attn"])
-            x = x + self._attn_decode_paged(p["attn"], h, pos, cache["k"][i],
-                                            cache["v"][i], tbl)
-            x = x + self._mlp(p, x)
+            ck, cv = cache["k"][i], cache["v"][i]
+            if tbl is not None:
+                a = self._attn_decode_paged(p["attn"], h, pos, ck, cv, tbl)
+            else:
+                a = self._attn_decode(p["attn"], h, pos, ck, cv)
+            x = x + a
+            x = x + self._mlp_or_moe(p, x)
         x = self.norm(x, params["final_norm"])
         cache["pos"] = cache["pos"] + 1
         return self.logits(params, x), cache

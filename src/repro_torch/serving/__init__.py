@@ -1,5 +1,5 @@
-"""Serving data plane of the port: the paged engine and its host-side
-request / block-ledger objects."""
+"""Serving data plane of the port: the engine (paged or contiguous KV) and
+its host-side request / block-ledger objects."""
 
 from repro_torch.serving.engine import Engine, EngineStats
 from repro_torch.serving.request import ServeRequest

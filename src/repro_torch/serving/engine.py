@@ -1,5 +1,5 @@
-"""Continuous-batching engine on the paged block-KV pool (port of
-``repro/serving/engine.py``, paged dense path).
+"""Continuous-batching engine on the paged block-KV pool or the contiguous
+slot-row cache (port of ``repro/serving/engine.py``).
 
 What carries over from the reference, with the same semantics and stats:
 
@@ -20,6 +20,18 @@ What carries over from the reference, with the same semantics and stats:
   of the members' block tables.
 * **Masked decode** — dead and pending rows write through trash block 0
   and keep their position frozen.
+* **Contiguous layout** (``kv_layout="contig"``, and what ``"auto"`` picks
+  for MoE) — each slot owns a ``max_len`` row of ``(L, max_batch, max_len,
+  nkv, d)``; there is no block manager (``self.bm`` is None). A prefill
+  group is installed by writing whole slot rows; a chunked group prefills
+  into a transient group cache, from which finishers are scattered into
+  their slot rows (``stats.chunk_scatters``); every row decodes, dead and
+  pending rows writing at their frozen position, which is then restored.
+* **MoE admission** — expert capacity is shared across the flattened
+  token stream, so padded or chunked prefill would change which tokens
+  are dropped: MoE admits batch-1 at exact length, never chunked, and
+  decodes all ``max_batch`` rows with dead rows fed token 0, as the
+  reference does, so dead rows take expert capacity the same way.
 
 Where JAX donates the cache into jit'd dispatches, this engine owns one
 preallocated pool and every dispatch updates it in place. There is no JIT,
@@ -28,10 +40,10 @@ so the retrace counters count distinct dispatch shapes instead:
 bound ``prefill_retraces <= len(bucket_lens())`` holds as in the
 reference), ``retraces`` adds the decode shape.
 
-Limits of this slice (ROADMAP.md, port queue): ``victim_policy`` accepts
+Limits of the port (ROADMAP.md, port queue): ``victim_policy`` accepts
 only ``"fewest"`` (``"cost"`` needs ``cluster/recovery.py`` and
-``core/modelspec.py``); ``prefix_share=True`` raises; the contiguous
-layout and the legacy admission path are not ported; the device-side
+``core/modelspec.py``); ``prefix_share=True`` raises; the legacy admission
+path, enc-dec and the SSM/hybrid families are not ported; the device-side
 poison probe is not armed (the host-side sanitizer ledger and the poisoning
 of released blocks are).
 """
@@ -58,6 +70,7 @@ class EngineStats:
     prefill_batches: int = 0    # batched prefill dispatches
     prefill_chunks: int = 0     # chunked-prefill chunk dispatches
     chunk_direct: int = 0       # paged chunks written in-place (no scatter)
+    chunk_scatters: int = 0     # contig finisher scatters (transient path)
     decode_steps: int = 0
     tokens_out: int = 0
     retraces: int = 0           # distinct dispatch shapes (prefill+decode)
@@ -85,6 +98,7 @@ class _PendingGroup:
     dispatch per scheduling step (members share the chunk boundary)."""
     members: List[_PendingMember]
     base: int = 0
+    cache: Optional[Dict] = None    # contig: the transient group cache
 
 
 class Engine:
@@ -100,10 +114,6 @@ class Engine:
                  victim_policy: str = "fewest"):
         assert kv_layout in ("auto", "paged", "contig"), kv_layout
         assert kv_alloc in ("lazy", "upfront"), kv_alloc
-        if kv_layout == "contig":
-            raise NotImplementedError(
-                "repro_torch: the contiguous KV layout is not ported yet "
-                "(ROADMAP.md: kernels 4-5 with the contig paths)")
         if prefix_share:
             raise NotImplementedError(
                 "repro_torch: prefix sharing is not ported yet (ROADMAP.md)")
@@ -119,28 +129,43 @@ class Engine:
                              f"{self.device}")
         self.cfg = cfg
         self.params = params
-        self.model = build_model(cfg, device=self.device)   # dense only
+        self.model = build_model(cfg, device=self.device)
         self.max_batch = max_batch
         self.max_len = max_len
         self.prefill_chunk = int(prefill_chunk)
-        self._group = max(1, min(prefill_group, max_batch))
+        # MoE expert capacity is computed over the flattened (batch, seq)
+        # token stream, so pad tokens or rows would compete with real
+        # tokens for expert slots: MoE admits batch-1 at exact length
+        self._moe = cfg.n_experts > 0
+        self._group = 1 if self._moe else max(1, min(prefill_group,
+                                                     max_batch))
         self._min_bucket = max(1, min(prefill_bucket, max_len))
-        self.kv_layout = "paged"
+        # paged layout: the dense family only (MoE rides the contig path
+        # with its batch-1 admission, as in the reference)
+        if kv_layout == "auto":
+            kv_layout = "contig" if self._moe else "paged"
+        elif kv_layout == "paged" and self._moe:
+            raise ValueError(f"kv_layout='paged' unsupported for {cfg.name} "
+                             f"(family={cfg.family})")
+        self.kv_layout = kv_layout
         self.kv_alloc = kv_alloc
-        self._lazy = kv_alloc == "lazy"
+        self._lazy = kv_alloc == "lazy" and kv_layout == "paged"
         self._admit_window = max(0, int(admit_window))
         self._grow_ahead = max(1, int(grow_ahead))
         self._admit_headroom = bool(admit_headroom)
         self._victim_policy = victim_policy
         self._tbl_dirty = False
-        mb = -(-max_len // block_size)
-        if n_blocks <= 0:
-            n_blocks = max_batch * mb + 1         # capacity-parity + trash
-        self.bm = BlockManager(n_blocks, block_size, max_batch, mb,
-                               overcommit=kv_overcommit,
-                               sanitize=kv_sanitize)
+        self.bm: Optional[BlockManager] = None
+        if kv_layout == "paged":
+            mb = -(-max_len // block_size)
+            if n_blocks <= 0:
+                n_blocks = max_batch * mb + 1     # capacity-parity + trash
+            self.bm = BlockManager(n_blocks, block_size, max_batch, mb,
+                                   overcommit=kv_overcommit,
+                                   sanitize=kv_sanitize)
         self.cache = self.model.init_cache(
-            max_batch, max_len, n_blocks=n_blocks, block_size=block_size)
+            max_batch, max_len, kv_layout=kv_layout, n_blocks=n_blocks,
+            block_size=block_size)
         self.slots: List[Optional[ServeRequest]] = [None] * max_batch
         self.stats = EngineStats()
         self._pending: List[_PendingGroup] = []
@@ -176,13 +201,17 @@ class Engine:
         return out
 
     def _bucket(self, n: int) -> int:
+        if self._moe:
+            return n      # expert capacity: no padding
         b = self._min_bucket
         while b < n:
             b *= 2
         return min(b, self.max_len)
 
     def _use_chunked(self, n: int) -> bool:
-        if self.prefill_chunk <= 0:
+        # MoE excluded: per-chunk expert capacity differs from full-prefill
+        # capacity, changing token drops (the same exactness issue as pads)
+        if self.prefill_chunk <= 0 or self._moe:
             return False
         n_chunks = -(-n // self.prefill_chunk)
         return n > self.prefill_chunk and \
@@ -213,7 +242,7 @@ class Engine:
                 if not m.done}
 
     def _free_blocks(self, slot: int) -> None:
-        if self.bm.slot_blocks(slot):
+        if self.bm is not None and self.bm.slot_blocks(slot):
             self.bm.free(slot)
             self._poison_released()
             self._tbl_dirty = True
@@ -223,7 +252,8 @@ class Engine:
         mapping just died with the finite ``KV_POISON`` sentinel, so a
         stale gather through a dangling table entry produces unmissable
         garbage instead of plausible old KV."""
-        if not self.bm.sanitize or not self.bm.last_released:
+        if self.bm is None or not self.bm.sanitize \
+                or not self.bm.last_released:
             return
         ids = self._dev(self.bm.last_released, torch.long)
         self.cache["k"][:, ids] = KV_POISON
@@ -233,12 +263,14 @@ class Engine:
     def _sync_block_tbl(self) -> None:
         """Push the host block table to the device when allocations
         changed since the last dispatch."""
-        if self._tbl_dirty:
+        if self.bm is not None and self._tbl_dirty:
             self.cache["block_tbl"] = self._dev(self.bm.table)
             self._tbl_dirty = False
 
     def block_stats(self) -> Dict[str, int]:
-        """Paged-pool occupancy/fragmentation counters."""
+        """Paged-pool occupancy/fragmentation counters (empty for contig)."""
+        if self.bm is None:
+            return {}
         return {"blocks_in_use": self.bm.blocks_in_use(),
                 "blocks_free": self.bm.blocks_free(),
                 "reserved_blocks": self.bm.reserved_blocks(),
@@ -257,13 +289,13 @@ class Engine:
 
     def admit_many(self, reqs: Sequence[ServeRequest]
                    ) -> List[ServeRequest]:
-        """Admit from ``reqs`` in order, bounded by free slots and the
-        block manager's reservation ledger. A request the pool can't cover
-        is SKIPPED (up to ``admit_window`` failures) so smaller ones behind
-        it still drain; the returned list is therefore not necessarily a
-        prefix of ``reqs``. Requests are grouped by length bucket and
-        prefilled in batches of ``prefill_group``; long contexts go to the
-        chunked path. Finished ones surface via ``step()``."""
+        """Admit from ``reqs`` in order, bounded by free slots and (paged)
+        the block manager's reservation ledger. A request the pool can't
+        cover is SKIPPED (up to ``admit_window`` failures) so smaller ones
+        behind it still drain; the returned list is therefore not
+        necessarily a prefix of ``reqs``. Requests are grouped by length
+        bucket and prefilled in batches of ``prefill_group``; long contexts
+        go to the chunked path. Finished ones surface via ``step()``."""
         free = self.free_slots()
         admitted: List[ServeRequest] = []
         skipped = 0
@@ -283,24 +315,25 @@ class Engine:
             assert self._total_tokens(r) <= self.max_len, \
                 "context exceeds engine max_len"
             slot = free[0]
-            ctx = r.ctx_len - (1 if r.generated else 0)
-            live = ctx if self._lazy else None
-            if imminent > 0:
-                if self.bm.blocks_free() - self.bm.blocks_for(ctx) \
-                        < imminent:
-                    self.stats.admit_deferred += 1
+            if self.bm is not None:
+                ctx = r.ctx_len - (1 if r.generated else 0)
+                live = ctx if self._lazy else None
+                if imminent > 0:
+                    if self.bm.blocks_free() - self.bm.blocks_for(ctx) \
+                            < imminent:
+                        self.stats.admit_deferred += 1
+                        skipped += 1
+                        if skipped >= self._admit_window:
+                            break
+                        continue
+                if not self.bm.reserve(slot, self._total_tokens(r), live):
+                    self.stats.alloc_failures += 1
                     skipped += 1
                     if skipped >= self._admit_window:
-                        break
-                    continue
-            if not self.bm.reserve(slot, self._total_tokens(r), live):
-                self.stats.alloc_failures += 1
-                skipped += 1
-                if skipped >= self._admit_window:
-                    break            # backpressure: leave the rest queued
-                continue             # skip ahead: smaller reqs may still fit
-            self.bm.note_live(slot, ctx)
-            self._tbl_dirty = True
+                        break        # backpressure: leave the rest queued
+                    continue         # skip ahead: smaller reqs may still fit
+                self.bm.note_live(slot, ctx)
+                self._tbl_dirty = True
             free.pop(0)
             toks = self._prefill_tokens(r)
             if self._use_chunked(len(toks)):
@@ -321,7 +354,8 @@ class Engine:
 
     def _admit_group(self, items, blen: int) -> None:
         """One batched prefill for <= prefill_group requests sharing a
-        length bucket, scattered straight into the slots' pool blocks."""
+        length bucket, installed straight into the slots' pool blocks or
+        contiguous rows."""
         g, n = self._group, len(items)
         tokens = np.zeros((g, blen), np.int32)
         lens = np.zeros((g,), np.int32)
@@ -342,14 +376,23 @@ class Engine:
             self._install(r, slot, first[j])
 
     def _scatter_group(self, k, v, slots, lens) -> None:
-        """Install stacked prefill K/V (L, n, S, nkv, d) into the slots'
-        pool blocks through their table rows (positions past each real
-        length to the trash block) and set the slots' positions."""
+        """Install stacked prefill K/V (L, n, S, nkv, d) into the slots and
+        set their positions: paged, into the slots' pool blocks through
+        their table rows (positions past each real length to the trash
+        block); contig, as whole slot rows (zero past S, as the reference
+        installs a ``max_len`` group cache row)."""
         lens_t = self._dev(lens)
-        attn.cache_write_prefill_paged(self.cache["k"], self.cache["v"], k, v,
-                                       self._dev(self.bm.table[slots]),
-                                       lens=lens_t)
-        self.cache["pos"][self._dev(slots, torch.long)] = lens_t
+        slots_t = self._dev(slots, torch.long)
+        if self.bm is not None:
+            attn.cache_write_prefill_paged(
+                self.cache["k"], self.cache["v"], k, v,
+                self._dev(self.bm.table[slots]), lens=lens_t)
+        else:
+            s = k.shape[2]
+            for key, new in (("k", k), ("v", v)):
+                self.cache[key][:, slots_t, :s] = new.to(self.cache[key].dtype)
+                self.cache[key][:, slots_t, s:] = 0
+        self.cache["pos"][slots_t] = lens_t
 
     def _install(self, req: ServeRequest, slot: int, first_tok) -> None:
         """Post-prefill bookkeeping shared by all admission paths."""
@@ -366,8 +409,10 @@ class Engine:
     # -- chunked prefill --------------------------------------------------------
     def _advance_pending(self) -> None:
         """One chunk of prefill work per pending GROUP, interleaved between
-        decode steps; each chunk's K/V lands straight in the owning slots'
-        pool blocks through a snapshot of their block tables."""
+        decode steps. Paged: each chunk's K/V lands straight in the owning
+        slots' pool blocks through a snapshot of their block tables
+        (``stats.chunk_direct``). Contig: the group prefills into its own
+        transient cache, from which finishers are scattered."""
         c = self.prefill_chunk
         still: List[_PendingGroup] = []
         for grp in self._pending:
@@ -382,21 +427,28 @@ class Engine:
                 chunk[j, :end - grp.base] = m.tokens[grp.base:end]
                 last_idx[j] = min(c - 1, len(m.tokens) - 1 - grp.base)
                 rem[j] = end - grp.base
-            # finished members (whose slots now decode, or were reused) are
-            # routed wholesale to the trash block
-            tbls = self.bm.table[[m.slot for m in grp.members]].copy()
-            tbls[rem == 0] = 0
-            if self.bm.sanitize:
-                for m, n_rem in zip(grp.members, rem.tolist()):
-                    if n_rem:
-                        self.bm.check_write(m.slot, grp.base,
-                                            grp.base + n_rem)
             self._note_shape("chunk", chunk.shape)
-            logits, _ = self.model.prefill_chunk(
-                self.params, self.cache, self._dev(chunk), grp.base,
-                last_pos=self._dev(last_idx), block_tbl=self._dev(tbls),
-                lens=self._dev(rem))
-            self.stats.chunk_direct += 1
+            if self.bm is not None:
+                # finished members (whose slots now decode, or were reused)
+                # are routed wholesale to the trash block
+                tbls = self.bm.table[[m.slot for m in grp.members]].copy()
+                tbls[rem == 0] = 0
+                if self.bm.sanitize:
+                    for m, n_rem in zip(grp.members, rem.tolist()):
+                        if n_rem:
+                            self.bm.check_write(m.slot, grp.base,
+                                                grp.base + n_rem)
+                logits, _ = self.model.prefill_chunk(
+                    self.params, self.cache, self._dev(chunk), grp.base,
+                    last_pos=self._dev(last_idx), block_tbl=self._dev(tbls),
+                    lens=self._dev(rem))
+                self.stats.chunk_direct += 1
+            else:
+                if grp.cache is None:
+                    grp.cache = self.model.init_cache(g, self.max_len)
+                logits, _ = self.model.prefill_chunk(
+                    self.params, grp.cache, self._dev(chunk), grp.base,
+                    last_pos=self._dev(last_idx))
             self.stats.prefill_chunks += 1
             grp.base += c
             finishers = [(j, m) for j, m in enumerate(grp.members)
@@ -405,17 +457,25 @@ class Engine:
                 # host sync (intended): finishers' first tokens fill
                 # req.generated
                 first = self.model.sample_greedy(logits).tolist()
-                self._finish_pending(finishers, first)
+                self._finish_pending(grp, finishers, first)
             if not all(m.done for m in grp.members):
                 still.append(grp)
         self._pending = still
 
-    def _finish_pending(self, finishers, first) -> None:
-        """Finish fully-prefilled members: every chunk is already in their
-        pool blocks, so only the per-slot positions need setting."""
+    def _finish_pending(self, grp: _PendingGroup, finishers, first) -> None:
+        """Finish fully-prefilled members. Paged: every chunk is already in
+        their pool blocks, so only the per-slot positions need setting.
+        Contig: their rows of the group cache are scattered into their slot
+        rows (one scatter for this step's finishers)."""
         slots = [m.slot for _, m in finishers]
         lens = [len(m.tokens) for _, m in finishers]
-        self.cache["pos"][self._dev(slots, torch.long)] = self._dev(lens)
+        if self.bm is not None:
+            self.cache["pos"][self._dev(slots, torch.long)] = self._dev(lens)
+        else:
+            rows = self._dev([j for j, _ in finishers], torch.long)
+            self._scatter_group(grp.cache["k"][:, rows],
+                                grp.cache["v"][:, rows], slots, lens)
+            self.stats.chunk_scatters += 1
         for j, m in finishers:
             m.done = True
             self.slots[m.slot] = None     # _install re-marks the slot
@@ -479,6 +539,8 @@ class Engine:
     def _imminent_blocks(self) -> int:
         """Free blocks live slots will need at their NEXT decode step's
         boundary crossing — the headroom admission must not consume."""
+        if self.bm is None:
+            return 0
         pend = self._pending_slots()
         n = 0
         for i, r in enumerate(self.slots):
@@ -491,15 +553,19 @@ class Engine:
     # -- decode -----------------------------------------------------------------
     def _decode(self, tokens: torch.Tensor, live: torch.Tensor
                 ) -> torch.Tensor:
-        """Masked decode dispatch: dead/pending rows write through the trash
-        block (mid-chunk pending slots hold live chunk KV) and keep their
-        position frozen."""
+        """Masked decode dispatch: every row decodes, and dead/pending rows
+        keep their position frozen. Paged, their writes go through the
+        trash block (mid-chunk pending slots hold live chunk KV); contig,
+        they write at their frozen position of their own row, which a later
+        install overwrites whole."""
         self._note_shape("decode", tokens.shape, prefill=False)
         pos0 = self.cache["pos"]
-        tbl = self.cache["block_tbl"]
-        view = dict(self.cache,
-                    block_tbl=torch.where(live[:, None], tbl,
-                                          torch.zeros_like(tbl)))
+        view = self.cache
+        if self.bm is not None:
+            tbl = self.cache["block_tbl"]
+            view = dict(self.cache,
+                        block_tbl=torch.where(live[:, None], tbl,
+                                              torch.zeros_like(tbl)))
         logits, out = self.model.decode_step(self.params, view, tokens)
         self.cache["pos"] = torch.where(live, out["pos"], pos0)
         return logits
@@ -529,7 +595,7 @@ class Engine:
         for i in live:
             tokens[i, 0] = self.slots[i].generated[-1]
             mask[i] = True
-        if self.bm.sanitize:
+        if self.bm is not None and self.bm.sanitize:
             for i in live:
                 # this dispatch reads each live slot's KV history and
                 # writes the incoming token at position ctx_len - 1
@@ -545,8 +611,9 @@ class Engine:
             req = self.slots[i]
             req.generated.append(nxt[i])
             self.stats.tokens_out += 1
-            # tokens in the cache == ctx_len - 1 (§5.1 invariant)
-            self.bm.note_live(i, req.ctx_len - 1)
+            if self.bm is not None:
+                # tokens in the cache == ctx_len - 1 (§5.1 invariant)
+                self.bm.note_live(i, req.ctx_len - 1)
             if req.done:
                 finished.append(req)
                 self.slots[i] = None
@@ -591,8 +658,9 @@ class Engine:
         self._pending = []
         self._admit_finished = []
         self._preempted = []
-        self.bm.free_all()
-        self._tbl_dirty = True
+        if self.bm is not None:
+            self.bm.free_all()
+            self._tbl_dirty = True
         return reqs
 
     # -- block-granular KV export / import --------------------------------------
@@ -601,6 +669,7 @@ class Engine:
         importing it reproduces this engine's cache state for the request.
         ``pos`` defaults to ``ctx_len - 1`` (everything but the last
         generated token is in the cache), so no device sync is needed."""
+        assert self.bm is not None, "KV export requires the paged layout"
         if pos is None:
             pos = self.slots[slot].ctx_len - 1
         self.bm.check_read(slot, pos)      # no-op unless sanitize mode
@@ -613,7 +682,9 @@ class Engine:
 
     def export_live_kv(self) -> Dict[int, Dict]:
         """Payloads for every live, fully-prefilled slot, keyed by request
-        id (mid-chunked-prefill slots are skipped)."""
+        id (mid-chunked-prefill slots are skipped); none for contig."""
+        if self.bm is None:
+            return {}
         pend = self._pending_slots()
         return {r.rid: self.export_kv(slot, r.ctx_len - 1)
                 for slot, r in enumerate(self.slots)
@@ -621,9 +692,10 @@ class Engine:
 
     def import_kv(self, req: ServeRequest, payload: Dict) -> bool:
         """Admit ``req`` by attaching an exported KV payload instead of
-        recomputing its context. Returns False on any incompatibility or
-        when capacity is short (the caller retries later)."""
-        if payload.get("arch") != self.cfg.name \
+        recomputing its context. Returns False on any incompatibility (the
+        contig layout included) or when capacity is short (the caller
+        retries later)."""
+        if self.bm is None or payload.get("arch") != self.cfg.name \
                 or payload.get("block_size") != self.bm.block_size:
             return False
         if req.done or not req.generated:

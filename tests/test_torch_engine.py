@@ -1,13 +1,20 @@
-"""Engine parity: the port's paged Engine (``repro_torch``, plain PyTorch
-on the CPU) against the JAX reference Engine (``use_pallas=False``,
+"""Engine parity: the port's Engine (``repro_torch``, plain PyTorch on the
+CPU) against the JAX reference Engine (``use_pallas=False``,
 ``victim_policy="fewest"``) on the same params and requests.
 
 Greedy tokens must be identical and the scheduling counters equal, on
 scenarios mirrored from tests/test_engine_v2.py, tests/test_kv_lazy.py and
 tests/test_chunk_prefill.py: batched vs solo admission, more requests than
 slots, chunked prefill interleaving with decode, lazy grow, overcommit
-preemption with KV re-attach, and skip-ahead admission.
+preemption with KV re-attach, and skip-ahead admission on the paged
+layout; batched, more-than-slots and chunked (transient group cache plus
+finisher scatters) admission on the contiguous layout; and the MoE family
+(granite-moe, phi3.5-moe) on its auto (contiguous) layout with batch-1
+exact-length admission.
 """
+
+import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -22,19 +29,26 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.serving import Engine, ServeRequest
 
 STATS = ("prefills", "prefill_batches", "prefill_chunks", "chunk_direct",
-         "block_grows", "preemptions", "kv_imports", "alloc_failures",
-         "decode_steps", "tokens_out", "admit_deferred")
+         "chunk_scatters", "block_grows", "preemptions", "kv_imports",
+         "alloc_failures", "decode_steps", "tokens_out", "admit_deferred")
+
+
+@functools.lru_cache(maxsize=None)
+def _arch(name):
+    """(JAX config, JAX params, port config, port params) of a reduced
+    arch, the port's converted from the JAX init through numpy."""
+    jcfg = jax_config(name).reduced()
+    jparams = jax_build(jcfg, remat=False, attn_chunk=0).init(
+        jax.random.PRNGKey(0))
+    tcfg = get_config(name).reduced()
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    return jcfg, jparams, tcfg, tparams
 
 
 @pytest.fixture(scope="module")
 def setup():
-    jcfg = jax_config("internlm2-1.8b").reduced()
-    jparams = jax_build(jcfg, remat=False, attn_chunk=0).init(
-        jax.random.PRNGKey(0))
-    tcfg = get_config("internlm2-1.8b").reduced()
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
-                              device="cpu")
-    return jcfg, jparams, tcfg, tparams
+    return _arch("internlm2-1.8b")
 
 
 def _engines(setup, **kw):
@@ -152,9 +166,7 @@ SCENARIOS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_engine_matches_jax(setup, name):
-    scenario, kw = SCENARIOS[name]
+def _run_both(setup, scenario, kw):
     (je, JReq), (te, TReq) = _engines(setup, **kw)
     jreqs = scenario(je, JReq)
     treqs = scenario(te, TReq)
@@ -163,12 +175,97 @@ def test_engine_matches_jax(setup, name):
     assert all(r.done for r in treqs)
     for field in STATS:
         assert getattr(te.stats, field) == getattr(je.stats, field), field
+    assert te.kv_layout == je.kv_layout and te._group == je._group
+    return je, te
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_engine_matches_jax(setup, name):
+    scenario, kw = SCENARIOS[name]
+    _, te = _run_both(setup, scenario, kw)
     if name in ("preempt", "preempt_chunked"):
         assert te.stats.preemptions >= 1 and te.stats.kv_imports >= 1
     if name == "lazy_grow":
         assert te.stats.block_grows >= 1 and te.stats.preemptions == 0
     if "chunk" in name:
         assert te.stats.chunk_direct > 0
+
+
+CONTIG = dict(kv_layout="contig")
+CONTIG_SCENARIOS = {
+    "batched": (_batched, dict(max_batch=8, max_len=64, **CONTIG)),
+    "more_than_slots": (_more_than_slots,
+                        dict(max_batch=2, max_len=64, **CONTIG)),
+    "chunk_interleave": (_chunk_interleave,
+                         dict(max_batch=2, max_len=64, prefill_chunk=8,
+                              **CONTIG)),
+    "staggered_chunks": (_staggered_chunks,
+                         dict(max_batch=4, max_len=64, prefill_chunk=8,
+                              **CONTIG)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONTIG_SCENARIOS))
+def test_contig_engine_matches_jax(setup, name):
+    """Dense family on ``kv_layout="contig"``: no block manager, whole-row
+    installs, and chunked groups through a transient cache whose finishers
+    are scattered (``chunk_scatters``), token for token with the JAX
+    engine."""
+    scenario, kw = CONTIG_SCENARIOS[name]
+    _, te = _run_both(setup, scenario, kw)
+    assert te.bm is None and te.block_stats() == {}
+    assert te.stats.chunk_direct == 0
+    if "chunk" in name:
+        assert te.stats.chunk_scatters > 0
+
+
+MOE_SCENARIOS = {
+    "batched": (_batched, dict(max_batch=8, max_len=64)),
+    "more_than_slots": (_more_than_slots, dict(max_batch=2, max_len=64)),
+    "long_prompts_not_chunked": (_staggered_chunks,
+                                 dict(max_batch=4, max_len=64,
+                                      prefill_chunk=8)),
+}
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("name", sorted(MOE_SCENARIOS))
+def test_moe_engine_matches_jax(arch, name):
+    """MoE on ``kv_layout="auto"``: the contiguous layout, batch-1
+    exact-length admission (never padded, never chunked), every row
+    decoding with dead rows fed token 0 — token for token with the JAX
+    engine, whose capacity drops depend on all of that."""
+    scenario, kw = MOE_SCENARIOS[name]
+    _, te = _run_both(_arch(arch), scenario, kw)
+    assert te.kv_layout == "contig" and te._group == 1 and te.bm is None
+    assert te.stats.prefill_chunks == 0
+    assert te.stats.prefill_batches == te.stats.prefills
+
+
+def test_moe_batched_matches_solo_in_port():
+    """Batch-1 exact-length admission is what makes a MoE request's tokens
+    independent of the requests admitted with it, as in the reference."""
+    _, _, tcfg, tparams = _arch("phi3.5-moe-42b-a6.6b")
+    eng = Engine(tcfg, tparams, device="cpu", max_batch=1, max_len=64)
+    rs = [ServeRequest(prompt=list(range(1, 4 + 3 * i)),
+                       max_new_tokens=4 + i) for i in range(3)]
+    for r in rs:
+        eng.admit(r)
+        eng.drain()
+    for r in rs:
+        solo = Engine(tcfg, tparams, device="cpu", max_batch=1, max_len=64)
+        r2 = ServeRequest(prompt=list(r.prompt),
+                          max_new_tokens=r.max_new_tokens)
+        solo.admit(r2)
+        solo.drain()
+        assert list(r2.generated) == list(r.generated)
+
+
+def test_moe_refuses_the_paged_layout():
+    _, _, tcfg, tparams = _arch("granite-moe-3b-a800m")
+    with pytest.raises(ValueError):
+        Engine(tcfg, tparams, device="cpu", kv_layout="paged")
 
 
 def test_batched_matches_solo_in_port(setup):
@@ -204,7 +301,9 @@ def test_retrace_count_bounded_by_buckets(setup):
 
 def test_unported_options_raise(setup):
     _, _, tcfg, tparams = setup
-    for kw in (dict(victim_policy="cost"), dict(prefix_share=True),
-               dict(kv_layout="contig")):
+    for kw in (dict(victim_policy="cost"), dict(prefix_share=True)):
         with pytest.raises(NotImplementedError):
             Engine(tcfg, tparams, device="cpu", **kw)
+    ssm = dataclasses.replace(tcfg, family="ssm")   # kernel 6, not ported
+    with pytest.raises(NotImplementedError):
+        Engine(ssm, tparams, device="cpu")

@@ -1,11 +1,17 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's five CUDA kernels against their plain PyTorch versions, on the
+card, and the engine on the card against the engine on the CPU.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
 there is no card (the check runs inside the fixture, never at import, so
 every pytest-xdist worker collects the same tests). On a machine with an
-H100 run them with ``PYTHONPATH=src python -m pytest -m gpu
-tests/test_torch_kernels_gpu.py``. Tolerances: bf16 2e-2, fp32 1e-4 (the
-kernels sum in another order than the plain versions' einsums).
+H100 run them with ``PYTHONPATH=src python -m pytest -m gpu --noconftest
+tests/test_torch_kernels_gpu.py`` (this file imports no JAX; the suite's
+conftest does). Each kernel is held against its plain version evaluated in
+fp32 on the same input values (``_ref``): bf16 atol 5e-3 and rtol 2e-2 (the
+kernel rounds P and the output to bf16; the bf16 plain version rounds the
+normalised probabilities too and is itself up to ~2e-2 off in rows of a few
+keys), fp32 1e-4 (the kernels sum in another order than the plain
+versions' einsums).
 """
 
 import numpy as np
@@ -30,8 +36,15 @@ def cuda():
 
 
 def _tol(dtype):
-    t = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    return dict(atol=t, rtol=t)
+    if dtype == torch.bfloat16:
+        return dict(atol=5e-3, rtol=2e-2)
+    return dict(atol=1e-4, rtol=1e-4)
+
+
+def _ref(plain, *args, **kw):
+    """``plain`` evaluated in fp32 on the same input values."""
+    return plain(*(a.float() if torch.is_tensor(a) and a.is_floating_point()
+                   else a for a in args), **kw)
 
 
 def _rand(rng, shape, dtype, dev):
@@ -58,11 +71,12 @@ def test_decode_kernel_matches_plain(cuda, dtype, nh, nkv, d, window):
     tbl[2] = 0                                  # dead row on the trash block
     q = _rand(rng, (b, 1, nh, d), dtype, cuda)
     pos = torch.tensor([0, 37, 79], dtype=torch.int32, device=cuda)
-    n0 = da.launch_count
+    n0 = da.launch_counts["decode_attention_paged"]
     out = ops.decode_attention_paged(q, pk, pv, tbl, pos, window=window)
-    assert da.launch_count == n0 + 1
-    ref = da.decode_attention_paged_plain(q, pk, pv, tbl, pos, window=window)
-    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    assert da.launch_counts["decode_attention_paged"] == n0 + 1
+    ref = _ref(da.decode_attention_paged_plain, q, pk, pv, tbl, pos,
+               window=window)
+    torch.testing.assert_close(out.float(), ref, **_tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -77,32 +91,87 @@ def test_chunk_kernel_matches_plain(cuda, dtype, c, vecbase, window):
     bases = (torch.tensor([0, 50], dtype=torch.int32, device=cuda)
              if vecbase else 30)
     out = ops.chunk_attention_paged(q, pk, pv, tbl, bases, window=window)
-    ref = ca.chunk_attention_paged_plain(q, pk, pv, tbl, bases,
-                                         window=window)
-    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    ref = _ref(ca.chunk_attention_paged_plain, q, pk, pv, tbl, bases,
+               window=window)
+    torch.testing.assert_close(out.float(), ref, **_tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("s,causal,window", [(64, True, None),
-                                             (77, True, 16),
-                                             (50, False, None)])
-def test_flash_kernel_matches_plain(cuda, dtype, s, causal, window):
+@pytest.mark.parametrize("b,s,nh,nkv,d,causal,window", [
+    (2, 64, 8, 2, 32, True, None),
+    (2, 77, 8, 2, 32, True, 16),
+    (2, 50, 8, 2, 32, False, None),
+    (1, 1281, 32, 8, 128, True, None),      # a MoE batch-1 exact-length prompt
+])
+def test_flash_kernel_matches_plain(cuda, dtype, b, s, nh, nkv, d, causal,
+                                    window):
     rng = np.random.RandomState(2)
-    b, nh, nkv, d = 2, 8, 2, 32
     q = _rand(rng, (b, s, nh, d), dtype, cuda)
     k = _rand(rng, (b, s, nkv, d), dtype, cuda)
     v = _rand(rng, (b, s, nkv, d), dtype, cuda)
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
-    ref = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    torch.testing.assert_close(out.float(), ref.float(), **_tol(dtype))
+    ref = _ref(fa.flash_attention_plain, q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), ref, **_tol(dtype))
 
 
-def test_engine_tokens_match_cpu(cuda):
-    """fp32 greedy tokens and counters: Engine on the card == on the CPU."""
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s,nh,nkv,d,window", [(37, 8, 2, 16, None),
+                                               (40, 4, 4, 32, 8),
+                                               (2080, 32, 8, 128, None),
+                                               (2080, 64, 8, 128, None)])
+def test_contig_decode_kernel_matches_plain(cuda, dtype, s, nh, nkv, d,
+                                            window):
+    """Kernel 4: ragged S, SWA, and a dead row frozen past its row's end."""
+    rng = np.random.RandomState(3)
+    b = 3
+    ck = _rand(rng, (b, s, nkv, d), dtype, cuda)
+    cv = _rand(rng, (b, s, nkv, d), dtype, cuda)
+    q = _rand(rng, (b, 1, nh, d), dtype, cuda)
+    pos = torch.tensor([0, s // 2, s], dtype=torch.int32, device=cuda)
+    n0 = da.launch_counts["decode_attention"]
+    out = ops.decode_attention(q, ck, cv, pos, window=window)
+    assert da.launch_counts["decode_attention"] == n0 + 1
+    ref = _ref(da.decode_attention_plain, q, ck, cv, pos, window=window)
+    torch.testing.assert_close(out.float(), ref, **_tol(dtype))
+    out = ops.decode_attention(q, ck, cv, s - 3, window=window)  # scalar
+    ref = _ref(da.decode_attention_plain, q, ck, cv, s - 3, window=window)
+    torch.testing.assert_close(out.float(), ref, **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,s,vecbase,window", [(16, 64, False, None),
+                                                (13, 37, True, None),
+                                                (40, 100, True, 8)])
+def test_contig_chunk_kernel_matches_plain(cuda, dtype, c, s, vecbase,
+                                           window):
+    """Kernel 5: any C and S, scalar or per-row bases, SWA."""
+    rng = np.random.RandomState(4)
+    b, nh, nkv, d = 2, 8, 2, 64
+    ck = _rand(rng, (b, s, nkv, d), dtype, cuda)
+    cv = _rand(rng, (b, s, nkv, d), dtype, cuda)
+    q = _rand(rng, (b, c, nh, d), dtype, cuda)
+    bases = (torch.tensor([0, s - c], dtype=torch.int32, device=cuda)
+             if vecbase else (s - c) // 2)
+    n0 = ca.launch_counts["chunk_attention"]
+    out = ops.chunk_attention(q, ck, cv, bases, window=window)
+    assert ca.launch_counts["chunk_attention"] == n0 + 1
+    ref = _ref(ca.chunk_attention_plain, q, ck, cv, bases, window=window)
+    torch.testing.assert_close(out.float(), ref, **_tol(dtype))
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("qwen3-32b", dict(max_batch=4, max_len=64, prefill_chunk=8)),
+    ("qwen3-32b", dict(max_batch=4, max_len=64, prefill_chunk=8,
+                       kv_layout="contig")),
+    ("phi3.5-moe-42b-a6.6b", dict(max_batch=2, max_len=64)),
+])
+def test_engine_tokens_match_cpu(cuda, arch, kw):
+    """fp32 greedy tokens and counters: Engine on the card == on the CPU,
+    paged, contig and MoE."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving import Engine, ServeRequest
-    cfg = get_config("qwen3-32b").reduced()
+    cfg = get_config(arch).reduced()
     cpu_params = build_model(cfg, device="cpu").init(seed=0)
 
     def to(tree, dev):
@@ -112,11 +181,13 @@ def test_engine_tokens_match_cpu(cuda):
 
     outs = []
     for dev, params in ((cuda, to(cpu_params, cuda)), ("cpu", cpu_params)):
-        eng = Engine(cfg, params, device=dev, max_batch=4, max_len=64,
-                     prefill_chunk=8)
+        eng = Engine(cfg, params, device=dev, **kw)
         rs = [ServeRequest(prompt=list(range(1 + i, 6 + 9 * i)),
                            max_new_tokens=6) for i in range(4)]
-        eng.admit_many(rs)
-        eng.drain()
+        left = rs
+        while left:                         # more requests than MoE slots
+            taken = {id(r) for r in eng.admit_many(left)}
+            left = [r for r in left if id(r) not in taken]
+            eng.drain()
         outs.append(([r.generated for r in rs], eng.stats))
     assert outs[0] == outs[1]

@@ -5,8 +5,12 @@ JAX reference LM on JAX-initialised params converted through numpy.
 table snapshots, ``lens`` masking) and ``decode_step`` must give the same
 logits and the same pool contents at written positions (fp32, 2e-5), on
 reduced qwen3-32b (GQA), qwen2-0.5b (qkv bias, tied embeddings) and
-h2o-danube-3-4b (sliding window).
+h2o-danube-3-4b (sliding window). On the contiguous layout: MoE prefill and
+decode (granite-moe, phi3.5-moe), dense chunk chains against one full
+prefill, and the MoE param tree through ``params_from_jax``.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -121,3 +125,156 @@ def test_seeded_init_is_deterministic_and_shaped():
         jax.random.PRNGKey(0))
     shapes = jax.tree.map(lambda x: tuple(x.shape), jp)
     assert shapes == m.param_shapes()
+
+
+# -- contiguous layout and the MoE family ----------------------------------
+
+MOE_ARCHS = ["granite-moe-3b-a800m", "phi3.5-moe-42b-a6.6b"]
+
+
+def _pair_models(arch):
+    jcfg = jax_config(arch).reduced()
+    jm = jax_build(jcfg, remat=False, attn_chunk=0)
+    jparams = jm.init(jax.random.PRNGKey(0))
+    tcfg = get_config(arch).reduced()
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    return jm, jparams, build_model(tcfg, device="cpu"), tparams
+
+
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def moe_models(request):
+    return _pair_models(request.param)
+
+
+def test_moe_prefill_decode_match_jax_on_contig(moe_models):
+    """MoE prefill into a fresh contiguous cache, then per-row-position
+    decode steps (one row frozen at the cache end, clamped as in the
+    reference): logits and cache contents match the JAX LM."""
+    jm, jparams, tm, tparams = moe_models
+    rng = np.random.RandomState(2)
+    toks = rng.randint(0, tm.cfg.vocab, (2, 9)).astype(np.int32)
+    jl, jcache = jm.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                            max_len=16, ring=False)
+    tl, tcache = tm.prefill(tparams, {"tokens": torch.from_numpy(toks)},
+                            max_len=16)
+    _close(tl, jl)
+    for key in ("k", "v"):
+        _close(tcache[key], jcache[key])
+    assert tcache["pos"].tolist() == [9, 9]
+    jcache["pos"] = jnp.asarray([9, 15], jnp.int32)   # row 1 at the end
+    tcache["pos"] = torch.tensor([9, 15], dtype=torch.int32)
+    for _ in range(3):
+        nxt = rng.randint(0, tm.cfg.vocab, (2, 1)).astype(np.int32)
+        jl, jcache = jm.decode_step(jparams, jcache, jnp.asarray(nxt))
+        tl, tcache = tm.decode_step(tparams, tcache, torch.from_numpy(nxt))
+        _close(tl, jl)
+        for key in ("k", "v"):
+            _close(tcache[key], jcache[key])
+        np.testing.assert_array_equal(tcache["pos"].numpy(),
+                                      np.asarray(jcache["pos"]))
+
+
+def test_moe_paged_decode_matches_jax():
+    """On the paged layout (which the engine never picks for MoE) the LM
+    works as the reference's does."""
+    jm, jparams, tm, tparams = _pair_models("phi3.5-moe-42b-a6.6b")
+    rng = np.random.RandomState(3)
+    toks = rng.randint(0, tm.cfg.vocab, (2, 10)).astype(np.int32)
+    tbl = np.array([[1, 2], [3, 4]], np.int32)
+    jcache = jm.init_cache(2, 16, vector_pos=True, kv_layout="paged",
+                           n_blocks=5, block_size=8)
+    jcache["block_tbl"] = jnp.asarray(tbl)
+    tcache = tm.init_cache(2, 16, kv_layout="paged", n_blocks=5,
+                           block_size=8)
+    tcache["block_tbl"] = torch.from_numpy(tbl)
+    jl, jcache = jm.prefill(jparams, {"tokens": jnp.asarray(toks)},
+                            cache=jcache)
+    tl, tcache = tm.prefill(tparams, {"tokens": torch.from_numpy(toks)},
+                            cache=tcache)
+    _close(tl, jl)
+    nxt = rng.randint(0, tm.cfg.vocab, (2, 1)).astype(np.int32)
+    jl, _ = jm.decode_step(jparams, jcache, jnp.asarray(nxt))
+    tl, _ = tm.decode_step(tparams, tcache, torch.from_numpy(nxt))
+    _close(tl, jl)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "h2o-danube-3-4b"])
+def test_contig_prefill_chunk_chain_matches_full_prefill_and_jax(arch):
+    """Chunks of 7 appended to a contiguous cache equal one full prefill
+    (logits at the last position, K/V of every position) and match the
+    JAX LM's chunk by chunk; decode then continues identically."""
+    jm, jparams, tm, tparams = _pair_models(arch)
+    rng = np.random.RandomState(4)
+    b, n, c, max_len = 2, 21, 7, 32
+    toks = rng.randint(0, tm.cfg.vocab, (b, n)).astype(np.int32)
+    full_l, full = tm.prefill(tparams, {"tokens": torch.from_numpy(toks)},
+                              max_len=max_len)
+    tcache = tm.init_cache(b, max_len)
+    jcache = jm.init_cache(b, max_len, ring=False)
+    for base in range(0, n, c):
+        ch = toks[:, base:base + c]
+        tl, tcache = tm.prefill_chunk(tparams, tcache, torch.from_numpy(ch),
+                                      base)
+        jl, jcache = jm.prefill_chunk(jparams, jcache, jnp.asarray(ch),
+                                      jnp.asarray(base, jnp.int32))
+        _close(tl, jl)
+        assert tcache["pos"].tolist() == [base + c] * b
+    torch.testing.assert_close(tl, full_l, atol=2e-5, rtol=2e-5)
+    for key in ("k", "v"):
+        torch.testing.assert_close(tcache[key], full[key], atol=2e-5,
+                                   rtol=2e-5)
+        _close(tcache[key], jcache[key])
+    nxt = rng.randint(0, tm.cfg.vocab, (b, 1)).astype(np.int32)
+    jcache["pos"] = jnp.full((b,), n, jnp.int32)
+    jl, _ = jm.decode_step(jparams, jcache, jnp.asarray(nxt))
+    tl, _ = tm.decode_step(tparams, tcache, torch.from_numpy(nxt))
+    _close(tl, jl)
+
+
+def test_params_from_jax_takes_the_moe_tree(moe_models):
+    """The MoE tree converts with no transposes: every leaf equal, the
+    expert stacks shaped (L, E, d_in, d_out) as in the reference."""
+    _, jparams, tm, tparams = moe_models
+    c = tm.cfg
+    moe = tparams["layers"]["moe"]
+    assert sorted(moe) == ["router", "w_down", "w_gate", "w_up"]
+    assert "mlp" not in tparams["layers"]
+    assert tuple(moe["w_up"].shape) == (c.n_layers, c.n_experts, c.d_model,
+                                        c.d_ff)
+    assert tuple(moe["w_down"].shape) == (c.n_layers, c.n_experts, c.d_ff,
+                                          c.d_model)
+    for key, leaf in moe.items():
+        np.testing.assert_array_equal(
+            leaf.numpy(), np.asarray(jparams["layers"]["moe"][key]))
+    assert jax.tree.map(lambda x: tuple(x.shape), jparams) == \
+        tm.param_shapes()
+    bad = jax.tree.map(np.asarray, jparams)
+    bad["layers"]["moe"]["w_up"] = bad["layers"]["moe"]["w_up"][..., :-1]
+    with pytest.raises(ValueError):
+        params_from_jax(bad, c, device="cpu")
+
+
+def test_ring_cache_and_unported_families_raise():
+    tm = build_model(get_config("h2o-danube-3-4b").reduced(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tm.init_cache(1, 16, ring=True)
+    ssm = dataclasses.replace(get_config("qwen3-32b").reduced(),
+                              family="ssm")
+    with pytest.raises(NotImplementedError):
+        build_model(ssm, device="cpu")
+
+
+def test_prefill_chunk_without_table_needs_a_contig_cache():
+    """``prefill_chunk`` writes through ``block_tbl`` (engine-direct) or
+    into a contiguous cache at one scalar base; a paged cache without the
+    rows' table, or per-row bases on a contiguous cache, raise."""
+    tm = build_model(get_config("qwen3-32b").reduced(), device="cpu")
+    params = tm.init(seed=0)
+    toks = torch.zeros((2, 4), dtype=torch.long)
+    paged = tm.init_cache(2, 16, kv_layout="paged", block_size=8)
+    with pytest.raises(ValueError):
+        tm.prefill_chunk(params, paged, toks, 0)
+    with pytest.raises(ValueError):
+        tm.prefill_chunk(params, tm.init_cache(2, 16), toks,
+                         torch.tensor([0, 4]))
