@@ -10,7 +10,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and power limit; turn TF32 off for matmuls and cuDNN (fp32 stays fp32);
 2. build the hand-written kernels (``src/repro_torch/kernels/csrc``) with
    nvcc and print the build seconds and the ptxas register report;
-3. kernels vs plain on the card: each of the five kernels against its
+3. kernels vs plain on the card: each of the six kernels against its
    plain PyTorch version evaluated in fp32 on the same input values (the
    bf16 plain version's own error is logged beside it), at the shapes
    each serving path of phase 5 gives it and at small ragged shapes, in
@@ -18,21 +18,26 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (atol=5e-3, rtol=2e-2) and fp32 (atol=rtol=1e-4: the kernel sums in
    another order than the plain version's einsum); GQA and MHA, SWA,
    scalar and per-row positions / bases, ragged chunk, sequence and cache
-   lengths, dead decode rows. At each kernel's main shape it times the
-   kernel, the plain version and, as a yardstick the port never calls,
-   ``F.scaled_dot_product_attention`` on the gathered / head-repeated K/V,
-   and computes the bound (bytes over 3.35 TB/s vs operations over 989
-   TFLOP/s bf16; only the keys each row reaches, each byte once);
+   lengths, dead decode rows, zamba2's head dim 80; the SSD scan's y and
+   final state, ragged S, one and several chunks, an initial state. At
+   each kernel's main shape it times the kernel, the plain version and, as
+   a yardstick the port never calls, ``F.scaled_dot_product_attention`` on
+   the gathered / head-repeated K/V (none for the SSD scan: no single
+   PyTorch call computes it), and computes the bound (bytes over 3.35 TB/s
+   vs operations over 989 TFLOP/s bf16; only the keys each row reaches,
+   each byte once);
 4. engine parity, fp32: reduced configs, one init each, the same requests
    through the Engine on the card (kernels) and on the CPU (plain): paged
    bucketed, direct-to-pool chunked and overcommitted (grow + preempt)
    qwen3-32b; contig bucketed and contig chunked qwen3-32b; phi3.5-moe and
    granite-moe on their auto (contig) layout with more requests than
-   slots. Greedy tokens and counters must match, every kernel must have
-   launched, and for MoE the smallest gap between the k-th and (k+1)-th
-   router probability is logged (a routing flip on a near-tie is then told
-   apart from a bug);
-5. three serving paths at full width, bf16, random weights from a seeded
+   slots; mamba2-1.3b and zamba2-2.7b with SSD chunks of 8 (prompts span
+   several), more requests than slots and an equal-length pair batched
+   into one group. Greedy tokens and counters must match, every kernel
+   must have launched (each recurrent scenario its own), and for MoE the
+   smallest gap between the k-th and (k+1)-th router probability is logged
+   (a routing flip on a near-tie is then told apart from a bug);
+5. five serving paths at full width, bf16, random weights from a seeded
    generator on the card, the same traffic (16 requests of 64-2048 prompt
    tokens, some past ``prefill_chunk=512``, 32 new tokens each,
    ``max_len`` 2080, 8 slots); for each, one untimed warm-up pass, then
@@ -48,7 +53,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    moe    Phi-3.5-MoE widths (d_model 4096, 32/8 heads, head dim 128, 16
           experts top-2, expert d_ff 6400, vocab 32064), depth
           ``--moe-layers``, auto (contig) layout, batch-1 exact-length
-          admission: contig decode, flash.
+          admission: contig decode, flash;
+   ssm    mamba2-1.3b at full width and full depth (48 layers, 64 SSD
+          heads of 64, state 128), auto (contig) layout, exact-length
+          groups: the SSD scan;
+   hybrid zamba2-2.7b at full width and full depth (54 Mamba2 layers, 9
+          shared-block applications, 32/32 heads of dim 80), auto (contig)
+          layout, exact-length groups: the SSD scan, flash, contig decode.
    Each model's params are freed before the next path is built;
 6. a JSON line of per-kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -78,6 +89,7 @@ from repro_torch.kernels import chunk_attention as ca  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.serving import Engine, ServeRequest  # noqa: E402
@@ -95,11 +107,14 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense FLOP/s
 TOL = {torch.bfloat16: (5e-3, 2e-2), torch.float32: (1e-4, 1e-4)}
 QWEN = dict(nh=64, nkv=8, d=128)              # Qwen3-32B attention geometry
 PHI = dict(nh=32, nkv=8, d=128)               # Phi-3.5-MoE attention geometry
+ZAMBA = dict(nh=32, nkv=32, d=80)             # zamba2-2.7b shared attention
+GROUP = 4                     # the Engine's prefill_group: rows per prefill
 BS = 16                       # the serving paths' KV block size
 MAX_LEN = 2080                # 2048-token prompt + 32 new tokens
 MOE = "phi3.5-moe-42b-a6.6b"
 # serving paths of phase 5: the config, the Engine's layout and the kernels
-# the path must launch; a config's depth flag is DEPTH_FLAG[config]
+# the path must launch; a config's depth flag is DEPTH_FLAG[config], and a
+# config without one runs at full depth
 PATHS = {
     "main": ("qwen3-32b", "auto",
              ("decode_attention_paged", "chunk_attention_paged",
@@ -107,6 +122,9 @@ PATHS = {
     "contig": ("qwen3-32b", "contig",
                ("decode_attention", "chunk_attention", "flash_attention")),
     "moe": (MOE, "auto", ("decode_attention", "flash_attention")),
+    "ssm": ("mamba2-1.3b", "auto", ("ssd_scan",)),
+    "hybrid": ("zamba2-2.7b", "auto",
+               ("ssd_scan", "flash_attention", "decode_attention")),
 }
 DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers"}
 ALL_PHASES = ("build", "kernels", "parity") + tuple(PATHS)
@@ -306,13 +324,15 @@ def compare(name, run, plain, cases) -> tuple:
 
 
 def measure(name, module, run, plain, args, err, library, work, shape,
-            plain_iters: int = 5) -> dict:
-    """Time the kernel, its plain version and the library yardstick on the
-    main case; the bound comes from ``work`` (bytes, operations)."""
-    ms = time_ms(lambda: run(*args))
-    plain_ms = time_ms(lambda: plain(*args), iters=plain_iters,
+            plain_iters: int = 5, kw=None) -> dict:
+    """Time the kernel, its plain version and the library yardstick (None:
+    there is no library call) on the main case; the bound comes from
+    ``work`` (bytes, operations)."""
+    kw = kw or {}
+    ms = time_ms(lambda: run(*args, **kw))
+    plain_ms = time_ms(lambda: plain(*args, **kw), iters=plain_iters,
                        warmup=min(3, plain_iters))
-    lib_ms = time_ms(library)
+    lib_ms = None if library is None else time_ms(library)
     b_ms, b_by = bound(*work, torch.bfloat16)
     return dict(name=name, route="cuda", source=module.SOURCE,
                 replaces=module.REPLACES[name], max_abs_err=err, ms=ms,
@@ -349,13 +369,13 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
     positions and one dead row (paged: on the trash table; contiguous:
     frozen one past the end of its row, where the kernel clamps its reach).
     Paged (kernel 1) at the main path's Qwen3-32B heads; contiguous (kernel
-    4) at Phi-3.5-MoE's 32/8 heads (MoE path, timed) and Qwen3-32B's 64/8
-    (contig path)."""
+    4) at Phi-3.5-MoE's 32/8 heads (MoE path, timed), Qwen3-32B's 64/8
+    (contig path) and zamba2's 32/32 of dim 80 (hybrid path)."""
     name = "decode_attention_paged" if paged else "decode_attention"
     plain = getattr(da, name + "_plain")
     run = in_fp32(plain) if rehearsal else getattr(da, name)
     bf, f32 = torch.bfloat16, torch.float32
-    geos = [QWEN] if paged else [PHI, QWEN]
+    geos = [QWEN] if paged else [PHI, QWEN, ZAMBA]
     B, S = 8, (64 if rehearsal else MAX_LEN)
     nh, nkv, d = _geometry(geos[0], rehearsal)
     specs = [(bf, (*_geometry(g, rehearsal), B, S, BS), None, True,
@@ -364,7 +384,9 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
         (bf, (4, 2, 16, 3, 37, 8), None, True, "GQA 4/2 d16 S=37 bf16"),
         (f32, (4, 2, 16, 3, 37, 8), None, True, "GQA 4/2 d16 S=37 fp32"),
         (f32, (4, 4, 32, 3, 40, 8), 8, False, "MHA d32 SWA=8 scalar pos fp32"),
-        (f32, (8, 2, 64, 2, 300, 16), None, True, "GQA 8/2 d64 S=300 fp32")]
+        (f32, (8, 2, 64, 2, 300, 16), None, True, "GQA 8/2 d64 S=300 fp32"),
+        (bf, (4, 4, 80, 3, 37, 8), None, True, "MHA d80 S=37 bf16"),
+        (f32, (4, 4, 80, 3, 37, 8), None, True, "MHA d80 S=37 fp32")]
 
     def cases():
         for dtype, (h, kv, dd, b, s, bs), win, vec, label in specs:
@@ -447,9 +469,10 @@ def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
 
 def kernel_flash(cs, dev, rehearsal) -> dict:
     """Causal prefill attention: the dense paths' 4-prompt group at the
-    512-token bucket (Qwen3-32B heads, timed), and the MoE path's batch-1
+    512-token bucket (Qwen3-32B heads, timed), the MoE path's batch-1
     exact-length prompts at Phi-3.5-MoE's 32/8 heads (2048 and 1281
-    tokens, the workload's longest two)."""
+    tokens, the workload's longest two), and the hybrid path's exact-length
+    groups of 4 rows at zamba2's 32/32 heads of dim 80 (2048 tokens)."""
     plain = fa.flash_attention_plain
     run = in_fp32(plain) if rehearsal else fa.flash_attention
     bf, f32 = torch.bfloat16, torch.float32
@@ -462,6 +485,10 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
          f"MoE prompt 32/8 S={n1} bf16"),
         (bf, (*_geometry(PHI, rehearsal), 1, n2), True, None,
          f"MoE prompt 32/8 S={n2} bf16"),
+        (bf, (*_geometry(ZAMBA, rehearsal), GROUP, n1), True, None,
+         f"zamba2 group 32/32 d80 S={n1} bf16"),
+        (bf, (4, 4, 80, 2, 77), True, None, "MHA d80 S=77 bf16"),
+        (f32, (4, 4, 80, 2, 77), True, None, "MHA d80 S=77 fp32"),
         (bf, (nh, nkv, d, 2, n3), True, 128, "ragged S, SWA=128 bf16"),
         (bf, (4, 2, 16, 2, 37), True, None, "GQA 4/2 d16 S=37 bf16"),
         (f32, (4, 2, 16, 2, 37), True, None, "GQA 4/2 d16 S=37 fp32"),
@@ -484,16 +511,92 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
                    f"bf16")
 
 
+def ssd_inputs(cs, b, s, nh, hd, n, dtype, init: bool) -> tuple:
+    """SSD scan arguments as the model gives them: x, B and C strided views
+    of one conv output, dt > 0 and a < 0 in fp32; an initial state when
+    ``init``."""
+    xbc = cs.randn(b, s, nh * hd + 2 * n, dtype=dtype) * 0.5
+    x = xbc[..., :nh * hd].reshape(b, s, nh, hd)
+    bm, cm = xbc[..., nh * hd:nh * hd + n], xbc[..., nh * hd + n:]
+    dt = cs.randn(b, s, nh, dtype=torch.float32).abs() * 0.1 + 0.01
+    a = -cs.randn(nh, dtype=torch.float32).abs() - 0.1
+    h0 = (cs.randn(b, nh, hd, n, dtype=torch.float32) * 0.2 if init
+          else None)
+    return (x, dt, a, bm, cm), h0
+
+
+def ssd_work(b, s, nh, hd, n, q, esz) -> tuple:
+    """Bytes and operations of one SSD scan: x, y, B, C, dt, a and the final
+    state moved once each; C B^T once per (row, chunk), shared by the heads
+    as the kernel computes it (2 q^2 N), and per (row, head, chunk) the
+    masked product, the carried state's contribution and the state update
+    (2 q^2 hd + 4 q N hd), q the chunk's real length."""
+    qs = [min(q, s - t) for t in range(0, s, q)]
+    nbytes = (2 * b * s * nh * hd * esz + 2 * b * s * n * esz
+              + 4 * (b * s * nh + nh + b * nh * hd * n))
+    flops = sum(b * 2 * c * c * n + b * nh * (2 * c * c * hd + 4 * c * n * hd)
+                for c in qs)
+    return nbytes, float(flops)
+
+
+def kernel_ssd(cs, dev, rehearsal) -> dict:
+    """The Mamba2 SSD scan (kernel 6): y and the final state, at the shapes
+    the ssm path (mamba2-1.3b: 64 heads of 64, N 128) and the hybrid path
+    (zamba2-2.7b: 80 heads of 64, N 64) give it — exact-length groups of 4
+    rows at the workload's longest prompt (2048, timed for mamba2) and a
+    ragged one (1281), Q 128 — and one 2048-token row; and at small ragged
+    shapes (S=37 and 100 with Q=64: one chunk and several, B > 1, an
+    initial state) in bf16 and fp32."""
+    name = "ssd_scan"
+    plain = ssd.ssd_scan_plain
+    run = in_fp32(plain) if rehearsal else ssd.ssd_scan
+    bf, f32 = torch.bfloat16, torch.float32
+    # (heads, head dim, state, chunk) of mamba2-1.3b and zamba2-2.7b
+    m2 = (8, 16, 16, 16) if rehearsal else (64, 64, 128, 128)
+    zb = (8, 16, 16, 16) if rehearsal else (80, 64, 64, 128)
+    s1, s2 = (40, 23) if rehearsal else (2048, 1281)
+    specs = [
+        (bf, (GROUP, s1, *m2), False, f"main mamba2 group S={s1} bf16"),
+        (bf, (1, s1, *m2), False, f"mamba2 one row S={s1} bf16"),
+        (bf, (GROUP, s1, *zb), False, f"zamba2 group S={s1} bf16"),
+        (bf, (GROUP, s2, *zb), False, f"zamba2 group ragged S={s2} bf16"),
+        (bf, (2, 37, 4, 16, 16, 64), False, "S=37 Q=64 one chunk bf16"),
+        (f32, (2, 37, 4, 16, 16, 64), False, "S=37 Q=64 one chunk fp32"),
+        (bf, (3, 100, 4, 32, 32, 64), True, "S=100 Q=64 h0 bf16"),
+        (f32, (3, 100, 4, 32, 32, 64), True, "S=100 Q=64 h0 fp32"),
+        (f32, (2, 100, 8, 64, 128, 64), False, "N=128 S=100 Q=64 fp32")]
+    main = None
+    for dtype, (b, s, nh, hd, n, q), init, label in specs:
+        args, h0 = ssd_inputs(cs, b, s, nh, hd, n, dtype, init)
+        kw = dict(chunk=q, h0=h0)
+        ref = [t.float() for t in in_fp32(plain)(*args, **kw)]
+        plain_out = plain(*args, **kw)
+        errs = []
+        for out, r, p_out, part in zip(run(*args, **kw), ref, plain_out,
+                                       ("y", "h")):
+            p_err = (p_out.float() - r).abs().max().item()
+            errs.append(check(name, out, r, dtype, f"{label} {part}", p_err))
+        main = main or (args, kw, max(errs), (b, s, nh, hd, n, q))
+    args, kw, err, (b, s, nh, hd, n, q) = main
+    return measure(name, ssd, run, plain, args, err, None,
+                   ssd_work(b, s, nh, hd, n, q, 2),
+                   f"x=({b},{s},{nh},{hd}) b/c=({b},{s},{n}) Q={q} strided "
+                   f"views bf16", plain_iters=3, kw=kw)
+
+
 def phase_kernels(dev, rehearsal: bool) -> list:
     cs = Cases(dev)
     rows = [kernel_decode(cs, dev, rehearsal, paged=True),
             kernel_chunk(cs, dev, rehearsal, paged=True),
             kernel_flash(cs, dev, rehearsal),
             kernel_decode(cs, dev, rehearsal, paged=False),
-            kernel_chunk(cs, dev, rehearsal, paged=False)]
+            kernel_chunk(cs, dev, rehearsal, paged=False),
+            kernel_ssd(cs, dev, rehearsal)]
     for r in rows:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         log(f"[kernels] {r['name']:24s} kernel {r['ms']:.4f} ms  plain "
-            f"{r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} ms  bound "
+            f"{r['plain_ms']:.4f} ms  library {lib}  bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['shape']}")
     return rows
 
@@ -508,6 +611,9 @@ def _requests(specs, vocab, seed):
 _BUCKETED = [(5, 8), (12, 6), (27, 9), (33, 4), (9, 7)]
 _CHUNKED = [(40, 6), (17, 5), (3, 12), (29, 8)]
 _MOE = [(5, 8), (12, 6), (27, 9), (9, 7), (20, 5)]
+# the first admission on 3 slots groups the two 12-token prompts
+_RECURRENT = [(5, 8), (12, 6), (12, 9), (27, 4), (9, 7)]
+_SSD = dict(max_batch=3, max_len=64, model_kw={"ssd_chunk": 8})
 PARITY = [
     ("bucketed", "qwen3-32b", dict(max_batch=4, max_len=64), _BUCKETED),
     ("chunked", "qwen3-32b", dict(max_batch=4, max_len=64, prefill_chunk=8),
@@ -524,7 +630,13 @@ PARITY = [
     ("moe_phi", MOE, dict(max_batch=2, max_len=64), _MOE),
     ("moe_granite", "granite-moe-3b-a800m", dict(max_batch=2, max_len=64),
      _MOE),
+    ("mamba2", "mamba2-1.3b", _SSD, _RECURRENT),
+    ("zamba2", "zamba2-2.7b", _SSD, _RECURRENT),
 ]
+# kernels a scenario's card run must launch itself
+PARITY_REQUIRED = {"mamba2": ("ssd_scan",),
+                   "zamba2": ("ssd_scan", "flash_attention",
+                              "decode_attention")}
 
 
 class RouterGap:
@@ -580,12 +692,20 @@ def phase_engine_parity(dev) -> None:
                          device=dev if where == "dev" else "cpu",
                          victim_policy="fewest", **kw)
             reqs = _requests(specs, cfg.vocab, seed=1)
+            before = ops.launch_counts()
             with RouterGap() as gap:
                 _serve(eng, reqs)
             assert all(r.done for r in reqs), name
             out[where] = ([list(r.generated) for r in reqs],
                           dataclasses.asdict(eng.stats))
             gaps[where] = gap.min
+            if where == "dev" and str(dev) != "cpu":
+                after = ops.launch_counts()
+                idle = [k for k in PARITY_REQUIRED.get(name, ())
+                        if after[k] == before[k]]
+                if idle:
+                    raise SystemExit(f"chip_smoke: {idle} never launched in "
+                                     f"the {name} parity run")
         same = out["dev"] == out["cpu"]
         extra = ""
         if cfg.n_experts:
@@ -600,6 +720,12 @@ def phase_engine_parity(dev) -> None:
         if name == "contig_chunked" and not out["dev"][1]["chunk_scatters"]:
             raise SystemExit("chip_smoke: contig chunked parity ran no "
                              "chunk scatter")
+        st = out["dev"][1]
+        if name in PARITY_REQUIRED and not (
+                st["prefill_batches"] < st["prefills"]
+                and eng.kv_layout == "contig"):
+            raise SystemExit(f"chip_smoke: {name} parity formed no group "
+                             f"of equal-length prompts: {st}")
     counts = ops.launch_counts()
     log(f"[engine-parity] launches {counts}")
     if str(dev) != "cpu" and not all(counts.values()):
@@ -625,7 +751,9 @@ def path_workload(path: str, depth: int, seed: int, rehearsal: bool):
         cfg = get_config(arch).reduced()
         n_req, lo, hi, chunk, max_len, new = 6, 4, 40, 8, 64, 4
     else:
-        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
         n_req, lo, hi, chunk, max_len, new = 16, 64, 2048, 512, MAX_LEN, 32
     eng_kw = dict(max_batch=8, max_len=max_len, prefill_chunk=chunk,
                   block_size=16, victim_policy="fewest", kv_layout=layout)
@@ -693,14 +821,14 @@ def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
     params = model.init(seed=seed)
     warm = Engine(cfg, params, device=dev, **eng_kw)
     _sync(dev)
-    cache = warm.cache["k"]
-    param_gb = model.param_count() * cache.element_size() / 1e9
+    param_gb = model.param_count() * model.dtype.itemsize / 1e9
+    cache = {k: t for k, t in warm.cache.items() if k != "pos"}
+    cache_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
     log(f"{tag} {cfg.name} widths, {cfg.n_layers} of "
         f"{get_config(cfg.name).n_layers} layers, "
         f"{model.param_count() / 1e9:.3f} B params ({param_gb:.3f} GB "
-        f"{cfg.dtype}), {warm.kv_layout} KV "
-        f"{2 * cache.numel() * cache.element_size() / 1e9:.3f} GB, init "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{cfg.dtype}), {warm.kv_layout} cache {sorted(cache)} "
+        f"{cache_gb:.3f} GB, init {time.perf_counter() - t0:.1f} s")
     # warm-up: one untimed pass of the same traffic, so the timed runs do
     # not pay for first-use cuBLAS setup, allocator growth or first launches
     t0 = time.perf_counter()
@@ -752,11 +880,14 @@ def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
 # -- optional: profiler breakdown of each path -----------------------------------
 KERNEL_NAMES = ("decode_split_kernel", "decode_combine_kernel",
                 "chunk_kernel", "flash_kernel")
+SSD_KERNEL_NAMES = ("ssd_cb_kernel", "ssd_scan_kernel")
 
 
 def _category(name: str) -> str:
     if any(k in name for k in KERNEL_NAMES):
         return "attention (port kernels)"
+    if any(k in name for k in SSD_KERNEL_NAMES):
+        return "ssd scan (port kernel)"
     low = name.lower()
     if any(k in low for k in ("gemm", "cutlass", "xmma", "gemv", "nvjet")):
         return "matmul (cuBLAS)"
@@ -836,7 +967,8 @@ def main(argv=None) -> int:
     unknown = phases - set(ALL_PHASES)
     if unknown:
         raise SystemExit(f"chip_smoke: unknown phases {sorted(unknown)}")
-    depth = {p: getattr(args, DEPTH_FLAG[PATHS[p][0]]) for p in PATHS}
+    depth = {p: getattr(args, DEPTH_FLAG[PATHS[p][0]])
+             if PATHS[p][0] in DEPTH_FLAG else None for p in PATHS}
     # serving paths run in the order --phases names them
     paths = [p for p in args.phases.split(",") if p in PATHS]
     if args.cpu_rehearsal:

@@ -1,5 +1,5 @@
-"""Registry of the configs the port serves, dense GQA and MoE (values
-copied from ``repro/configs/<id>.py``)."""
+"""Registry of the configs the port serves, dense GQA, MoE, SSM and hybrid
+(values copied from ``repro/configs/<id>.py``)."""
 
 from __future__ import annotations
 
@@ -56,9 +56,27 @@ GRANITE_MOE_3B_A800M = ArchConfig(
     subquadratic=False,
     source="hf:ibm-granite/granite-3.0-3b-a800m-base; hf")
 
+# SSD (state-space duality), attention-free: d_inner 4096, 64 SSD heads
+MAMBA2_1_3B = ArchConfig(
+    name="mamba2-1.3b", family="ssm", n_layers=48, d_model=2048, n_heads=0,
+    n_kv_heads=0, d_ff=0, vocab=50280, ssm_state=128, ssm_head_dim=64,
+    ssm_expand=2, conv_width=4, norm="rmsnorm", gated_ffn=False, act="silu",
+    tie_embeddings=True, supports_decode=True, subquadratic=True,
+    source="arXiv:2405.21060; unverified")
+
+# Mamba2 trunk + one shared attention block (over concat(x, x0)) every 6
+# trunk layers, each application with its own KV cache
+ZAMBA2_2_7B = ArchConfig(
+    name="zamba2-2.7b", family="hybrid", n_layers=54, d_model=2560,
+    n_heads=32, n_kv_heads=32, d_ff=10240, vocab=32000, head_dim=80,
+    ssm_state=64, ssm_head_dim=64, ssm_expand=2, hybrid_period=6,
+    norm="rmsnorm", gated_ffn=True, act="silu", rope_theta=10_000.0,
+    supports_decode=True, subquadratic=True,
+    source="arXiv:2411.15242; hf")
+
 REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in (
     QWEN3_32B, LLAMA31_70B, QWEN2_0_5B, INTERNLM2_1_8B, H2O_DANUBE3_4B,
-    PHI35_MOE_42B_A6_6B, GRANITE_MOE_3B_A800M)}
+    PHI35_MOE_42B_A6_6B, GRANITE_MOE_3B_A800M, MAMBA2_1_3B, ZAMBA2_2_7B)}
 
 
 def get_config(name: str) -> ArchConfig:

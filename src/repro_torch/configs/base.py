@@ -67,8 +67,23 @@ class ArchConfig:
         return (self.vocab + m - 1) // m * m
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def is_encdec(self) -> bool:
         return self.n_encoder_layers > 0
+
+    def shared_attn_positions(self) -> Tuple[int, ...]:
+        """Trunk indices after which the shared block fires (zamba2)."""
+        if self.hybrid_period <= 0:
+            return ()
+        return tuple(range(self.hybrid_period - 1, self.n_layers,
+                           self.hybrid_period))
 
     # ----- reduced config for CPU smoke tests -------------------------------
     def reduced(self) -> "ArchConfig":

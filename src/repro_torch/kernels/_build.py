@@ -37,6 +37,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points and their argument types (see csrc/*.cu)
 SIGNATURES: Dict[str, List] = {
     "rt_decode_attention_paged":
@@ -49,6 +50,8 @@ SIGNATURES: Dict[str, List] = {
         [_P] * 5 + [_I] * 7 + [_F, _I, _P],
     "rt_flash_attention":
         [_P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P],
+    "rt_ssd_scan":
+        [_P] * 9 + [_I] * 6 + [_L] * 9 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -155,7 +158,7 @@ def check(rc: int, name: str) -> None:
 
 
 # -- wrapper helpers ------------------------------------------------------------
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)     # attention kernels (80: zamba2)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -22,9 +22,9 @@
 //   int kv_row(int t);   // token row in the (rows, nkv, D) K/V layout
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace rt {
 
@@ -32,19 +32,6 @@ constexpr float kNegInf = -1e30f;
 constexpr int kTK = 32;             // keys per shared-memory tile
 constexpr int kSP = kTK + 1;        // padded score-row stride (no bank clash)
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Dynamic shared memory for `rows` query rows at head dim d.
 inline size_t smem_bytes(int rows, int d) {
@@ -380,40 +367,18 @@ __device__ void attend_mma(const P& p, const __nv_bfloat16* __restrict__ K,
   }
 }
 
-// Launch with the dynamic shared memory the row count needs, raising the
-// kernel's 48 KB default cap when required. The cap is raised once per
-// kernel and device (and again only for a larger request), not on every
-// launch: each `Kern` has its own instantiation and so its own record.
-// Returns the launch's error.
-template <auto Kern, typename Args>
-cudaError_t launch(dim3 grid, int threads, size_t smem, const Args& a,
-                   cudaStream_t stream) {
-  constexpr int kMaxDevices = 64;
-  static size_t granted[kMaxDevices] = {};
-  if (smem > 48 * 1024) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    if (dev < 0 || dev >= kMaxDevices || smem > granted[dev]) {
-      e = cudaFuncSetAttribute(
-          Kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-      if (dev >= 0 && dev < kMaxDevices) granted[dev] = smem;
-    }
-  }
-  Kern<<<grid, threads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 }  // namespace rt
 
-// Instantiate `fn<T, D>` for the supported head dims.
+// Instantiate `fn<T, D>` for the supported head dims. 80 is zamba2's: the
+// `mma.sync` body runs its 5 k-steps of 16 and 10 n-tiles of 8, and its
+// padded rows of 88 bf16 (176 B) keep the 16-byte loads aligned.
 #define RT_DISPATCH_D(d, T, fn, ...)                      \
   [&]() -> cudaError_t {                                  \
     switch (d) {                                          \
       case 16: return fn<T, 16>(__VA_ARGS__);             \
       case 32: return fn<T, 32>(__VA_ARGS__);             \
       case 64: return fn<T, 64>(__VA_ARGS__);             \
+      case 80: return fn<T, 80>(__VA_ARGS__);             \
       case 128: return fn<T, 128>(__VA_ARGS__);           \
       default: return cudaErrorInvalidValue;              \
     }                                                     \

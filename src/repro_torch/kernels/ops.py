@@ -1,4 +1,5 @@
-"""Attention dispatch (port of ``repro/kernels/ops.py``).
+"""Kernel dispatch (port of ``repro/kernels/ops.py``): attention and the
+SSD scan.
 
 The device decides, not a switch: a CUDA tensor always goes through the
 hand-written kernel (which raises on what it does not take), a CPU tensor
@@ -8,20 +9,22 @@ failed build or launch to the plain version.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import chunk_attention as _ca
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ssd_scan as _ssd
 
 # every kernel by name -> the module holding its wrapper and launch count
 KERNEL_MODULES = {"decode_attention_paged": _da,
                   "decode_attention": _da,
                   "chunk_attention_paged": _ca,
                   "chunk_attention": _ca,
-                  "flash_attention": _fa}
+                  "flash_attention": _fa,
+                  "ssd_scan": _ssd}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -61,6 +64,14 @@ def chunk_attention(q: torch.Tensor, cache_k: torch.Tensor,
                     window: Optional[int] = None) -> torch.Tensor:
     fn = _ca.chunk_attention if q.is_cuda else _ca.chunk_attention_plain
     return fn(q, cache_k, cache_v, bases, window=window)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, chunk: int = 128,
+             h0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    fn = _ssd.ssd_scan if x.is_cuda else _ssd.ssd_scan_plain
+    return fn(x, dt, a, b, c, chunk=chunk, h0=h0)
 
 
 def launch_counts() -> Dict[str, int]:

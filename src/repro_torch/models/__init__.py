@@ -1,4 +1,5 @@
-"""Model definitions of the port (dense GQA and MoE families)."""
+"""Model definitions of the port (dense GQA, MoE, SSM and hybrid
+families)."""
 
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import LM

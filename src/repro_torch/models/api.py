@@ -1,5 +1,4 @@
-"""Model construction (port of ``repro/models/api.py``, dense and MoE
-families)."""
+"""Model construction (port of ``repro/models/api.py``)."""
 
 from __future__ import annotations
 
@@ -8,7 +7,9 @@ from repro_torch.device import DeviceLike
 from repro_torch.models.transformer import LM
 
 
-def build_model(cfg: ArchConfig, device: DeviceLike = None) -> LM:
+def build_model(cfg: ArchConfig, device: DeviceLike = None,
+                ssd_chunk: int = 128) -> LM:
     """The executable model on ``device`` (default: the card; raises
-    without one unless ``device="cpu"``)."""
-    return LM(cfg, device=device)
+    without one unless ``device="cpu"``). ``ssd_chunk`` is the SSD scan's
+    chunk length (SSM / hybrid families)."""
+    return LM(cfg, device=device, ssd_chunk=ssd_chunk)

@@ -12,6 +12,7 @@ convert JAX-initialised params instead).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 class ParamDef:
     shape: Tuple[int, ...]
     names: Tuple[Optional[str], ...]
-    init: str = "normal"         # normal | zeros | ones | small_normal
+    init: str = "normal"   # normal | zeros | ones | small_normal | mamba_*
     scale: float = 0.02
 
     def __post_init__(self):
@@ -47,10 +48,17 @@ def _init_tensor(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
         return torch.zeros(d.shape, dtype=dtype, device=device)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=device)
-    if d.init not in ("normal", "small_normal"):
-        raise NotImplementedError(
-            f"init {d.init!r} belongs to the SSM family, not yet ported "
-            f"(ROADMAP: ssd_scan with SSM/hybrid)")
+    if d.init == "mamba_dt":
+        # dt bias so softplus(dt_bias) spans [1e-3, 1e-1]
+        u = torch.rand(d.shape, generator=gen, dtype=torch.float32,
+                       device=device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                       + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    if d.init == "mamba_alog":
+        n = math.prod(d.shape) or 1
+        a = torch.linspace(1.0, 16.0, n, dtype=torch.float32, device=device)
+        return torch.log(a).reshape(d.shape).to(dtype)
     scale = d.scale if d.init == "normal" else d.scale * 0.25
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                     device=device)

@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense GQA and MoE families (port of
-``repro/models/transformer.py``).
+"""Decoder-only LM: dense GQA, MoE, SSM (Mamba2) and hybrid (Zamba2)
+families (port of ``repro/models/transformer.py``).
 
 Entry points, as in the reference:
 
@@ -8,26 +8,30 @@ Entry points, as in the reference:
     a paged cache, a fresh contiguous cache at ``max_len``;
   * ``prefill_chunk(...)`` — a C-token chunk, either written straight into
     the engine pool through per-row table snapshots (engine-direct mode)
-    or appended to a contiguous cache;
+    or appended to a contiguous cache (attention families only, as in the
+    reference);
   * ``decode_step(params, cache, tokens)`` — one token per row against a
-    paged or contiguous cache.
+    paged or contiguous cache, or one recurrent step.
 
 Two KV layouts, both the reference's: the paged pool
 ``(L, n_blocks, block, nkv, d)`` with per-row block tables, and the
 contiguous ``(L, B, max_len, nkv, d)`` with per-row positions (linear only:
 sliding windows by masking; the reference's ring caches are not an engine
-path and raise). Where JAX scans the layers and donates the cache across
-the jit boundary, this port loops over the layer index and writes each
-layer's cache slice IN PLACE, so a dispatch never copies the cache: the
-cache dict a caller passes in is updated and handed back.
+path and raise). The SSM and hybrid families carry recurrent state instead,
+contiguous only: ``conv`` (L, B, K-1, d_inner+2N) in the model dtype and
+``ssd`` (L, B, nheads, head_dim, N) in fp32, plus, for the hybrid, ``ak`` /
+``av`` (n_apps, B, max_len, nkv, d) per shared-block application. Where JAX
+scans the layers (the hybrid in groups of ``hybrid_period``) and donates
+the cache across the jit boundary, this port loops over the layer index
+and writes each layer's cache slice IN PLACE, so a dispatch never copies
+the cache: the cache dict a caller passes in is updated and handed back.
 
-Attention goes through ``repro_torch.kernels.ops``: the hand-written CUDA
-kernels for tensors on the card, the plain versions for CPU tensors. The
-QKV / O / FFN / LM-head projections stay ``@`` (the JAX package leaves them
-to XLA outside any Pallas kernel).
+Attention and the SSD scan go through ``repro_torch.kernels.ops``: the
+hand-written CUDA kernels for tensors on the card, the plain versions for
+CPU tensors. The QKV / O / FFN / SSM in-out / LM-head projections stay
+``@`` (the JAX package leaves them to XLA outside any Pallas kernel).
 
-The dense and MoE families are ported; SSM, hybrid (kernel 6,
-``ssd_scan``), enc-dec and M-RoPE raise ``NotImplementedError``.
+Enc-dec and M-RoPE raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamDef, apply_rope, init_params,
                                        make_norm, norm_schema, param_count,
                                        schema_shapes, stack_schema)
@@ -55,16 +60,22 @@ def _unported(what: str) -> NotImplementedError:
         f"queue)")
 
 
+RECURRENT = ("ssm", "hybrid")       # families whose cache is SSM state
+STATE_KEYS = ("conv", "ssd")        # per-row recurrent state, no seq axis
+
+
 class LM:
-    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
-        if cfg.family in ("ssm", "hybrid"):
-            raise _unported(f"the {cfg.family} family ({cfg.name}; kernel "
-                            f"6, ssd_scan, and its paths)")
-        if cfg.family not in ("dense", "moe") or cfg.is_encdec:
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
+                 ssd_chunk: int = 128):
+        if cfg.family not in ("dense", "moe") + RECURRENT or cfg.is_encdec:
             raise _unported(f"the {cfg.family} family ({cfg.name})")
         if cfg.m_rope:
             raise _unported("M-RoPE inputs (VLM)")
+        if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid_period:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} trunk layers are "
+                             f"not whole groups of {cfg.hybrid_period}")
         self.cfg = cfg
+        self.ssd_chunk = ssd_chunk
         self.device = resolve_device(device)
         self.dtype = dtype_of(cfg.dtype)
         self.norm = make_norm(cfg.norm)
@@ -73,13 +84,14 @@ class LM:
     # ------------------------------------------------------------------ #
     # schema / params
     # ------------------------------------------------------------------ #
-    def _attn_schema(self) -> Dict:
+    def _attn_schema(self, in_dim: Optional[int] = None) -> Dict:
         c = self.cfg
+        d_in = in_dim or c.d_model
         s = {
-            "wq": ParamDef((c.d_model, c.n_heads * c.hd), ("embed", "heads")),
-            "wk": ParamDef((c.d_model, c.n_kv_heads * c.hd),
+            "wq": ParamDef((d_in, c.n_heads * c.hd), ("embed", "heads")),
+            "wk": ParamDef((d_in, c.n_kv_heads * c.hd),
                            ("embed", "kv_heads")),
-            "wv": ParamDef((c.d_model, c.n_kv_heads * c.hd),
+            "wv": ParamDef((d_in, c.n_kv_heads * c.hd),
                            ("embed", "kv_heads")),
             "wo": ParamDef((c.n_heads * c.hd, c.d_model), ("heads", "embed")),
         }
@@ -91,7 +103,7 @@ class LM:
             s["bo"] = ParamDef((c.d_model,), ("embed",), "zeros")
         return s
 
-    def _build_schema(self) -> Dict:
+    def _dense_layer_schema(self) -> Dict:
         c = self.cfg
         layer = {
             "ln_attn": norm_schema(c.norm, c.d_model),
@@ -104,12 +116,40 @@ class LM:
         else:
             layer["mlp"] = ffn_mod.ffn_schema(c.d_model, c.d_ff, c.gated_ffn,
                                               c.mlp_bias)
+        return layer
+
+    def _mamba_layer_schema(self) -> Dict:
+        c = self.cfg
+        return {
+            "ln": norm_schema(c.norm, c.d_model),
+            "mixer": ssm_mod.mamba2_schema(c.d_model, c.d_inner, c.ssm_state,
+                                           c.ssm_heads, c.conv_width),
+        }
+
+    def _shared_block_schema(self) -> Dict:
+        """Zamba2 shared transformer block: attention over concat(x, x0)."""
+        c = self.cfg
+        return {
+            "ln_attn": norm_schema(c.norm, 2 * c.d_model),
+            "attn": self._attn_schema(in_dim=2 * c.d_model),
+            "ln_mlp": norm_schema(c.norm, c.d_model),
+            "mlp": ffn_mod.ffn_schema(c.d_model, c.d_ff, c.gated_ffn,
+                                      c.mlp_bias),
+        }
+
+    def _build_schema(self) -> Dict:
+        c = self.cfg
         s = {
             "embed": {"tok": ParamDef((c.padded_vocab, c.d_model),
                                       ("vocab", "embed"))},
             "final_norm": norm_schema(c.norm, c.d_model),
-            "layers": stack_schema(layer, c.n_layers),
         }
+        if c.family in RECURRENT:
+            s["layers"] = stack_schema(self._mamba_layer_schema(), c.n_layers)
+            if c.family == "hybrid":
+                s["shared"] = self._shared_block_schema()
+        else:
+            s["layers"] = stack_schema(self._dense_layer_schema(), c.n_layers)
         if not c.tie_embeddings:
             s["lm_head"] = ParamDef((c.d_model, c.padded_vocab),
                                     ("embed", "vocab"))
@@ -236,6 +276,76 @@ class LM:
         x = x + self._out_proj(p["attn"], o)
         return x + self._mlp_or_moe(p, x)
 
+    def _mamba_layer_fwd(self, p: Dict, x: torch.Tensor):
+        c = self.cfg
+        h = self.norm(x, p["ln"])
+        y, st = ssm_mod.mamba2_prefill(
+            p["mixer"], h, c.d_inner, c.ssm_state, c.ssm_heads,
+            c.ssm_head_dim, chunk=self.ssd_chunk)
+        return x + y, st
+
+    def _mamba_layer_step(self, p: Dict, x: torch.Tensor, conv: torch.Tensor,
+                          ssd: torch.Tensor) -> torch.Tensor:
+        """One-token Mamba2 layer; writes the layer's new ``conv`` / ``ssd``
+        state into the cache slices it was given, in place."""
+        c = self.cfg
+        h = self.norm(x, p["ln"])
+        y, st = ssm_mod.mamba2_step(
+            p["mixer"], h, ssm_mod.SSMState(conv, ssd), c.d_inner,
+            c.ssm_state, c.ssm_heads, c.ssm_head_dim)
+        conv.copy_(st.conv)
+        ssd.copy_(st.ssd)
+        return x + y
+
+    def _shared_block_fwd(self, p: Dict, x, x0, positions):
+        """Zamba2 shared block on concat(x, x0); returns (x, k, v)."""
+        c = self.cfg
+        h = self.norm(torch.cat([x, x0], dim=-1), p["ln_attn"])
+        a, k, v = self._attn_full(p["attn"], h, positions)
+        x = x + a
+        h = self.norm(x, p["ln_mlp"])
+        return x + ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn), k, v
+
+    def _shared_block_decode(self, p: Dict, x, x0, pos, ck, cv):
+        c = self.cfg
+        h = self.norm(torch.cat([x, x0], dim=-1), p["ln_attn"])
+        x = x + self._attn_decode(p["attn"], h, pos, ck, cv)
+        h = self.norm(x, p["ln_mlp"])
+        return x + ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn)
+
+    def _run_trunk_full(self, params: Dict, x: torch.Tensor, positions
+                        ) -> Tuple[torch.Tensor, Dict]:
+        """Full-sequence pass over all layers (prefill). Returns (x, the
+        stacked per-layer state): ``k``/``v`` for the attention families;
+        ``conv``/``ssd`` for SSM and hybrid, plus the hybrid's shared-block
+        K/V ``ak``/``av``, one entry per application (it fires after every
+        ``hybrid_period`` trunk layers, as the reference's grouped scan
+        does)."""
+        c = self.cfg
+        state: Dict[str, list] = {}
+        if c.family in RECURRENT:
+            fire = c.shared_attn_positions()
+            x0 = x
+            for i in range(c.n_layers):
+                x, st = self._mamba_layer_fwd(self._layer(params, i), x)
+                state.setdefault("conv", []).append(st.conv)
+                state.setdefault("ssd", []).append(st.ssd)
+                if i in fire:
+                    x, k, v = self._shared_block_fwd(params["shared"], x, x0,
+                                                     positions)
+                    state.setdefault("ak", []).append(k)
+                    state.setdefault("av", []).append(v)
+        else:
+            for i in range(c.n_layers):
+                p = self._layer(params, i)
+                h = self.norm(x, p["ln_attn"])
+                a, k, v = self._attn_full(p["attn"], h, positions)
+                x = x + a
+                x = x + self._mlp_or_moe(p, x)
+                state.setdefault("k", []).append(k)
+                state.setdefault("v", []).append(v)
+        return x, {key: torch.stack(vals) for key, vals in state.items()}
+
     def _last(self, params: Dict, x: torch.Tensor,
               last_pos: Optional[torch.Tensor]) -> torch.Tensor:
         x = self.norm(x, params["final_norm"])
@@ -262,14 +372,35 @@ class LM:
         ``kv_layout="paged"``: a pool of ``n_blocks`` ``block_size``-token
         blocks (L, n_blocks, block, nkv, d) shared by all rows, and a
         per-row ``block_tbl`` (batch, ceil(max_len/block)) whose entry 0
-        is the reserved trash block."""
+        is the reserved trash block.
+
+        SSM / hybrid (contig only; paged raises ``ValueError``): ``conv``
+        (L, batch, K-1, d_inner+2N) in the model dtype, ``ssd`` (L, batch,
+        nheads, head_dim, N) fp32, and for the hybrid ``ak``/``av``
+        (n_apps, batch, max_len, nkv, d), one per shared-block
+        application."""
         c = self.cfg
         dev = self.device
         if kv_layout not in ("contig", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if kv_layout == "paged" and c.family in RECURRENT:
+            raise ValueError("paged KV requires attention caches")
         if ring and c.swa_window:
             raise _unported("the ring (sliding-window) KV cache")
         cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+        if c.family in RECURRENT:
+            cache["conv"] = torch.zeros(
+                (c.n_layers, batch, c.conv_width - 1,
+                 c.d_inner + 2 * c.ssm_state), dtype=self.dtype, device=dev)
+            cache["ssd"] = torch.zeros(
+                (c.n_layers, batch, c.ssm_heads, c.ssm_head_dim,
+                 c.ssm_state), dtype=torch.float32, device=dev)
+            if c.family == "hybrid":
+                shape = (len(c.shared_attn_positions()), batch, max_len,
+                         c.n_kv_heads, c.hd)
+                cache["ak"] = torch.zeros(shape, dtype=self.dtype, device=dev)
+                cache["av"] = torch.zeros(shape, dtype=self.dtype, device=dev)
+            return cache
         if kv_layout == "contig":
             shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.hd)
         else:
@@ -285,24 +416,19 @@ class LM:
 
     def prefill_kv(self, params: Dict, tokens: torch.Tensor,
                    last_pos: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   ) -> Tuple[torch.Tensor, Dict]:
         """Prompt (B, S) -> (logits at ``last_pos`` (default: last column),
-        stacked K (L,B,S,nkv,d), stacked V). Right-padded rows are exact
-        under causal masking: pad columns never reach real ones."""
+        the stacked per-layer state the prompt leaves, as the reference's
+        ``aux``: ``k``/``v`` (L,B,S,nkv,d) for the attention families;
+        ``conv``/``ssd`` (L,B,...) and, hybrid, ``ak``/``av``
+        (n_apps,B,S,nkv,d)). Right-padded rows are exact for attention
+        under causal masking; recurrent state runs through pad columns,
+        so the engine gives those families exact-length groups."""
         x = self.embed(params, tokens)
         b, s = tokens.shape
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        ks, vs = [], []
-        for i in range(self.cfg.n_layers):
-            p = self._layer(params, i)
-            h = self.norm(x, p["ln_attn"])
-            a, k, v = self._attn_full(p["attn"], h, positions)
-            x = x + a
-            x = x + self._mlp_or_moe(p, x)
-            ks.append(k)
-            vs.append(v)
-        return self._last(params, x, last_pos), torch.stack(ks), \
-            torch.stack(vs)
+        x, aux = self._run_trunk_full(params, x, positions)
+        return self._last(params, x, last_pos), aux
 
     def prefill(self, params: Dict, inputs: Dict,
                 last_pos: Optional[torch.Tensor] = None,
@@ -312,17 +438,21 @@ class LM:
         ``cache`` (from ``init_cache`` with allocated tables) the prompt K/V
         are written through its block tables, in place; otherwise into a
         fresh contiguous cache of ``max_len`` (default: the prompt length)
-        positions per row."""
+        positions per row (SSM / hybrid: the final recurrent state, and the
+        hybrid's shared-block K/V)."""
         tokens = inputs["tokens"]
         b, s = tokens.shape
-        logits, k, v = self.prefill_kv(params, tokens, last_pos)
+        logits, aux = self.prefill_kv(params, tokens, last_pos)
         if cache is not None and "block_tbl" in cache:
-            attn.cache_write_prefill_paged(cache["k"], cache["v"], k, v,
-                                           cache["block_tbl"])
+            attn.cache_write_prefill_paged(cache["k"], cache["v"], aux["k"],
+                                           aux["v"], cache["block_tbl"])
         else:
             cache = self.init_cache(b, max_len or s)
-            cache["k"][:, :, :s] = k.to(self.dtype)
-            cache["v"][:, :, :s] = v.to(self.dtype)
+            for key, val in aux.items():
+                if key in STATE_KEYS:           # recurrent state: whole
+                    cache[key].copy_(val)
+                else:                           # K/V: the prompt's positions
+                    cache[key][:, :, :s] = val.to(self.dtype)
         cache["pos"] = torch.full_like(cache["pos"], s)
         return logits, cache
 
@@ -342,6 +472,9 @@ class LM:
         contiguous cache (one scalar ``base`` for every row), whose ``pos``
         becomes ``base + C``. Returns (logits at ``last_pos`` (default: last
         chunk column), the cache, updated in place)."""
+        if self.cfg.family in RECURRENT:
+            raise ValueError("chunked prefill requires attention caches "
+                             f"({self.cfg.family} carries recurrent state)")
         x = self.embed(params, tokens)
         b, cl = tokens.shape
         direct = block_tbl is not None
@@ -364,10 +497,22 @@ class LM:
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict]:
         """One new token for every row. tokens: (B, 1). Writes the tokens'
-        K/V into the cache (paged or contiguous) in place; returns (logits
-        (B,1,Vpad), cache with ``pos`` advanced)."""
+        K/V (paged or contiguous) or the layers' new recurrent state into
+        the cache in place; returns (logits (B,1,Vpad), cache with ``pos``
+        advanced)."""
         x = self.embed(params, tokens)
-        pos = cache["pos"]
+        if self.cfg.family in RECURRENT:
+            x = self._decode_recurrent(params, cache, x, cache["pos"])
+        else:
+            x = self._decode_attention(params, cache, x, cache["pos"])
+        x = self.norm(x, params["final_norm"])
+        cache["pos"] = cache["pos"] + 1
+        return self.logits(params, x), cache
+
+    def _decode_attention(self, params: Dict, cache: Dict, x: torch.Tensor,
+                          pos: torch.Tensor) -> torch.Tensor:
+        """Dense / MoE layers, each writing its token's K/V through the
+        block tables (paged) or at ``pos`` (contiguous)."""
         tbl = cache.get("block_tbl")
         for i in range(self.cfg.n_layers):
             p = self._layer(params, i)
@@ -379,6 +524,21 @@ class LM:
                 a = self._attn_decode(p["attn"], h, pos, ck, cv)
             x = x + a
             x = x + self._mlp_or_moe(p, x)
-        x = self.norm(x, params["final_norm"])
-        cache["pos"] = cache["pos"] + 1
-        return self.logits(params, x), cache
+        return x
+
+    def _decode_recurrent(self, params: Dict, cache: Dict, x: torch.Tensor,
+                          pos: torch.Tensor) -> torch.Tensor:
+        """Mamba2 steps over the trunk, each layer's ``conv``/``ssd`` state
+        updated in place; the hybrid's shared block, after each group,
+        writes and attends its application's contiguous ``ak``/``av`` at
+        ``pos``."""
+        fire = self.cfg.shared_attn_positions()
+        x0 = x
+        for i in range(self.cfg.n_layers):
+            x = self._mamba_layer_step(self._layer(params, i), x,
+                                       cache["conv"][i], cache["ssd"][i])
+            if i in fire:
+                g = fire.index(i)
+                x = self._shared_block_decode(params["shared"], x, x0, pos,
+                                              cache["ak"][g], cache["av"][g])
+        return x

@@ -32,6 +32,13 @@ What carries over from the reference, with the same semantics and stats:
   are dropped: MoE admits batch-1 at exact length, never chunked, and
   decodes all ``max_batch`` rows with dead rows fed token 0, as the
   reference does, so dead rows take expert capacity the same way.
+* **SSM and hybrid** (mamba2, zamba2) — recurrent state runs through pad
+  columns, so they admit exact-length groups of ``prefill_group`` (only
+  prompts of equal length share a group), are never chunked, and ride the
+  contiguous layout (``"auto"`` picks it; ``"paged"`` raises): a group's
+  ``conv`` / ``ssd`` state and, hybrid, its shared-block K/V are installed
+  as whole slot rows. Every row decodes; a dead row's state changes, which
+  is harmless because the next install overwrites it whole.
 
 Where JAX donates the cache into jit'd dispatches, this engine owns one
 preallocated pool and every dispatch updates it in place. There is no JIT,
@@ -43,9 +50,9 @@ reference), ``retraces`` adds the decode shape.
 Limits of the port (ROADMAP.md, port queue): ``victim_policy`` accepts
 only ``"fewest"`` (``"cost"`` needs ``cluster/recovery.py`` and
 ``core/modelspec.py``); ``prefix_share=True`` raises; the legacy admission
-path, enc-dec and the SSM/hybrid families are not ported; the device-side
-poison probe is not armed (the host-side sanitizer ledger and the poisoning
-of released blocks are).
+path and enc-dec are not ported; the device-side poison probe is not armed
+(the host-side sanitizer ledger and the poisoning of released blocks
+are).
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, device_of, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model
+from repro_torch.models.transformer import RECURRENT, STATE_KEYS
 from repro_torch.serving.kv_blocks import KV_POISON, BlockManager
 from repro_torch.serving.request import ServeRequest
 
@@ -111,7 +119,8 @@ class Engine:
                  admit_window: int = 4, prefix_share: bool = False,
                  grow_ahead: int = 1, admit_headroom: bool = True,
                  kv_sanitize: Optional[bool] = None,
-                 victim_policy: str = "fewest"):
+                 victim_policy: str = "fewest",
+                 model_kw: Optional[Dict] = None):
         assert kv_layout in ("auto", "paged", "contig"), kv_layout
         assert kv_alloc in ("lazy", "upfront"), kv_alloc
         if prefix_share:
@@ -129,7 +138,8 @@ class Engine:
                              f"{self.device}")
         self.cfg = cfg
         self.params = params
-        self.model = build_model(cfg, device=self.device)
+        # the reference's model keywords; the port's model takes ssd_chunk
+        self.model = build_model(cfg, device=self.device, **(model_kw or {}))
         self.max_batch = max_batch
         self.max_len = max_len
         self.prefill_chunk = int(prefill_chunk)
@@ -137,14 +147,18 @@ class Engine:
         # token stream, so pad tokens or rows would compete with real
         # tokens for expert slots: MoE admits batch-1 at exact length
         self._moe = cfg.n_experts > 0
+        # SSM / hybrid state runs through pad columns: exact-length buckets
+        self._recurrent = cfg.family in RECURRENT
         self._group = 1 if self._moe else max(1, min(prefill_group,
                                                      max_batch))
         self._min_bucket = max(1, min(prefill_bucket, max_len))
-        # paged layout: the dense family only (MoE rides the contig path
-        # with its batch-1 admission, as in the reference)
+        # paged layout: the dense family only (SSM / hybrid carry recurrent
+        # state, not KV rows; MoE rides the contig path with its batch-1
+        # admission, as in the reference)
+        paged_ok = not (self._moe or self._recurrent)
         if kv_layout == "auto":
-            kv_layout = "contig" if self._moe else "paged"
-        elif kv_layout == "paged" and self._moe:
+            kv_layout = "paged" if paged_ok else "contig"
+        elif kv_layout == "paged" and not paged_ok:
             raise ValueError(f"kv_layout='paged' unsupported for {cfg.name} "
                              f"(family={cfg.family})")
         self.kv_layout = kv_layout
@@ -201,8 +215,8 @@ class Engine:
         return out
 
     def _bucket(self, n: int) -> int:
-        if self._moe:
-            return n      # expert capacity: no padding
+        if self._recurrent or self._moe:
+            return n      # recurrent state / expert capacity: no padding
         b = self._min_bucket
         while b < n:
             b *= 2
@@ -210,8 +224,9 @@ class Engine:
 
     def _use_chunked(self, n: int) -> bool:
         # MoE excluded: per-chunk expert capacity differs from full-prefill
-        # capacity, changing token drops (the same exactness issue as pads)
-        if self.prefill_chunk <= 0 or self._moe:
+        # capacity, changing token drops (the same exactness problem as pads);
+        # SSM / hybrid: no chunked prefill of recurrent state
+        if self.prefill_chunk <= 0 or self._moe or self._recurrent:
             return False
         n_chunks = -(-n // self.prefill_chunk)
         return n > self.prefill_chunk and \
@@ -366,32 +381,40 @@ class Engine:
             slots[j] = slot
         lens[n:] = lens[0]           # pad rows: computed, never installed
         self._note_shape("prefill", tokens.shape)
-        logits, k, v = self.model.prefill_kv(self.params, self._dev(tokens),
-                                             self._dev(lens - 1))
-        self._scatter_group(k[:, :n], v[:, :n], slots[:n], lens[:n])
+        logits, state = self.model.prefill_kv(self.params, self._dev(tokens),
+                                              self._dev(lens - 1))
+        self._scatter_group({key: val[:, :n] for key, val in state.items()},
+                            slots[:n], lens[:n])
         # host sync (intended): first tokens fill req.generated
         first = self.model.sample_greedy(logits).tolist()
         self.stats.prefill_batches += 1
         for j, (r, toks, slot) in enumerate(items):
             self._install(r, slot, first[j])
 
-    def _scatter_group(self, k, v, slots, lens) -> None:
-        """Install stacked prefill K/V (L, n, S, nkv, d) into the slots and
-        set their positions: paged, into the slots' pool blocks through
-        their table rows (positions past each real length to the trash
-        block); contig, as whole slot rows (zero past S, as the reference
-        installs a ``max_len`` group cache row)."""
+    def _scatter_group(self, state: Dict[str, torch.Tensor], slots,
+                       lens) -> None:
+        """Install a group's stacked prefill state (every key of
+        ``LM.prefill_kv``'s dict, rows on axis 1) into the slots and set
+        their positions: paged, K/V (L, n, S, nkv, d) into the slots' pool
+        blocks through their table rows (positions past each real length to
+        the trash block); contig, as whole slot rows: K/V and the hybrid's
+        ``ak``/``av`` zero past S, as the reference installs a ``max_len``
+        group cache row, and SSM ``conv``/``ssd`` state whole."""
         lens_t = self._dev(lens)
         slots_t = self._dev(slots, torch.long)
         if self.bm is not None:
             attn.cache_write_prefill_paged(
-                self.cache["k"], self.cache["v"], k, v,
+                self.cache["k"], self.cache["v"], state["k"], state["v"],
                 self._dev(self.bm.table[slots]), lens=lens_t)
         else:
-            s = k.shape[2]
-            for key, new in (("k", k), ("v", v)):
-                self.cache[key][:, slots_t, :s] = new.to(self.cache[key].dtype)
-                self.cache[key][:, slots_t, s:] = 0
+            for key, new in state.items():
+                dst = self.cache[key]
+                if key in STATE_KEYS:
+                    dst[:, slots_t] = new.to(dst.dtype)
+                    continue
+                s = new.shape[2]
+                dst[:, slots_t, :s] = new.to(dst.dtype)
+                dst[:, slots_t, s:] = 0
         self.cache["pos"][slots_t] = lens_t
 
     def _install(self, req: ServeRequest, slot: int, first_tok) -> None:
@@ -473,8 +496,8 @@ class Engine:
             self.cache["pos"][self._dev(slots, torch.long)] = self._dev(lens)
         else:
             rows = self._dev([j for j, _ in finishers], torch.long)
-            self._scatter_group(grp.cache["k"][:, rows],
-                                grp.cache["v"][:, rows], slots, lens)
+            self._scatter_group({key: grp.cache[key][:, rows]
+                                 for key in ("k", "v")}, slots, lens)
             self.stats.chunk_scatters += 1
         for j, m in finishers:
             m.done = True

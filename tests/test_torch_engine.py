@@ -304,6 +304,6 @@ def test_unported_options_raise(setup):
     for kw in (dict(victim_policy="cost"), dict(prefix_share=True)):
         with pytest.raises(NotImplementedError):
             Engine(tcfg, tparams, device="cpu", **kw)
-    ssm = dataclasses.replace(tcfg, family="ssm")   # kernel 6, not ported
+    encdec = dataclasses.replace(tcfg, n_encoder_layers=2)   # not ported
     with pytest.raises(NotImplementedError):
-        Engine(ssm, tparams, device="cpu")
+        Engine(encdec, tparams, device="cpu")

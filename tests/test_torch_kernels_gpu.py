@@ -1,4 +1,4 @@
-"""The port's five CUDA kernels against their plain PyTorch versions, on the
+"""The port's six CUDA kernels against their plain PyTorch versions, on the
 card, and the engine on the card against the engine on the CPU.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
@@ -11,7 +11,8 @@ fp32 on the same input values (``_ref``): bf16 atol 5e-3 and rtol 2e-2 (the
 kernel rounds P and the output to bf16; the bf16 plain version rounds the
 normalised probabilities too and is itself up to ~2e-2 off in rows of a few
 keys), fp32 1e-4 (the kernels sum in another order than the plain
-versions' einsums).
+versions' einsums). The SSD scan's ``y`` and final state are held the same
+way (it rounds y to bf16 once; it sums in another order).
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ from repro_torch.kernels import chunk_attention as ca
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as ssd
 
 pytestmark = pytest.mark.gpu
 DTYPES = [torch.float32, torch.bfloat16]
@@ -102,6 +104,8 @@ def test_chunk_kernel_matches_plain(cuda, dtype, c, vecbase, window):
     (2, 77, 8, 2, 32, True, 16),
     (2, 50, 8, 2, 32, False, None),
     (1, 1281, 32, 8, 128, True, None),      # a MoE batch-1 exact-length prompt
+    (2, 77, 4, 4, 80, True, None),          # zamba2's head dim, ragged S
+    (1, 300, 32, 32, 80, True, None),       # zamba2's heads
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, b, s, nh, nkv, d, causal,
                                     window):
@@ -118,7 +122,9 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, nh, nkv, d, causal,
 @pytest.mark.parametrize("s,nh,nkv,d,window", [(37, 8, 2, 16, None),
                                                (40, 4, 4, 32, 8),
                                                (2080, 32, 8, 128, None),
-                                               (2080, 64, 8, 128, None)])
+                                               (2080, 64, 8, 128, None),
+                                               (37, 4, 4, 80, None),
+                                               (2080, 32, 32, 80, None)])
 def test_contig_decode_kernel_matches_plain(cuda, dtype, s, nh, nkv, d,
                                             window):
     """Kernel 4: ragged S, SWA, and a dead row frozen past its row's end."""
@@ -159,15 +165,49 @@ def test_contig_chunk_kernel_matches_plain(cuda, dtype, c, s, vecbase,
     torch.testing.assert_close(out.float(), ref, **_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,nh,hd,n,chunk,init", [
+    (2, 37, 3, 16, 16, 16, False),          # ragged, several chunks, hd < 32
+    (2, 100, 8, 64, 128, 64, True),         # ragged, initial state
+    (1, 300, 4, 64, 64, 128, False),        # zamba2's N, Q = 128
+    (3, 11, 2, 32, 16, 4, True),            # the parity tests' tiny chunks
+])
+def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, nh, hd, n, chunk,
+                                       init):
+    """Kernel 6 on strided views (x, B and C sliced from one buffer, as the
+    model gives them), its ragged tail masked in the kernel."""
+    rng = np.random.RandomState(5)
+    xbc = _rand(rng, (b, s, nh * hd + 2 * n), dtype, cuda) * 0.5
+    x = xbc[..., :nh * hd].reshape(b, s, nh, hd)
+    bm, cm = xbc[..., nh * hd:nh * hd + n], xbc[..., nh * hd + n:]
+    dt = torch.from_numpy(np.abs(rng.randn(b, s, nh)).astype(np.float32)
+                          * 0.1 + 0.01).to(cuda)
+    a = torch.from_numpy(-np.abs(rng.randn(nh)).astype(np.float32)
+                         - 0.1).to(cuda)
+    h0 = (torch.from_numpy(rng.randn(b, nh, hd, n).astype(np.float32)
+                           * 0.2).to(cuda) if init else None)
+    n0 = ssd.launch_counts["ssd_scan"]
+    y, h = ops.ssd_scan(x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    assert ssd.launch_counts["ssd_scan"] == n0 + 1
+    yr, hr = _ref(ssd.ssd_scan_plain, x, dt, a, bm, cm, chunk=chunk, h0=h0)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), yr, **_tol(dtype))
+    torch.testing.assert_close(h, hr, **_tol(dtype))
+
+
 @pytest.mark.parametrize("arch,kw", [
     ("qwen3-32b", dict(max_batch=4, max_len=64, prefill_chunk=8)),
     ("qwen3-32b", dict(max_batch=4, max_len=64, prefill_chunk=8,
                        kv_layout="contig")),
     ("phi3.5-moe-42b-a6.6b", dict(max_batch=2, max_len=64)),
+    ("mamba2-1.3b", dict(max_batch=2, max_len=64,
+                         model_kw={"ssd_chunk": 8})),
+    ("zamba2-2.7b", dict(max_batch=2, max_len=64,
+                         model_kw={"ssd_chunk": 8})),
 ])
 def test_engine_tokens_match_cpu(cuda, arch, kw):
     """fp32 greedy tokens and counters: Engine on the card == on the CPU,
-    paged, contig and MoE."""
+    paged, contig, MoE, SSM and hybrid."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving import Engine, ServeRequest
