@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 1. device: require CUDA; print the card, its count and the nvidia-smi name
    and power limit; turn TF32 off for matmuls and cuDNN (fp32 stays fp32);
 2. build the hand-written kernels (``src/repro_torch/kernels/csrc``) with
-   nvcc and print the build seconds and the ptxas register report;
+   nvcc and print the build seconds, the ptxas register report and every
+   function that spills;
 3. kernels vs plain on the card: each of the six kernels against its
    plain PyTorch version evaluated in fp32 on the same input values (the
    bf16 plain version's own error is logged beside it), at the shapes
@@ -18,14 +19,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (atol=5e-3, rtol=2e-2) and fp32 (atol=rtol=1e-4: the kernel sums in
    another order than the plain version's einsum); GQA and MHA, SWA,
    scalar and per-row positions / bases, ragged chunk, sequence and cache
-   lengths, dead decode rows, zamba2's head dim 80; the SSD scan's y and
-   final state, ragged S, one and several chunks, an initial state. At
-   each kernel's main shape it times the kernel, the plain version and, as
-   a yardstick the port never calls, ``F.scaled_dot_product_attention`` on
+   lengths, dead decode rows, zamba2's head dim 80, the bf16 prefill
+   body's tiling edges (g = 1, 4, 8; query tiles of 128 / g cut short;
+   key tiles that wrap the ring; pool blocks of 24 tokens; windows
+   shorter than a tile; every head dim); the SSD scan's y and final
+   state, ragged S, one and several chunks, an initial state. At each
+   kernel's main shape it times the kernel, the plain version and, as a
+   yardstick the port never calls, ``F.scaled_dot_product_attention`` on
    the gathered / head-repeated K/V (none for the SSD scan: no single
    PyTorch call computes it), and computes the bound (bytes over 3.35 TB/s
    vs operations over 989 TFLOP/s bf16; only the keys each row reaches,
-   each byte once);
+   each byte once); flash at the MoE and hybrid prompts and contig decode
+   at d=80 are timed too, and the host time of a flash call through
+   ctypes, bf16 (tensor-map encodes) against fp32;
 4. engine parity, fp32: reduced configs, one init each, the same requests
    through the Engine on the card (kernels) and on the CPU (plain): paged
    bucketed, direct-to-pool chunked and overcommitted (grow + preempt)
@@ -36,7 +42,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    into one group. Greedy tokens and counters must match, every kernel
    must have launched (each recurrent scenario its own), and for MoE the
    smallest gap between the k-th and (k+1)-th router probability is logged
-   (a routing flip on a near-tie is then told apart from a bug);
+   (a routing flip on a near-tie is then told apart from a bug); then
+   bf16: a 2-layer, 256-wide dense model with Qwen3-32B's 64/8 heads of
+   128, paged and contig, prompts that run flash and chunk prefill, its
+   prefill and first decode logits on the card against the same engine
+   in fp32 on the CPU (every run fed the fp32 run's tokens), within 3x
+   the bf16 CPU engine's own error;
 5. five serving paths at full width, bf16, random weights from a seeded
    generator on the card, the same traffic (16 requests of 64-2048 prompt
    tokens, some past ``prefill_chunk=512``, 32 new tokens each,
@@ -62,7 +73,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           layout, exact-length groups: the SSD scan, flash, contig decode.
    Each model's params are freed before the next path is built;
 6. a JSON line of per-kernel numbers, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``. A ``[time]`` line follows each
+   phase.
 """
 
 from __future__ import annotations
@@ -71,6 +83,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -170,9 +183,18 @@ def phase_build() -> None:
         f"{sorted(n for n in _build.SIGNATURES if getattr(lib, n))}")
     logf = d / "build.log"
     if logf.exists():
+        spills, fn = 0, ""
         for line in logf.read_text().splitlines():
-            if "Used" in line or "spill" in line and "0 bytes" not in line:
-                log("[build] " + line.strip())
+            m = re.search(r"entry function '(\w+)'", line)
+            fn = m.group(1) if m else fn
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill", line)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                spills += 1
+                log(f"[build] SPILL {fn}: {line.strip()}")
+            elif ("Used" in line or "warning" in line.lower()
+                  or "Performance Loss" in line):
+                log(f"[build] {fn}: {line.strip()}")
+        log(f"[build] {spills} functions spill")
 
 
 # -- timing ----------------------------------------------------------------------
@@ -308,19 +330,35 @@ def in_fp32(fn):
     return run
 
 
-def compare(name, run, plain, cases) -> tuple:
+def compare(name, run, plain, cases, keep=()) -> tuple:
     """Each case ``(label, dtype, args, kw)`` through the kernel, held
     against its plain version evaluated in fp32 on the same input values
     (the error of the plain version in the case's dtype is logged beside
     it); returns the first case's args and error (the main shape, which is
-    timed with the default keywords)."""
-    main = None
+    timed with the default keywords) and the args of the cases whose labels
+    are in ``keep`` (timed too)."""
+    main, kept = None, {}
     for label, dtype, args, kw in cases:
         ref = in_fp32(plain)(*args, **kw).float()
         plain_err = (plain(*args, **kw).float() - ref).abs().max().item()
         err = check(name, run(*args, **kw), ref, dtype, label, plain_err)
         main = main or (args, err)
-    return main
+        if label in keep:
+            kept[label] = args
+    return main + (kept,)
+
+
+def time_shape(name, run, args, library, work, shape, kw=None) -> dict:
+    """Time the kernel and its library yardstick at one more shape a
+    serving path gives it; the bound comes from ``work``."""
+    kw = kw or {}
+    ms = time_ms(lambda: run(*args, **kw))
+    lib_ms = time_ms(library)
+    b_ms, b_by = bound(*work, torch.bfloat16)
+    log(f"[kernels] {name:24s} kernel {ms:.4f} ms  library {lib_ms:.4f} ms"
+        f"  bound {b_ms:.4f} ms ({b_by})  {shape}")
+    return dict(shape=shape, ms=ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by)
 
 
 def measure(name, module, run, plain, args, err, library, work, shape,
@@ -398,22 +436,35 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
             elif vec:
                 pos[-1] = s             # a dead row, frozen past its row's end
             yield label, dtype, (q, *kvs, pos), dict(window=win)
-    args, err = compare(name, run, plain, cases())
+    zlabel = f"main GQA {ZAMBA['nh']}/{ZAMBA['nkv']} bf16"
+    args, err, kept = compare(name, run, plain, cases(),
+                              keep=() if paged else (zlabel,))
+    row = measure(name, da, run, plain, args, err,
+                  *decode_yardstick(args, B, dev, nh, nkv, d, paged))
+    if zlabel in kept:                  # the hybrid path's d=80 heads
+        z = _geometry(ZAMBA, rehearsal)
+        row["timed_shapes"] = [time_shape(
+            name, run, kept[zlabel],
+            *decode_yardstick(kept[zlabel], B, dev, *z, paged))]
+    return row
+
+
+def decode_yardstick(args, b, dev, nh, nkv, d, paged) -> tuple:
+    """SDPA on the gathered K/V with the positions' mask, the bytes and
+    operations of the call, and its shape label."""
     q, pos = args[0], args[-1]
-    k, v = dense_kv(args[1:-1], B)
+    k, v = dense_kv(args[1:-1], b)
     s = k.shape[1]
     mask = (torch.arange(s, device=dev)[None, :]
             <= pos.long()[:, None])[:, None, None, :]
     sq, sk, sv, sm = _sdpa_inputs(q, k, v, mask)
     tbl = args[3].cpu().numpy() if paged else None
     work = decode_work(pos.cpu().numpy(), s, nh, nkv, d, None, 2, tbl, BS)
-    kv_shape = (f"pool=({args[1].shape[0]},{BS},{nkv},{d}) tbl=({B},"
-                f"{tbl.shape[1]})" if paged else f"cache=({B},{s},{nkv},{d})")
-    return measure(name, da, run, plain, args, err,
-                   lambda: F.scaled_dot_product_attention(sq, sk, sv,
-                                                          attn_mask=sm),
-                   work, f"q=({B},1,{nh},{d}) {kv_shape} ragged pos, one "
-                   f"dead row bf16")
+    kv_shape = (f"pool=({args[1].shape[0]},{BS},{nkv},{d}) tbl=({b},"
+                f"{tbl.shape[1]})" if paged else f"cache=({b},{s},{nkv},{d})")
+    return (lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm),
+            work, f"q=({b},1,{nh},{d}) {kv_shape} ragged pos, one dead row "
+            f"bf16")
 
 
 def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
@@ -441,15 +492,37 @@ def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
          "MHA d32 SWA=8 per-row fp32"),
         (f32, (8, 2, 64, 2, 24, 100, 16), 40, None,
          "GQA 8/2 d64 S=100 fp32")]
+    # the bf16 body's tiling edges: 128 / g query positions per CTA (C not
+    # a multiple of it), key tiles of 128 that wrap the ring and end mid
+    # tile, pool blocks of 24 tokens that straddle a tile, windows shorter
+    # than a tile, a row at base 0 (no earlier key), every head dim
+    specs += [
+        (bf, (16, 2, 128, 2, c, 1100, BS), "rows0", None,
+         f"g=8 C={c} base 0 + per-row bf16") for c in (13, 300, 511)] + [
+        (bf, (16, 2, 64, 2, 200, 700, 24), "rows0", None,
+         "g=8 d64 blocks of 24 straddle tiles bf16"),
+        (bf, (16, 2, 128, 2, 300, 900, BS), "rows", 40,
+         "g=8 SWA=40 < tile bf16"),
+        (bf, (8, 2, 32, 2, 77, 400, BS), "rows0", None, "g=4 d32 bf16"),
+        (bf, (4, 4, 80, 2, 150, 500, BS), "rows0", None, "g=1 d80 bf16"),
+        (bf, (4, 1, 16, 2, 45, 300, 8), "rows0", 20, "g=4 d16 SWA=20 bf16")]
 
     def cases():
         for dtype, (h, kv, dd, b, c, s, bs), bases, win, label in specs:
             kvs, s = kv_inputs(cs, paged, b, s, kv, dd, bs, dtype)
             q = cs.randn(b, c, h, dd, dtype=dtype)
-            if bases == "rows":
+            if bases in ("rows", "rows0"):
+                zero = bases == "rows0"
                 bases = cs.randint(0, s - c + 1, (b,))
+                if zero:
+                    bases[0] = 0
             yield label, dtype, (q, *kvs, bases), dict(window=win)
-    args, err = compare(name, run, plain, cases())
+    args, err, _ = compare(name, run, plain, cases())
+    # timed with the scalar base as a (B,) device tensor: the wrapper would
+    # copy a Python int to the card on every call, a copy that waits for
+    # the stream and would put the host's time into the kernel's
+    args = (*args[:-1], torch.full((B,), base, dtype=torch.int32,
+                                   device=dev))
     q = args[0]
     k, v = dense_kv(args[1:-1], B)
     s = k.shape[1]
@@ -494,6 +567,16 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
         (f32, (4, 2, 16, 2, 37), True, None, "GQA 4/2 d16 S=37 fp32"),
         (f32, (4, 4, 32, 2, 40), True, 8, "MHA d32 SWA=8 fp32"),
         (f32, (8, 2, 64, 1, 70), False, None, "GQA 8/2 d64 non-causal fp32")]
+    # the bf16 body's tiling edges: 128 / g query positions per CTA (S not
+    # a multiple of it), windows shorter than a key tile, every head dim
+    specs += [
+        (bf, (16, 2, 128, 2, n), True, None, f"g=8 S={n} bf16")
+        for n in (13, 300, 511)] + [
+        (bf, (16, 2, 64, 1, 700), True, 16, "g=8 d64 SWA=16 bf16"),
+        (bf, (8, 8, 64, 2, 400), True, 100, "g=1 d64 SWA=100 bf16"),
+        (bf, (8, 2, 32, 2, 333), True, None, "g=4 d32 bf16"),
+        (bf, (8, 2, 64, 1, 170), False, None, "g=4 d64 non-causal bf16"),
+        (bf, (4, 4, 16, 2, 200), False, None, "g=1 d16 non-causal bf16")]
 
     def cases():
         for dtype, (h, kv, dd, b, s), causal, win, label in specs:
@@ -501,14 +584,57 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
             k = cs.randn(b, s, kv, dd, dtype=dtype)
             v = cs.randn(b, s, kv, dd, dtype=dtype)
             yield label, dtype, (q, k, v), dict(causal=causal, window=win)
-    args, err = compare("flash_attention", run, plain, cases())
+    moe, zamba = specs[1][4], specs[3][4]
+    args, err, kept = compare("flash_attention", run, plain, cases(),
+                              keep=(moe, zamba))
+    row = measure("flash_attention", fa, run, plain, args, err,
+                  *flash_yardstick(args))
+    # the MoE path's batch-1 prompt and the hybrid path's d=80 group
+    row["timed_shapes"] = [time_shape("flash_attention", run, kept[k],
+                                      *flash_yardstick(kept[k]))
+                           for k in (moe, zamba)]
+    if not rehearsal:
+        row["host_us"] = launch_host_us(cs)
+    return row
+
+
+def launch_host_us(cs, n: int = 500) -> dict:
+    """Host microseconds per call of the flash entry point at a tiny
+    shape: bf16 (two tensor-map encodes, then the launch) against fp32
+    (the launch alone), straight through ctypes."""
+    lib = _build.load()
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = cs.randn(1, 16, 8, 128, dtype=dtype)
+        k = cs.randn(1, 16, 8, 128, dtype=dtype)
+        o = torch.empty_like(q)
+        stream = _build.stream_ptr(q.device)
+        args = (q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(), 1,
+                16, 16, 8, 8, 128, 1, 0, 0.088, int(dtype == torch.bfloat16),
+                stream)
+        lib.rt_flash_attention(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            lib.rt_flash_attention(*args)
+        out[str(dtype)[6:]] = (time.perf_counter() - t0) * 1e6 / n
+        torch.cuda.synchronize()
+    log(f"[kernels] flash_attention host us per call (ctypes, tiny shape): "
+        f"bf16 {out['bfloat16']:.2f} (two tensor-map encodes + launch), "
+        f"fp32 {out['float32']:.2f} (launch)")
+    return out
+
+
+def flash_yardstick(args) -> tuple:
+    """Causal SDPA on head-repeated K/V, the bytes and operations of the
+    call, and its shape label."""
+    q, k = args[0], args[1]
+    (b, s, nh, d), nkv = q.shape, k.shape[2]
     sq, sk, sv, _ = _sdpa_inputs(*args, None)
-    return measure("flash_attention", fa, run, plain, args, err,
-                   lambda: F.scaled_dot_product_attention(sq, sk, sv,
-                                                          is_causal=True),
-                   flash_work(B, S, nh, nkv, d, None, 2),
-                   f"q=({B},{S},{nh},{d}) k/v=({B},{S},{nkv},{d}) causal "
-                   f"bf16")
+    return (lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                   is_causal=True),
+            flash_work(b, s, nh, nkv, d, None, 2),
+            f"q=({b},{s},{nh},{d}) k/v=({b},{s},{nkv},{d}) causal bf16")
 
 
 def ssd_inputs(cs, b, s, nh, hd, n, dtype, init: bool) -> tuple:
@@ -730,6 +856,125 @@ def phase_engine_parity(dev) -> None:
     log(f"[engine-parity] launches {counts}")
     if str(dev) != "cpu" and not all(counts.values()):
         raise SystemExit(f"chip_smoke: a kernel never launched: {counts}")
+
+
+# bf16 engine check: Qwen3-32B's attention geometry (64/8 heads of 128) on
+# a narrow, shallow trunk; prompts below and above prefill_chunk, so the
+# bucketed prefill runs flash and the longer prompts chunk prefill
+BF16_ENGINE = dict(n_layers=2, d_model=256, d_ff=512, n_heads=64,
+                   n_kv_heads=8, head_dim=128)
+BF16_PROMPTS = [(37, 2), (150, 2), (211, 2), (300, 2), (517, 2), (700, 2)]
+BF16_KW = dict(max_batch=4, max_len=768, prefill_chunk=256, block_size=16,
+               victim_policy="fewest")
+
+
+class TeacherForced:
+    """While active, every greedy sample of ``model`` returns the next of
+    ``tokens`` (recorded from a reference run when ``tokens`` is None) and
+    records the logits it was given: prefill logits whole, decode logits of
+    the live slots only. ``decodes`` bounds the decode steps recorded."""
+
+    def __init__(self, eng, tokens=None, decodes: int = 1):
+        self.eng, self.tokens, self.decodes = eng, tokens, decodes
+        self.logits, self.sampled = [], []
+
+    def __enter__(self):
+        model, eng = self.eng.model, self.eng
+        orig_sample, orig_decode = model.sample_greedy, model.decode_step
+        self._orig = (orig_sample, orig_decode)
+        state = {"decode": False, "n_dec": 0}
+
+        def decode_step(*a, **kw):
+            state["decode"] = True
+            return orig_decode(*a, **kw)
+
+        def sample(logits):
+            out = orig_sample(logits)
+            if self.tokens is not None:
+                out = self.tokens[len(self.sampled)].to(out.device)
+            self.sampled.append(out.cpu())
+            if state["decode"]:
+                state["n_dec"] += 1
+                live = [i for i, r in enumerate(eng.slots) if r is not None]
+                if state["n_dec"] <= self.decodes:
+                    self.logits.append(logits[live].float().cpu())
+            else:
+                self.logits.append(logits.float().cpu())
+            state["decode"] = False
+            return out
+        model.sample_greedy, model.decode_step = sample, decode_step
+        return self
+
+    def __exit__(self, *exc):
+        self.eng.model.sample_greedy, self.eng.model.decode_step = self._orig
+
+
+def phase_engine_bf16(dev) -> None:
+    """bf16 serving on the card against the same engine in fp32 on the CPU,
+    paged and contig: the prefill logits (flash and chunked prefill) and
+    the first decode step's, with every run fed the fp32 run's tokens. The
+    bf16 plain engine on the CPU is run the same way; its error sets the
+    tolerance."""
+    base = dataclasses.replace(get_config("qwen3-32b").reduced(),
+                               **BF16_ENGINE)
+    cfg16 = dataclasses.replace(base, dtype="bfloat16")
+    cfg32 = dataclasses.replace(base, dtype="float32")
+    p16 = build_model(cfg16, device="cpu").init(seed=0)
+    p32 = _tree_map(p16, lambda t: t.float())
+    for layout in ("paged", "contig"):
+        kw = dict(BF16_KW, kv_layout="auto" if layout == "paged" else layout)
+        runs = {}
+        for name, cfg, params, where in (
+                ("cpu_fp32", cfg32, p32, "cpu"), ("cpu_bf16", cfg16, p16, "cpu"),
+                ("card_bf16", cfg16, _tree_to(p16, dev), dev)):
+            eng = Engine(cfg, params, device=where, **kw)
+            ref = runs.get("cpu_fp32")
+            reqs = _requests(BF16_PROMPTS, cfg.vocab, seed=2)
+            before = ops.launch_counts()
+            with TeacherForced(eng, ref.sampled if ref else None) as tf:
+                _serve(eng, reqs)
+            runs[name] = tf
+            if str(where) != "cpu":
+                after = ops.launch_counts()
+                ran = {k: after[k] - before[k] for k in after
+                       if after[k] != before[k]}
+                need = ("flash_attention", "chunk_attention_paged"
+                        if layout == "paged" else "chunk_attention")
+                if not all(ran.get(k) for k in need):
+                    raise SystemExit(f"chip_smoke: bf16 {layout} engine "
+                                     f"check launched {ran}, needs {need}")
+            assert eng.kv_layout == layout, (eng.kv_layout, layout)
+        ref = runs["cpu_fp32"].logits
+        scale = max(t.abs().max().item() for t in ref)
+
+        def err(run):
+            got = runs[run].logits
+            assert [t.shape for t in got] == [t.shape for t in ref], run
+            return max((a - b).abs().max().item() for a, b in zip(got, ref))
+        cpu_err, card_err = err("cpu_bf16"), err("card_bf16")
+        # tolerance: the bf16 plain engine's own error against fp32, three
+        # times over. The card rounds the same values to bf16 at other
+        # places (cuBLAS's bf16 GEMMs accumulate in another order, the
+        # kernels round P to bf16 once per key tile), each of the same size
+        # as the plain engine's roundings; a kernel that drops or adds keys
+        # moves the logits by a whole attention output, far past it.
+        tol = 3 * cpu_err
+        ok = card_err <= tol and all(
+            bool(torch.isfinite(t).all()) for t in runs["card_bf16"].logits)
+        log(f"[engine-bf16] {layout:6s} {len(ref)} logits calls (prefill + "
+            f"first decode), |logits| <= {scale:.3f}: card bf16 max_abs_err="
+            f"{card_err:.3e}, cpu bf16 (plain) {cpu_err:.3e}, tol 3x cpu "
+            f"= {tol:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: bf16 {layout} engine logits off "
+                             f"the fp32 CPU engine ({card_err:.3e} > "
+                             f"{tol:.3e})")
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _tree_to(tree, dev):
@@ -978,25 +1223,36 @@ def main(argv=None) -> int:
             phase_kernels(dev, rehearsal=True)
         if "parity" in phases:
             phase_engine_parity(dev)
+            phase_engine_bf16(dev)
         for p in paths:
             phase_path(dev, p, depth[p], args.seed, rehearsal=True,
                        repeats=args.repeats)
         log("[rehearsal] done")
         return 0
+    t0 = time.perf_counter()
+
+    def done(phase: str) -> None:
+        log(f"[time] {phase} done, {time.perf_counter() - t0:.1f} s since "
+            f"start")
     info = phase_device()
     dev = torch.device("cuda", 0)
     rows = []
     counts = {}
     if "build" in phases:
         phase_build()
+        done("build")
     if "kernels" in phases:
         rows = phase_kernels(dev, rehearsal=False)
+        done("kernels")
     if "parity" in phases:
         phase_engine_parity(dev)
+        phase_engine_bf16(dev)
+        done("parity")
     for p in paths:
         counts[p] = phase_path(dev, p, depth[p], args.seed,
                                rehearsal=False, repeats=args.repeats,
                                profile_dir=args.profile)
+        done(p)
     if phases != set(ALL_PHASES):
         log("[partial] phases run: " + ",".join(sorted(phases)))
         return 0
@@ -1007,8 +1263,9 @@ def main(argv=None) -> int:
         r["launches"] = sum(r["launches_by_path"].values())
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "shape"]
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+            "bound_by", "library_ms", "shape", "timed_shapes", "host_us"]
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))

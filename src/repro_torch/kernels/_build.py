@@ -111,7 +111,7 @@ def _compile(out: Path) -> str:
                            + "\n".join(log))
     lib_tmp = tmp / LIB_NAME
     link = subprocess.run(
-        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib_tmp), *objs],
+        [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib_tmp), *objs, "-ldl"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout)

@@ -21,9 +21,12 @@
 // ~0.03 ms of HBM traffic), BYTES only for short chunks (C of a few tens).
 //
 // What the design does about it:
-//  * one CTA per (row, KV head, tile of TQ queries) holds TQ x g query
-//    rows (g query heads share one KV head), so each staged K/V tile feeds
-//    64 query rows instead of one query head's;
+//  * bf16 runs the Hopper prefill body (prefill_sm90.cuh): one CTA per
+//    (row, KV head, tile of 128 / g queries) holds the g query heads of the
+//    KV head as 128 packed rows, so each staged K/V tile feeds 128 query
+//    rows; a producer warpgroup keeps a ring of K/V tiles in flight (TMA
+//    from the contiguous cache; cp.async through the block table from the
+//    pool) while two warpgroups run S = Q K^T and O += P V as wgmma;
 //  * the CTA walks the row's keys (paged: pool blocks through
 //    tbl[b, t / block]) only up to the tile's last query position, and from
 //    the window's first position under SWA; the Pallas grids walked all
@@ -31,17 +34,19 @@
 //  * ragged C and S need no padding: the last query tile simply has fewer
 //    rows, and the last key tile is masked (the Pallas wrapper sent shapes
 //    that do not tile to the jnp oracle instead);
-//  * bf16 runs the products on the tensor cores (rt::attend_mma: mma.sync
-//    m16n8k16, fp32 accumulators); fp32 keeps the FP32-pipe body.
+//  * fp32, and bf16 groups of more than 128 query heads per KV head (which
+//    do not fit the 128 packed rows), keep the FP32-pipe body
+//    (attn_common.cuh).
 // Columns past a row's real length (the prompt's last chunk) still compute;
 // their K/V went to the trash block and finite masking keeps them finite.
 #include <type_traits>
 
 #include "attn_common.cuh"
+#include "prefill_sm90.cuh"
 
 namespace {
 
-constexpr int kRows = 64;          // query rows (queries x heads) per CTA
+constexpr int kRows = 64;          // fp32 body: query rows per CTA
 
 struct ChunkArgs {
   const void* q;
@@ -76,7 +81,7 @@ struct ChunkP {
   }
 };
 
-template <typename T, int D, bool kMma, bool kPaged>
+template <typename T, int D, bool kPaged>
 __global__ void __launch_bounds__(rt::kThreads)
 chunk_kernel(ChunkArgs a) {
   const int it = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -95,24 +100,43 @@ chunk_kernel(ChunkArgs a) {
   const int first = p.base + j0, last = p.base + j0 + nq - 1;
   p.kv_lo = a.window > 0 ? max(0, first - a.window + 1) : 0;
   p.kv_hi = min(last + 1, a.S);
-  if constexpr (kMma)
-    rt::attend_mma<D>(p, static_cast<const T*>(a.k),
-                      static_cast<const T*>(a.v));
-  else
-    rt::attend<T, D>(p, static_cast<const T*>(a.k),
-                     static_cast<const T*>(a.v));
+  rt::attend<T, D>(p, static_cast<const T*>(a.k),
+                   static_cast<const T*>(a.v));
+}
+
+template <int D, bool kPaged>
+__global__ void __launch_bounds__(rt::sm90::kThreads, 1)
+chunk_kernel_wgmma(const __grid_constant__ rt::sm90::PrefillArgs a) {
+  rt::sm90::prefill<D, kPaged>(a);
 }
 
 template <typename T, int D, bool kPaged>
 cudaError_t run(const ChunkArgs& a, cudaStream_t s) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (a.nh / a.nkv <= rt::sm90::kRows) {
+      rt::sm90::PrefillArgs p{};
+      if constexpr (!kPaged) {
+        cudaError_t e = rt::sm90::kv_map(&p.tmK, a.k, a.B, a.S, a.nkv, D);
+        if (e == cudaSuccess)
+          e = rt::sm90::kv_map(&p.tmV, a.v, a.B, a.S, a.nkv, D);
+        if (e != cudaSuccess) return e;
+      }
+      p.q = static_cast<const T*>(a.q);
+      p.out = static_cast<T*>(a.out);
+      p.k = static_cast<const T*>(a.k);
+      p.v = static_cast<const T*>(a.v);
+      p.tbl = a.tbl;
+      p.bases = a.bases;
+      p.B = a.B; p.Sq = a.C; p.nh = a.nh; p.nkv = a.nkv; p.S = a.S;
+      p.bs = a.bs; p.mb = a.mb; p.causal = 1; p.window = a.window;
+      p.scale_log2 = a.scale * rt::sm90::kLog2e;
+      return rt::sm90::launch_prefill<chunk_kernel_wgmma<D, kPaged>, D>(p,
+                                                                         s);
+    }
+  }
   const dim3 grid((a.C + a.tq - 1) / a.tq, a.nkv, a.B);
   const int rows = a.tq * (a.nh / a.nkv);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (rows <= rt::kMmaRows)         // bf16: tensor cores
-      return rt::launch<chunk_kernel<T, D, true, kPaged>>(
-          grid, 32 * rt::kMmaWarps, rt::mma_smem_bytes(D), a, s);
-  }
-  return rt::launch<chunk_kernel<T, D, false, kPaged>>(
+  return rt::launch<chunk_kernel<T, D, kPaged>>(
       grid, rt::kThreads, rt::smem_bytes(rows, D), a, s);
 }
 
@@ -126,8 +150,8 @@ cudaError_t run_contig(const ChunkArgs& a, cudaStream_t s) {
   return run<T, D, false>(a, s);
 }
 
-// query positions per CTA: g query heads share one KV head, so a tile of
-// tq queries is tq * g rows
+// fp32 body's query positions per CTA: g query heads share one KV head, so
+// a tile of tq queries is tq * g rows
 inline int query_tile(int nh, int nkv) {
   const int g = nh / nkv;
   return g >= kRows ? 1 : kRows / g;

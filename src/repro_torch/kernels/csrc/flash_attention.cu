@@ -9,25 +9,29 @@
 // geometry (q, k, v and out move S * 144 KB per row while causal work grows
 // as S^2 / 2), OPERATIONS beyond; the engine's flash buckets stop at
 // prefill_chunk (512 in chip_smoke.py), longer prompts go to the chunk
-// kernel.
+// kernel, except on the exact-length MoE and hybrid paths (up to 2048).
 //
-// What the design does about it (FA2 tiling, the simple version):
-//  * one CTA per (row, query head, tile of 64 queries); K/V tiles of 32
-//    keys are staged once in shared memory and reused by all 64 queries;
+// What the design does about it:
+//  * bf16 runs the Hopper prefill body (prefill_sm90.cuh): one CTA per
+//    (row, KV head, tile of 128 / g query positions) holds the g query
+//    heads of the KV head as 128 packed rows, so each K/V tile leaves L2
+//    once per row tile instead of once per query head; TMA fills a ring of
+//    K/V tiles while two warpgroups run wgmma on the last one; causal CTAs
+//    are issued longest first;
 //  * tiles wholly above the causal diagonal or below the window are never
 //    visited: each CTA walks keys [first - window + 1, last + 1) only;
 //  * ragged Sq / Sk are masked in the kernel (no power-of-two or
-//    block-multiple requirement, unlike the Pallas wrapper's assert).
-//  * bf16 runs the products on the tensor cores (rt::attend_mma:
-//    mma.sync m16n8k16 with fp32 accumulators, P kept in registers);
-//    fp32 keeps the FP32-pipe body. wgmma / TMA pipelining is later work.
+//    block-multiple requirement, unlike the Pallas wrapper's assert);
+//  * fp32, and bf16 groups of more than 128 query heads per KV head, keep
+//    the FP32-pipe body (attn_common.cuh) with one CTA per query head.
 #include <type_traits>
 
 #include "attn_common.cuh"
+#include "prefill_sm90.cuh"
 
 namespace {
 
-constexpr int kTQ = 64;             // == rt::kMmaRows
+constexpr int kTQ = 64;             // fp32 body: queries per CTA
 
 struct FlashArgs {
   const void* q;
@@ -54,7 +58,7 @@ struct FlashP {
   __device__ int kv_row(int t) const { return b * Sk + t; }
 };
 
-template <typename T, int D, bool kMma>
+template <typename T, int D>
 __global__ void __launch_bounds__(rt::kThreads)
 flash_kernel(FlashArgs a) {
   const int it = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -68,22 +72,36 @@ flash_kernel(FlashArgs a) {
   p.causal = a.causal; p.window = a.window; p.scale = a.scale;
   p.kv_lo = a.window > 0 ? max(0, i0 - a.window + 1) : 0;
   p.kv_hi = a.causal ? min(a.Sk, i0 + p.rows) : a.Sk;
-  if constexpr (kMma)
-    rt::attend_mma<D>(p, static_cast<const T*>(a.k),
-                      static_cast<const T*>(a.v));
-  else
-    rt::attend<T, D>(p, static_cast<const T*>(a.k),
-                     static_cast<const T*>(a.v));
+  rt::attend<T, D>(p, static_cast<const T*>(a.k),
+                   static_cast<const T*>(a.v));
+}
+
+template <int D>
+__global__ void __launch_bounds__(rt::sm90::kThreads, 1)
+flash_kernel_wgmma(const __grid_constant__ rt::sm90::PrefillArgs a) {
+  rt::sm90::prefill<D, false>(a);
 }
 
 template <typename T, int D>
 cudaError_t run(const FlashArgs& a, cudaStream_t s) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (a.nh / a.nkv <= rt::sm90::kRows) {
+      rt::sm90::PrefillArgs p{};
+      cudaError_t e = rt::sm90::kv_map(&p.tmK, a.k, a.B, a.Sk, a.nkv, D);
+      if (e == cudaSuccess)
+        e = rt::sm90::kv_map(&p.tmV, a.v, a.B, a.Sk, a.nkv, D);
+      if (e != cudaSuccess) return e;
+      p.q = static_cast<const T*>(a.q);
+      p.out = static_cast<T*>(a.out);
+      p.B = a.B; p.Sq = a.Sq; p.nh = a.nh; p.nkv = a.nkv; p.S = a.Sk;
+      p.causal = a.causal; p.window = a.window;
+      p.scale_log2 = a.scale * rt::sm90::kLog2e;
+      return rt::sm90::launch_prefill<flash_kernel_wgmma<D>, D>(p, s);
+    }
+  }
   const dim3 grid((a.Sq + kTQ - 1) / kTQ, a.nh, a.B);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)   // tensor cores
-    return rt::launch<flash_kernel<T, D, true>>(
-        grid, 32 * rt::kMmaWarps, rt::mma_smem_bytes(D), a, s);
-  return rt::launch<flash_kernel<T, D, false>>(
-      grid, rt::kThreads, rt::smem_bytes(kTQ, D), a, s);
+  return rt::launch<flash_kernel<T, D>>(grid, rt::kThreads,
+                                        rt::smem_bytes(kTQ, D), a, s);
 }
 
 }  // namespace

@@ -118,6 +118,49 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, s, nh, nkv, d, causal,
     torch.testing.assert_close(out.float(), ref, **_tol(dtype))
 
 
+@pytest.mark.parametrize("kind", ["flash", "paged", "contig"])
+@pytest.mark.parametrize("nh,nkv,d,c,s,bs,window", [
+    (16, 2, 128, 13, 1100, 16, None),       # g=8: 16 queries per CTA
+    (16, 2, 128, 300, 1100, 16, None),      # C not a multiple of 16
+    (16, 2, 64, 511, 1100, 16, None),       # keys wrap the ring, end mid tile
+    (16, 2, 64, 200, 700, 24, None),        # pool blocks straddle key tiles
+    (16, 2, 128, 300, 900, 16, 40),         # SWA shorter than a key tile
+    (8, 2, 32, 77, 400, 16, None),          # g=4
+    (4, 4, 80, 150, 500, 16, None),         # g=1, zamba2's head dim
+    (4, 1, 16, 45, 300, 8, 20),             # g=4, d=16, SWA
+])
+def test_bf16_prefill_tiling_edges(cuda, kind, nh, nkv, d, c, s, bs,
+                                   window):
+    """The bf16 prefill body (flash, paged and contig chunk) at the edges
+    of its tiling: 128 packed rows of 128 / g query positions, key tiles of
+    128 in a ring, a row at base 0 (its chunk sees no earlier key)."""
+    rng = np.random.RandomState(6)
+    dt, b = torch.bfloat16, 2
+    q = _rand(rng, (b, c, nh, d), dt, cuda)
+    if kind == "flash":
+        k, v = (_rand(rng, (b, c, nkv, d), dt, cuda) for _ in range(2))
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        ref = _ref(fa.flash_attention_plain, q, k, v, causal=True,
+                   window=window)
+    else:
+        mb = -(-s // bs)
+        bases = torch.tensor([0, mb * bs - c], dtype=torch.int32,
+                             device=cuda)
+        if kind == "paged":
+            pk, pv, tbl = _pool(rng, b, mb, bs, nkv, d, dt, cuda)
+            out = ops.chunk_attention_paged(q, pk, pv, tbl, bases,
+                                            window=window)
+            ref = _ref(ca.chunk_attention_paged_plain, q, pk, pv, tbl, bases,
+                       window=window)
+        else:
+            ck, cv = (_rand(rng, (b, s, nkv, d), dt, cuda) for _ in range(2))
+            bases[1] = s - c
+            out = ops.chunk_attention(q, ck, cv, bases, window=window)
+            ref = _ref(ca.chunk_attention_plain, q, ck, cv, bases,
+                       window=window)
+    torch.testing.assert_close(out.float(), ref, **_tol(dt))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s,nh,nkv,d,window", [(37, 8, 2, 16, None),
                                                (40, 4, 4, 32, 8),
