@@ -22,16 +22,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    lengths, dead decode rows, zamba2's head dim 80, the bf16 prefill
    body's tiling edges (g = 1, 4, 8; query tiles of 128 / g cut short;
    key tiles that wrap the ring; pool blocks of 24 tokens; windows
-   shorter than a tile; every head dim); the SSD scan's y and final
-   state, ragged S, one and several chunks, an initial state. At each
-   kernel's main shape it times the kernel, the plain version and, as a
-   yardstick the port never calls, ``F.scaled_dot_product_attention`` on
-   the gathered / head-repeated K/V (none for the SSD scan: no single
-   PyTorch call computes it), and computes the bound (bytes over 3.35 TB/s
-   vs operations over 989 TFLOP/s bf16; only the keys each row reaches,
-   each byte once); flash at the MoE and hybrid prompts and contig decode
-   at d=80 are timed too, and the host time of a flash call through
-   ctypes, bf16 (tensor-map encodes) against fp32;
+   shorter than a tile; every head dim); the bf16 contiguous decode
+   body's edges (positions at a split's first and last key and the key
+   after, windows shorter than a tile and across splits, S not a multiple
+   of the tile, B = 1, g = 1 / 4 / 8 / 16 at every head dim); the SSD
+   scan's y and final state, ragged S, S < Q, one and several chunks, Q 8
+   / 64 / 128, N 16 / 64 / 128 / 256, head dims past one 64-wide slice,
+   an initial state, one 8192-token row. At each kernel's main shape it
+   times the kernel, the plain version and, as a yardstick the port never
+   calls, ``F.scaled_dot_product_attention`` on the gathered /
+   head-repeated K/V (none for the SSD scan: no single PyTorch call
+   computes it), each as the mean of 20 eager calls (``ms``,
+   ``plain_ms``, ``library_ms``: the rate the host sustains), the kernel
+   and SDPA also as the device time per call of a CUDA graph of 20 calls
+   (``device_ms``, ``library_device_ms``: no host launch cost), and
+   computes the bound (bytes over 3.35 TB/s vs operations over 989
+   TFLOP/s bf16; only the keys each row reaches, each byte once);
+   flash at the MoE and hybrid prompts, contig decode at d=80 and the SSD
+   scan at zamba2's shape are timed too, and the host time of a flash
+   call through ctypes, bf16 (tensor-map encodes) against fp32;
 4. engine parity, fp32: reduced configs, one init each, the same requests
    through the Engine on the card (kernels) and on the CPU (plain): paged
    bucketed, direct-to-pool chunked and overcommitted (grow + preempt)
@@ -44,10 +53,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    smallest gap between the k-th and (k+1)-th router probability is logged
    (a routing flip on a near-tie is then told apart from a bug); then
    bf16: a 2-layer, 256-wide dense model with Qwen3-32B's 64/8 heads of
-   128, paged and contig, prompts that run flash and chunk prefill, its
-   prefill and first decode logits on the card against the same engine
-   in fp32 on the CPU (every run fed the fp32 run's tokens), within 3x
-   the bf16 CPU engine's own error;
+   128, paged and contig, prompts that run flash and chunk prefill, and
+   256-wide mamba2 and zamba2 models with SSD heads of 64 and prompts of
+   one to six SSD chunks; each one's prefill and first decode logits on
+   the card against the same engine in fp32 on the CPU (every run fed the
+   fp32 run's tokens), within 3x the bf16 CPU engine's own error;
 5. five serving paths at full width, bf16, random weights from a seeded
    generator on the card, the same traffic (16 requests of 64-2048 prompt
    tokens, some past ``prefill_chunk=512``, 32 new tokens each,
@@ -198,22 +208,56 @@ def phase_build() -> None:
 
 
 # -- timing ----------------------------------------------------------------------
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean time of ``fn`` in ms: CUDA events on the card, the host clock
-    around a synchronised loop otherwise (rehearsal only)."""
-    for _ in range(warmup):
-        fn()
-    if not torch.cuda.is_available():
-        t0 = time.perf_counter()
+_WARM_STREAM = None
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3, graph: bool = False
+            ) -> float:
+    """Mean time of ``fn`` in ms. On the card: CUDA events around
+    ``iters`` eager calls (the rate the host sustains, the lower bound of a
+    call in the serving loop), or with ``graph`` around one replay of a
+    CUDA graph of ``iters`` calls (the device's time per call, without the
+    host's launch cost, which exceeds the device time of a decode call).
+    Otherwise the host clock around a loop (rehearsal only)."""
+    if not graph or not torch.cuda.is_available():
+        for _ in range(warmup):
+            fn()
+        if not torch.cuda.is_available():
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         for _ in range(iters):
             fn()
-        return (time.perf_counter() - t0) * 1e3 / iters
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+    global _WARM_STREAM
+    if _WARM_STREAM is None:
+        # one stream for every warm-up: each new stream that runs a cuBLAS
+        # call keeps a workspace allocated for the rest of the process
+        _WARM_STREAM = torch.cuda.Stream()
+    side = _WARM_STREAM
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up off the capture stream
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    g.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -348,17 +392,28 @@ def compare(name, run, plain, cases, keep=()) -> tuple:
     return main + (kept,)
 
 
+def time_both(fn) -> tuple:
+    """(eager ms, device ms) of ``fn``: see ``time_ms``."""
+    return time_ms(fn), time_ms(fn, graph=True)
+
+
+def fmt_ms(ms, dev_ms) -> str:
+    return "none" if ms is None else f"{ms:.4f} ms (device {dev_ms:.4f})"
+
+
 def time_shape(name, run, args, library, work, shape, kw=None) -> dict:
     """Time the kernel and its library yardstick at one more shape a
     serving path gives it; the bound comes from ``work``."""
     kw = kw or {}
-    ms = time_ms(lambda: run(*args, **kw))
-    lib_ms = time_ms(library)
+    ms, dev_ms = time_both(lambda: run(*args, **kw))
+    lib_ms, lib_dev_ms = (None, None) if library is None else \
+        time_both(library)
     b_ms, b_by = bound(*work, torch.bfloat16)
-    log(f"[kernels] {name:24s} kernel {ms:.4f} ms  library {lib_ms:.4f} ms"
-        f"  bound {b_ms:.4f} ms ({b_by})  {shape}")
-    return dict(shape=shape, ms=ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by)
+    log(f"[kernels] {name:24s} kernel {ms:.4f} ms (device {dev_ms:.4f})  "
+        f"library {fmt_ms(lib_ms, lib_dev_ms)}  bound {b_ms:.4f} ms "
+        f"({b_by})  {shape}")
+    return dict(shape=shape, ms=ms, device_ms=dev_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def measure(name, module, run, plain, args, err, library, work, shape,
@@ -367,15 +422,17 @@ def measure(name, module, run, plain, args, err, library, work, shape,
     there is no library call) on the main case; the bound comes from
     ``work`` (bytes, operations)."""
     kw = kw or {}
-    ms = time_ms(lambda: run(*args, **kw))
+    ms, dev_ms = time_both(lambda: run(*args, **kw))
     plain_ms = time_ms(lambda: plain(*args, **kw), iters=plain_iters,
                        warmup=min(3, plain_iters))
-    lib_ms = None if library is None else time_ms(library)
+    lib_ms, lib_dev_ms = (None, None) if library is None else \
+        time_both(library)
     b_ms, b_by = bound(*work, torch.bfloat16)
     return dict(name=name, route="cuda", source=module.SOURCE,
                 replaces=module.REPLACES[name], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, shape=shape)
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms, shape=shape)
 
 
 def kv_inputs(cs, paged, b, s, nkv, d, bs, dtype) -> tuple:
@@ -425,15 +482,46 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
         (f32, (8, 2, 64, 2, 300, 16), None, True, "GQA 8/2 d64 S=300 fp32"),
         (bf, (4, 4, 80, 3, 37, 8), None, True, "MHA d80 S=37 bf16"),
         (f32, (4, 4, 80, 3, 37, 8), None, True, "MHA d80 S=37 fp32")]
+    if not paged and not rehearsal:
+        # the bf16 contiguous body's edges: positions at 0, at a split's
+        # last key, its first and the key after (64-key splits for short
+        # rows; 192-key splits at 1535 / 1536 when a row is cut into 9),
+        # the end of the row and the frozen dead row; windows shorter than
+        # a tile and across splits; S not a multiple of the 64-key tile;
+        # B = 1; g = 1 / 4 / 8 / 16 at every head dim; g = 32 (the
+        # FP32-pipe body)
+        edge = [0, 63, 64, 65, 1535, 1536, MAX_LEN - 1, MAX_LEN]
+        specs += [
+            (bf, (32, 8, 128, 8, MAX_LEN, BS), None, edge,
+             "g=4 split edges + dead row bf16"),
+            (bf, (32, 8, 128, 8, MAX_LEN, BS), 20, edge, "g=4 SWA=20 bf16"),
+            (bf, (32, 8, 128, 8, MAX_LEN, BS), 300, edge,
+             "g=4 SWA=300 across splits bf16"),
+            (bf, (64, 8, 128, 1, 1000, BS), None, [999],
+             "B=1 g=8 S=1000 bf16"),
+            (bf, (16, 2, 64, 3, 1000, BS), None, [0, 640, 1000],
+             "g=8 d64 S=1000 bf16"),
+            (bf, (8, 8, 16, 3, 300, BS), None, True, "g=1 d16 bf16"),
+            (bf, (16, 4, 32, 3, 300, BS), 40, True, "g=4 d32 SWA=40 bf16"),
+            (bf, (32, 32, 80, 4, 700, BS), None, [0, 64, 699, 700],
+             "g=1 d80 bf16"),
+            (bf, (8, 2, 80, 3, 300, BS), None, True, "g=4 d80 bf16"),
+            (bf, (32, 4, 128, 3, 500, BS), None, True, "g=8 d128 bf16"),
+            (bf, (32, 2, 64, 3, 500, BS), None, True, "g=16 d64 bf16"),
+            (bf, (32, 1, 16, 3, 200, BS), None, True,
+             "g=32 d16 (FP32-pipe body) bf16")]
 
     def cases():
         for dtype, (h, kv, dd, b, s, bs), win, vec, label in specs:
             kvs, s = kv_inputs(cs, paged, b, s, kv, dd, bs, dtype)
             q = cs.randn(b, 1, h, dd, dtype=dtype)
-            pos = cs.randint(0, s, (b,)) if vec else s - 3
+            if isinstance(vec, list):       # explicit positions, row by row
+                pos = torch.tensor(vec, dtype=torch.int32, device=dev)
+            else:
+                pos = cs.randint(0, s, (b,)) if vec else s - 3
             if paged:
                 kvs[2][-1] = 0          # a dead row: trash table, frozen pos
-            elif vec:
+            elif vec is True:
                 pos[-1] = s             # a dead row, frozen past its row's end
             yield label, dtype, (q, *kvs, pos), dict(window=win)
     zlabel = f"main GQA {ZAMBA['nh']}/{ZAMBA['nkv']} bf16"
@@ -575,7 +663,8 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
         (bf, (16, 2, 64, 1, 700), True, 16, "g=8 d64 SWA=16 bf16"),
         (bf, (8, 8, 64, 2, 400), True, 100, "g=1 d64 SWA=100 bf16"),
         (bf, (8, 2, 32, 2, 333), True, None, "g=4 d32 bf16"),
-        (bf, (8, 2, 64, 1, 170), False, None, "g=4 d64 non-causal bf16"),
+        (bf, (8, 2, 64, 1, 170), False, 64,
+         "g=4 d64 non-causal SWA=64 bf16"),
         (bf, (4, 4, 16, 2, 200), False, None, "g=1 d16 non-causal bf16")]
 
     def cases():
@@ -691,7 +780,23 @@ def kernel_ssd(cs, dev, rehearsal) -> dict:
         (bf, (3, 100, 4, 32, 32, 64), True, "S=100 Q=64 h0 bf16"),
         (f32, (3, 100, 4, 32, 32, 64), True, "S=100 Q=64 h0 fp32"),
         (f32, (2, 100, 8, 64, 128, 64), False, "N=128 S=100 Q=64 fp32")]
-    main = None
+    if not rehearsal:
+        # the bf16 tensor-core body's edges: S < Q, S not a multiple of Q,
+        # Q 8 / 64 / 128, N 16 / 64 / 128 / 256 (one shared-memory buffer
+        # at 256), head dims past one 64-wide slice and below it, an
+        # initial state, one long row (64 chunks of carried state), and
+        # N = 20 (not a multiple of 8: the FP32-pipe body)
+        specs += [
+            (bf, (2, 50, 4, 64, 64, 128), False, "S=50 < Q=128 bf16"),
+            (bf, (2, 300, 4, 64, 128, 128), True, "S=300 N=128 h0 bf16"),
+            (bf, (2, 200, 4, 64, 16, 64), False, "N=16 Q=64 bf16"),
+            (bf, (1, 300, 2, 64, 256, 128), True, "N=256 h0 bf16"),
+            (bf, (2, 150, 3, 80, 64, 64), True, "hd=80 (64 + 16) h0 bf16"),
+            (bf, (2, 45, 4, 64, 64, 8), False, "Q=8 bf16"),
+            (bf, (1, 8192, 8, 64, 128, 128), False, "long row S=8192 bf16"),
+            (bf, (1, 40, 2, 16, 20, 16), False,
+             "N=20 (FP32-pipe body) bf16")]
+    main = kept = None
     for dtype, (b, s, nh, hd, n, q), init, label in specs:
         args, h0 = ssd_inputs(cs, b, s, nh, hd, n, dtype, init)
         kw = dict(chunk=q, h0=h0)
@@ -703,11 +808,23 @@ def kernel_ssd(cs, dev, rehearsal) -> dict:
             p_err = (p_out.float() - r).abs().max().item()
             errs.append(check(name, out, r, dtype, f"{label} {part}", p_err))
         main = main or (args, kw, max(errs), (b, s, nh, hd, n, q))
+        if label == specs[2][3]:        # the hybrid path's zamba2 group
+            kept = (args, kw, (b, s, nh, hd, n, q))
     args, kw, err, (b, s, nh, hd, n, q) = main
-    return measure(name, ssd, run, plain, args, err, None,
-                   ssd_work(b, s, nh, hd, n, q, 2),
-                   f"x=({b},{s},{nh},{hd}) b/c=({b},{s},{n}) Q={q} strided "
-                   f"views bf16", plain_iters=3, kw=kw)
+    row = measure(name, ssd, run, plain, args, err, None,
+                  ssd_work(b, s, nh, hd, n, q, 2), ssd_shape(b, s, nh, hd, n,
+                                                             q),
+                  plain_iters=3, kw=kw)
+    args, kw, shp = kept
+    row["timed_shapes"] = [time_shape(name, run, args, None,
+                                      ssd_work(*shp, 2), ssd_shape(*shp),
+                                      kw=kw)]
+    return row
+
+
+def ssd_shape(b, s, nh, hd, n, q) -> str:
+    return (f"x=({b},{s},{nh},{hd}) b/c=({b},{s},{n}) Q={q} strided views "
+            f"bf16")
 
 
 def phase_kernels(dev, rehearsal: bool) -> list:
@@ -719,9 +836,9 @@ def phase_kernels(dev, rehearsal: bool) -> list:
             kernel_chunk(cs, dev, rehearsal, paged=False),
             kernel_ssd(cs, dev, rehearsal)]
     for r in rows:
-        lib = ("none" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms")
-        log(f"[kernels] {r['name']:24s} kernel {r['ms']:.4f} ms  plain "
+        lib = fmt_ms(r["library_ms"], r["library_device_ms"])
+        log(f"[kernels] {r['name']:24s} kernel {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f})  plain "
             f"{r['plain_ms']:.4f} ms  library {lib}  bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['shape']}")
     return rows
@@ -858,14 +975,26 @@ def phase_engine_parity(dev) -> None:
         raise SystemExit(f"chip_smoke: a kernel never launched: {counts}")
 
 
-# bf16 engine check: Qwen3-32B's attention geometry (64/8 heads of 128) on
-# a narrow, shallow trunk; prompts below and above prefill_chunk, so the
-# bucketed prefill runs flash and the longer prompts chunk prefill
+# bf16 engine checks. Dense: Qwen3-32B's attention geometry (64/8 heads of
+# 128) on a narrow, shallow trunk; prompts below and above prefill_chunk,
+# so the bucketed prefill runs flash and the longer prompts chunk prefill.
+# Recurrent: mamba2 (8 SSD heads of 64, state 128) and zamba2 (8 SSD heads
+# of 64, state 64; the shared block's 32/32 heads of 80) at width 256 and
+# two trunk layers (zamba2: four, the shared block after the second and
+# fourth), prompts of one to six SSD chunks of 128, so the scan carries its
+# state across chunks and ragged tails
 BF16_ENGINE = dict(n_layers=2, d_model=256, d_ff=512, n_heads=64,
                    n_kv_heads=8, head_dim=128)
 BF16_PROMPTS = [(37, 2), (150, 2), (211, 2), (300, 2), (517, 2), (700, 2)]
 BF16_KW = dict(max_batch=4, max_len=768, prefill_chunk=256, block_size=16,
                victim_policy="fewest")
+BF16_RECURRENT = {
+    "mamba2-1.3b": dict(n_layers=2, d_model=256, ssm_head_dim=64,
+                        ssm_state=128),
+    "zamba2-2.7b": dict(n_layers=4, d_model=256, d_ff=512, n_heads=32,
+                        n_kv_heads=32, head_dim=80, ssm_head_dim=64,
+                        ssm_state=64),
+}
 
 
 class TeacherForced:
@@ -910,65 +1039,76 @@ class TeacherForced:
 
 
 def phase_engine_bf16(dev) -> None:
-    """bf16 serving on the card against the same engine in fp32 on the CPU,
-    paged and contig: the prefill logits (flash and chunked prefill) and
-    the first decode step's, with every run fed the fp32 run's tokens. The
-    bf16 plain engine on the CPU is run the same way; its error sets the
-    tolerance."""
+    """bf16 serving on the card against the same engine in fp32 on the CPU:
+    the prefill logits and the first decode step's, with every run fed the
+    fp32 run's tokens. The dense model paged and contig (flash and chunked
+    prefill), then mamba2 and zamba2 (the SSD scan, and zamba2's flash and
+    contiguous decode). The bf16 plain engine on the CPU is run the same
+    way; its error sets the tolerance."""
     base = dataclasses.replace(get_config("qwen3-32b").reduced(),
                                **BF16_ENGINE)
+    for layout in ("paged", "contig"):
+        need = ("flash_attention", "chunk_attention_paged"
+                if layout == "paged" else "chunk_attention")
+        _bf16_engine_check(dev, layout, base, dict(
+            BF16_KW, kv_layout="auto" if layout == "paged" else layout),
+            need, layout)
+    for arch, widths in BF16_RECURRENT.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), **widths)
+        _bf16_engine_check(dev, arch.split("-")[0], cfg, dict(BF16_KW),
+                           PARITY_REQUIRED[arch.split("-")[0]], "contig")
+
+
+def _bf16_engine_check(dev, tag, base, kw, need, layout) -> None:
     cfg16 = dataclasses.replace(base, dtype="bfloat16")
     cfg32 = dataclasses.replace(base, dtype="float32")
     p16 = build_model(cfg16, device="cpu").init(seed=0)
     p32 = _tree_map(p16, lambda t: t.float())
-    for layout in ("paged", "contig"):
-        kw = dict(BF16_KW, kv_layout="auto" if layout == "paged" else layout)
-        runs = {}
-        for name, cfg, params, where in (
-                ("cpu_fp32", cfg32, p32, "cpu"), ("cpu_bf16", cfg16, p16, "cpu"),
-                ("card_bf16", cfg16, _tree_to(p16, dev), dev)):
-            eng = Engine(cfg, params, device=where, **kw)
-            ref = runs.get("cpu_fp32")
-            reqs = _requests(BF16_PROMPTS, cfg.vocab, seed=2)
-            before = ops.launch_counts()
-            with TeacherForced(eng, ref.sampled if ref else None) as tf:
-                _serve(eng, reqs)
-            runs[name] = tf
-            if str(where) != "cpu":
-                after = ops.launch_counts()
-                ran = {k: after[k] - before[k] for k in after
-                       if after[k] != before[k]}
-                need = ("flash_attention", "chunk_attention_paged"
-                        if layout == "paged" else "chunk_attention")
-                if not all(ran.get(k) for k in need):
-                    raise SystemExit(f"chip_smoke: bf16 {layout} engine "
-                                     f"check launched {ran}, needs {need}")
-            assert eng.kv_layout == layout, (eng.kv_layout, layout)
-        ref = runs["cpu_fp32"].logits
-        scale = max(t.abs().max().item() for t in ref)
+    runs = {}
+    for name, cfg, params, where in (
+            ("cpu_fp32", cfg32, p32, "cpu"), ("cpu_bf16", cfg16, p16, "cpu"),
+            ("card_bf16", cfg16, _tree_to(p16, dev), dev)):
+        eng = Engine(cfg, params, device=where, **kw)
+        ref = runs.get("cpu_fp32")
+        reqs = _requests(BF16_PROMPTS, cfg.vocab, seed=2)
+        before = ops.launch_counts()
+        with TeacherForced(eng, ref.sampled if ref else None) as tf:
+            _serve(eng, reqs)
+        runs[name] = tf
+        if str(where) != "cpu":
+            after = ops.launch_counts()
+            ran = {k: after[k] - before[k] for k in after
+                   if after[k] != before[k]}
+            if not all(ran.get(k) for k in need):
+                raise SystemExit(f"chip_smoke: bf16 {tag} engine check "
+                                 f"launched {ran}, needs {need}")
+        assert eng.kv_layout == layout, (eng.kv_layout, layout)
+    ref = runs["cpu_fp32"].logits
+    scale = max(t.abs().max().item() for t in ref)
 
-        def err(run):
-            got = runs[run].logits
-            assert [t.shape for t in got] == [t.shape for t in ref], run
-            return max((a - b).abs().max().item() for a, b in zip(got, ref))
-        cpu_err, card_err = err("cpu_bf16"), err("card_bf16")
-        # tolerance: the bf16 plain engine's own error against fp32, three
-        # times over. The card rounds the same values to bf16 at other
-        # places (cuBLAS's bf16 GEMMs accumulate in another order, the
-        # kernels round P to bf16 once per key tile), each of the same size
-        # as the plain engine's roundings; a kernel that drops or adds keys
-        # moves the logits by a whole attention output, far past it.
-        tol = 3 * cpu_err
-        ok = card_err <= tol and all(
-            bool(torch.isfinite(t).all()) for t in runs["card_bf16"].logits)
-        log(f"[engine-bf16] {layout:6s} {len(ref)} logits calls (prefill + "
-            f"first decode), |logits| <= {scale:.3f}: card bf16 max_abs_err="
-            f"{card_err:.3e}, cpu bf16 (plain) {cpu_err:.3e}, tol 3x cpu "
-            f"= {tol:.3e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"chip_smoke: bf16 {layout} engine logits off "
-                             f"the fp32 CPU engine ({card_err:.3e} > "
-                             f"{tol:.3e})")
+    def err(run):
+        got = runs[run].logits
+        assert [t.shape for t in got] == [t.shape for t in ref], run
+        return max((a - b).abs().max().item() for a, b in zip(got, ref))
+    cpu_err, card_err = err("cpu_bf16"), err("card_bf16")
+    # tolerance: the bf16 plain engine's own error against fp32, three
+    # times over. The card rounds the same values to bf16 at other places
+    # (cuBLAS's bf16 GEMMs accumulate in another order, the attention
+    # kernels round P to bf16 once per key tile, the SSD scan rounds M, x dt
+    # and the state to bf16 as tensor-core operands), each of the same size
+    # as the plain engine's roundings; a kernel that drops or adds keys or
+    # positions moves the logits by a whole attention or SSD output, far
+    # past it.
+    tol = 3 * cpu_err
+    ok = card_err <= tol and all(
+        bool(torch.isfinite(t).all()) for t in runs["card_bf16"].logits)
+    log(f"[engine-bf16] {tag:7s} {len(ref)} logits calls (prefill + "
+        f"first decode), |logits| <= {scale:.3f}: card bf16 max_abs_err="
+        f"{card_err:.3e}, cpu bf16 (plain) {cpu_err:.3e}, tol 3x cpu "
+        f"= {tol:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"chip_smoke: bf16 {tag} engine logits off the "
+                         f"fp32 CPU engine ({card_err:.3e} > {tol:.3e})")
 
 
 def _tree_map(tree, fn):
@@ -1124,8 +1264,9 @@ def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
 
 # -- optional: profiler breakdown of each path -----------------------------------
 KERNEL_NAMES = ("decode_split_kernel", "decode_combine_kernel",
-                "chunk_kernel", "flash_kernel")
-SSD_KERNEL_NAMES = ("ssd_cb_kernel", "ssd_scan_kernel")
+                "decode_sm90_kernel", "dec::combine_kernel", "chunk_kernel",
+                "flash_kernel")
+SSD_KERNEL_NAMES = ("ssd_cb_kernel", "ssd_scan_kernel", "ssd::scan_kernel")
 
 
 def _category(name: str) -> str:
@@ -1159,6 +1300,7 @@ def phase_profile(path, cfg, params, dev, eng_kw, reqs,
         _sync(dev)
         wall = time.perf_counter() - t0
     cats: dict = {}
+    ports: dict = {}                # port kernel -> (device us, launches)
     for evt in prof.key_averages():
         # device-side kernel / memcpy rows only: an aten:: op's "self CUDA"
         # time is its kernels' time again
@@ -1167,9 +1309,16 @@ def phase_profile(path, cfg, params, dev, eng_kw, reqs,
         dt = getattr(evt, "self_device_time_total", None)
         if dt is None:
             dt = evt.self_cuda_time_total
-        cats[_category(evt.key)] = cats.get(_category(evt.key), 0) + dt
+        cat = _category(evt.key)
+        cats[cat] = cats.get(cat, 0) + dt
+        if "port kernel" in cat:
+            t, n = ports.get(evt.key, (0, 0))
+            ports[evt.key] = (t + dt, n + evt.count)
     busy = sum(cats.values()) / 1e6
     tag = f"[profile:{path}]"
+    for name, (t, n) in sorted(ports.items(), key=lambda kv: -kv[1][0]):
+        log(f"{tag} port kernel {t / 1e3:9.1f} ms {n:5d} launches "
+            f"{t / max(n, 1):8.1f} us each  {name[:70]}")
     log(f"{tag} profiled wall_s={wall:.3f} device_busy_s={busy:.3f} "
         f"idle_share={max(0.0, 1 - busy / wall):.3f}; against the median "
         f"unprofiled warm wall_s={unprofiled_wall:.3f}: "
@@ -1262,8 +1411,9 @@ def main(argv=None) -> int:
                                  if c[r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
     keys = ["name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "shape", "timed_shapes", "host_us"]
+            "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "library_device_ms",
+            "shape", "timed_shapes", "host_us"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi_line())

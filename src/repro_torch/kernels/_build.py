@@ -142,6 +142,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        lib.rt_decode_plan.argtypes = [_I] * 8 + [_P]
+        lib.rt_decode_plan.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         build_info.update(path=str(lib_path), built=built,

@@ -32,9 +32,29 @@
 //    hundreds of CTAs in flight instead of B x nkv = 64 (the card has 132
 //    SMs and a decode CTA is latency-bound on its K/V loads); a second
 //    kernel merges the splits' (acc, max, sum) partials.
+//
+// Two bodies. bf16 contiguous decode with at most 16 query heads per KV
+// head runs the Hopper body of decode_sm90.cuh (tensor cores, a cp.async
+// K/V ring, splits sized from the positions); there `split` is the least
+// number of keys a split takes and `nsplit` the most splits a row is cut
+// into. Every other launch (paged decode, fp32, larger groups) runs the
+// FP32-pipe body rt::attend of attn_common.cuh in splits of `split` keys,
+// `nsplit` of them covering the row's capacity. `sm90_body` alone picks
+// the body, and rt_decode_plan, which the wrappers call for `split` and
+// `nsplit`, sizes the splits for the body it picks.
+#include <algorithm>
+
 #include "attn_common.cuh"
+#include "decode_sm90.cuh"
 
 namespace {
+
+constexpr int kSplit = 256;        // keys per split, FP32-pipe body
+constexpr int kCtasPerSm = 4;      // Hopper body: split CTAs per SM, at most
+
+bool sm90_body(int paged, int is_bf16, int nh, int nkv) {
+  return !paged && is_bf16 && nh / nkv <= rt::dec::kMaxG;
+}
 
 struct DecodeArgs {
   const void* q;
@@ -143,7 +163,52 @@ cudaError_t run_contig(const DecodeArgs& a, cudaStream_t s) {
   return run<T, D, false>(a, s);
 }
 
+template <int D>
+__global__ void __launch_bounds__(rt::dec::kThreads)
+decode_sm90_kernel(rt::dec::Args a) {
+  rt::dec::split_body<D, rt::dec::ContigKeys<D>>(a);
+}
+
+template <typename T, int D>
+cudaError_t run_contig_sm90(const DecodeArgs& d, cudaStream_t s) {
+  const rt::dec::Args a{
+      static_cast<const __nv_bfloat16*>(d.q),
+      static_cast<const __nv_bfloat16*>(d.k),
+      static_cast<const __nv_bfloat16*>(d.v), d.pos,
+      static_cast<__nv_bfloat16*>(d.out), d.part_acc, d.part_ml, d.B, d.nh,
+      d.nkv, d.nh / d.nkv, d.S, d.window, d.split, d.nsplit,
+      d.scale * rt::dec::kLog2e};
+  cudaError_t e = rt::launch<decode_sm90_kernel<D>>(
+      dim3(d.nsplit, d.nkv, d.B), rt::dec::kThreads,
+      rt::dec::smem_bytes<D>(), a, s);
+  if (e != cudaSuccess) return e;
+  return rt::launch<rt::dec::combine_kernel<D>>(dim3(d.nh, d.B), D, 0, a, s);
+}
+
 }  // namespace
+
+// Split sizing for a launch of either entry point over rows of `keys`
+// keys: out[0] = split, out[1] = nsplit (the partials' depth). The Hopper
+// body cuts a row's visible keys into whole tiles, at most as many splits
+// per (row, KV head) as put kCtasPerSm CTAs on each of `sm_count` SMs; the
+// FP32-pipe body covers min(keys, window) in splits of kSplit.
+extern "C" int rt_decode_plan(int paged, int B, int nh, int nkv, int keys,
+                              int window, int is_bf16, int sm_count,
+                              int* out) {
+  if (B <= 0 || nkv <= 0 || nh % nkv != 0 || keys <= 0 || sm_count <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int seen = window > 0 ? std::min(keys, window) : keys;
+  if (sm90_body(paged, is_bf16, nh, nkv)) {
+    const int kt = rt::dec::kKT;
+    const int ctas = (kCtasPerSm * sm_count + B * nkv - 1) / (B * nkv);
+    out[0] = kt;
+    out[1] = std::max(1, std::min(ctas, (seen + kt - 1) / kt));
+  } else {
+    out[0] = kSplit;
+    out[1] = std::max(1, (seen + kSplit - 1) / kSplit);
+  }
+  return 0;
+}
 
 extern "C" int rt_decode_attention_paged(
     const void* q, const void* k, const void* v, const void* tbl,
@@ -171,7 +236,10 @@ extern "C" int rt_decode_attention(
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
                B, nh, nkv, 0, 0, window, split, nsplit, S, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = is_bf16 ? RT_DISPATCH_D(d, __nv_bfloat16, run_contig, a, s)
-                          : RT_DISPATCH_D(d, float, run_contig, a, s);
+  cudaError_t e =
+      !is_bf16 ? RT_DISPATCH_D(d, float, run_contig, a, s)
+      : sm90_body(0, is_bf16, nh, nkv)
+          ? RT_DISPATCH_D(d, __nv_bfloat16, run_contig_sm90, a, s)
+          : RT_DISPATCH_D(d, __nv_bfloat16, run_contig, a, s);
   return static_cast<int>(e);
 }

@@ -65,7 +65,7 @@
 #include <dlfcn.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "warp_mma.cuh"
 
 namespace rt {
 namespace sm90 {
@@ -104,10 +104,6 @@ struct PrefillArgs {
 };
 
 // -- PTX helpers ---------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
                :: "r"(bar), "r"(count) : "memory");
@@ -170,13 +166,6 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
-// 16-byte cp.async; src_bytes 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -185,17 +174,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
                :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // byte offset of 16-byte piece `half` (0, 1) of row `row` inside one

@@ -36,7 +36,13 @@
 //    x = b = c = 0 (an exact no-op for the state) and writes no y. No
 //    padding copy; x, b and c may be strided views (the model's x, B and
 //    C are slices of one conv output), read in place.
+//
+// Since the bf16 redesign this body (and its C B^T scratch `cb`) serves
+// fp32 inputs (the parity runs) and bf16 views whose rows are not 16-byte
+// aligned; bf16 otherwise runs the tensor-core body of ssd_sm90.cuh, whose
+// note gives its design.
 #include "common.cuh"
+#include "ssd_sm90.cuh"
 
 namespace {
 
@@ -320,7 +326,27 @@ extern "C" int rt_ssd_scan(
                B, S, nh, hd, N, Q, (S + Q - 1) / Q,
                x_sb, x_ss, x_sh, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = is_bf16 ? run<__nv_bfloat16>(args, st)
-                          : run<float>(args, st);
+  // the tensor-core body copies 16-byte pieces of x, B and C rows
+  auto al16 = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  const bool sm90 = is_bf16 && hd % 8 == 0 && N % 8 == 0 && al16(x)
+                    && al16(b) && al16(c) && x_sb % 8 == 0 && x_ss % 8 == 0
+                    && x_sh % 8 == 0 && b_sb % 8 == 0 && b_ss % 8 == 0
+                    && c_sb % 8 == 0 && c_ss % 8 == 0;
+  cudaError_t e;
+  if (sm90) {
+    const rt::ssd::Args sa{
+        static_cast<const __nv_bfloat16*>(x), args.dt, args.a,
+        static_cast<const __nv_bfloat16*>(b),
+        static_cast<const __nv_bfloat16*>(c), args.h0,
+        static_cast<__nv_bfloat16*>(y), args.h, B, S, nh, hd, N, Q, args.nc,
+        x_sb, x_ss, x_sh, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss};
+    e = N <= 64 ? rt::ssd::run<64>(sa, st)
+        : N <= 128 ? rt::ssd::run<128>(sa, st)
+                   : rt::ssd::run<256>(sa, st);
+  } else {
+    e = is_bf16 ? run<__nv_bfloat16>(args, st) : run<float>(args, st);
+  }
   return static_cast<int>(e);
 }

@@ -6,14 +6,17 @@ Replaces the Pallas TPU kernels of ``repro/kernels/decode_attention.py``:
 through per-row tables, and ``decode_attention`` (``_dec_kernel``) against a
 contiguous ``(B, S, nkv, d)`` cache. Both kernels live in
 ``csrc/decode_attention.cu``, whose header note says what bounds them on the
-card and what the design does about that. ``kernels/ops.py`` routes a CUDA
+card and what the design does about that; bf16 contiguous decode runs the
+tensor-core body of ``csrc/decode_sm90.cuh``. ``kernels/ops.py`` routes a CUDA
 tensor here and a CPU tensor to the plain versions.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -27,7 +30,23 @@ REPLACES = {
 
 # kernel launches per kernel (plain-version calls excluded)
 launch_counts = {name: 0 for name in REPLACES}
-SPLIT = 256               # keys per CTA (split-KV); see the .cu header note
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(paged: bool, b: int, nh: int, nkv: int, keys: int, window: int,
+          bf16: bool, sms: int) -> Tuple[int, int]:
+    """(split, nsplit) from ``rt_decode_plan``, the C side that also picks
+    the body they size."""
+    out = (ctypes.c_int * 2)()
+    rc = _build.load().rt_decode_plan(int(paged), b, nh, nkv, keys, window,
+                                      int(bf16), sms, out)
+    _build.check(rc, "rt_decode_plan")
+    return out[0], out[1]
 
 
 def _check_q(name: str, q: torch.Tensor, cache_k: torch.Tensor,
@@ -37,16 +56,20 @@ def _check_q(name: str, q: torch.Tensor, cache_k: torch.Tensor,
     _build.expect_attention(name, q, cache_k, cache_v)
 
 
-def _partials(q: torch.Tensor, keys: int, window: Optional[int]):
-    """Split count and per-split scratch: the unnormalised accumulators
-    (B, nh, nsplit, d) and (max, denominator) pairs (B, nh, nsplit, 2)."""
+def _partials(q: torch.Tensor, nkv: int, paged: bool, keys: int,
+              window: Optional[int]):
+    """Split size and count for rows of ``keys`` keys, and per-split
+    scratch: the unnormalised accumulators (B, nh, nsplit, d) and (max,
+    denominator) pairs (B, nh, nsplit, 2)."""
     b, _, nh, d = q.shape
-    nsplit = max(1, -(-min(keys, window or keys) // SPLIT))
+    bf16 = q.dtype == torch.bfloat16
+    split, nsplit = _plan(paged, b, nh, nkv, keys, window or 0, bf16,
+                          _sm_count(q.device.index))
     part_acc = torch.empty((b, nh, nsplit, d), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((b, nh, nsplit, 2), dtype=torch.float32,
                           device=q.device)
-    return nsplit, part_acc, part_ml
+    return split, nsplit, part_acc, part_ml
 
 
 def decode_attention_paged_plain(q: torch.Tensor, cache_k: torch.Tensor,
@@ -81,13 +104,14 @@ def decode_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,
     if b == 0:
         return out
     mb = block_tbl.shape[1]
-    nsplit, part_acc, part_ml = _partials(q, mb * bs, window)
+    split, nsplit, part_acc, part_ml = _partials(q, nkv, True, mb * bs,
+                                                 window)
     lib = _build.load()
     rc = lib.rt_decode_attention_paged(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
         block_tbl.data_ptr(), pos.data_ptr(), out.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), b, nh, nkv, d, bs, mb,
-        window or 0, SPLIT, nsplit, 1.0 / math.sqrt(d),
+        window or 0, split, nsplit, 1.0 / math.sqrt(d),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
     _build.check(rc, name)
     launch_counts[name] += 1
@@ -122,12 +146,12 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    nsplit, part_acc, part_ml = _partials(q, s, window)
+    split, nsplit, part_acc, part_ml = _partials(q, nkv, False, s, window)
     lib = _build.load()
     rc = lib.rt_decode_attention(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, nh, nkv,
-        d, s, window or 0, SPLIT, nsplit, 1.0 / math.sqrt(d),
+        d, s, window or 0, split, nsplit, 1.0 / math.sqrt(d),
         int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
     _build.check(rc, name)
     launch_counts[name] += 1

@@ -27,8 +27,20 @@ launch_counts = {"flash_attention": 0}
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None) -> torch.Tensor:
-    """Plain version: the ``models/attention.py`` prefill oracle."""
-    return _attn.prefill_attention(q, k, v, causal=causal, window=window)
+    """Plain version: the ``models/attention.py`` SDPA under the kernel's
+    own mask. As ``_fa_kernel`` (and the CUDA kernel), query i sees key j
+    when ``j <= i`` under ``causal`` and ``j > i - window`` whenever a window
+    is given; the model oracle ``prefill_attention`` drops the window
+    without ``causal``, the kernels do not."""
+    sq, sk = q.shape[1], k.shape[1]
+    mask = None
+    if causal:
+        mask = _attn.causal_mask(sq, sk, 0, window, q.device)
+    elif window is not None:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        mask = (kpos > qpos - window)[None, None, None]
+    return _attn.sdpa(q, k, v, mask)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -3,7 +3,8 @@ version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/ssd_scan.py`` ``ssd_scan``
 (``_ssd_kernel``); the kernel source is ``csrc/ssd_scan.cu``, whose header
-note says what bounds it on the card and what its design does about that.
+note says what bounds it on the card and what its design does about that;
+bf16 runs the tensor-core body of ``csrc/ssd_sm90.cuh``.
 The plain version ``ssd_scan_plain`` is the port of the reference's
 chunked algorithm ``repro/models/ssm.py`` ``ssd_chunked``;
 ``ssd_scan_sequential`` is the O(S) recurrence the chunked algorithm is

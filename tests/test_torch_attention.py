@@ -75,6 +75,25 @@ def test_flash_attention_plain(dtype, b, s, nh, nkv, d, window):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,nh,nkv,d,window", [
+    (2, 32, 4, 2, 16, 8),           # GQA, window shorter than the rows
+    (1, 24, 4, 4, 32, 5),           # MHA, ragged length
+])
+def test_flash_attention_plain_noncausal_window(dtype, b, s, nh, nkv, d,
+                                                window):
+    """Without ``causal`` the Pallas kernel (and the CUDA kernel) still
+    apply the window: query i sees keys j > i - window, later keys
+    included. The plain version masks the same way."""
+    rng = np.random.RandomState(7)
+    q, k, v = (rng.randn(b, s, n, d).astype(np.float32)
+               for n in (nh, nkv, nkv))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(x, dtype) for x in (q, k, v))
+    out = tfa.flash_attention_plain(tq, tk, tv, causal=False, window=window)
+    _close(out, pallas_flash(jq, jk, jv, causal=False, window=window,
+                             interpret=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("b,nh,nkv,d,window,vecpos", [
     (2, 4, 2, 16, None, True),      # GQA, per-row positions
     (3, 4, 4, 16, 8, True),         # MHA, SWA

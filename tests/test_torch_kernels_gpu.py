@@ -187,6 +187,36 @@ def test_contig_decode_kernel_matches_plain(cuda, dtype, s, nh, nkv, d,
     torch.testing.assert_close(out.float(), ref, **_tol(dtype))
 
 
+@pytest.mark.parametrize("nh,nkv,d,b,s,window,pos", [
+    # split edges at 2080 keys, 8 rows (64-key splits for short rows,
+    # 192-key splits at 1535 / 1536), the row's end and the dead row
+    (32, 8, 128, 8, 2080, None, [0, 63, 64, 65, 1535, 1536, 2079, 2080]),
+    (32, 8, 128, 8, 2080, 20, [0, 63, 64, 65, 1535, 1536, 2079, 2080]),
+    (32, 8, 128, 8, 2080, 300, [0, 63, 64, 65, 1535, 1536, 2079, 2080]),
+    (64, 8, 128, 1, 1000, None, [999]),         # B = 1, S % 64 != 0
+    (8, 8, 16, 3, 300, None, [0, 150, 299]),    # g = 1, d = 16
+    (16, 4, 32, 3, 300, 40, [5, 150, 300]),     # g = 4, d = 32, SWA
+    (16, 2, 64, 3, 1000, None, [0, 640, 1000]),  # g = 8, d = 64
+    (32, 32, 80, 4, 700, None, [0, 64, 699, 700]),  # g = 1, d = 80
+    (8, 2, 80, 3, 300, None, [1, 128, 300]),    # g = 4, d = 80
+    (32, 2, 64, 3, 500, None, [10, 255, 500]),  # g = 16 (one m16 tile)
+    (32, 1, 16, 3, 200, None, [10, 100, 200]),  # g = 32: FP32-pipe body
+])
+def test_contig_decode_bf16_body_edges(cuda, nh, nkv, d, b, s, window, pos):
+    """Kernel 4's bf16 tensor-core body: splits sized from the positions,
+    their edges, windows shorter than a tile and across splits, every head
+    dim, g = 1 / 4 / 8 / 16, the frozen dead row (pos = S)."""
+    rng = np.random.RandomState(7)
+    dt = torch.bfloat16
+    ck = _rand(rng, (b, s, nkv, d), dt, cuda)
+    cv = _rand(rng, (b, s, nkv, d), dt, cuda)
+    q = _rand(rng, (b, 1, nh, d), dt, cuda)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    out = ops.decode_attention(q, ck, cv, pos, window=window)
+    ref = _ref(da.decode_attention_plain, q, ck, cv, pos, window=window)
+    torch.testing.assert_close(out.float(), ref, **_tol(dt))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("c,s,vecbase,window", [(16, 64, False, None),
                                                 (13, 37, True, None),
@@ -208,17 +238,35 @@ def test_contig_chunk_kernel_matches_plain(cuda, dtype, c, s, vecbase,
     torch.testing.assert_close(out.float(), ref, **_tol(dtype))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,s,nh,hd,n,chunk,init", [
+_SSD_CASES = [
     (2, 37, 3, 16, 16, 16, False),          # ragged, several chunks, hd < 32
     (2, 100, 8, 64, 128, 64, True),         # ragged, initial state
     (1, 300, 4, 64, 64, 128, False),        # zamba2's N, Q = 128
     (3, 11, 2, 32, 16, 4, True),            # the parity tests' tiny chunks
-])
+]
+# the bf16 tensor-core body's edges (fp32 runs the FP32-pipe body)
+_SSD_BF16_EDGES = [
+    (2, 50, 4, 64, 64, 128, False),         # S < Q
+    (2, 300, 4, 64, 128, 128, True),        # S % Q != 0, h0
+    (2, 200, 4, 64, 16, 64, False),         # N = 16, Q = 64
+    (1, 300, 2, 64, 256, 128, True),        # N = 256 (one buffer)
+    (2, 150, 3, 80, 64, 64, True),          # hd = 64 + 16: two slices
+    (2, 45, 4, 64, 64, 8, False),           # Q = 8
+    (1, 8192, 8, 64, 128, 128, False),      # 64 chunks of carried state
+    (1, 40, 2, 16, 20, 16, False),          # N % 8 != 0: FP32-pipe body
+]
+
+
+@pytest.mark.parametrize(
+    "dtype,b,s,nh,hd,n,chunk,init",
+    [(dt,) + c for dt in DTYPES for c in _SSD_CASES]
+    + [(torch.bfloat16,) + c for c in _SSD_BF16_EDGES])
 def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, nh, hd, n, chunk,
                                        init):
     """Kernel 6 on strided views (x, B and C sliced from one buffer, as the
-    model gives them), its ragged tail masked in the kernel."""
+    model gives them), its ragged tail masked in the kernel; in bf16 also
+    short sequences, every chunk and state width the tensor-core body
+    takes, head dims past one 64-wide slice and one long row."""
     rng = np.random.RandomState(5)
     xbc = _rand(rng, (b, s, nh * hd + 2 * n), dtype, cuda) * 0.5
     x = xbc[..., :nh * hd].reshape(b, s, nh, hd)
