@@ -11,7 +11,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 2. build the hand-written kernels (``src/repro_torch/kernels/csrc``) with
    nvcc and print the build seconds, the ptxas register report and every
    function that spills;
-3. kernels vs plain on the card: each of the six kernels against its
+3. kernels vs plain on the card: each of the seven kernels against its
    plain PyTorch version evaluated in fp32 on the same input values (the
    bf16 plain version's own error is logged beside it), at the shapes
    each serving path of phase 5 gives it and at small ragged shapes, in
@@ -25,14 +25,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    shorter than a tile; every head dim); the bf16 contiguous decode
    body's edges (positions at a split's first and last key and the key
    after, windows shorter than a tile and across splits, S not a multiple
-   of the tile, B = 1, g = 1 / 4 / 8 / 16 at every head dim); the SSD
-   scan's y and final state, ragged S, S < Q, one and several chunks, Q 8
-   / 64 / 128, N 16 / 64 / 128 / 256, head dims past one 64-wide slice,
-   an initial state, one 8192-token row. At each kernel's main shape it
+   of the tile, B = 1, g = 1 / 4 / 8 / 16 at every head dim); the same
+   body through the block table (paged decode: block, tile and split
+   edges, pool blocks of 16 and 24, windows shorter than a block, g = 1 /
+   3 / 4 / 6 / 7 / 8 / 12 / 16 at every head dim); g = 3 / 6 / 7 / 12
+   for flash, both chunk kernels and contig decode; the SSD scan's y and
+   final state, ragged S, S < Q, one and several chunks, Q 8 / 64 / 128,
+   N 16 / 64 / 128 / 256, head dims past one 64-wide slice, an initial
+   state, one 8192-token row; the KV sanitizer's probe held to its plain
+   version exactly (decode and chunk, paged and contiguous, fp32 and
+   bf16, SWA, a dead row, poison as the dtype stores it planted where a
+   row reads, which must fire, and where none does, which must not). At
+   each kernel's main shape it
    times the kernel, the plain version and, as a yardstick the port never
    calls, ``F.scaled_dot_product_attention`` on the gathered /
-   head-repeated K/V (none for the SSD scan: no single PyTorch call
-   computes it), each as the mean of 20 eager calls (``ms``,
+   head-repeated K/V (none for the SSD scan and the probe: no single
+   PyTorch call computes them), each as the mean of 20 eager calls (``ms``,
    ``plain_ms``, ``library_ms``: the rate the host sustains), the kernel
    and SDPA also as the device time per call of a CUDA graph of 20 calls
    (``device_ms``, ``library_device_ms``: no host launch cost), and
@@ -44,7 +52,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 4. engine parity, fp32: reduced configs, one init each, the same requests
    through the Engine on the card (kernels) and on the CPU (plain): paged
    bucketed, direct-to-pool chunked and overcommitted (grow + preempt)
-   qwen3-32b; contig bucketed and contig chunked qwen3-32b; phi3.5-moe and
+   qwen3-32b, and overcommitted with the sanitizer on (the probe on every
+   paged decode and chunk; it must launch, preempt and chunk); contig
+   bucketed and contig chunked qwen3-32b; phi3.5-moe and
    granite-moe on their auto (contig) layout with more requests than
    slots; mamba2-1.3b and zamba2-2.7b with SSD chunks of 8 (prompts span
    several), more requests than slots and an equal-length pair batched
@@ -57,8 +67,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    256-wide mamba2 and zamba2 models with SSD heads of 64 and prompts of
    one to six SSD chunks; each one's prefill and first decode logits on
    the card against the same engine in fp32 on the CPU (every run fed the
-   fp32 run's tokens), within 3x the bf16 CPU engine's own error;
-5. five serving paths at full width, bf16, random weights from a seeded
+   fp32 run's tokens), within 3x the bf16 CPU engine's own error; then
+   poison planted in a mapped block of a bf16 paged engine on the card
+   (KV_POISON as bf16 stores it, 998,244,352): with the sanitizer the
+   next decode step, and mid-prefill the next chunk, must raise
+   ``KVSanitizerError``; without it nothing may;
+5. six serving paths at full width, bf16, random weights from a seeded
    generator on the card, the same traffic (16 requests of 64-2048 prompt
    tokens, some past ``prefill_chunk=512``, 32 new tokens each,
    ``max_len`` 2080, 8 slots); for each, one untimed warm-up pass, then
@@ -68,6 +82,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    main   Qwen3-32B widths (d_model 5120, 64/8 heads, head dim 128, d_ff
           25600, vocab 151936), depth ``--layers``, paged layout: paged
           decode, paged chunk, flash;
+   sanitize main with ``kv_sanitize=True``: the probe after every paged
+          decode and chunk call, read once per dispatch;
    contig the same widths and depth on ``kv_layout="contig"`` (the A/B
           baseline of the paged layout): contig decode, contig chunk,
           flash;
@@ -111,11 +127,14 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import chunk_attention as ca  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import kv_probe as kvp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.serving import Engine, ServeRequest  # noqa: E402
+from repro_torch.serving.kv_blocks import (KV_POISON,  # noqa: E402
+                                           KVSanitizerError)
 
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s (data sheet)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense FLOP/s
@@ -131,6 +150,12 @@ TOL = {torch.bfloat16: (5e-3, 2e-2), torch.float32: (1e-4, 1e-4)}
 QWEN = dict(nh=64, nkv=8, d=128)              # Qwen3-32B attention geometry
 PHI = dict(nh=32, nkv=8, d=128)               # Phi-3.5-MoE attention geometry
 ZAMBA = dict(nh=32, nkv=32, d=80)             # zamba2-2.7b shared attention
+HEAD_DIMS = _build.HEAD_DIMS
+G_SWEEP = (1, 3, 4, 6, 7, 8, 12, 16)          # query heads per KV head
+# groups that do not divide 128 (the prefill body pads its last rows; the
+# decode body pads g to 16): (g, KV heads, head dim, window)
+V1_CASES = [(3, 4, 32, None), (6, 2, 128, 50), (7, 2, 64, None),
+            (12, 2, 80, None), (12, 1, 16, 50)]
 GROUP = 4                     # the Engine's prefill_group: rows per prefill
 BS = 16                       # the serving paths' KV block size
 MAX_LEN = 2080                # 2048-token prompt + 32 new tokens
@@ -142,6 +167,9 @@ PATHS = {
     "main": ("qwen3-32b", "auto",
              ("decode_attention_paged", "chunk_attention_paged",
               "flash_attention")),
+    "sanitize": ("qwen3-32b", "auto",
+                 ("decode_attention_paged", "chunk_attention_paged",
+                  "flash_attention", "kv_probe")),
     "contig": ("qwen3-32b", "contig",
                ("decode_attention", "chunk_attention", "flash_attention")),
     "moe": (MOE, "auto", ("decode_attention", "flash_attention")),
@@ -149,6 +177,8 @@ PATHS = {
     "hybrid": ("zamba2-2.7b", "auto",
                ("ssd_scan", "flash_attention", "decode_attention")),
 }
+# Engine keywords a path adds to the shared ones
+PATH_KW = {"sanitize": dict(kv_sanitize=True)}
 DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers"}
 ALL_PHASES = ("build", "kernels", "parity") + tuple(PATHS)
 
@@ -482,6 +512,39 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
         (f32, (8, 2, 64, 2, 300, 16), None, True, "GQA 8/2 d64 S=300 fp32"),
         (bf, (4, 4, 80, 3, 37, 8), None, True, "MHA d80 S=37 bf16"),
         (f32, (4, 4, 80, 3, 37, 8), None, True, "MHA d80 S=37 fp32")]
+    if paged and not rehearsal:
+        # the bf16 body through the block table (kernel 1 runs the contig
+        # body's split walk with a paged key policy): positions at 0, at a
+        # block's last key and the next (15 / 16, 23 / 24), at a tile's
+        # (63 / 64 / 65) and a split's (1535 / 1536, 192-key splits when a
+        # row is cut into 9) edges, the row's last key and one past it on
+        # the trash table (the frozen dead row: the last row of every
+        # case); pool blocks of 16 and 24 (a block straddles a 64-key
+        # tile); windows shorter than a block and across splits; B = 1;
+        # g = 1 / 3 / 4 / 6 / 7 / 8 / 12 / 16 at every head dim; g = 32
+        # (the FP32-pipe body)
+        e16 = [0, 15, 16, 63, 64, 65, 1535, 1536, MAX_LEN - 1, MAX_LEN]
+        e24 = [0, 23, 24, 63, 64, 1535, 1536, 2087, 2088]   # S = 2088
+        specs += [
+            (bf, (32, 8, 128, len(e16), MAX_LEN, 16), None, e16,
+             "g=4 block/tile/split edges + dead row bf16"),
+            (bf, (32, 8, 128, len(e24), MAX_LEN, 24), None, e24,
+             "g=4 blocks of 24 edges + dead row bf16"),
+            (bf, (32, 8, 128, len(e16), MAX_LEN, 16), 8, e16,
+             "g=4 SWA=8 < block bf16"),
+            (bf, (32, 8, 128, len(e24), MAX_LEN, 24), 20, e24,
+             "g=4 SWA=20 < block of 24 bf16"),
+            (bf, (32, 8, 128, len(e16), MAX_LEN, 16), 300, e16,
+             "g=4 SWA=300 across splits bf16"),
+            (bf, (64, 8, 128, 1, 1000, BS), None, [999],
+             "B=1 g=8 S=1000 bf16"),
+            (bf, (32, 1, 16, 3, 200, BS), None, True,
+             "g=32 d16 (FP32-pipe body) bf16")]
+        specs += [
+            (bf, (2 * g, 2, dd, 3, 300, (16, 24)[i % 2]), None, True,
+             f"g={g} d{dd} blocks of {(16, 24)[i % 2]} bf16")
+            for i, (dd, g) in enumerate(
+                (dd, g) for dd in HEAD_DIMS for g in G_SWEEP)]
     if not paged and not rehearsal:
         # the bf16 contiguous body's edges: positions at 0, at a split's
         # last key, its first and the key after (64-key splits for short
@@ -509,7 +572,10 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
             (bf, (32, 4, 128, 3, 500, BS), None, True, "g=8 d128 bf16"),
             (bf, (32, 2, 64, 3, 500, BS), None, True, "g=16 d64 bf16"),
             (bf, (32, 1, 16, 3, 200, BS), None, True,
-             "g=32 d16 (FP32-pipe body) bf16")]
+             "g=32 d16 (FP32-pipe body) bf16")] + [
+            (bf, (g * kv, kv, dd, 3, 400, BS), win, True,
+             f"g={g} d{dd}{' SWA=50' if win else ''} bf16")
+            for g, kv, dd, win in V1_CASES]
 
     def cases():
         for dtype, (h, kv, dd, b, s, bs), win, vec, label in specs:
@@ -594,6 +660,10 @@ def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
         (bf, (8, 2, 32, 2, 77, 400, BS), "rows0", None, "g=4 d32 bf16"),
         (bf, (4, 4, 80, 2, 150, 500, BS), "rows0", None, "g=1 d80 bf16"),
         (bf, (4, 1, 16, 2, 45, 300, 8), "rows0", 20, "g=4 d16 SWA=20 bf16")]
+    specs += [
+        (bf, (g * kv, kv, dd, 2, 77, 500, (16, 24)[i % 2]), "rows0", win,
+         f"g={g} d{dd} C=77{' SWA=50' if win else ''} bf16")
+        for i, (g, kv, dd, win) in enumerate(V1_CASES)]
 
     def cases():
         for dtype, (h, kv, dd, b, c, s, bs), bases, win, label in specs:
@@ -666,6 +736,9 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
         (bf, (8, 2, 64, 1, 170), False, 64,
          "g=4 d64 non-causal SWA=64 bf16"),
         (bf, (4, 4, 16, 2, 200), False, None, "g=1 d16 non-causal bf16")]
+    specs += [(bf, (g * kv, kv, dd, 2, 300), True, win,
+               f"g={g} d{dd} S=300{' SWA=50' if win else ''} bf16")
+              for g, kv, dd, win in V1_CASES]
 
     def cases():
         for dtype, (h, kv, dd, b, s), causal, win, label in specs:
@@ -724,6 +797,110 @@ def flash_yardstick(args) -> tuple:
                                                    is_causal=True),
             flash_work(b, s, nh, nkv, d, None, 2),
             f"q=({b},{s},{nh},{d}) k/v=({b},{s},{nkv},{d}) causal bf16")
+
+
+def kernel_probe(cs, dev, rehearsal) -> dict:
+    """The KV sanitizer's probe (kernel 7) against its plain version,
+    exactly (a maximum of absolute values does not round): decode (one
+    column at ``pos``) and chunk (512 columns at base 1024; per-row
+    columns, as the engine gives them), paged and contiguous, bf16 and
+    fp32, SWA, a dead row on the trash table, poison (as the dtype stores
+    it) planted in a block one row reads, and beyond every row's horizon.
+    Timed at the sanitize path's paged decode shape (that of kernel 1)."""
+    name = "kv_probe"
+    plain = kvp.kv_probe_plain
+    run = plain if rehearsal else kvp.kv_probe
+    bf, f32 = torch.bfloat16, torch.float32
+    nh, nkv, d = _geometry(QWEN, rehearsal)
+    B, S, C = (4, 64, 16) if rehearsal else (8, MAX_LEN, 512)
+    # (dtype, paged, (nh, nkv, d, b, s, bs), columns, window, poison, label)
+    specs = [
+        (bf, True, (nh, nkv, d, B, S, BS), 1, None, None,
+         "main: decode paged, ragged pos, dead row bf16"),
+        (bf, True, (nh, nkv, d, 4, S, BS), C, None, None,
+         "chunk paged C=512 per-row bases bf16"),
+        (bf, True, (nh, nkv, d, 4, S, BS), C, None, "cols",
+         "chunk paged per-row columns bf16"),
+        (bf, False, (nh, nkv, d, B, S, BS), 1, None, None,
+         "decode contig bf16"),
+        (bf, False, (nh, nkv, d, 4, S, BS), C, 256, None,
+         "chunk contig SWA=256 bf16"),
+        (bf, True, (nh, nkv, d, B, S, BS), 1, 100, "hot",
+         "decode paged SWA=100 poison read bf16"),
+        (bf, True, (nh, nkv, d, B, S, BS), 1, None, "cold",
+         "decode paged poison unread bf16"),
+        (bf, True, (nh, nkv, d, 4, S, 24), C, None, "hot",
+         "chunk paged blocks of 24 poison read bf16"),
+        (bf, False, (nh, nkv, d, 4, S, BS), C, None, "cold",
+         "chunk contig poison unread bf16"),
+        (f32, True, (8, 2, 64, 3, 300, 16), 1, None, "hot",
+         "decode paged poison read fp32"),
+        (f32, True, (8, 2, 64, 3, 300, 8), 24, 40, "cold",
+         "chunk paged SWA=40 poison unread fp32"),
+        (f32, False, (4, 4, 80, 3, 300, 16), 13, None, "hot",
+         "chunk contig d80 poison read fp32")]
+    main = None
+    for dtype, paged, (h, kv, dd, b, s, bs), c, win, poison, label in specs:
+        kvs, s = kv_inputs(cs, paged, b, s, kv, dd, bs, dtype)
+        pk, pv = kvs[0], kvs[1]
+        tbl = kvs[2] if paged else None
+        # "cold": no row reaches its last block (or last bs positions)
+        reach = s - c - bs if poison == "cold" else s - c
+        bases = cs.randint(0, reach + 1, (b,))
+        if paged:
+            tbl[-1] = 0                     # a dead row: trash table
+        if c == 1:
+            bases[-1] = s                   # frozen one past its last key
+        cols = cs.randint(0, c + 1, (b,)) if poison == "cols" else None
+        stored = torch.tensor(KV_POISON, dtype=dtype).item()
+        if poison == "hot":                 # the position row 0 reads last
+            t = bases[0].item() + c - 1
+            if paged:
+                pv[tbl[0, t // bs].long()] = stored
+            else:
+                pk[0, t] = -stored
+        elif poison == "cold":              # every live row's last block
+            if paged:
+                pv[tbl[:-1, -1].long()] = stored
+            else:
+                pk[:b - 1 if c == 1 else b, s - 1] = -stored
+        args = (pk, pv, tbl, bases, c, h)
+        kw = dict(window=win, cols=cols)
+        ref = plain(*args, **kw)
+        out = run(*args, **kw)
+        exact = out.shape == ref.shape and torch.equal(out, ref)
+        top = out.max().item()
+        fired = top >= stored
+        ok = exact and fired == (poison == "hot")
+        log(f"[kernels] {name:24s} {label:44s} exact={exact} max={top:.9g} "
+            f"poison as stored={stored:.9g} fired={fired} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {name} disagrees with its plain "
+                             f"version or the poison check ({label})")
+        main = main or (args, kw)
+    args, kw = main
+    pk, tbl, pos = args[0], args[2], args[3]
+    work = probe_work(pos.cpu().numpy(), 1, pk.shape[1] * tbl.shape[1], nh,
+                      nkv, d, None, 2, tbl.cpu().numpy(), BS)
+    return measure(name, kvp, run, plain, args, 0.0, None, work,
+                   f"pool=({pk.shape[0]},{BS},{nkv},{d}) tbl=({B},"
+                   f"{tbl.shape[1]}) nh={nh} decode (c=1) ragged pos, one "
+                   f"dead row bf16", kw=kw)
+
+
+def probe_work(bases, c, s, nh, nkv, d, window, esz, tbl=None,
+               bs=0) -> tuple:
+    """Bytes and operations of one probe: the K/V bytes each row may read
+    (each distinct block once, and the table entries), the bases and the
+    (B, nh) fp32 output; two operations (|x|, max) per byte pair read."""
+    bases = np.asarray(bases).astype(np.int64)
+    lo = np.maximum(0, bases - window + 1) if window else np.zeros_like(
+        bases)
+    hi = np.minimum(bases + c - 1, s - 1)
+    kv = _kv_bytes(lo, hi, nkv, d, esz, tbl, bs)
+    b = len(bases)
+    return kv + 4 * b + 4 * b * nh, 2.0 * kv / esz
 
 
 def ssd_inputs(cs, b, s, nh, hd, n, dtype, init: bool) -> tuple:
@@ -834,7 +1011,8 @@ def phase_kernels(dev, rehearsal: bool) -> list:
             kernel_flash(cs, dev, rehearsal),
             kernel_decode(cs, dev, rehearsal, paged=False),
             kernel_chunk(cs, dev, rehearsal, paged=False),
-            kernel_ssd(cs, dev, rehearsal)]
+            kernel_ssd(cs, dev, rehearsal),
+            kernel_probe(cs, dev, rehearsal)]
     for r in rows:
         lib = fmt_ms(r["library_ms"], r["library_device_ms"])
         log(f"[kernels] {r['name']:24s} kernel {r['ms']:.4f} ms (device "
@@ -865,6 +1043,13 @@ PARITY = [
      dict(max_batch=4, max_len=64, block_size=8, n_blocks=11,
           kv_overcommit=2.5, prefill_chunk=8),
      [(9, 20), (11, 20), (13, 20)]),
+    # the sanitizer on (the device probe armed), overcommitted so that it
+    # preempts and re-attaches, more requests than slots, chunked prompts
+    # admitted into released (poisoned) blocks
+    ("sanitized", "qwen3-32b",
+     dict(max_batch=4, max_len=64, block_size=8, n_blocks=11,
+          kv_overcommit=2.5, prefill_chunk=8, kv_sanitize=True),
+     [(9, 20), (11, 20), (13, 20), (30, 6), (5, 9), (41, 4)]),
     ("contig", "qwen3-32b", dict(max_batch=4, max_len=64,
                                  kv_layout="contig"), _BUCKETED),
     ("contig_chunked", "qwen3-32b",
@@ -877,7 +1062,9 @@ PARITY = [
     ("zamba2", "zamba2-2.7b", _SSD, _RECURRENT),
 ]
 # kernels a scenario's card run must launch itself
-PARITY_REQUIRED = {"mamba2": ("ssd_scan",),
+PARITY_REQUIRED = {"sanitized": ("kv_probe", "decode_attention_paged",
+                                 "chunk_attention_paged"),
+                   "mamba2": ("ssd_scan",),
                    "zamba2": ("ssd_scan", "flash_attention",
                               "decode_attention")}
 
@@ -964,7 +1151,11 @@ def phase_engine_parity(dev) -> None:
             raise SystemExit("chip_smoke: contig chunked parity ran no "
                              "chunk scatter")
         st = out["dev"][1]
-        if name in PARITY_REQUIRED and not (
+        if name == "sanitized" and not (eng._kv_probe and st["preemptions"]
+                                        and st["chunk_direct"]):
+            raise SystemExit(f"chip_smoke: the sanitized parity run armed "
+                             f"no probe, or did not preempt or chunk: {st}")
+        if name in ("mamba2", "zamba2") and not (
                 st["prefill_batches"] < st["prefills"]
                 and eng.kv_layout == "contig"):
             raise SystemExit(f"chip_smoke: {name} parity formed no group "
@@ -1111,6 +1302,47 @@ def _bf16_engine_check(dev, tag, base, kw, need, layout) -> None:
                          f"fp32 CPU engine ({card_err:.3e} > {tol:.3e})")
 
 
+def phase_poison_bf16(dev) -> None:
+    """The probe in a bf16 pool on the card, where KV_POISON is stored as
+    998,244,352 (below the reference's threshold): poison planted in a
+    mapped block of a sanitized paged engine (Qwen3-32B heads, two layers)
+    raises ``KVSanitizerError`` at the next decode step and, mid-prefill,
+    at the next chunk; the same plant without the sanitizer raises
+    nothing."""
+    cfg = dataclasses.replace(get_config("qwen3-32b").reduced(),
+                              **BF16_ENGINE, dtype="bfloat16")
+    params = _tree_to(build_model(cfg, device="cpu").init(seed=0), dev)
+    stored = torch.tensor(KV_POISON, dtype=torch.bfloat16).item()
+    for where, chunk in (("decode", 0), ("chunk", 16)):
+        for sanitize in (True, False):
+            eng = Engine(cfg, params, device=dev, max_batch=2, max_len=64,
+                         block_size=16, prefill_chunk=chunk,
+                         kv_sanitize=sanitize, victim_policy="fewest")
+            req = ServeRequest(prompt=list(range(1, 41 if chunk else 21)),
+                               max_new_tokens=8)
+            assert eng.admit(req)
+            eng.step()
+            if chunk:
+                assert not req.generated, "the prompt should be mid-prefill"
+                slot = eng._pending[0].members[0].slot
+            else:
+                slot = next(i for i, r in enumerate(eng.slots) if r is req)
+            eng.cache["k"][:, int(eng.bm.table[slot, 0])] = KV_POISON
+            raised = None
+            try:
+                eng.step()
+            except KVSanitizerError as e:
+                raised = str(e)
+            ok = (raised is not None) == sanitize
+            log(f"[engine-poison] bf16 {where:6s} sanitize={sanitize!s:5s} "
+                f"probe armed={eng._kv_probe} poison as stored={stored:.9g}"
+                f" raised={raised!r} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: bf16 poison plant at the "
+                                 f"{where} step with sanitize={sanitize}: "
+                                 f"raised={raised!r}")
+
+
 def _tree_map(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree_map(v, fn) for k, v in tree.items()}
@@ -1141,7 +1373,8 @@ def path_workload(path: str, depth: int, seed: int, rehearsal: bool):
             cfg = dataclasses.replace(cfg, n_layers=depth)
         n_req, lo, hi, chunk, max_len, new = 16, 64, 2048, 512, MAX_LEN, 32
     eng_kw = dict(max_batch=8, max_len=max_len, prefill_chunk=chunk,
-                  block_size=16, victim_policy="fewest", kv_layout=layout)
+                  block_size=16, victim_policy="fewest", kv_layout=layout,
+                  **PATH_KW.get(path, {}))
     rng = np.random.RandomState(seed)
     lens = rng.randint(lo, hi + 1, n_req)
     # both admission paths run (MoE admits exact length, never chunked):
@@ -1193,7 +1426,8 @@ def _timed_run(cfg, params, dev, eng_kw, reqs, new, required) -> dict:
         raise SystemExit(f"chip_smoke: {missing} never launched on the "
                          f"{cfg.name} path: {counts}")
     return dict(timing, wall=wall, counts=counts, layout=eng.kv_layout,
-                stats=dataclasses.asdict(eng.stats))
+                stats=dataclasses.asdict(eng.stats),
+                tokens=[list(r.generated) for r in reqs])
 
 
 def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
@@ -1259,7 +1493,19 @@ def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return runs[0]["counts"]
+    return runs[0]["counts"], runs[0]["tokens"]
+
+
+def check_sanitize_tokens(tokens: dict) -> None:
+    """The sanitizer's poison writes and probes are output-neutral: the
+    sanitize path (main's model, params and traffic) emits main's greedy
+    tokens."""
+    if "main" in tokens and "sanitize" in tokens:
+        same = tokens["sanitize"] == tokens["main"]
+        log(f"[sanitize] greedy tokens identical to main's: {same}")
+        if not same:
+            raise SystemExit("chip_smoke: the sanitize path's tokens differ "
+                             "from the main path's")
 
 
 # -- optional: profiler breakdown of each path -----------------------------------
@@ -1270,6 +1516,8 @@ SSD_KERNEL_NAMES = ("ssd_cb_kernel", "ssd_scan_kernel", "ssd::scan_kernel")
 
 
 def _category(name: str) -> str:
+    if "probe_kernel" in name:
+        return "kv probe (port kernel)"
     if any(k in name for k in KERNEL_NAMES):
         return "attention (port kernels)"
     if any(k in name for k in SSD_KERNEL_NAMES):
@@ -1373,9 +1621,11 @@ def main(argv=None) -> int:
         if "parity" in phases:
             phase_engine_parity(dev)
             phase_engine_bf16(dev)
-        for p in paths:
-            phase_path(dev, p, depth[p], args.seed, rehearsal=True,
-                       repeats=args.repeats)
+            phase_poison_bf16(dev)
+        tokens = {p: phase_path(dev, p, depth[p], args.seed,
+                                rehearsal=True, repeats=args.repeats)[1]
+                  for p in paths}
+        check_sanitize_tokens(tokens)
         log("[rehearsal] done")
         return 0
     t0 = time.perf_counter()
@@ -1396,12 +1646,16 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_engine_parity(dev)
         phase_engine_bf16(dev)
+        phase_poison_bf16(dev)
         done("parity")
+    tokens = {}
     for p in paths:
-        counts[p] = phase_path(dev, p, depth[p], args.seed,
-                               rehearsal=False, repeats=args.repeats,
-                               profile_dir=args.profile)
+        counts[p], tokens[p] = phase_path(dev, p, depth[p], args.seed,
+                                          rehearsal=False,
+                                          repeats=args.repeats,
+                                          profile_dir=args.profile)
         done(p)
+    check_sanitize_tokens(tokens)
     if phases != set(ALL_PHASES):
         log("[partial] phases run: " + ",".join(sorted(phases)))
         return 0

@@ -52,6 +52,8 @@ SIGNATURES: Dict[str, List] = {
         [_P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P],
     "rt_ssd_scan":
         [_P] * 9 + [_I] * 6 + [_L] * 9 + [_I, _P],
+    "rt_kv_probe":
+        [_P] * 6 + [_I] * 10 + [_P],
 }
 
 _lock = threading.Lock()
@@ -142,7 +144,7 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.rt_decode_plan.argtypes = [_I] * 8 + [_P]
+        lib.rt_decode_plan.argtypes = [_I] * 7 + [_P]
         lib.rt_decode_plan.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p

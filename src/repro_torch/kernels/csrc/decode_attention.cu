@@ -33,15 +33,16 @@
 //    SMs and a decode CTA is latency-bound on its K/V loads); a second
 //    kernel merges the splits' (acc, max, sum) partials.
 //
-// Two bodies. bf16 contiguous decode with at most 16 query heads per KV
-// head runs the Hopper body of decode_sm90.cuh (tensor cores, a cp.async
-// K/V ring, splits sized from the positions); there `split` is the least
-// number of keys a split takes and `nsplit` the most splits a row is cut
-// into. Every other launch (paged decode, fp32, larger groups) runs the
-// FP32-pipe body rt::attend of attn_common.cuh in splits of `split` keys,
-// `nsplit` of them covering the row's capacity. `sm90_body` alone picks
-// the body, and rt_decode_plan, which the wrappers call for `split` and
-// `nsplit`, sizes the splits for the body it picks.
+// Two bodies. bf16 decode with at most 16 query heads per KV head, paged
+// or contiguous, runs the Hopper body of decode_sm90.cuh (tensor cores, a
+// cp.async K/V ring, splits sized from the positions; the layout is its
+// key policy, PagedKeys or ContigKeys); there `split` is the least number
+// of keys a split takes and `nsplit` the most splits a row is cut into.
+// Every other launch (fp32, groups of more than 16) runs the FP32-pipe
+// body rt::attend of attn_common.cuh in splits of `split` keys, `nsplit` of
+// them covering the row's capacity. `sm90_body` alone picks the body, and
+// rt_decode_plan, which the wrappers call for `split` and `nsplit`, sizes
+// the splits for the body it picks.
 #include <algorithm>
 
 #include "attn_common.cuh"
@@ -52,8 +53,8 @@ namespace {
 constexpr int kSplit = 256;        // keys per split, FP32-pipe body
 constexpr int kCtasPerSm = 4;      // Hopper body: split CTAs per SM, at most
 
-bool sm90_body(int paged, int is_bf16, int nh, int nkv) {
-  return !paged && is_bf16 && nh / nkv <= rt::dec::kMaxG;
+bool sm90_body(int is_bf16, int nh, int nkv) {
+  return is_bf16 && nh / nkv <= rt::dec::kMaxG;
 }
 
 struct DecodeArgs {
@@ -163,26 +164,36 @@ cudaError_t run_contig(const DecodeArgs& a, cudaStream_t s) {
   return run<T, D, false>(a, s);
 }
 
-template <int D>
+template <int D, class Keys>
 __global__ void __launch_bounds__(rt::dec::kThreads)
 decode_sm90_kernel(rt::dec::Args a) {
-  rt::dec::split_body<D, rt::dec::ContigKeys<D>>(a);
+  rt::dec::split_body<D, Keys>(a);
 }
 
-template <typename T, int D>
-cudaError_t run_contig_sm90(const DecodeArgs& d, cudaStream_t s) {
+template <int D, class Keys>
+cudaError_t run_sm90(const DecodeArgs& d, cudaStream_t s) {
   const rt::dec::Args a{
       static_cast<const __nv_bfloat16*>(d.q),
       static_cast<const __nv_bfloat16*>(d.k),
       static_cast<const __nv_bfloat16*>(d.v), d.pos,
       static_cast<__nv_bfloat16*>(d.out), d.part_acc, d.part_ml, d.B, d.nh,
       d.nkv, d.nh / d.nkv, d.S, d.window, d.split, d.nsplit,
-      d.scale * rt::dec::kLog2e};
-  cudaError_t e = rt::launch<decode_sm90_kernel<D>>(
+      d.scale * rt::dec::kLog2e, d.tbl, d.mb, d.bs};
+  cudaError_t e = rt::launch<decode_sm90_kernel<D, Keys>>(
       dim3(d.nsplit, d.nkv, d.B), rt::dec::kThreads,
       rt::dec::smem_bytes<D>(), a, s);
   if (e != cudaSuccess) return e;
   return rt::launch<rt::dec::combine_kernel<D>>(dim3(d.nh, d.B), D, 0, a, s);
+}
+
+template <typename T, int D>
+cudaError_t run_paged_sm90(const DecodeArgs& a, cudaStream_t s) {
+  return run_sm90<D, rt::dec::PagedKeys<D>>(a, s);
+}
+
+template <typename T, int D>
+cudaError_t run_contig_sm90(const DecodeArgs& a, cudaStream_t s) {
+  return run_sm90<D, rt::dec::ContigKeys<D>>(a, s);
 }
 
 }  // namespace
@@ -192,13 +203,12 @@ cudaError_t run_contig_sm90(const DecodeArgs& d, cudaStream_t s) {
 // body cuts a row's visible keys into whole tiles, at most as many splits
 // per (row, KV head) as put kCtasPerSm CTAs on each of `sm_count` SMs; the
 // FP32-pipe body covers min(keys, window) in splits of kSplit.
-extern "C" int rt_decode_plan(int paged, int B, int nh, int nkv, int keys,
-                              int window, int is_bf16, int sm_count,
-                              int* out) {
+extern "C" int rt_decode_plan(int B, int nh, int nkv, int keys, int window,
+                              int is_bf16, int sm_count, int* out) {
   if (B <= 0 || nkv <= 0 || nh % nkv != 0 || keys <= 0 || sm_count <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int seen = window > 0 ? std::min(keys, window) : keys;
-  if (sm90_body(paged, is_bf16, nh, nkv)) {
+  if (sm90_body(is_bf16, nh, nkv)) {
     const int kt = rt::dec::kKT;
     const int ctas = (kCtasPerSm * sm_count + B * nkv - 1) / (B * nkv);
     out[0] = kt;
@@ -221,8 +231,11 @@ extern "C" int rt_decode_attention_paged(
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
                B, nh, nkv, bs, mb, window, split, nsplit, mb * bs, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = is_bf16 ? RT_DISPATCH_D(d, __nv_bfloat16, run_paged, a, s)
-                          : RT_DISPATCH_D(d, float, run_paged, a, s);
+  cudaError_t e =
+      !is_bf16 ? RT_DISPATCH_D(d, float, run_paged, a, s)
+      : sm90_body(is_bf16, nh, nkv)
+          ? RT_DISPATCH_D(d, __nv_bfloat16, run_paged_sm90, a, s)
+          : RT_DISPATCH_D(d, __nv_bfloat16, run_paged, a, s);
   return static_cast<int>(e);
 }
 
@@ -238,7 +251,7 @@ extern "C" int rt_decode_attention(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e =
       !is_bf16 ? RT_DISPATCH_D(d, float, run_contig, a, s)
-      : sm90_body(0, is_bf16, nh, nkv)
+      : sm90_body(is_bf16, nh, nkv)
           ? RT_DISPATCH_D(d, __nv_bfloat16, run_contig_sm90, a, s)
           : RT_DISPATCH_D(d, __nv_bfloat16, run_contig, a, s);
   return static_cast<int>(e);

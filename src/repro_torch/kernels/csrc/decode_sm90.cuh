@@ -1,6 +1,7 @@
 // bf16 decode-attention body for Hopper (sm_90a): one query token per row
-// against its K/V history, the tensor-core path of the contiguous decode
-// kernel (decode_attention.cu, `rt_decode_attention`).
+// against its K/V history, the tensor-core path of both decode kernels
+// (decode_attention.cu: `rt_decode_attention` on a contiguous cache,
+// `rt_decode_attention_paged` on the block pool).
 //
 // Bound on the card: BYTES. A row streams its visible K/V once per step and
 // does 4 g d flops per key (g query heads per KV head), two orders of
@@ -11,9 +12,10 @@
 //  * Splits follow the positions, not the capacity: rt_decode_plan gives
 //    the number of splits per (row, KV head) that puts about four CTAs on
 //    each SM; the kernel cuts each row's visible keys [lo, hi) (lo = pos -
-//    window + 1 or 0, hi = min(pos + 1, S)) into at most that many splits
-//    of whole 64-key tiles, at least `min_keys` keys each. CTAs past the
-//    last split return at once and the combine reads only the splits used.
+//    window + 1 or 0, hi = min(pos + 1, S), S the row's capacity) into at
+//    most that many splits of whole 64-key tiles, at least `min_keys` keys
+//    each. CTAs past the last split return at once and the combine reads
+//    only the splits used.
 //  * K/V ring: stages<D>() tiles of 64 keys (3 at d = 128, 4 below),
 //    filled by all 128 threads with 16-byte cp.async (zero fill past the
 //    split's end), one commit group per tile, so stages - 1 tiles (68-90 KB
@@ -30,8 +32,14 @@
 //  * A second kernel merges the splits of each (row, query head).
 //
 // Where a key lives is the policy `Keys` (element offset of key t's D
-// values for this CTA's row and KV head), so a block-table producer drops
-// in beside the contiguous one.
+// values for this CTA's row and KV head): `ContigKeys` for a (B, S, nkv, D)
+// cache, `PagedKeys` for the (n_blocks, bs, nkv, D) pool read through the
+// row's block table, any block size (a block may straddle a tile). The
+// paged policy reads the table entry beside each 16-byte copy instead of
+// staging a tile's entries in shared memory: a tile spans at most 64 / bs
+// + 1 entries of one 4-byte table row, so the lookups hit L1 after the
+// first, and staging them in shared memory would need a second barrier
+// per tile, between the lookups and the copies.
 //
 // Numerics as the fp32 body and the plain version: fp32 scores and
 // softmax, masked probabilities exactly 0 (a warp that has seen no key
@@ -64,14 +72,16 @@ __host__ __device__ constexpr size_t smem_bytes() {
 
 struct Args {
   const __nv_bfloat16* q;   // (B, 1, nh, D)
-  const __nv_bfloat16* k;   // contiguous (B, S, nkv, D)
-  const __nv_bfloat16* v;
+  const __nv_bfloat16* k;   // contiguous (B, S, nkv, D) or pool (n_blocks,
+  const __nv_bfloat16* v;   // bs, nkv, D)
   const int* pos;           // (B,)
   __nv_bfloat16* out;       // (B, 1, nh, D)
   float* part_acc;          // (B, nh, nsplit, D) unnormalised partials
   float* part_ml;           // (B, nh, nsplit, 2): max (log2 units), sum
-  int B, nh, nkv, g, S, window, min_keys, nsplit;
+  int B, nh, nkv, g, S, window, min_keys, nsplit;   // S: keys a row holds
   float scale_log2;         // softmax scale * log2(e)
+  const int* tbl;           // paged: (B, mb) block table; contiguous: null
+  int mb, bs;               // paged: table width, block size (S = mb bs)
 };
 
 // The row's visible keys start at `lo`; splits of `len` keys (whole
@@ -96,6 +106,20 @@ struct ContigKeys {
       : base((long long)b * a.S * a.nkv + kvh), nkv(a.nkv) {}
   __device__ long long offset(int t) const {
     return (base + (long long)t * nkv) * D;
+  }
+};
+
+// key t of row b, KV head kvh in the (n_blocks, bs, nkv, D) pool: pool row
+// tbl[b, t / bs] * bs + t % bs (t < S = mb bs, so the entry is in the row)
+template <int D>
+struct PagedKeys {
+  const int* tbl;           // row b's block-table entries
+  int bs, nkv, kvh;
+  __device__ PagedKeys(const Args& a, int b, int kvh_)
+      : tbl(a.tbl + (long long)b * a.mb), bs(a.bs), nkv(a.nkv), kvh(kvh_) {}
+  __device__ long long offset(int t) const {
+    const long long row = (long long)__ldg(tbl + t / bs) * bs + t % bs;
+    return (row * nkv + kvh) * D;
   }
 };
 

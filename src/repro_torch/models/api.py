@@ -8,8 +8,9 @@ from repro_torch.models.transformer import LM
 
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None,
-                ssd_chunk: int = 128) -> LM:
+                ssd_chunk: int = 128, kv_probe: bool = False) -> LM:
     """The executable model on ``device`` (default: the card; raises
     without one unless ``device="cpu"``). ``ssd_chunk`` is the SSD scan's
-    chunk length (SSM / hybrid families)."""
-    return LM(cfg, device=device, ssd_chunk=ssd_chunk)
+    chunk length (SSM / hybrid families); ``kv_probe`` arms the KV
+    sanitizer's probe on the paged attention calls (see ``LM``)."""
+    return LM(cfg, device=device, ssd_chunk=ssd_chunk, kv_probe=kv_probe)

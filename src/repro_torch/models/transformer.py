@@ -28,15 +28,20 @@ the cache: the cache dict a caller passes in is updated and handed back.
 
 Attention and the SSD scan go through ``repro_torch.kernels.ops``: the
 hand-written CUDA kernels for tensors on the card, the plain versions for
-CPU tensors. The QKV / O / FFN / SSM in-out / LM-head projections stay
-``@`` (the JAX package leaves them to XLA outside any Pallas kernel).
+CPU tensors. With ``kv_probe`` armed (the engine arms it in sanitize mode
+on the paged layout, as the reference does) the paged decode and chunk
+calls also return the KV sanitizer's probe, the largest |K| / |V| each row
+may read; the model keeps every layer's on the device, and ``take_probe``
+hands the caller their maximum once per dispatch. The QKV / O / FFN / SSM
+in-out / LM-head projections stay ``@`` (the JAX package leaves them to
+XLA outside any Pallas kernel).
 
 Enc-dec and M-RoPE raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -66,7 +71,7 @@ STATE_KEYS = ("conv", "ssd")        # per-row recurrent state, no seq axis
 
 class LM:
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
-                 ssd_chunk: int = 128):
+                 ssd_chunk: int = 128, kv_probe: bool = False):
         if cfg.family not in ("dense", "moe") + RECURRENT or cfg.is_encdec:
             raise _unported(f"the {cfg.family} family ({cfg.name})")
         if cfg.m_rope:
@@ -76,6 +81,10 @@ class LM:
                              f"not whole groups of {cfg.hybrid_period}")
         self.cfg = cfg
         self.ssd_chunk = ssd_chunk
+        # KV sanitizer probe on the paged attention calls; their (B, nh)
+        # maxima since the last ``take_probe``, on the device
+        self.kv_probe = kv_probe
+        self._probes: List[torch.Tensor] = []
         self.device = resolve_device(device)
         self.dtype = dtype_of(cfg.dtype)
         self.norm = make_norm(cfg.norm)
@@ -216,14 +225,35 @@ class LM:
                                  window=self.cfg.swa_window)
         return self._out_proj(p, o), k, v
 
+    def _probed(self, out):
+        """An attention call's output; with the probe armed the call also
+        returned its (B, nh) probe, kept on the device for
+        ``take_probe``."""
+        if not self.kv_probe:
+            return out
+        o, pmax = out
+        self._probes.append(pmax)
+        return o
+
+    def take_probe(self) -> Optional[torch.Tensor]:
+        """The largest readable |K| / |V| over every probed call since the
+        last take (a 0-dim fp32 tensor on the device; None if none ran),
+        and clear the record."""
+        if not self._probes:
+            return None
+        worst = torch.cat([p.reshape(-1) for p in self._probes]).amax()
+        self._probes = []
+        return worst
+
     def _attn_decode_paged(self, p: Dict, x: torch.Tensor, pos, ck, cv,
                            block_tbl):
         """One-token attention against this layer's block pool: write the
         token through the block table (in place), attend over the pages."""
         q, k, v = self._qkv(p, x, pos[:, None])
         attn.cache_write_token_paged(ck, cv, k, v, pos, block_tbl)
-        o = kops.decode_attention_paged(q, ck, cv, block_tbl, pos,
-                                        window=self.cfg.swa_window)
+        o = self._probed(kops.decode_attention_paged(
+            q, ck, cv, block_tbl, pos, window=self.cfg.swa_window,
+            probe=self.kv_probe))
         return self._out_proj(p, o)
 
     def _attn_decode(self, p: Dict, x: torch.Tensor, pos, ck, cv):
@@ -266,8 +296,14 @@ class LM:
         if block_tbl is not None:
             attn.cache_write_chunk_paged(ck, cv, k, v, base, block_tbl,
                                          lens=lens)
-            o = kops.chunk_attention_paged(q, ck, cv, block_tbl, base,
-                                           window=w)
+            # the probe covers the columns ``lens`` keeps: pad columns
+            # write to the trash block, so the tail of a reused block past
+            # the prompt's end may still hold poison that no real query
+            # reads (the reference probes pad columns too, and raises
+            # there: a deliberate difference, ROADMAP.md section C)
+            o = self._probed(kops.chunk_attention_paged(
+                q, ck, cv, block_tbl, base, window=w, probe=self.kv_probe,
+                probe_cols=lens))
         else:
             if lens is not None:
                 raise ValueError("column masking requires the paged path")

@@ -47,12 +47,23 @@ so the retrace counters count distinct dispatch shapes instead:
 bound ``prefill_retraces <= len(bucket_lens())`` holds as in the
 reference), ``retraces`` adds the decode shape.
 
+* **KV sanitizer** (``kv_sanitize=True`` or ``REPRO_KV_SANITIZE=1``, paged
+  layout) — the block manager's shadow ledger, released blocks poisoned
+  on the device with ``KV_POISON``, and the device probe, armed as the
+  reference arms it: the paged decode and chunk calls return the largest
+  readable |K| / |V| of every layer, kept on the device, and the engine
+  reads their maximum once per dispatch, raising ``KVSanitizerError``
+  before the dispatch's tokens are committed when it reaches the poison
+  as the pool's dtype stores it (two deliberate differences from the
+  reference, ROADMAP.md section C: in a bf16 pool the threshold is
+  998,244,352, where the reference's ``< 1e9`` never fires; a chunk probes
+  its real columns, not its pad columns). With the sanitizer off nothing
+  is launched or synchronised for it.
+
 Limits of the port (ROADMAP.md, port queue): ``victim_policy`` accepts
 only ``"fewest"`` (``"cost"`` needs ``cluster/recovery.py`` and
 ``core/modelspec.py``); ``prefix_share=True`` raises; the legacy admission
-path and enc-dec are not ported; the device-side poison probe is not armed
-(the host-side sanitizer ledger and the poisoning of released blocks
-are).
+path and enc-dec are not ported.
 """
 
 from __future__ import annotations
@@ -68,7 +79,8 @@ from repro_torch.device import DeviceLike, device_of, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import build_model
 from repro_torch.models.transformer import RECURRENT, STATE_KEYS
-from repro_torch.serving.kv_blocks import KV_POISON, BlockManager
+from repro_torch.serving.kv_blocks import (KV_POISON, BlockManager,
+                                           KVSanitizerError)
 from repro_torch.serving.request import ServeRequest
 
 
@@ -138,8 +150,6 @@ class Engine:
                              f"{self.device}")
         self.cfg = cfg
         self.params = params
-        # the reference's model keywords; the port's model takes ssd_chunk
-        self.model = build_model(cfg, device=self.device, **(model_kw or {}))
         self.max_batch = max_batch
         self.max_len = max_len
         self.prefill_chunk = int(prefill_chunk)
@@ -177,6 +187,14 @@ class Engine:
             self.bm = BlockManager(n_blocks, block_size, max_batch, mb,
                                    overcommit=kv_overcommit,
                                    sanitize=kv_sanitize)
+        # the model AFTER the block manager: sanitize mode arms the device
+        # probe on the paged layout (the port's model takes ssd_chunk and
+        # kv_probe of the reference's model keywords)
+        model_kw = dict(model_kw or {})
+        if self.bm is not None:
+            model_kw.setdefault("kv_probe", self.bm.sanitize)
+        self._kv_probe = bool(model_kw.get("kv_probe", False))
+        self.model = build_model(cfg, device=self.device, **model_kw)
         self.cache = self.model.init_cache(
             max_batch, max_len, kv_layout=kv_layout, n_blocks=n_blocks,
             block_size=block_size)
@@ -188,6 +206,9 @@ class Engine:
         # payloads; re-attached once capacity frees
         self._preempted: List[Tuple[ServeRequest, Dict]] = []
         self._shapes: set = set()
+        # the probe's threshold: KV_POISON as the pool stores it (bf16
+        # rounds 1e9 down to 998,244,352)
+        self._poison = float(torch.tensor(KV_POISON, dtype=self.model.dtype))
 
     # -- dispatch helpers -------------------------------------------------------
     def _dev(self, x, dtype=torch.int32) -> torch.Tensor:
@@ -274,6 +295,21 @@ class Engine:
         self.cache["k"][:, ids] = KV_POISON
         self.cache["v"][:, ids] = KV_POISON
         self.bm.last_released = []
+
+    def _check_probe(self) -> None:
+        """Sanitize mode: read the maximum of the dispatch's probes (the
+        one host sync it adds) and raise when a readable position held the
+        poison, before the dispatch's tokens are committed."""
+        if not self._kv_probe:
+            return
+        worst = self.model.take_probe()
+        if worst is None:
+            return
+        worst = float(worst)
+        if not worst < self._poison:
+            raise KVSanitizerError(
+                f"poisoned KV block read through the block table (max "
+                f"readable |kv| = {worst})")
 
     def _sync_block_tbl(self) -> None:
         """Push the host block table to the device when allocations
@@ -465,6 +501,7 @@ class Engine:
                     self.params, self.cache, self._dev(chunk), grp.base,
                     last_pos=self._dev(last_idx), block_tbl=self._dev(tbls),
                     lens=self._dev(rem))
+                self._check_probe()
                 self.stats.chunk_direct += 1
             else:
                 if grp.cache is None:
@@ -590,6 +627,7 @@ class Engine:
                         block_tbl=torch.where(live[:, None], tbl,
                                               torch.zeros_like(tbl)))
         logits, out = self.model.decode_step(self.params, view, tokens)
+        self._check_probe()
         self.cache["pos"] = torch.where(live, out["pos"], pos0)
         return logits
 

@@ -1,5 +1,5 @@
-"""The port's six CUDA kernels against their plain PyTorch versions, on the
-card, and the engine on the card against the engine on the CPU.
+"""The port's seven CUDA kernels against their plain PyTorch versions, on
+the card, and the engine on the card against the engine on the CPU.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
 there is no card (the check runs inside the fixture, never at import, so
@@ -22,8 +22,10 @@ import torch
 from repro_torch.kernels import chunk_attention as ca
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import kv_probe as kvp
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.serving.kv_blocks import KV_POISON
 
 pytestmark = pytest.mark.gpu
 DTYPES = [torch.float32, torch.bfloat16]
@@ -236,6 +238,149 @@ def test_contig_chunk_kernel_matches_plain(cuda, dtype, c, s, vecbase,
     assert ca.launch_counts["chunk_attention"] == n0 + 1
     ref = _ref(ca.chunk_attention_plain, q, ck, cv, bases, window=window)
     torch.testing.assert_close(out.float(), ref, **_tol(dtype))
+
+
+@pytest.mark.parametrize("nh,nkv,d,b,s,bs,window,pos", [
+    # block (15 / 16), tile (63 / 64 / 65) and split (1535 / 1536) edges,
+    # the row's last key and one past it (the last row: dead, on the trash
+    # table)
+    (32, 8, 128, 10, 2080, 16, None,
+     [0, 15, 16, 63, 64, 65, 1535, 1536, 2079, 2080]),
+    (32, 8, 128, 9, 2088, 24, None,             # blocks of 24 straddle tiles
+     [0, 23, 24, 63, 64, 1535, 1536, 2087, 2088]),
+    (32, 8, 128, 4, 2080, 16, 8, [7, 16, 1536, 2080]),    # SWA < a block
+    (32, 8, 128, 4, 2088, 24, 20, [23, 47, 1000, 2088]),
+    (32, 8, 128, 4, 2080, 16, 300, [299, 1535, 2079, 2080]),  # across splits
+    (64, 8, 128, 1, 1008, 16, None, [999]),     # B = 1
+    (8, 8, 16, 3, 304, 16, None, [0, 150, 304]),          # g = 1, d = 16
+    (12, 4, 32, 3, 312, 24, None, [5, 160, 312]),         # g = 3, d = 32
+    (16, 4, 64, 3, 304, 16, 40, [5, 150, 304]),           # g = 4, SWA
+    (12, 2, 80, 3, 312, 24, None, [1, 128, 312]),         # g = 6, d = 80
+    (14, 2, 128, 3, 304, 16, None, [10, 255, 304]),       # g = 7
+    (16, 2, 64, 3, 1008, 16, None, [0, 640, 1008]),       # g = 8
+    (24, 2, 128, 3, 312, 24, 50, [30, 200, 312]),         # g = 12, SWA
+    (32, 2, 80, 3, 504, 24, None, [10, 255, 504]),        # g = 16
+    (32, 1, 16, 3, 208, 16, None, [10, 100, 208]),        # g = 32: FP32 pipe
+])
+def test_paged_decode_bf16_body_edges(cuda, nh, nkv, d, b, s, bs, window,
+                                      pos):
+    """Kernel 1's bf16 body: the contig body's split walk reading keys
+    through the block table, at any block size, its block, tile and split
+    edges, short windows, B = 1, g = 1 ... 16 and every head dim."""
+    rng = np.random.RandomState(8)
+    dt = torch.bfloat16
+    pk, pv, tbl = _pool(rng, b, s // bs, bs, nkv, d, dt, cuda)
+    tbl[-1] = 0                                 # dead row on the trash block
+    q = _rand(rng, (b, 1, nh, d), dt, cuda)
+    pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    out = ops.decode_attention_paged(q, pk, pv, tbl, pos, window=window)
+    ref = _ref(da.decode_attention_paged_plain, q, pk, pv, tbl, pos,
+               window=window)
+    torch.testing.assert_close(out.float(), ref, **_tol(dt))
+
+
+@pytest.mark.parametrize("kind", ["flash", "paged_chunk", "contig_chunk",
+                                  "paged_decode", "contig_decode"])
+@pytest.mark.parametrize("nh,nkv,d,window", [(12, 4, 32, None),
+                                             (12, 2, 128, 50),
+                                             (14, 2, 64, None),
+                                             (24, 2, 80, None),
+                                             (12, 1, 16, 50)])
+def test_bf16_groups_not_dividing_128(cuda, kind, nh, nkv, d, window):
+    """g = 3, 6, 7 and 12 query heads per KV head through the bf16 bodies:
+    the prefill body packs 128 // g query positions a CTA and pads the
+    last 128 % g rows; the decode body pads g rows to 16."""
+    rng = np.random.RandomState(9)
+    dt, b, c, s, bs = torch.bfloat16, 2, 77, 500, 24
+    if kind == "flash":
+        q, k, v = (_rand(rng, (b, 300, n, d), dt, cuda)
+                   for n in (nh, nkv, nkv))
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        ref = _ref(fa.flash_attention_plain, q, k, v, causal=True,
+                   window=window)
+        torch.testing.assert_close(out.float(), ref, **_tol(dt))
+        return
+    paged = kind.startswith("paged")
+    cols = 1 if kind.endswith("decode") else c
+    q = _rand(rng, (b, cols, nh, d), dt, cuda)
+    if paged:
+        kv = _pool(rng, b, -(-s // bs), bs, nkv, d, dt, cuda)
+        s = kv[2].shape[1] * bs
+    else:
+        kv = tuple(_rand(rng, (b, s, nkv, d), dt, cuda) for _ in range(2))
+    at = torch.tensor([0, s - cols], dtype=torch.int32, device=cuda)
+    if kind == "paged_decode":
+        out = ops.decode_attention_paged(q, *kv, at, window=window)
+        ref = _ref(da.decode_attention_paged_plain, q, *kv, at, window=window)
+    elif kind == "contig_decode":
+        out = ops.decode_attention(q, *kv, at, window=window)
+        ref = _ref(da.decode_attention_plain, q, *kv, at, window=window)
+    elif kind == "paged_chunk":
+        out = ops.chunk_attention_paged(q, *kv, at, window=window)
+        ref = _ref(ca.chunk_attention_paged_plain, q, *kv, at, window=window)
+    else:
+        out = ops.chunk_attention(q, *kv, at, window=window)
+        ref = _ref(ca.chunk_attention_plain, q, *kv, at, window=window)
+    torch.testing.assert_close(out.float(), ref, **_tol(dt))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("paged,c,window,percol", [(True, 1, None, False),
+                                                   (True, 40, 8, True),
+                                                   (False, 1, 16, False),
+                                                   (False, 13, None, False)])
+def test_kv_probe_matches_plain(cuda, dtype, paged, c, window, percol):
+    """Kernel 7, the sanitizer probe, equals its plain version exactly (a
+    maximum of absolute values does not round), and through the attention
+    wrappers' ``probe=True``; poison (as the dtype stores it) in a block
+    or position a row reads trips it, poison past every row's reach does
+    not."""
+    rng = np.random.RandomState(10)
+    b, nh, nkv, d, s, bs = 3, 8, 2, 64, 200, 16
+    if paged:
+        pk, pv, tbl = _pool(rng, b, s // bs, bs, nkv, d, dtype, cuda)
+        tbl[-1] = 0                             # dead row on the trash block
+    else:
+        pk, pv = (_rand(rng, (b, s, nkv, d), dtype, cuda) for _ in range(2))
+        tbl = None
+    bases = torch.tensor([5, 60, s if c == 1 else 100], dtype=torch.int32,
+                         device=cuda)
+    cols = (torch.tensor([c, 3, 0], dtype=torch.int32, device=cuda)
+            if percol else None)
+    stored = torch.tensor(KV_POISON, dtype=dtype).item()
+    for poison in (None, "hot", "cold"):
+        k = pk.clone()
+        last = 5 + c - 1                        # row 0's last position
+        if poison == "hot":
+            k[tbl[0, last // bs].long() if paged else (0, last)] = stored
+        elif poison == "cold":                  # every live row's tail
+            if paged:
+                k[tbl[:-1, -1].long()] = -stored
+            else:
+                k[:b - 1 if c == 1 else b, -1] = -stored
+        n0 = kvp.launch_counts["kv_probe"]
+        got = kvp.kv_probe(k, pv, tbl, bases, c, nh, window=window,
+                           cols=cols)
+        assert kvp.launch_counts["kv_probe"] == n0 + 1
+        want = kvp.kv_probe_plain(k, pv, tbl, bases, c, nh, window=window,
+                                  cols=cols)
+        assert torch.equal(got, want)
+        assert (got.max().item() >= stored) == (poison == "hot")
+    q = _rand(rng, (b, c, nh, d), dtype, cuda)
+    if paged and c == 1:
+        _, got = ops.decode_attention_paged(q, pk, pv, tbl, bases,
+                                            window=window, probe=True)
+    elif paged:
+        _, got = ops.chunk_attention_paged(q, pk, pv, tbl, bases,
+                                           window=window, probe=True,
+                                           probe_cols=cols)
+    elif c > 1:
+        _, got = ops.chunk_attention(q, pk, pv, bases, window=window,
+                                     probe=True)
+    else:
+        return                          # contig decode has no probe
+    assert torch.equal(got, kvp.kv_probe_plain(pk, pv, tbl, bases, c, nh,
+                                               window=window, cols=cols))
 
 
 _SSD_CASES = [
