@@ -10,7 +10,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and power limit; turn TF32 off for matmuls and cuDNN (fp32 stays fp32);
 2. build the hand-written kernels (``src/repro_torch/kernels/csrc``) with
    nvcc and print the build seconds, the ptxas register report and every
-   function that spills;
+   function that spills; then (phase ``calibrate``) the paper's one-time
+   calibration, ``repro_torch.hw.calibrate``, in bf16 at H100-sized shapes
+   (GEMM 4096-8192, GEMV 8192-16384): effective FLOP/s and HBM bytes/s
+   printed beside the H100 profile's data-sheet peaks and their derates
+   (nothing is gated on them);
 3. kernels vs plain on the card: each of the seven kernels against its
    plain PyTorch version evaluated in fp32 on the same input values (the
    bf16 plain version's own error is logged beside it), at the shapes
@@ -71,8 +75,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    poison planted in a mapped block of a bf16 paged engine on the card
    (KV_POISON as bf16 stores it, 998,244,352): with the sanitizer the
    next decode step, and mid-prefill the next chunk, must raise
-   ``KVSanitizerError``; without it nothing may;
-5. six serving paths at full width, bf16, random weights from a seeded
+   ``KVSanitizerError``; without it nothing may; then the fp32 server
+   scenario: a reduced qwen3-32b behind a ``GlobalServer`` on two paged
+   pipelines with placements, cost dispatch, KV migration and a store
+   whose byte budget evicts, one interruption after 3 rounds; tokens per
+   request and ``events`` identical on the card and the CPU, at least one
+   KV attach and one eviction;
+5. seven serving paths at full width, bf16, random weights from a seeded
    generator on the card, the same traffic (16 requests of 64-2048 prompt
    tokens, some past ``prefill_chunk=512``, 32 new tokens each,
    ``max_len`` 2080, 8 slots); for each, one untimed warm-up pass, then
@@ -96,7 +105,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           groups: the SSD scan;
    hybrid zamba2-2.7b at full width and full depth (54 Mamba2 layers, 9
           shared-block applications, 32/32 heads of dim 80), auto (contig)
-          layout, exact-length groups: the SSD scan, flash, contig decode.
+          layout, exact-length groups: the SSD scan, flash, contig decode;
+   server main's model, weights and traffic through a ``GlobalServer``
+          (``dispatch="cost"``, ``use_kv_migration=True``, default
+          ``FTTimes``) over three paged pipelines that carry the first
+          placements of the port's paper-cluster plan for qwen3-32b and
+          share one set of weights through a ``TensorStore``; after 8
+          rounds one instance of the pipeline with the most live requests
+          is interrupted; every request must finish with its tokens,
+          migrated ones keeping theirs, at least one KV publish and attach,
+          no payload left in a consistent store: paged decode, paged
+          chunk, flash. It prints the virtual clock and round_s beside the
+          wall, the events, the store's bytes at the interrupt, the engine
+          rebuild's seconds and each pipeline's dispatches.
    Each model's params are freed before the next path is built;
 6. a JSON line of per-kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``. A ``[time]`` line follows each
@@ -123,6 +144,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import Placement, Stage, populate_cluster  # noqa: E402
+from repro_torch.hw import (AWS_INSTANCES, calibrate,  # noqa: E402
+                            effective, paper_cluster, profiles)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import chunk_attention as ca  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -132,7 +156,8 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
-from repro_torch.serving import Engine, ServeRequest  # noqa: E402
+from repro_torch.serving import (Engine, GlobalServer,  # noqa: E402
+                                 ServeRequest, TensorStore)
 from repro_torch.serving.kv_blocks import (KV_POISON,  # noqa: E402
                                            KVSanitizerError)
 
@@ -176,11 +201,15 @@ PATHS = {
     "ssm": ("mamba2-1.3b", "auto", ("ssd_scan",)),
     "hybrid": ("zamba2-2.7b", "auto",
                ("ssd_scan", "flash_attention", "decode_attention")),
+    # the GlobalServer over three paged pipelines of main's model
+    "server": ("qwen3-32b", "auto",
+               ("decode_attention_paged", "chunk_attention_paged",
+                "flash_attention")),
 }
 # Engine keywords a path adds to the shared ones
 PATH_KW = {"sanitize": dict(kv_sanitize=True)}
 DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers"}
-ALL_PHASES = ("build", "kernels", "parity") + tuple(PATHS)
+ALL_PHASES = ("build", "calibrate", "kernels", "parity") + tuple(PATHS)
 
 
 def log(msg: str = "") -> None:
@@ -235,6 +264,47 @@ def phase_build() -> None:
                   or "Performance Loss" in line):
                 log(f"[build] {fn}: {line.strip()}")
         log(f"[build] {spills} functions spill")
+
+
+# -- phase 2b: calibration -------------------------------------------------------
+# H100-sized shapes for the ported hw.calibration pass in bf16: GEMMs big
+# enough to run at the tensor cores' rate, GEMV matrices of 128-512 MiB so
+# the HBM stream dominates and the 50 MB L2 holds no matrix
+CALIB_GEMM = (4096, 6144, 8192)
+CALIB_GEMV = (8192, 12288, 16384)
+
+
+def phase_calibrate(dev, rehearsal: bool) -> None:
+    """The paper's one-time calibration (``repro_torch.hw.calibrate``) in
+    bf16: effective FLOP/s (GEMM median), HBM bytes/s (GEMV median) and the
+    copy-based one-device link fit, printed beside the H100 profile's
+    data-sheet peaks and the paper's derates of them. Nothing is gated on
+    the numbers."""
+    gemm, gemv = ((64, 96, 128), (128, 192, 256)) if rehearsal else (
+        CALIB_GEMM, CALIB_GEMV)
+    name = "cpu" if rehearsal else torch.cuda.get_device_name(0)
+    res = calibrate(device_name=name, gemm_sizes=gemm, gemv_sizes=gemv,
+                    dtype=torch.bfloat16, device=dev)
+    peak = profiles.H100
+    der = effective(peak)
+    where = ("CPU rehearsal, not a device metric" if rehearsal
+             else f"nvidia-smi: {smi_line()}")
+    log(f"[calibrate] {name} ({where}), bf16, {res.wall_time_s:.2f} s")
+    log(f"[calibrate] GEMM {gemm}: effective {res.eff_flops / 1e12:.1f} "
+        f"TFLOP/s (samples "
+        f"{[round(x / 1e12, 1) for x in res.samples['gemm_flops']]}); H100 "
+        f"profile {peak.flops_bf16 / 1e12:.0f} TFLOP/s, derated "
+        f"{der.flops_bf16 / 1e12:.1f} ({der.flops_bf16 / peak.flops_bf16:.2f}"
+        f"x); measured / profile {res.eff_flops / peak.flops_bf16:.3f}")
+    log(f"[calibrate] GEMV {gemv}: effective {res.eff_mem_bw / 1e9:.0f} "
+        f"GB/s (samples "
+        f"{[round(x / 1e9) for x in res.samples['gemv_bps']]}); H100 "
+        f"profile {peak.mem_bw / 1e9:.0f} GB/s, derated "
+        f"{der.mem_bw / 1e9:.0f} ({der.mem_bw / peak.mem_bw:.2f}x); "
+        f"measured / profile {res.eff_mem_bw / peak.mem_bw:.3f}")
+    log(f"[calibrate] one-device copy fit: alpha {res.net_alpha_s * 1e6:.2f}"
+        f" us, beta {res.eff_net_bps / 1e9:.0f} GB/s (no link: the "
+        f"collective degenerates to a copy on one card)")
 
 
 # -- timing ----------------------------------------------------------------------
@@ -1119,8 +1189,7 @@ def phase_engine_parity(dev) -> None:
         out, gaps = {}, {}
         for where in ("dev", "cpu"):
             eng = Engine(cfg, params[arch][where],
-                         device=dev if where == "dev" else "cpu",
-                         victim_policy="fewest", **kw)
+                         device=dev if where == "dev" else "cpu", **kw)
             reqs = _requests(specs, cfg.vocab, seed=1)
             before = ops.launch_counts()
             with RouterGap() as gap:
@@ -1177,8 +1246,7 @@ def phase_engine_parity(dev) -> None:
 BF16_ENGINE = dict(n_layers=2, d_model=256, d_ff=512, n_heads=64,
                    n_kv_heads=8, head_dim=128)
 BF16_PROMPTS = [(37, 2), (150, 2), (211, 2), (300, 2), (517, 2), (700, 2)]
-BF16_KW = dict(max_batch=4, max_len=768, prefill_chunk=256, block_size=16,
-               victim_policy="fewest")
+BF16_KW = dict(max_batch=4, max_len=768, prefill_chunk=256, block_size=16)
 BF16_RECURRENT = {
     "mamba2-1.3b": dict(n_layers=2, d_model=256, ssm_head_dim=64,
                         ssm_state=128),
@@ -1317,7 +1385,7 @@ def phase_poison_bf16(dev) -> None:
         for sanitize in (True, False):
             eng = Engine(cfg, params, device=dev, max_batch=2, max_len=64,
                          block_size=16, prefill_chunk=chunk,
-                         kv_sanitize=sanitize, victim_policy="fewest")
+                         kv_sanitize=sanitize)
             req = ServeRequest(prompt=list(range(1, 41 if chunk else 21)),
                                max_new_tokens=8)
             assert eng.admit(req)
@@ -1341,6 +1409,96 @@ def phase_poison_bf16(dev) -> None:
                 raise SystemExit(f"chip_smoke: bf16 poison plant at the "
                                  f"{where} step with sanitize={sanitize}: "
                                  f"raised={raised!r}")
+
+
+# fp32 server scenario of phase 4: a reduced qwen3-32b on two paged
+# pipelines that carry placements (so the dispatch weights, bucket tables,
+# round lengths and the engines' cost victims come from the estimator), cost
+# dispatch, KV migration through a store whose byte budget, set at the
+# interrupt to the weights plus 1.5 payloads, evicts a published payload
+SERVER_PROMPTS = [(9, 14), (21, 12), (13, 16), (30, 10), (5, 12), (17, 14),
+                  (26, 9), (11, 15)]
+SERVER_INSTS = (("g6e.xlarge", 1), ("g6.12xlarge", 4))
+
+
+def _kv_keys(events, kind) -> list:
+    return [d for _, k, d in events if k == kind]
+
+
+def server_scenario(cfg, params, dev) -> dict:
+    """Serve ``SERVER_PROMPTS`` through a GlobalServer on ``dev`` and
+    interrupt, after 3 rounds, one instance of the pipeline with the most
+    live requests. Returns what must be identical on the card and the CPU:
+    tokens per request, ``events``, the clock, the store's end state."""
+    spec = cfg.to_modelspec()
+    server = GlobalServer(cfg, TensorStore(), device=dev, max_batch=4,
+                          max_len=64, prefill_chunk=8, dispatch="cost",
+                          use_kv_migration=True,
+                          engine_kw=dict(block_size=8))
+    for i, (name, tp) in enumerate(SERVER_INSTS):
+        inst = dataclasses.replace(AWS_INSTANCES[name],
+                                   device=effective(AWS_INSTANCES[name].device))
+        pl = Placement(spec, (Stage(inst, tp, spec.n_layers, first=True,
+                                    last=True),))
+        server.add_pipeline(params, [f"{name}/{i}"], placement=pl)
+    rng = np.random.RandomState(3)
+    reqs = [ServeRequest(prompt=rng.randint(0, cfg.vocab, n).tolist(),
+                         max_new_tokens=m, rid=i)
+            for i, (n, m) in enumerate(SERVER_PROMPTS)]
+    for r in reqs:
+        server.submit(r)
+    for _ in range(3):
+        server.step()
+        server.tick()
+    victim = max(server.pipelines, key=lambda p: len(p.engine.active()))
+    store = server.store
+    payload = next(iter(victim.engine.export_live_kv().values()))
+    store.budget_bytes = store.resident_bytes() + int(
+        1.5 * (payload["k"].nbytes + payload["v"].nbytes))
+    snap = {r.rid: list(r.generated)
+            for r in server.interrupt_instance(victim.instance_ids[0])}
+    server.run_until_drained()
+    ok = all(r.done for r in reqs) and all(
+        reqs[rid].generated[:len(t)] == t for rid, t in snap.items())
+    published = _kv_keys(server.events, "kv_publish")
+    attached = _kv_keys(server.events, "kv_attach")
+    return dict(tokens=[list(r.generated) for r in reqs],
+                events=list(server.events), clock=server.clock,
+                store=(store.keys(), store.resident_bytes(),
+                       store.check_consistent()),
+                ok=ok, attached=attached,
+                evicted=[k for k in published if k not in attached])
+
+
+def phase_server_parity(dev) -> None:
+    """``server_scenario`` on the card and on the CPU, fp32: identical
+    tokens per request and ``events``; at least one KV attach, at least
+    one payload evicted by the store's budget (its request recomputes), no
+    published payload left behind, migrated requests' tokens kept; on the
+    card paged decode, paged chunk and flash launched."""
+    cfg = get_config("qwen3-32b").reduced()
+    cpu = build_model(cfg, device="cpu").init(seed=0)
+    before = ops.launch_counts()
+    card = server_scenario(cfg, _tree_to(cpu, dev), dev)
+    after = ops.launch_counts()
+    ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    host = server_scenario(cfg, cpu, "cpu")
+    kinds: dict = {}
+    for _, k, _ in card["events"]:
+        kinds[k] = kinds.get(k, 0) + 1
+    same = card == host
+    log(f"[server-parity] 2 paged pipelines, cost dispatch, KV migration, "
+        f"budgeted store: tokens+events identical={same} events {kinds} "
+        f"evicted {card['evicted']} clock {card['clock']:.6f} s (virtual)")
+    need = PATHS["server"][2]
+    if str(dev) != "cpu" and not all(ran.get(k) for k in need):
+        raise SystemExit(f"chip_smoke: the server scenario launched {ran}, "
+                         f"needs {need}")
+    if not (same and card["ok"] and card["attached"] and card["evicted"]
+            and card["store"][2]
+            and not [k for k in card["store"][0] if k[0] == "__kv__"]):
+        raise SystemExit(f"chip_smoke: server scenario failed: card "
+                         f"{card} cpu {host}")
 
 
 def _tree_map(tree, fn):
@@ -1373,7 +1531,7 @@ def path_workload(path: str, depth: int, seed: int, rehearsal: bool):
             cfg = dataclasses.replace(cfg, n_layers=depth)
         n_req, lo, hi, chunk, max_len, new = 16, 64, 2048, 512, MAX_LEN, 32
     eng_kw = dict(max_batch=8, max_len=max_len, prefill_chunk=chunk,
-                  block_size=16, victim_policy="fewest", kv_layout=layout,
+                  block_size=16, kv_layout=layout,
                   **PATH_KW.get(path, {}))
     rng = np.random.RandomState(seed)
     lens = rng.randint(lo, hi + 1, n_req)
@@ -1394,13 +1552,9 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def _timed_run(cfg, params, dev, eng_kw, reqs, new, required) -> dict:
-    """Serve ``reqs`` on a fresh Engine; launch counts are zeroed just
-    before and read just after. Fails unless every request finished with
-    its token count and finite logits, and every kernel in ``required``
-    launched."""
-    eng = Engine(cfg, params, device=dev, **eng_kw)
-    finite = []
+def _watch_logits(eng, finite: list) -> None:
+    """Append, for every logits call of ``eng``'s model, whether all its
+    values are finite (a device tensor, read once at the end)."""
     logits_fn = eng.model.logits
 
     def checked_logits(p, x):
@@ -1408,6 +1562,16 @@ def _timed_run(cfg, params, dev, eng_kw, reqs, new, required) -> dict:
         finite.append(torch.isfinite(out).all())
         return out
     eng.model.logits = checked_logits
+
+
+def _timed_run(cfg, params, dev, eng_kw, reqs, new, required) -> dict:
+    """Serve ``reqs`` on a fresh Engine; launch counts are zeroed just
+    before and read just after. Fails unless every request finished with
+    its token count and finite logits, and every kernel in ``required``
+    launched."""
+    eng = Engine(cfg, params, device=dev, **eng_kw)
+    finite = []
+    _watch_logits(eng, finite)
     timing = dict(admit_s=0.0, step_s=0.0, steps=0)
     ops.reset_launch_counts()
     _sync(dev)
@@ -1487,13 +1651,208 @@ def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
     log(f"{tag} launches per run {[r['counts'] for r in runs]} "
         f"required={list(required)} all_finite=True all_done=True")
     if profile_dir is not None:
-        phase_profile(path, cfg, params, dev, eng_kw, make_requests(), wall,
+        reqs = make_requests()
+        eng = Engine(cfg, params, device=dev, **eng_kw)
+        phase_profile(path, lambda: _serve(eng, reqs), dev, wall,
                       profile_dir)
+        del eng
     del params, model
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return runs[0]["counts"], runs[0]["tokens"]
+
+
+# -- phase 5, path "server": the GlobalServer over three pipelines ---------------
+SERVER_INTERRUPT_ROUND = 8
+
+
+def server_placements() -> list:
+    """The first three pipelines of the port's paper-cluster plan for the
+    whole qwen3-32b (``populate_cluster``, beam_k=1, the paper's derated
+    instances); when those three use one instance type, the third is
+    swapped for the first later pipeline that adds one."""
+    spec = get_config("qwen3-32b").to_modelspec()
+    insts = {n: dataclasses.replace(i, device=effective(i.device))
+             for n, i in AWS_INSTANCES.items()}
+    plan = populate_cluster(spec, paper_cluster(), insts, 763, 232, beam_k=1)
+
+    def kinds(pls):
+        return {st.instance.name for p in pls for st in p.stages}
+    pls = list(plan.pipelines[:3])
+    if len(kinds(pls)) < 2:
+        other = next((p for p in plan.pipelines[3:]
+                      if kinds([p]) - kinds(pls)), None)
+        if other is not None:
+            pls[-1] = other
+    return pls
+
+
+def drive_server(srv, reqs, dev, finite: list,
+                 at: int = SERVER_INTERRUPT_ROUND) -> dict:
+    """Submit every request at once, then step and tick the server until
+    it drains; after ``at`` rounds, interrupt the first instance of the
+    pipeline with the most live requests. Times the engine
+    rebuild inside ``interrupt_instance`` on the device and counts every
+    dispatch, re-dispatches after the interrupt included."""
+    info = dict(dispatched=[0] * len(srv.pipelines), interrupt=None)
+    submit, build = srv.submit, srv._build_engine
+
+    def counted(r):
+        p = submit(r)
+        if p is not None:
+            info["dispatched"][p.pid] += 1
+        return p
+
+    def timed_build(*a, **kw):
+        _sync(dev)
+        t0 = time.perf_counter()
+        eng = build(*a, **kw)
+        _sync(dev)
+        info["rebuild_s"] = time.perf_counter() - t0
+        _watch_logits(eng, finite)
+        return eng
+    srv.submit = counted
+    for r in reqs:
+        srv.submit(r)
+    rounds = 0
+    while srv.pending():
+        if rounds == at:
+            victim = max(srv.pipelines, key=lambda p: len(p.engine.active()))
+            inst = victim.instance_ids[0]
+            srv._build_engine = timed_build
+            affected = srv.interrupt_instance(inst)
+            srv._build_engine = build
+            info["snap"] = {r.rid: list(r.generated) for r in affected}
+            info["interrupt"] = (victim.pid, inst, len(affected))
+            info["resident_bytes"] = srv.store.resident_bytes()
+        srv.step()
+        srv.tick()
+        rounds += 1
+    info["rounds"] = rounds
+    return info
+
+
+def phase_server_path(dev, path: str, depth: int, seed: int,
+                      rehearsal: bool, repeats: int,
+                      profile_dir: Path | None = None) -> tuple:
+    """The seventh serving path: main's model, weights and traffic through
+    a ``GlobalServer`` (cost dispatch, KV migration) over three paged
+    pipelines that carry the plan's placements, sharing one set of weights
+    through a ``TensorStore``, with one spot interruption. Every run is a
+    fresh server over the same attached weights. The pools are sized for
+    every slot's worst case, so no pool preemption prices a victim."""
+    cfg, eng_kw, make_requests, new, required = path_workload(
+        path, depth, seed, rehearsal)
+    tag = f"[{path}]"
+    at = 2 if rehearsal else SERVER_INTERRUPT_ROUND     # 4 new tokens there
+    srv_kw = dict(max_batch=eng_kw.pop("max_batch"),
+                  max_len=eng_kw.pop("max_len"),
+                  prefill_chunk=eng_kw.pop("prefill_chunk"),
+                  dispatch="cost", use_kv_migration=True, engine_kw=eng_kw)
+    t0 = time.perf_counter()
+    pls = server_placements()
+    log(f"{tag} plan (port's populate_cluster, qwen3-32b, paper cluster, "
+        f"{time.perf_counter() - t0:.1f} s host): "
+        f"{[p.describe() for p in pls]}")
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=seed)
+    _sync(dev)
+
+    def build():
+        srv = GlobalServer(cfg, TensorStore(), device=dev, **srv_kw)
+        for i, pl in enumerate(pls):
+            srv.add_pipeline(params, [f"{st.instance.name}/{i}.{j}"
+                                      for j, st in enumerate(pl.stages)],
+                             placement=pl)
+        return srv
+
+    def run() -> dict:
+        srv, reqs, finite = build(), make_requests(), []
+        for p in srv.pipelines:
+            _watch_logits(p.engine, finite)
+        ops.reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        info = drive_server(srv, reqs, dev, finite, at)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        kinds: dict = {}
+        for _, k, _ in srv.events:
+            kinds[k] = kinds.get(k, 0) + 1
+        by_rid = {r.rid: r for r in reqs}
+        if info["interrupt"] is None:
+            raise SystemExit(f"chip_smoke: the server drained before round "
+                             f"{at}; nothing was interrupted")
+        checks = {
+            "done": all(r.done and len(r.generated) == new for r in reqs),
+            "finite": bool(torch.stack(finite).all()),
+            "migrated_kept": all(by_rid[rid].generated[:len(t)] == t
+                                 for rid, t in info["snap"].items()),
+            "kv_publish_and_attach": bool(kinds.get("kv_publish")
+                                          and kinds.get("kv_attach")),
+            "store_consistent": srv.store.check_consistent(),
+            "no_kv_left": not srv.store.keys("__kv__"),
+            "launched": dev.type != "cuda" or all(counts[k]
+                                                  for k in required)}
+        if not all(checks.values()):
+            raise SystemExit(f"chip_smoke: server path failed {checks}: "
+                             f"launches {counts}, events {kinds}")
+        return dict(info, wall=wall, counts=counts, kinds=kinds,
+                    clock=srv.clock,
+                    round_s=[float(p.round_s) for p in srv.pipelines],
+                    tokens_out=sum(len(r.generated) for r in reqs),
+                    tokens=[list(r.generated) for r in reqs])
+
+    t0 = time.perf_counter()
+    run()
+    log(f"{tag} {cfg.name} widths, {cfg.n_layers} of "
+        f"{get_config(cfg.name).n_layers} layers, {len(pls)} pipelines on "
+        f"one set of weights; warm-up pass (untimed workload) "
+        f"{time.perf_counter() - t0:.3f} s")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for i in range(repeats):
+        r = run()
+        runs.append(r)
+        log(f"{tag} run {i}: wall_s={r['wall']:.3f} "
+            f"out_tok_per_s={r['tokens_out'] / r['wall']:.2f} "
+            f"rounds={r['rounds']} virtual_clock_s={r['clock']:.6f} "
+            f"round_s={r['round_s']} events={r['kinds']} "
+            f"interrupt(pid, instance, requests)={r['interrupt']} "
+            f"store_resident_bytes_at_interrupt={r['resident_bytes']} "
+            f"engine_rebuild_s={r['rebuild_s']:.4f} "
+            f"dispatched={r['dispatched']}")
+        gc.collect()
+    walls = sorted(r["wall"] for r in runs)
+    wall = float(np.median(walls))
+    log(f"{tag} wall_s median={wall:.3f} min={walls[0]:.3f} "
+        f"max={walls[-1]:.3f}; out_tok_per_s median="
+        f"{runs[0]['tokens_out'] / wall:.2f} (wall, one card) against "
+        f"the virtual clock's {runs[0]['tokens_out'] / runs[0]['clock']:.2f}"
+        f" (estimated round_s of the modelled cluster)")
+    if dev.type == "cuda":
+        log(f"{tag} peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f}"
+            f"; nvidia-smi: {smi_line()}")
+    log(f"{tag} launches per run {[r['counts'] for r in runs]} "
+        f"required={list(required)}; every check passed")
+    if profile_dir is not None:
+        srv, reqs = build(), make_requests()
+        phase_profile(path, lambda: drive_server(srv, reqs, dev, [], at),
+                      dev, wall, profile_dir)
+        del srv
+    del params, model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return runs[0]["counts"], runs[0]["tokens"]
+
+
+# serving paths with a driver of their own (the rest run ``phase_path``)
+PATH_PHASE = {"server": phase_server_path}
 
 
 def check_sanitize_tokens(tokens: dict) -> None:
@@ -1532,19 +1891,19 @@ def _category(name: str) -> str:
     return "other elementwise / reduction"
 
 
-def phase_profile(path, cfg, params, dev, eng_kw, reqs,
-                  unprofiled_wall: float, out_dir: Path) -> None:
-    """Serve a path's traffic once more (after its warm-up and timed runs)
-    under torch.profiler; print the device time by category and the
-    device's idle share against both the profiled wall and the path's
-    median unprofiled wall (opt-in: ``--profile``)."""
+def phase_profile(path, serve, dev, unprofiled_wall: float,
+                  out_dir: Path) -> None:
+    """Serve a path's traffic once more (after its warm-up and timed runs;
+    ``serve()`` runs it on an engine or server built beforehand) under
+    torch.profiler; print the device time by category and the device's
+    idle share against both the profiled wall and the path's median
+    unprofiled wall (opt-in: ``--profile``)."""
     from torch.profiler import ProfilerActivity, profile
-    eng = Engine(cfg, params, device=dev, **eng_kw)
     _sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _serve(eng, reqs)
+        serve()
         _sync(dev)
         wall = time.perf_counter() - t0
     cats: dict = {}
@@ -1615,16 +1974,23 @@ def main(argv=None) -> int:
     paths = [p for p in args.phases.split(",") if p in PATHS]
     if args.cpu_rehearsal:
         dev = torch.device("cpu")
+        # one intra-op thread: the shapes are tiny, and a host shared with
+        # other busy processes (a parallel test run) stalls every parallel
+        # op at its barrier; alone, the rehearsal takes about 1.5 minutes
+        torch.set_num_threads(1)
         log("[rehearsal] CPU, plain versions, tiny sizes; no ok line")
+        if "calibrate" in phases:
+            phase_calibrate(dev, rehearsal=True)
         if "kernels" in phases:
             phase_kernels(dev, rehearsal=True)
         if "parity" in phases:
             phase_engine_parity(dev)
             phase_engine_bf16(dev)
             phase_poison_bf16(dev)
-        tokens = {p: phase_path(dev, p, depth[p], args.seed,
-                                rehearsal=True, repeats=args.repeats)[1]
-                  for p in paths}
+            phase_server_parity(dev)
+        tokens = {p: PATH_PHASE.get(p, phase_path)(
+            dev, p, depth[p], args.seed, rehearsal=True,
+            repeats=args.repeats)[1] for p in paths}
         check_sanitize_tokens(tokens)
         log("[rehearsal] done")
         return 0
@@ -1640,6 +2006,9 @@ def main(argv=None) -> int:
     if "build" in phases:
         phase_build()
         done("build")
+    if "calibrate" in phases:
+        phase_calibrate(dev, rehearsal=False)
+        done("calibrate")
     if "kernels" in phases:
         rows = phase_kernels(dev, rehearsal=False)
         done("kernels")
@@ -1647,13 +2016,13 @@ def main(argv=None) -> int:
         phase_engine_parity(dev)
         phase_engine_bf16(dev)
         phase_poison_bf16(dev)
+        phase_server_parity(dev)
         done("parity")
     tokens = {}
     for p in paths:
-        counts[p], tokens[p] = phase_path(dev, p, depth[p], args.seed,
-                                          rehearsal=False,
-                                          repeats=args.repeats,
-                                          profile_dir=args.profile)
+        counts[p], tokens[p] = PATH_PHASE.get(p, phase_path)(
+            dev, p, depth[p], args.seed, rehearsal=False,
+            repeats=args.repeats, profile_dir=args.profile)
         done(p)
     check_sanitize_tokens(tokens)
     if phases != set(ALL_PHASES):

@@ -1,15 +1,17 @@
 """Architecture configuration schema (copy of ``repro/configs/base.py``).
 
 The port keeps its own copy so that it imports nothing of the JAX package.
-``to_modelspec`` (the analytical estimator's view) is left out: it pulls in
-``core/modelspec.py`` and is only needed by the ``victim_policy="cost"``
-preemption rule, which this slice does not port yet.
+One ``ArchConfig`` feeds both planes: ``to_modelspec()`` the analytical
+estimator (``repro_torch.core``) and ``repro_torch.models.build_model`` the
+executable model.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+from repro_torch.core.modelspec import LayerSpec, ModelSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,12 +80,59 @@ class ArchConfig:
     def is_encdec(self) -> bool:
         return self.n_encoder_layers > 0
 
+    @property
+    def dtype_bytes(self) -> int:
+        return {"bfloat16": 2, "float16": 2, "float32": 4}[self.dtype]
+
+    # ----- estimator view ---------------------------------------------------
+    def _attn_layer(self, kind: str = "attn+ffn") -> LayerSpec:
+        return LayerSpec(
+            kind, self.d_model, self.n_heads, self.n_kv_heads, self.hd,
+            self.d_ff, gated_ffn=self.gated_ffn, window=self.swa_window,
+            n_experts=self.n_experts, top_k=self.moe_top_k)
+
+    def _mamba_layer(self) -> LayerSpec:
+        return LayerSpec(
+            "mamba2", self.d_model, 0, 0, 0, 0, gated_ffn=False,
+            ssm_state=self.ssm_state, ssm_heads=self.ssm_heads,
+            ssm_head_dim=self.ssm_head_dim, conv_dim=self.conv_width)
+
     def shared_attn_positions(self) -> Tuple[int, ...]:
         """Trunk indices after which the shared block fires (zamba2)."""
         if self.hybrid_period <= 0:
             return ()
         return tuple(range(self.hybrid_period - 1, self.n_layers,
                            self.hybrid_period))
+
+    def to_modelspec(self) -> ModelSpec:
+        if self.family == "ssm":
+            layers = (self._mamba_layer(),) * self.n_layers
+        elif self.family == "hybrid":
+            # interleave: mamba trunk + shared attn applications as extra
+            # per-layer entries so the DP splits see their true cost.
+            layers = []
+            shared = LayerSpec(
+                "shared_attn", self.d_model, self.n_heads, self.n_kv_heads,
+                self.hd, self.d_ff, gated_ffn=self.gated_ffn)
+            pos = set(self.shared_attn_positions())
+            for i in range(self.n_layers):
+                layers.append(self._mamba_layer())
+                if i in pos:
+                    layers.append(shared)
+            layers = tuple(layers)
+        elif self.family == "moe":
+            layers = (self._attn_layer("attn+moe"),) * self.n_layers
+        else:
+            layers = (self._attn_layer(),) * self.n_layers
+        enc = ()
+        if self.is_encdec:
+            enc = (LayerSpec("enc", self.d_model, self.n_heads,
+                             self.n_kv_heads, self.hd, self.d_ff,
+                             gated_ffn=self.gated_ffn),) * self.n_encoder_layers
+        return ModelSpec(self.name, layers, self.d_model, self.vocab,
+                         dtype_bytes=self.dtype_bytes,
+                         tie_embeddings=self.tie_embeddings,
+                         encoder_layers=enc)
 
     # ----- reduced config for CPU smoke tests -------------------------------
     def reduced(self) -> "ArchConfig":

@@ -7,9 +7,12 @@ What carries over from the reference, with the same semantics and stats:
   shared by every slot, a per-slot block table (``serving/kv_blocks.py``),
   a reservation ledger booking each request's worst case while allocating
   only its prefill context, decode-time grow, ``kv_overcommit`` with
-  preemption of the fewest-generated slot when a grow finds the pool dry
-  (its KV exported position-exact and re-attached once capacity frees),
-  bounded skip-ahead admission and headroom deferral.
+  preemption when a grow finds the pool dry (its KV exported
+  position-exact and re-attached once capacity frees), bounded skip-ahead
+  admission and headroom deferral. The victim is the slot whose
+  re-admission ``cluster/recovery.py`` prices cheapest
+  (``victim_policy="cost"``, priced off ``placement`` when one is given),
+  fewest generated tokens breaking ties; ``"fewest"`` is the legacy rule.
 * **Batched, bucketed prefill** — waiting requests are admitted in groups
   of ``prefill_group``, right-padded to a power-of-2 length bucket; the
   stacked prefill K/V is scattered straight into the owning slots' pool
@@ -60,20 +63,20 @@ reference), ``retraces`` adds the decode shape.
   its real columns, not its pad columns). With the sanitizer off nothing
   is launched or synchronised for it.
 
-Limits of the port (ROADMAP.md, port queue): ``victim_policy`` accepts
-only ``"fewest"`` (``"cost"`` needs ``cluster/recovery.py`` and
-``core/modelspec.py``); ``prefix_share=True`` raises; the legacy admission
-path and enc-dec are not ported.
+Limits of the port (ROADMAP.md, port queue): ``prefix_share=True`` raises;
+the legacy admission path and enc-dec are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.cluster.recovery import (preemption_seconds,
+                                          recompute_seconds)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, device_of, resolve_device
 from repro_torch.models import attention as attn
@@ -131,18 +134,14 @@ class Engine:
                  admit_window: int = 4, prefix_share: bool = False,
                  grow_ahead: int = 1, admit_headroom: bool = True,
                  kv_sanitize: Optional[bool] = None,
-                 victim_policy: str = "fewest",
+                 victim_policy: str = "cost", placement: Any = None,
                  model_kw: Optional[Dict] = None):
         assert kv_layout in ("auto", "paged", "contig"), kv_layout
         assert kv_alloc in ("lazy", "upfront"), kv_alloc
+        assert victim_policy in ("cost", "fewest"), victim_policy
         if prefix_share:
             raise NotImplementedError(
                 "repro_torch: prefix sharing is not ported yet (ROADMAP.md)")
-        if victim_policy != "fewest":
-            raise NotImplementedError(
-                f"repro_torch: victim_policy={victim_policy!r} needs "
-                f"cluster/recovery.py and core/modelspec.py, not ported yet; "
-                f"only 'fewest' is available")
         self.device = resolve_device(device)
         pdev = device_of(params)
         if pdev is None or pdev.type != self.device.type:
@@ -177,7 +176,16 @@ class Engine:
         self._admit_window = max(0, int(admit_window))
         self._grow_ahead = max(1, int(grow_ahead))
         self._admit_headroom = bool(admit_headroom)
+        # preemption-victim choice: "cost" picks the slot with the lowest
+        # estimated re-admission cost (restore vs recompute, priced by
+        # cluster/recovery); "fewest" is the legacy fewest-generated rule,
+        # which remains the tie-break within a cost bucket. ``placement``
+        # (core.estimator.Placement) prices the recompute branch; without
+        # it only the restore (store round-trip) branch is priced.
         self._victim_policy = victim_policy
+        self._placement = placement
+        self._victim_costs: Dict[int, float] = {}
+        self._victim_spec = None
         self._tbl_dirty = False
         self.bm: Optional[BlockManager] = None
         if kv_layout == "paged":
@@ -542,13 +550,43 @@ class Engine:
             self._install(m.req, m.slot, first[j])
 
     # -- decode-time grow / preemption ------------------------------------------
+    def _victim_cost(self, slot: int) -> float:
+        """Estimated re-admission cost of preempting this slot: the
+        cheaper of the store restore round trip
+        (``recovery.preemption_seconds``) and a context recompute
+        (``recovery.recompute_seconds``, when a placement prices it). The
+        context is bucketed to the block grid before pricing, so two slots
+        whose KV occupies the same number of blocks cost the same and the
+        fewest-generated rule stays the live tie-break. Costs are cached
+        per bucket."""
+        r = self.slots[slot]
+        bs = self.bm.block_size if self.bm is not None else 16
+        ctx_b = max(bs, -(-r.ctx_len // bs) * bs)
+        c = self._victim_costs.get(ctx_b)
+        if c is None:
+            if self._victim_spec is None:
+                self._victim_spec = self.cfg.to_modelspec()
+            c = preemption_seconds(self._victim_spec, ctx_b)
+            if self._placement is not None:
+                c = min(c, recompute_seconds(
+                    self._victim_spec, self._placement, ctx_b,
+                    chunk=self.prefill_chunk, max_len=self.max_len))
+            self._victim_costs[ctx_b] = c
+        return c
+
     def _pick_victim(self, candidates: List[int]) -> Optional[int]:
-        """Preemption victim: fewest generated tokens, slot index breaks
-        ties (the reference's ``victim_policy="fewest"``)."""
+        """Preemption victim. Policy "cost": the slot whose re-admission
+        is estimated cheapest (``_victim_cost``); fewest generated tokens
+        breaks cost ties (least progress to park), slot index breaks the
+        rest. Policy "fewest": the legacy fewest-generated-only rule."""
         owned = [i for i in candidates if self.slots[i] is not None]
         if not owned:
             return None
-        return min(owned, key=lambda i: (len(self.slots[i].generated), i))
+        if self._victim_policy == "fewest":
+            return min(owned, key=lambda i: (len(self.slots[i].generated),
+                                             i))
+        return min(owned, key=lambda i: (self._victim_cost(i),
+                                         len(self.slots[i].generated), i))
 
     def _preempt(self, slot: int) -> None:
         """Evict a live slot to make room: export its KV (position-exact),

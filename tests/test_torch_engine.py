@@ -301,9 +301,8 @@ def test_retrace_count_bounded_by_buckets(setup):
 
 def test_unported_options_raise(setup):
     _, _, tcfg, tparams = setup
-    for kw in (dict(victim_policy="cost"), dict(prefix_share=True)):
-        with pytest.raises(NotImplementedError):
-            Engine(tcfg, tparams, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Engine(tcfg, tparams, device="cpu", prefix_share=True)
     encdec = dataclasses.replace(tcfg, n_encoder_layers=2)   # not ported
     with pytest.raises(NotImplementedError):
         Engine(encdec, tparams, device="cpu")

@@ -1,5 +1,6 @@
 """The port's seven CUDA kernels against their plain PyTorch versions, on
-the card, and the engine on the card against the engine on the CPU.
+the card, and the engine and the global server on the card against the
+same on the CPU.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
 there is no card (the check runs inside the fixture, never at import, so
@@ -467,3 +468,26 @@ def test_engine_tokens_match_cpu(cuda, arch, kw):
             eng.drain()
         outs.append(([r.generated for r in rs], eng.stats))
     assert outs[0] == outs[1]
+
+
+def test_server_scenario_matches_cpu(cuda):
+    """The fp32 server scenario of ``chip_smoke.py`` phase 4 (a reduced
+    qwen3-32b behind a GlobalServer: two paged pipelines with placements,
+    cost dispatch, KV migration through a budgeted store, one interruption)
+    on the card against the CPU: identical tokens per request, events and
+    store state, at least one KV attach and one budget eviction."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfg = get_config("qwen3-32b").reduced()
+    cpu = build_model(cfg, device="cpu").init(seed=0)
+    card = smoke.server_scenario(cfg, smoke._tree_to(cpu, cuda), cuda)
+    host = smoke.server_scenario(cfg, cpu, "cpu")
+    assert card == host
+    assert card["ok"] and card["attached"] and card["evicted"]
