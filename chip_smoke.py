@@ -39,8 +39,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    state, one 8192-token row; the KV sanitizer's probe held to its plain
    version exactly (decode and chunk, paged and contiguous, fp32 and
    bf16, SWA, a dead row, poison as the dtype stores it planted where a
-   row reads, which must fire, and where none does, which must not). At
-   each kernel's main shape it
+   row reads, which must fire, and where none does, which must not); the
+   prefix path's suffix dispatch (paged chunk at per-row bases 0, 17,
+   1000 and 1023 in one call: bf16 and fp32, blocks of 16 and 24, g = 8
+   and 12, head dims 128 and 80, and with the probe on ragged real
+   columns). At each kernel's main shape it
    times the kernel, the plain version and, as a yardstick the port never
    calls, ``F.scaled_dot_product_attention`` on the gathered /
    head-repeated K/V (none for the SSD scan and the probe: no single
@@ -50,20 +53,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (``device_ms``, ``library_device_ms``: no host launch cost), and
    computes the bound (bytes over 3.35 TB/s vs operations over 989
    TFLOP/s bf16; only the keys each row reaches, each byte once);
-   flash at the MoE and hybrid prompts, contig decode at d=80 and the SSD
-   scan at zamba2's shape are timed too, and the host time of a flash
-   call through ctypes, bf16 (tensor-map encodes) against fp32;
+   flash at the MoE, hybrid and legacy prompts, paged chunk at the suffix
+   bases, contig decode at d=80 and the SSD scan at zamba2's shape are
+   timed too, and the host time of a flash call through ctypes, bf16
+   (tensor-map encodes) against fp32;
 4. engine parity, fp32: reduced configs, one init each, the same requests
    through the Engine on the card (kernels) and on the CPU (plain): paged
    bucketed, direct-to-pool chunked and overcommitted (grow + preempt)
    qwen3-32b, and overcommitted with the sanitizer on (the probe on every
    paged decode and chunk; it must launch, preempt and chunk); contig
-   bucketed and contig chunked qwen3-32b; phi3.5-moe and
+   bucketed and contig chunked qwen3-32b; contig qwen3-32b through the
+   legacy admission (one batch-1 prefill and one prefill shape per
+   length, never chunked); phi3.5-moe and
    granite-moe on their auto (contig) layout with more requests than
    slots; mamba2-1.3b and zamba2-2.7b with SSD chunks of 8 (prompts span
    several), more requests than slots and an equal-length pair batched
-   into one group. Greedy tokens and counters must match, every kernel
-   must have launched (each recurrent scenario its own), and for MoE the
+   into one group; then the prefix waves (full-block sharing, deferred
+   and admission-time copy-on-write), plain and sanitized, whose tokens
+   must also equal sharing off, and in the sanitized engine poison
+   planted in a shared block a suffix reads (must raise) and in one it
+   does not (must not). Greedy tokens and counters must match, every
+   kernel must have launched (each recurrent scenario its own), and for
+   MoE the
    smallest gap between the k-th and (k+1)-th router probability is logged
    (a routing flip on a near-tie is then told apart from a bug); then
    bf16: a 2-layer, 256-wide dense model with Qwen3-32B's 64/8 heads of
@@ -80,11 +91,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    pipelines with placements, cost dispatch, KV migration and a store
    whose byte budget evicts, one interruption after 3 rounds; tokens per
    request and ``events`` identical on the card and the CPU, at least one
-   KV attach and one eviction;
-5. seven serving paths at full width, bf16, random weights from a seeded
-   generator on the card, the same traffic (16 requests of 64-2048 prompt
-   tokens, some past ``prefill_chunk=512``, 32 new tokens each,
-   ``max_len`` 2080, 8 slots); for each, one untimed warm-up pass, then
+   KV attach and one eviction; then a ``use_prefix_share=True`` server
+   (hot prefixes published, a new and a rebuilt pipeline warmed, a
+   first-contact hit): tokens, events, clock and store bytes identical;
+5. nine serving paths at full width, bf16, random weights from a seeded
+   generator on the card, the same traffic but for ``prefix`` (16
+   requests of 64-2048 prompt tokens, some past ``prefill_chunk=512``, 32
+   new tokens each, ``max_len`` 2080, 8 slots); for each, one untimed
+   warm-up pass, then
    ``--repeats`` timed runs (median wall reported), each on a fresh Engine
    with launch counts zeroed just before and read just after, and the
    kernels that path runs must have launched in each run:
@@ -117,7 +131,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           no payload left in a consistent store: paged decode, paged
           chunk, flash. It prints the virtual clock and round_s beside the
           wall, the events, the store's bytes at the interrupt, the engine
-          rebuild's seconds and each pipeline's dispatches.
+          rebuild's seconds and each pipeline's dispatches;
+   prefix main with ``prefix_share=True`` on its own traffic: four
+          four-turn conversations over system prompts of 300, 1000, 1024
+          and 1500 tokens, each request extending its predecessor's
+          prompt by a user turn of 64-512 tokens: hits, shared tokens and
+          copy-on-writes (a deferred one among them) must be > 0 and the
+          pool must come back whole; the same traffic without sharing is
+          timed in the same call, and its counters must equal those of
+          the port's engine on the CPU at a reduced width: paged decode,
+          paged chunk (the suffix dispatches), flash;
+   legacy contig's model and traffic through ``admission="legacy"``
+          (batch-1 exact-length prefill): flash, contig decode; its
+          admit_s and retraces print beside contig's.
    Each model's params are freed before the next path is built;
 6. a JSON line of per-kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``. A ``[time]`` line follows each
@@ -205,9 +231,22 @@ PATHS = {
     "server": ("qwen3-32b", "auto",
                ("decode_attention_paged", "chunk_attention_paged",
                 "flash_attention")),
+    # main's model with prefix sharing, on shared-system-prompt traffic
+    "prefix": ("qwen3-32b", "auto",
+               ("decode_attention_paged", "chunk_attention_paged",
+                "flash_attention")),
+    # contig's model and traffic through the batch-1 legacy admission
+    "legacy": ("qwen3-32b", "contig", ("flash_attention",
+                                       "decode_attention")),
 }
 # Engine keywords a path adds to the shared ones
-PATH_KW = {"sanitize": dict(kv_sanitize=True)}
+PATH_KW = {"sanitize": dict(kv_sanitize=True),
+           "prefix": dict(prefix_share=True),
+           "legacy": dict(admission="legacy")}
+# the prefix path's system prompts, one four-turn conversation each: 300
+# fits prefill_chunk (its first request prefills in a group), 1024 is
+# block-aligned, 1000 and 1500 are not
+PREFIX_SYSTEM = (300, 1000, 1024, 1500)
 DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers"}
 ALL_PHASES = ("build", "calibrate", "kernels", "parity") + tuple(PATHS)
 
@@ -691,10 +730,18 @@ def decode_yardstick(args, b, dev, nh, nkv, d, paged) -> tuple:
             f"bf16")
 
 
+# per-row bases of the prefix path's suffix dispatch: unaligned with the
+# blocks and the query tiles, different in one call, one row at base 0
+SUFFIX_BASES = (0, 17, 1000, 1023)
+
+
 def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
     """Chunk attention of Qwen3-32B's 512-token chunk at base 1024 against
     4 rows of ``max_len`` 2080: paged (kernel 2, main path) or contiguous
-    (kernel 5, the contig path's transient group cache)."""
+    (kernel 5, the contig path's transient group cache). Paged also at the
+    prefix path's suffix dispatch: per-row bases ``SUFFIX_BASES`` (timed),
+    swept over bf16 / fp32, blocks of 16 / 24, g = 8 / 12 and head dims
+    128 / 80, and once with the probe on ragged real columns."""
     name = "chunk_attention_paged" if paged else "chunk_attention"
     plain = getattr(ca, name + "_plain")
     run = in_fp32(plain) if rehearsal else getattr(ca, name)
@@ -735,6 +782,15 @@ def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
          f"g={g} d{dd} C=77{' SWA=50' if win else ''} bf16")
         for i, (g, kv, dd, win) in enumerate(V1_CASES)]
 
+    suffix = "suffix GQA unaligned per-row bases bf16"
+    if paged:
+        sb = (0, 5, 30, 33) if rehearsal else SUFFIX_BASES
+        specs += [(bf, (nh, nkv, d, B, C, S, BS), sb, None, suffix)] + [
+            (dt, (g * 2, 2, dd, 4, 100, 1200, bs), SUFFIX_BASES, None,
+             f"suffix bases g={g} d{dd} blocks of {bs} {str(dt)[6:]}")
+            for dt in (bf, f32) for bs in (16, 24) for g in (8, 12)
+            for dd in (128, 80)]
+
     def cases():
         for dtype, (h, kv, dd, b, c, s, bs), bases, win, label in specs:
             kvs, s = kv_inputs(cs, paged, b, s, kv, dd, bs, dtype)
@@ -744,8 +800,11 @@ def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
                 bases = cs.randint(0, s - c + 1, (b,))
                 if zero:
                     bases[0] = 0
+            elif isinstance(bases, tuple):
+                bases = torch.tensor(bases, dtype=torch.int32, device=dev)
             yield label, dtype, (q, *kvs, bases), dict(window=win)
-    args, err, _ = compare(name, run, plain, cases())
+    args, err, kept = compare(name, run, plain, cases(),
+                              keep=(suffix,) if paged else ())
     # timed with the scalar base as a (B,) device tensor: the wrapper would
     # copy a Python int to the card on every call, a copy that waits for
     # the stream and would put the host's time into the kernel's
@@ -761,19 +820,80 @@ def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
     work = chunk_work(base, B, C, s, nh, nkv, d, None, 2, tbl, BS)
     kv_shape = (f"pool=({args[1].shape[0]},{BS},{nkv},{d})" if paged
                 else f"cache=({B},{s},{nkv},{d})")
-    return measure(name, ca, run, plain, args, err,
-                   lambda: F.scaled_dot_product_attention(sq, sk, sv,
-                                                          attn_mask=sm),
-                   work, f"q=({B},{C},{nh},{d}) base={base} {kv_shape} bf16",
-                   plain_iters=3)
+    row = measure(name, ca, run, plain, args, err,
+                  lambda: F.scaled_dot_product_attention(sq, sk, sv,
+                                                         attn_mask=sm),
+                  work, f"q=({B},{C},{nh},{d}) base={base} {kv_shape} bf16",
+                  plain_iters=3)
+    if paged:
+        chunk_probe_case(cs, dev, rehearsal)
+        args = kept[suffix]
+        bases = args[-1]
+        k, v = dense_kv(args[1:-1], B)
+        qpos = bases[:, None].long() + torch.arange(C, device=dev)[None]
+        mask = (torch.arange(k.shape[1], device=dev)[None, None, :]
+                <= qpos[:, :, None])[:, None]
+        sq, sk, sv, sm = _sdpa_inputs(args[0], k, v, mask)
+        row["timed_shapes"] = [time_shape(
+            name, run, args,
+            lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm),
+            chunk_work(bases.cpu().numpy(), B, C, k.shape[1], nh, nkv, d,
+                       None, 2, args[3].cpu().numpy(), BS),
+            f"suffix q=({B},{C},{nh},{d}) bases={tuple(bases.tolist())} "
+            f"pool=({args[1].shape[0]},{BS},{nkv},{d}) bf16")]
+    return row
+
+
+def chunk_probe_case(cs, dev, rehearsal) -> None:
+    """The suffix dispatch with the sanitizer armed: unaligned per-row
+    bases, ``probe=True`` and ragged real columns (``probe_cols``), poison
+    planted past one row's real columns but inside its chunk (read only by
+    pad columns, which the probe skips). The output is held to the plain
+    version at the bf16 tolerance, the probe exactly, and it must not
+    fire."""
+    nh, nkv, d = _geometry(QWEN, rehearsal)
+    b, c, s = (4, 16, 64) if rehearsal else (4, 512, MAX_LEN)
+    bases = torch.tensor((0, 5, 30, 33) if rehearsal else SUFFIX_BASES,
+                         dtype=torch.int32, device=dev)
+    cols = torch.tensor([c, c // 3, 1, c - 7], dtype=torch.int32, device=dev)
+    (pk, pv, tbl), s = kv_inputs(cs, True, b, s, nkv, d, BS,
+                                 torch.bfloat16)
+    stored = torch.tensor(KV_POISON, dtype=torch.bfloat16).item()
+    t = int(bases[1]) + c - 1                 # row 1's last pad column
+    pk[tbl[1, t // BS].long(), t % BS] = stored
+    q = cs.randn(b, c, nh, d, dtype=torch.bfloat16)
+    args, kw = (q, pk, pv, tbl, bases), dict(probe=True, probe_cols=cols)
+    plain = ca.chunk_attention_paged_plain
+    run = in_fp32(plain) if rehearsal else ca.chunk_attention_paged
+    out, pmax = run(*args, **kw)
+    ref = in_fp32(plain)(*args)
+    # row 1's pad columns read the planted poison: hold the real columns
+    real = (torch.arange(c, device=dev)[None, :]
+            < cols[:, None].long())[..., None, None]
+    plain_err = (torch.where(real, plain(*args).float() - ref, 0)
+                 ).abs().max().item()
+    check("chunk_attention_paged", torch.where(real, out, 0),
+          torch.where(real, ref, 0), torch.bfloat16,
+          "suffix probe=True ragged probe_cols bf16", plain_err)
+    exact = torch.equal(pmax, kvp.kv_probe_plain(pk, pv, tbl, bases, c, nh,
+                                                 cols=cols))
+    fired = pmax.max().item() >= stored
+    log(f"[kernels] {'kv_probe':24s} suffix probe_cols exact={exact} "
+        f"max={pmax.max().item():.9g} fired={fired} (poison past row 1's "
+        f"real columns) {'ok' if exact and not fired else 'FAIL'}")
+    if not exact or fired:
+        raise SystemExit("chip_smoke: the suffix dispatch's probe disagrees "
+                         "with its plain version or read a pad column")
 
 
 def kernel_flash(cs, dev, rehearsal) -> dict:
     """Causal prefill attention: the dense paths' 4-prompt group at the
     512-token bucket (Qwen3-32B heads, timed), the MoE path's batch-1
     exact-length prompts at Phi-3.5-MoE's 32/8 heads (2048 and 1281
-    tokens, the workload's longest two), and the hybrid path's exact-length
-    groups of 4 rows at zamba2's 32/32 heads of dim 80 (2048 tokens)."""
+    tokens, the workload's longest two), the hybrid path's exact-length
+    groups of 4 rows at zamba2's 32/32 heads of dim 80 (2048 tokens), and
+    the legacy path's batch-1 exact-length prompt at Qwen3-32B's heads
+    (2048 tokens)."""
     plain = fa.flash_attention_plain
     run = in_fp32(plain) if rehearsal else fa.flash_attention
     bf, f32 = torch.bfloat16, torch.float32
@@ -794,7 +914,9 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
         (bf, (4, 2, 16, 2, 37), True, None, "GQA 4/2 d16 S=37 bf16"),
         (f32, (4, 2, 16, 2, 37), True, None, "GQA 4/2 d16 S=37 fp32"),
         (f32, (4, 4, 32, 2, 40), True, 8, "MHA d32 SWA=8 fp32"),
-        (f32, (8, 2, 64, 1, 70), False, None, "GQA 8/2 d64 non-causal fp32")]
+        (f32, (8, 2, 64, 1, 70), False, None, "GQA 8/2 d64 non-causal fp32"),
+        (bf, (nh, nkv, d, 1, n1), True, None,
+         f"legacy prompt 64/8 S={n1} bf16")]
     # the bf16 body's tiling edges: 128 / g query positions per CTA (S not
     # a multiple of it), windows shorter than a key tile, every head dim
     specs += [
@@ -816,15 +938,16 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
             k = cs.randn(b, s, kv, dd, dtype=dtype)
             v = cs.randn(b, s, kv, dd, dtype=dtype)
             yield label, dtype, (q, k, v), dict(causal=causal, window=win)
-    moe, zamba = specs[1][4], specs[3][4]
+    moe, zamba, legacy = specs[1][4], specs[3][4], specs[11][4]
     args, err, kept = compare("flash_attention", run, plain, cases(),
-                              keep=(moe, zamba))
+                              keep=(moe, zamba, legacy))
     row = measure("flash_attention", fa, run, plain, args, err,
                   *flash_yardstick(args))
-    # the MoE path's batch-1 prompt and the hybrid path's d=80 group
+    # the MoE path's batch-1 prompt, the hybrid path's d=80 group and the
+    # legacy path's batch-1 prompt
     row["timed_shapes"] = [time_shape("flash_attention", run, kept[k],
                                       *flash_yardstick(kept[k]))
-                           for k in (moe, zamba)]
+                           for k in (moe, zamba, legacy)]
     if not rehearsal:
         row["host_us"] = launch_host_us(cs)
     return row
@@ -1125,6 +1248,10 @@ PARITY = [
     ("contig_chunked", "qwen3-32b",
      dict(max_batch=4, max_len=64, kv_layout="contig", prefill_chunk=8),
      _CHUNKED),
+    # the reference's batch-1 exact-length baseline (contig, never chunked)
+    ("legacy", "qwen3-32b",
+     dict(max_batch=4, max_len=64, prefill_chunk=8, admission="legacy"),
+     _BUCKETED + [(33, 5)]),
     ("moe_phi", MOE, dict(max_batch=2, max_len=64), _MOE),
     ("moe_granite", "granite-moe-3b-a800m", dict(max_batch=2, max_len=64),
      _MOE),
@@ -1134,6 +1261,7 @@ PARITY = [
 # kernels a scenario's card run must launch itself
 PARITY_REQUIRED = {"sanitized": ("kv_probe", "decode_attention_paged",
                                  "chunk_attention_paged"),
+                   "legacy": ("flash_attention", "decode_attention"),
                    "mamba2": ("ssd_scan",),
                    "zamba2": ("ssd_scan", "flash_attention",
                               "decode_attention")}
@@ -1220,6 +1348,13 @@ def phase_engine_parity(dev) -> None:
             raise SystemExit("chip_smoke: contig chunked parity ran no "
                              "chunk scatter")
         st = out["dev"][1]
+        # legacy: one prefill shape per distinct length, a repeat none
+        if name == "legacy" and not (
+                st["prefill_retraces"] == len({n for n, _ in specs})
+                and st["prefill_batches"] == st["prefills"] == len(specs)
+                and not st["prefill_chunks"]):
+            raise SystemExit(f"chip_smoke: legacy parity is not one "
+                             f"batch-1 prefill per request: {st}")
         if name == "sanitized" and not (eng._kv_probe and st["preemptions"]
                                         and st["chunk_direct"]):
             raise SystemExit(f"chip_smoke: the sanitized parity run armed "
@@ -1233,6 +1368,102 @@ def phase_engine_parity(dev) -> None:
     log(f"[engine-parity] launches {counts}")
     if str(dev) != "cpu" and not all(counts.values()):
         raise SystemExit(f"chip_smoke: a kernel never launched: {counts}")
+
+
+# phase 4 prefix scenarios: the donor / sharer traffic of
+# tests/test_kv_prefix.py on the reduced qwen3-32b, blocks of 4 tokens, one
+# admission call per wave: full-block sharing; a donor whose last block is
+# partial and sharers diverging inside it, admitted in its call (deferred
+# copy-on-write at the suffix dispatch); later sharers of the same block
+# (copy-on-write at admission)
+PREFIX_KW = dict(max_batch=8, max_len=64, block_size=4)
+PREFIX_BASES = ([3, 1, 4, 1, 5, 9, 2, 6, 5, 3, 5, 8],
+                [2, 7, 1, 8, 2, 8, 1, 8, 2, 8, 4, 5])
+
+
+def prefix_waves() -> list:
+    a, b = PREFIX_BASES
+    return [[a + [10 + i, 20 + i] for i in range(4)],
+            [b[:8] + [7, 7]] + [b[:8] + [7, 30 + i, 40 + i]
+                                for i in range(3)],
+            [b[:8] + [7, 60 + i, 70 + i] for i in range(2)]]
+
+
+def prefix_scenario(cfg, params, dev, share=True, sanitize=False,
+                    plant=None) -> dict:
+    """Serve ``prefix_waves`` on a paged engine on ``dev``. With
+    ``plant``, then plant the poison in a block shared from the first
+    wave's prefix that the next sharer's suffix dispatch reads ("read") or
+    does not ("unread") and admit that sharer; ``raised`` says whether it
+    raised ``KVSanitizerError``. Returns tokens, counters and the pool's
+    end state."""
+    eng = Engine(cfg, params, device=dev, prefix_share=share,
+                 kv_sanitize=sanitize, **PREFIX_KW)
+    reqs = []
+    for wave in prefix_waves():
+        rs = [ServeRequest(prompt=list(p), max_new_tokens=4) for p in wave]
+        reqs += rs
+        _serve(eng, rs)
+    out = dict(tokens=[list(r.generated) for r in reqs],
+               stats=dataclasses.asdict(eng.stats),
+               no_leak=eng.bm.check_no_leak(),
+               in_use=eng.bm.blocks_in_use())
+    if plant is not None:
+        a = PREFIX_BASES[0]
+        ids = eng._prefix.full_run(a)
+        eng.cache["k"][:, ids[0] if plant == "read" else ids[2]] = KV_POISON
+        sharer = ServeRequest(prompt=a[:8] + [50, 51, 52], max_new_tokens=3)
+        try:
+            _serve(eng, [sharer])
+            out["raised"] = False
+        except KVSanitizerError:
+            out["raised"] = not sharer.generated   # before its first token
+    return out
+
+
+def phase_prefix_parity(dev) -> None:
+    """The prefix scenarios, fp32, on the card and on the CPU: tokens,
+    every counter and the pool's end state identical, the tokens those of
+    the engine without sharing, hits, shared tokens and both kinds of
+    copy-on-write, no block left in use; sanitized, the same plus the
+    poison plants (a suffix dispatch reading a poisoned shared block must
+    raise, one not reading it must not); on the card paged chunk (the
+    suffix dispatches), paged decode and flash launched, and the probe
+    when sanitized."""
+    cfg = get_config("qwen3-32b").reduced()
+    cpu = build_model(cfg, device="cpu").init(seed=0)
+    card = _tree_to(cpu, dev)
+    plain = prefix_scenario(cfg, cpu, "cpu", share=False)["tokens"]
+    for tag, kw, need in (
+            ("prefix", {}, PATHS["main"][2]),
+            ("prefix_sanitized", dict(sanitize=True), PATHS["sanitize"][2])):
+        before = ops.launch_counts()
+        runs = {"dev": prefix_scenario(cfg, card, dev, **kw)}
+        after = ops.launch_counts()
+        runs["cpu"] = prefix_scenario(cfg, cpu, "cpu", **kw)
+        ran = {k: after[k] - before[k] for k in after
+               if after[k] != before[k]}
+        st = runs["dev"]["stats"]
+        ok = (runs["dev"] == runs["cpu"] and runs["dev"]["tokens"] == plain
+              and runs["dev"]["no_leak"] and runs["dev"]["in_use"] == 0
+              and st["prefix_hits"] == 8 and st["cow_copies"] == 5
+              and st["prefix_shared_tokens"] > 0)
+        if kw:
+            for plant in ("read", "unread"):
+                raised = [prefix_scenario(cfg, p, d, plant=plant,
+                                          **kw)["raised"]
+                          for p, d in ((card, dev), (cpu, "cpu"))]
+                log(f"[engine-parity] {tag} poison {plant:6s} raised "
+                    f"card/cpu={raised}")
+                ok = ok and raised == [plant == "read"] * 2
+        log(f"[engine-parity] {tag:16s} paged tokens+stats identical="
+            f"{runs['dev'] == runs['cpu']} tokens == sharing off: "
+            f"{runs['dev']['tokens'] == plain} stats={st} launches {ran}")
+        if str(dev) != "cpu" and not all(ran.get(k) for k in need):
+            raise SystemExit(f"chip_smoke: {tag} parity launched {ran}, "
+                             f"needs {need}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {tag} parity failed: {runs}")
 
 
 # bf16 engine checks. Dense: Qwen3-32B's attention geometry (64/8 heads of
@@ -1501,6 +1732,68 @@ def phase_server_parity(dev) -> None:
                          f"{card} cpu {host}")
 
 
+def server_prefix_scenario(cfg, params, dev) -> dict:
+    """tests/test_kv_prefix.py's warm-up scenario on ``dev``: a GlobalServer
+    with ``use_prefix_share=True`` serves 10 prompts opening with one of
+    two 12-token system prompts (the first drawn 4 times in 5) on one
+    paged pipeline, publishing the hot prefixes to the store; a second
+    pipeline is added (it warms from the store), the first one's instance
+    is interrupted (its rebuild warms again), and a first-contact request
+    on the new pipeline maps the warmed blocks. Returns what must be
+    identical on the card and the CPU."""
+    rng = np.random.RandomState(3)
+    heads = [rng.randint(1, cfg.vocab, 12).tolist() for _ in range(2)]
+    reqs = [ServeRequest(prompt=heads[int(rng.rand() >= 0.8)]
+                         + rng.randint(1, cfg.vocab, 4).tolist(),
+                         max_new_tokens=4, rid=i) for i in range(10)]
+    store = TensorStore()
+    srv = GlobalServer(cfg, store, device=dev, max_batch=4, max_len=64,
+                       engine_kw=dict(kv_layout="paged", block_size=4),
+                       use_prefix_share=True, prefix_hot_hits=2)
+    p0 = srv.add_pipeline(params, ["inst-A"])
+    p0.queue.extend(reqs)
+    srv.run_until_drained()
+    p1 = srv.add_pipeline(params, ["inst-B"])
+    srv.interrupt_instance("inst-A")
+    probe = ServeRequest(prompt=heads[0] + [7, 9, 11, 13], max_new_tokens=3,
+                         rid=100)
+    p1.queue.append(probe)
+    srv.run_until_drained()
+    return dict(tokens=[list(r.generated) for r in reqs + [probe]],
+                events=list(srv.events), clock=srv.clock,
+                store=(store.keys(), sorted(store._bytes.items()),
+                       store.resident_bytes(), store.check_consistent()),
+                prefix=[(p.engine.stats.prefix_hits,
+                         p.engine.stats.prefix_warmups,
+                         p.engine.stats.cow_copies) for p in srv.pipelines],
+                no_leak=all(p.engine.bm.check_no_leak()
+                            for p in srv.pipelines))
+
+
+def phase_server_prefix_parity(dev) -> None:
+    """``server_prefix_scenario`` on the card and on the CPU, fp32:
+    identical tokens, events, clock and store accounting, at least one
+    prefix published and one warmed, the new pipeline's first-contact
+    request served from warmed blocks, no leak."""
+    cfg = get_config("qwen3-32b").reduced()
+    cpu = build_model(cfg, device="cpu").init(seed=0)
+    card = server_prefix_scenario(cfg, _tree_to(cpu, dev), dev)
+    host = server_prefix_scenario(cfg, cpu, "cpu")
+    kinds: dict = {}
+    for _, k, _ in card["events"]:
+        kinds[k] = kinds.get(k, 0) + 1
+    same = card == host
+    log(f"[server-parity] use_prefix_share: tokens+events+store identical="
+        f"{same} events {kinds} (hits, warmups, cow) per pipeline "
+        f"{card['prefix']} clock {card['clock']:.6f} s (virtual) store "
+        f"bytes {card['store'][2]}")
+    if not (same and kinds.get("prefix_publish") and kinds.get("prefix_warm")
+            and card["prefix"][1][0] >= 1 and card["prefix"][1][1] >= 1
+            and card["no_leak"] and card["store"][3]):
+        raise SystemExit(f"chip_smoke: prefix server scenario failed: card "
+                         f"{card} cpu {host}")
+
+
 def _tree_map(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree_map(v, fn) for k, v in tree.items()}
@@ -1518,9 +1811,10 @@ def path_workload(path: str, depth: int, seed: int, rehearsal: bool):
     """A serving path's config, Engine keywords, a maker of its requests,
     the new tokens per request and the kernels it must launch.
 
-    Every path serves the same traffic (prompt lengths and new tokens from
-    ``seed``; prompt tokens from the config's vocab), and its optional
-    profile serves exactly this traffic too."""
+    Every path but ``prefix`` serves the same traffic (prompt lengths and
+    new tokens from ``seed``; prompt tokens from the config's vocab);
+    ``prefix`` serves ``prefix_prompts``. A path's optional profile serves
+    exactly its traffic too."""
     arch, layout, required = PATHS[path]
     if rehearsal:
         cfg = get_config(arch).reduced()
@@ -1534,17 +1828,52 @@ def path_workload(path: str, depth: int, seed: int, rehearsal: bool):
                   block_size=16, kv_layout=layout,
                   **PATH_KW.get(path, {}))
     rng = np.random.RandomState(seed)
-    lens = rng.randint(lo, hi + 1, n_req)
-    # both admission paths run (MoE admits exact length, never chunked):
-    # three prompts past prefill_chunk, three within it
-    lens[:3] = [hi, (hi + chunk) // 2 + 1, chunk + 1]
-    lens[3:6] = rng.randint(lo, chunk + 1, 3)
-    prompts = [rng.randint(0, cfg.vocab, int(n)).tolist() for n in lens]
+    if path == "prefix":
+        prompts = prefix_prompts(
+            rng, cfg.vocab, (5, 20, 16, 25) if rehearsal else PREFIX_SYSTEM,
+            *((2, 6, 60) if rehearsal else (64, 512, 2048)), chunk,
+            eng_kw["block_size"])
+    else:
+        lens = rng.randint(lo, hi + 1, n_req)
+        # both admission paths run (MoE admits exact length, never
+        # chunked): three prompts past prefill_chunk, three within it
+        lens[:3] = [hi, (hi + chunk) // 2 + 1, chunk + 1]
+        lens[3:6] = rng.randint(lo, chunk + 1, 3)
+        prompts = [rng.randint(0, cfg.vocab, int(n)).tolist() for n in lens]
 
     def make_requests():
         return [ServeRequest(prompt=list(p), max_new_tokens=new)
                 for p in prompts]
     return cfg, eng_kw, make_requests, new, required
+
+
+def prefix_prompts(rng, vocab, system, lo, hi, max_prompt, chunk, bs) -> list:
+    """Shared-system-prompt chat traffic: one four-turn conversation per
+    system prompt, request k of a conversation being its system prompt
+    and user turns 1..k (``lo``-``hi`` tokens each, distinct, drawn from
+    ``rng``), at most ``max_prompt`` tokens, ordered turn by turn. Each
+    request extends its predecessor's whole prompt, and no prompt ends on
+    a block boundary, so every continuation shares its predecessor's full
+    blocks and copies its partial last block on write, at a suffix base
+    unaligned with the blocks. The first conversation's first request
+    fits ``chunk`` (it prefills in a group, pre-indexed, and its
+    successor in the same admission call takes the deferred copy); the
+    longer first turns prefill chunked and are shared once finished."""
+    convs = []
+    for i, n in enumerate(system):
+        toks = rng.randint(0, vocab, n).tolist()
+        conv = []
+        for k in range(4):
+            cap = min(hi, max_prompt - len(toks) - lo * (3 - k))
+            if i == k == 0:
+                cap = min(cap, chunk - len(toks))
+            m = int(rng.randint(lo, cap + 1))
+            if (len(toks) + m) % bs == 0:
+                m += 1 if m < cap else -1
+            toks = toks + rng.randint(0, vocab, m).tolist()
+            conv.append(list(toks))
+        convs.append(conv)
+    return [conv[k] for k in range(4) for conv in convs]
 
 
 def _sync(dev) -> None:
@@ -1564,14 +1893,28 @@ def _watch_logits(eng, finite: list) -> None:
     eng.model.logits = checked_logits
 
 
+def _count_deferred_cows(eng, box: dict) -> None:
+    """Count, in ``box["deferred_cow"]``, the copy-on-writes ``eng`` defers
+    to a suffix dispatch (its donor admitted in the same call)."""
+    suffix = eng._admit_group_suffix
+
+    def counted(items, blen):
+        box["deferred_cow"] += sum(1 for it in items if it[4] is not None)
+        return suffix(items, blen)
+    box["deferred_cow"] = 0
+    eng._admit_group_suffix = counted
+
+
 def _timed_run(cfg, params, dev, eng_kw, reqs, new, required) -> dict:
     """Serve ``reqs`` on a fresh Engine; launch counts are zeroed just
     before and read just after. Fails unless every request finished with
     its token count and finite logits, and every kernel in ``required``
-    launched."""
+    launched. Returns the host times, launches, counters, tokens, the
+    pool's end state and the deferred copy-on-writes."""
     eng = Engine(cfg, params, device=dev, **eng_kw)
-    finite = []
+    finite, box = [], {}
     _watch_logits(eng, finite)
+    _count_deferred_cows(eng, box)
     timing = dict(admit_s=0.0, step_s=0.0, steps=0)
     ops.reset_launch_counts()
     _sync(dev)
@@ -1591,7 +1934,9 @@ def _timed_run(cfg, params, dev, eng_kw, reqs, new, required) -> dict:
                          f"{cfg.name} path: {counts}")
     return dict(timing, wall=wall, counts=counts, layout=eng.kv_layout,
                 stats=dataclasses.asdict(eng.stats),
-                tokens=[list(r.generated) for r in reqs])
+                tokens=[list(r.generated) for r in reqs],
+                blocks=eng.block_stats(),
+                no_leak=eng.bm is None or eng.bm.check_no_leak(), **box)
 
 
 def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
@@ -1650,6 +1995,10 @@ def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
     log(f"{tag} stats {st}")
     log(f"{tag} launches per run {[r['counts'] for r in runs]} "
         f"required={list(required)} all_finite=True all_done=True")
+    admit_s = float(np.median([r["admit_s"] for r in runs]))
+    if path == "prefix":
+        prefix_checks(cfg, params, dev, eng_kw, make_requests, new, runs,
+                      tag)
     if profile_dir is not None:
         reqs = make_requests()
         eng = Engine(cfg, params, device=dev, **eng_kw)
@@ -1660,7 +2009,68 @@ def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return runs[0]["counts"], runs[0]["tokens"]
+    return dict(counts=runs[0]["counts"], tokens=runs[0]["tokens"],
+                admit_s=admit_s, stats=st)
+
+
+def prefix_checks(cfg, params, dev, eng_kw, make_requests, new, runs,
+                  tag) -> None:
+    """The prefix path's own checks: every timed run shared prefixes
+    (hits, shared tokens, copy-on-writes, a deferred one among them) and
+    gave every pool block back (no leak); the same traffic without
+    sharing, timed the same way in the same call (its admit_s, and the
+    share of equal tokens: bf16 rounds differently in other batch and
+    kernel compositions); and the scheduler's counters, which depend on
+    token ids and counts only, equal to the same traffic through the
+    port's engine on the CPU at a reduced width (one layer, 4/2 heads of
+    16, the full vocab)."""
+    for i, r in enumerate(runs):
+        st, bl = r["stats"], r["blocks"]
+        ok = (st["prefix_hits"] > 0 and st["prefix_shared_tokens"] > 0
+              and st["cow_copies"] > 0 and r["deferred_cow"] > 0
+              and r["no_leak"] and bl["blocks_in_use"] == 0
+              and bl["blocks_free"] == bl["n_blocks"] - 1)
+        log(f"{tag} run {i}: prefix_hits={st['prefix_hits']} "
+            f"prefix_shared_tokens={st['prefix_shared_tokens']} "
+            f"cow_copies={st['cow_copies']} (deferred "
+            f"{r['deferred_cow']}) blocks_free={bl['blocks_free']} of "
+            f"{bl['n_blocks'] - 1} no_leak={r['no_leak']} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the prefix path did not share, "
+                             f"copy or give its blocks back: {st} {bl}")
+    off_kw = dict(eng_kw, prefix_share=False)
+    off = [_timed_run(cfg, params, dev, off_kw, make_requests(), new, ())
+           for _ in runs]
+    pairs = [(a, b) for ta, tb in zip(runs[0]["tokens"], off[0]["tokens"])
+             for a, b in zip(ta, tb)]
+    equal = sum(a == b for a, b in pairs)
+    prompt = sum(len(r.prompt) for r in make_requests())
+    med = {key: (float(np.median([r[key] for r in runs])),
+                 float(np.median([r[key] for r in off])))
+           for key in ("admit_s", "step_s", "wall")}
+    log(f"{tag} same traffic, prefix_share=False, same call, medians "
+        f"(sharing on, off): " + " ".join(
+            f"{key}=({on:.3f}, {of:.3f})" for key, (on, of) in med.items())
+        + f"; prompt tokens {prompt}, prefilled with sharing "
+        f"{prompt - runs[0]['stats']['prefix_shared_tokens']}; chunk "
+        f"dispatches ({runs[0]['stats']['prefill_chunks']}, "
+        f"{off[0]['stats']['prefill_chunks']}); equal tokens "
+        f"{equal}/{len(pairs)} = {equal / len(pairs):.3f}")
+    small = dataclasses.replace(get_config(cfg.name).reduced(),
+                                vocab=cfg.vocab, n_layers=1)
+    host = Engine(small, build_model(small, device="cpu").init(seed=0),
+                  device="cpu", **eng_kw)
+    t0 = time.perf_counter()
+    _serve(host, make_requests())
+    same = dataclasses.asdict(host.stats) == runs[0]["stats"]
+    log(f"{tag} scheduler counters == the port's engine on the CPU at "
+        f"{small.d_model} wide, {small.n_layers} layer: {same} "
+        f"({time.perf_counter() - t0:.1f} s host)")
+    if not same:
+        raise SystemExit(f"chip_smoke: prefix path counters "
+                         f"{runs[0]['stats']} differ from the CPU run's "
+                         f"{dataclasses.asdict(host.stats)}")
 
 
 # -- phase 5, path "server": the GlobalServer over three pipelines ---------------
@@ -1848,23 +2258,35 @@ def phase_server_path(dev, path: str, depth: int, seed: int,
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return runs[0]["counts"], runs[0]["tokens"]
+    return dict(counts=runs[0]["counts"], tokens=runs[0]["tokens"])
 
 
 # serving paths with a driver of their own (the rest run ``phase_path``)
 PATH_PHASE = {"server": phase_server_path}
 
 
-def check_sanitize_tokens(tokens: dict) -> None:
-    """The sanitizer's poison writes and probes are output-neutral: the
-    sanitize path (main's model, params and traffic) emits main's greedy
-    tokens."""
-    if "main" in tokens and "sanitize" in tokens:
-        same = tokens["sanitize"] == tokens["main"]
+def check_paths(res: dict) -> None:
+    """Across paths: the sanitizer's poison writes and probes are
+    output-neutral (the sanitize path, main's model, params and traffic,
+    emits main's greedy tokens); the legacy path's admission beside
+    contig's (the same model, params and traffic)."""
+    if "main" in res and "sanitize" in res:
+        same = res["sanitize"]["tokens"] == res["main"]["tokens"]
         log(f"[sanitize] greedy tokens identical to main's: {same}")
         if not same:
             raise SystemExit("chip_smoke: the sanitize path's tokens differ "
                              "from the main path's")
+    if "legacy" in res and "contig" in res:
+        leg, con = res["legacy"], res["contig"]
+        pairs = [(a, b) for ta, tb in zip(leg["tokens"], con["tokens"])
+                 for a, b in zip(ta, tb)]
+        log(f"[legacy] admit_s median={leg['admit_s']:.3f} "
+            f"prefill_retraces={leg['stats']['prefill_retraces']} "
+            f"prefill_batches={leg['stats']['prefill_batches']}; contig "
+            f"admit_s median={con['admit_s']:.3f} prefill_retraces="
+            f"{con['stats']['prefill_retraces']} prefill_batches="
+            f"{con['stats']['prefill_batches']}; equal tokens "
+            f"{sum(a == b for a, b in pairs)}/{len(pairs)}")
 
 
 # -- optional: profiler breakdown of each path -----------------------------------
@@ -1985,13 +2407,14 @@ def main(argv=None) -> int:
             phase_kernels(dev, rehearsal=True)
         if "parity" in phases:
             phase_engine_parity(dev)
+            phase_prefix_parity(dev)
             phase_engine_bf16(dev)
             phase_poison_bf16(dev)
             phase_server_parity(dev)
-        tokens = {p: PATH_PHASE.get(p, phase_path)(
+            phase_server_prefix_parity(dev)
+        check_paths({p: PATH_PHASE.get(p, phase_path)(
             dev, p, depth[p], args.seed, rehearsal=True,
-            repeats=args.repeats)[1] for p in paths}
-        check_sanitize_tokens(tokens)
+            repeats=args.repeats) for p in paths})
         log("[rehearsal] done")
         return 0
     t0 = time.perf_counter()
@@ -2014,17 +2437,20 @@ def main(argv=None) -> int:
         done("kernels")
     if "parity" in phases:
         phase_engine_parity(dev)
+        phase_prefix_parity(dev)
         phase_engine_bf16(dev)
         phase_poison_bf16(dev)
         phase_server_parity(dev)
+        phase_server_prefix_parity(dev)
         done("parity")
-    tokens = {}
+    res = {}
     for p in paths:
-        counts[p], tokens[p] = PATH_PHASE.get(p, phase_path)(
+        res[p] = PATH_PHASE.get(p, phase_path)(
             dev, p, depth[p], args.seed, rehearsal=False,
             repeats=args.repeats, profile_dir=args.profile)
+        counts[p] = res[p]["counts"]
         done(p)
-    check_sanitize_tokens(tokens)
+    check_paths(res)
     if phases != set(ALL_PHASES):
         log("[partial] phases run: " + ",".join(sorted(phases)))
         return 0

@@ -10,6 +10,8 @@ Entry points, as in the reference:
     the engine pool through per-row table snapshots (engine-direct mode)
     or appended to a contiguous cache (attention families only, as in the
     reference);
+  * ``prefill_suffix(...)`` — the prefix-sharing engine's suffix prefill:
+    per-row bases after a shared prefix already resident in the pool;
   * ``decode_step(params, cache, tokens)`` — one token per row against a
     paged or contiguous cache, or one recurrent step.
 
@@ -529,6 +531,28 @@ class LM:
         if not direct:
             cache["pos"] = torch.full_like(cache["pos"], int(base) + cl)
         return self._last(params, x, last_pos), cache
+
+    def prefill_suffix(self, params: Dict, cache: Dict, tokens: torch.Tensor,
+                       bases: torch.Tensor, block_tbl: torch.Tensor,
+                       lens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """Prefix-sharing suffix prefill: each row's first ``bases[i]``
+        tokens are already resident in the paged pool (shared-prefix blocks
+        mapped through ``block_tbl``), so only the divergent suffix is
+        computed: the rows' queries sit at [bases, bases + C) and attend
+        the shared prefix through the table; the suffix K/V land from each
+        row's own boundary, columns past ``lens`` in the trash block (and,
+        with the probe armed, only the real columns are probed). Prefix
+        activations are causally independent of the suffix, so this
+        reproduces a full prefill's K/V and logits. Attention families on
+        the paged pool only. Returns (logits at each row's last real
+        suffix token, the cache, updated in place; the per-slot ``pos`` is
+        the caller's)."""
+        if self.cfg.family in RECURRENT:
+            raise ValueError("suffix prefill requires attention-family KV "
+                             "caches")
+        return self.prefill_chunk(params, cache, tokens, bases,
+                                  last_pos=lens - 1, block_tbl=block_tbl,
+                                  lens=lens)
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict]:

@@ -23,6 +23,20 @@ What carries over from the reference, with the same semantics and stats:
   of the members' block tables.
 * **Masked decode** — dead and pending rows write through trash block 0
   and keep their position frozen.
+* **Prefix-sharing KV** (``prefix_share=True``, paged layout) — a
+  block-aligned prefix index (``serving/prefix_index.py``) is consulted at
+  admission: a request extending a cached prefix maps the shared blocks
+  into its table (refcounted, read-only), copies the partially shared
+  boundary block on write (deferred to the suffix dispatch when its donor
+  is admitted in the same call), and prefills only the divergent suffix
+  through ``LM.prefill_suffix`` (per-row bases after the shared prefix).
+  Freed blocks keep their content until reallocated, so a hot prefix
+  survives its requests; ``hot_prefixes`` / ``warm_prefix`` carry
+  shared-prefix payloads through the tensor store so a re-placed pipeline
+  warms up instead of recomputing.
+* **Legacy admission** (``admission="legacy"``, contiguous layout only) —
+  the reference's baseline: one batch-1 exact-length ``LM.prefill`` per
+  request, installed into its slot row, never chunked.
 * **Contiguous layout** (``kv_layout="contig"``, and what ``"auto"`` picks
   for MoE) — each slot owns a ``max_len`` row of ``(L, max_batch, max_len,
   nkv, d)``; there is no block manager (``self.bm`` is None). A prefill
@@ -45,26 +59,26 @@ What carries over from the reference, with the same semantics and stats:
 
 Where JAX donates the cache into jit'd dispatches, this engine owns one
 preallocated pool and every dispatch updates it in place. There is no JIT,
-so the retrace counters count distinct dispatch shapes instead:
-``prefill_retraces`` is the number of distinct prefill / chunk shapes (the
-bound ``prefill_retraces <= len(bucket_lens())`` holds as in the
-reference), ``retraces`` adds the decode shape.
+so the retrace counters count distinct dispatch shapes instead, one for
+each shape the reference traces anew: ``prefill_retraces`` the prefill,
+chunk, suffix and legacy prefill shapes (the bound ``prefill_retraces <=
+len(bucket_lens())`` holds as in the reference), ``retraces`` those plus
+the decode, install, copy-on-write and warm-up shapes.
 
 * **KV sanitizer** (``kv_sanitize=True`` or ``REPRO_KV_SANITIZE=1``, paged
   layout) — the block manager's shadow ledger, released blocks poisoned
   on the device with ``KV_POISON``, and the device probe, armed as the
   reference arms it: the paged decode and chunk calls return the largest
   readable |K| / |V| of every layer, kept on the device, and the engine
-  reads their maximum once per dispatch, raising ``KVSanitizerError``
-  before the dispatch's tokens are committed when it reaches the poison
-  as the pool's dtype stores it (two deliberate differences from the
-  reference, ROADMAP.md section C: in a bf16 pool the threshold is
-  998,244,352, where the reference's ``< 1e9`` never fires; a chunk probes
-  its real columns, not its pad columns). With the sanitizer off nothing
-  is launched or synchronised for it.
+  reads their maximum once per dispatch (the suffix dispatch too), raising
+  ``KVSanitizerError`` before the dispatch's tokens are committed when it
+  reaches the poison as the pool's dtype stores it (deliberate differences
+  from the reference, ROADMAP.md section C: in a bf16 pool the threshold
+  is 998,244,352, where the reference's ``< 1e9`` never fires; a chunk or
+  suffix probes its real columns, not its pad columns). With the
+  sanitizer off nothing is launched or synchronised for it.
 
-Limits of the port (ROADMAP.md, port queue): ``prefix_share=True`` raises;
-the legacy admission path and enc-dec are not ported.
+Enc-dec is not ported (the model raises).
 """
 
 from __future__ import annotations
@@ -84,6 +98,7 @@ from repro_torch.models import build_model
 from repro_torch.models.transformer import RECURRENT, STATE_KEYS
 from repro_torch.serving.kv_blocks import (KV_POISON, BlockManager,
                                            KVSanitizerError)
+from repro_torch.serving.prefix_index import PrefixIndex
 from repro_torch.serving.request import ServeRequest
 
 
@@ -103,6 +118,10 @@ class EngineStats:
     preemptions: int = 0        # slots evicted when a grow found a dry pool
     kv_exports: int = 0         # KV block sets exported
     kv_imports: int = 0         # re-admissions that attached KV (no prefill)
+    prefix_hits: int = 0        # admissions that mapped shared-prefix blocks
+    prefix_shared_tokens: int = 0   # prefill tokens NOT recomputed
+    cow_copies: int = 0         # boundary blocks copied before first write
+    prefix_warmups: int = 0     # published prefixes attached from the store
     grow_ahead_skips: int = 0   # boundary crossings served by look-ahead
     admit_deferred: int = 0     # admissions deferred for free-block headroom
 
@@ -128,7 +147,8 @@ class Engine:
     def __init__(self, cfg: ArchConfig, params: Dict, max_batch: int = 8,
                  max_len: int = 256, device: DeviceLike = None,
                  prefill_group: int = 4, prefill_bucket: int = 16,
-                 prefill_chunk: int = 0, kv_layout: str = "auto",
+                 prefill_chunk: int = 0, admission: str = "bucketed",
+                 kv_layout: str = "auto",
                  block_size: int = 16, n_blocks: int = 0,
                  kv_alloc: str = "lazy", kv_overcommit: float = 1.0,
                  admit_window: int = 4, prefix_share: bool = False,
@@ -136,12 +156,10 @@ class Engine:
                  kv_sanitize: Optional[bool] = None,
                  victim_policy: str = "cost", placement: Any = None,
                  model_kw: Optional[Dict] = None):
+        assert admission in ("bucketed", "legacy"), admission
         assert kv_layout in ("auto", "paged", "contig"), kv_layout
         assert kv_alloc in ("lazy", "upfront"), kv_alloc
         assert victim_policy in ("cost", "fewest"), victim_policy
-        if prefix_share:
-            raise NotImplementedError(
-                "repro_torch: prefix sharing is not ported yet (ROADMAP.md)")
         self.device = resolve_device(device)
         pdev = device_of(params)
         if pdev is None or pdev.type != self.device.type:
@@ -151,6 +169,7 @@ class Engine:
         self.params = params
         self.max_batch = max_batch
         self.max_len = max_len
+        self.admission = admission
         self.prefill_chunk = int(prefill_chunk)
         # MoE expert capacity is computed over the flattened (batch, seq)
         # token stream, so pad tokens or rows would compete with real
@@ -163,13 +182,14 @@ class Engine:
         self._min_bucket = max(1, min(prefill_bucket, max_len))
         # paged layout: the dense family only (SSM / hybrid carry recurrent
         # state, not KV rows; MoE rides the contig path with its batch-1
-        # admission, as in the reference)
-        paged_ok = not (self._moe or self._recurrent)
+        # admission, as in the reference). The legacy baseline predates the
+        # block table and stays contiguous.
+        paged_ok = not (self._moe or self._recurrent or admission == "legacy")
         if kv_layout == "auto":
             kv_layout = "paged" if paged_ok else "contig"
         elif kv_layout == "paged" and not paged_ok:
             raise ValueError(f"kv_layout='paged' unsupported for {cfg.name} "
-                             f"(family={cfg.family})")
+                             f"(family={cfg.family}, admission={admission})")
         self.kv_layout = kv_layout
         self.kv_alloc = kv_alloc
         self._lazy = kv_alloc == "lazy" and kv_layout == "paged"
@@ -195,6 +215,13 @@ class Engine:
             self.bm = BlockManager(n_blocks, block_size, max_batch, mb,
                                    overcommit=kv_overcommit,
                                    sanitize=kv_sanitize)
+        elif prefix_share:
+            # legacy admission lands here too: it forces the contig layout
+            raise ValueError("prefix_share requires kv_layout='paged'")
+        self._prefix: Optional[PrefixIndex] = None
+        if prefix_share:
+            self._prefix = PrefixIndex(block_size, self.bm)
+            self.bm.on_reuse = self._prefix.invalidate_block
         # the model AFTER the block manager: sanitize mode arms the device
         # probe on the paged layout (the port's model takes ssd_chunk and
         # kv_probe of the reference's model keywords)
@@ -340,7 +367,9 @@ class Engine:
                 "n_blocks": self.bm.n_blocks,
                 "block_grows": self.stats.block_grows,
                 "preemptions": self.stats.preemptions,
-                "alloc_failures": self.stats.alloc_failures}
+                "alloc_failures": self.stats.alloc_failures,
+                "prefix_hits": self.stats.prefix_hits,
+                "cow_copies": self.stats.cow_copies}
 
     # -- admission --------------------------------------------------------------
     def admit(self, req: ServeRequest) -> bool:
@@ -354,7 +383,10 @@ class Engine:
         behind it still drain; the returned list is therefore not
         necessarily a prefix of ``reqs``. Requests are grouped by length
         bucket and prefilled in batches of ``prefill_group``; long contexts
-        go to the chunked path. Finished ones surface via ``step()``."""
+        go to the chunked path. With prefix sharing, a request matching the
+        index maps the shared blocks and joins a suffix group instead; the
+        full-prefill groups dispatch first, since a suffix may read a donor
+        admitted in the same call. Finished ones surface via ``step()``."""
         free = self.free_slots()
         admitted: List[ServeRequest] = []
         skipped = 0
@@ -363,7 +395,11 @@ class Engine:
         imminent = self._imminent_blocks() if (
             self._admit_headroom and self._lazy) else 0
         groups: Dict[int, List[Tuple[ServeRequest, List[int], int]]] = {}
+        sgroups: Dict[int, List] = {}
         chunked: List[Tuple[ServeRequest, List[int], int]] = []
+        # blocks pre-indexed THIS call whose content only materializes when
+        # the full-prefill groups dispatch (before any suffix dispatch)
+        fresh_this_call: set = set()
         for r in reqs:               # done reqs need no slot: pass through
             if r.done:
                 self._admit_finished.append(r)
@@ -374,18 +410,27 @@ class Engine:
             assert self._total_tokens(r) <= self.max_len, \
                 "context exceeds engine max_len"
             slot = free[0]
+            toks: Optional[List[int]] = None
+            match = None
             if self.bm is not None:
                 ctx = r.ctx_len - (1 if r.generated else 0)
                 live = ctx if self._lazy else None
+                if self._prefix is not None:
+                    toks = self._prefill_tokens(r)
+                    match = self._prefix.match(toks)
+                shared = match.full if match is not None else None
+                n_sh = len(shared) if shared else 0
                 if imminent > 0:
-                    if self.bm.blocks_free() - self.bm.blocks_for(ctx) \
-                            < imminent:
+                    fresh = max(0, self.bm.blocks_for(ctx) - n_sh)
+                    if self.bm.blocks_free() - fresh < imminent:
                         self.stats.admit_deferred += 1
                         skipped += 1
                         if skipped >= self._admit_window:
                             break
                         continue
-                if not self.bm.reserve(slot, self._total_tokens(r), live):
+                boundary = match.boundary if match is not None else None
+                if not self.bm.reserve(slot, self._total_tokens(r), live,
+                                       shared=shared, boundary=boundary):
                     self.stats.alloc_failures += 1
                     skipped += 1
                     if skipped >= self._admit_window:
@@ -394,17 +439,46 @@ class Engine:
                 self.bm.note_live(slot, ctx)
                 self._tbl_dirty = True
             free.pop(0)
-            toks = self._prefill_tokens(r)
-            if self._use_chunked(len(toks)):
+            if toks is None:
+                toks = self._prefill_tokens(r)
+            if self.admission == "legacy":
+                self._admit_one_legacy(r, toks, slot)
+            elif match is not None and match.n_tokens > 0:
+                cow = None
+                if match.boundary is not None:
+                    # copy the partially shared boundary block before any
+                    # suffix write lands in it; a donor admitted in THIS
+                    # call has not prefilled yet, so its copy waits for the
+                    # suffix dispatch (the donor's mapping pins the source)
+                    dst = int(self.bm.table[slot, len(match.full)])
+                    if match.boundary in fresh_this_call:
+                        cow = (match.boundary, dst)
+                    else:
+                        self._cow(match.boundary, dst)
+                self.stats.prefix_hits += 1
+                self.stats.prefix_shared_tokens += match.n_tokens
+                sgroups.setdefault(
+                    self._bucket(len(toks) - match.n_tokens), []).append(
+                    (r, toks, slot, match.n_tokens, cow))
+            elif self._use_chunked(len(toks)):
                 self.slots[slot] = r
                 chunked.append((r, toks, slot))
             else:
                 groups.setdefault(self._bucket(len(toks)), []).append(
                     (r, toks, slot))
+                if self._prefix is not None:
+                    # pre-index so later requests in this SAME call share:
+                    # every full-prefill group dispatches before the first
+                    # suffix dispatch
+                    self._index_insert(toks, slot)
+                    fresh_this_call.update(self.bm.slot_blocks(slot))
             admitted.append(r)
         for blen, items in sorted(groups.items()):
             for i in range(0, len(items), self._group):
                 self._admit_group(items[i:i + self._group], blen)
+        for blen, items in sorted(sgroups.items()):
+            for i in range(0, len(items), self._group):
+                self._admit_group_suffix(items[i:i + self._group], blen)
         for i in range(0, len(chunked), self._group):
             members = [_PendingMember(r, slot, np.asarray(toks, np.int32))
                        for r, toks, slot in chunked[i:i + self._group]]
@@ -425,6 +499,9 @@ class Engine:
             slots[j] = slot
         lens[n:] = lens[0]           # pad rows: computed, never installed
         self._note_shape("prefill", tokens.shape)
+        # the reference's install jit sees the group's max_len cache and
+        # g slots: one trace per group size, whatever the bucket
+        self._note_shape("scatter", (g, g), prefill=False)
         logits, state = self.model.prefill_kv(self.params, self._dev(tokens),
                                               self._dev(lens - 1))
         self._scatter_group({key: val[:, :n] for key, val in state.items()},
@@ -434,6 +511,67 @@ class Engine:
         self.stats.prefill_batches += 1
         for j, (r, toks, slot) in enumerate(items):
             self._install(r, slot, first[j])
+
+    def _admit_group_suffix(self, items, blen: int) -> None:
+        """Prefix-sharing admission: one batched SUFFIX prefill for <=
+        prefill_group requests sharing a suffix-length bucket. Each row's
+        shared prefix is already mapped through its block table; the
+        dispatch computes and writes only the divergent suffix and samples
+        the first token at each row's last real suffix position. Pad rows
+        repeat row 0's tokens, base and length, as in the reference, but
+        read and write through the trash table: their result is dropped
+        and they never write a real block."""
+        g, n = self._group, len(items)
+        tokens = np.zeros((g, blen), np.int32)
+        bases = np.zeros((g,), np.int32)
+        lens = np.zeros((g,), np.int32)
+        slots = np.zeros((n,), np.int32)
+        for j, (r, toks, slot, n_sh, cow) in enumerate(items):
+            if cow is not None:       # deferred COW: donor prefilled by now
+                self._cow(*cow)
+            suf = toks[n_sh:]
+            tokens[j, :len(suf)] = suf
+            bases[j] = n_sh
+            lens[j] = len(suf)
+            slots[j] = slot
+        tokens[n:] = tokens[0]
+        bases[n:] = bases[0]
+        lens[n:] = lens[0]
+        tbls = np.zeros((g, self.bm.table.shape[1]), np.int32)
+        tbls[:n] = self.bm.table[slots]
+        self._note_shape("suffix", tokens.shape)
+        logits, _ = self.model.prefill_suffix(
+            self.params, self.cache, self._dev(tokens), self._dev(bases),
+            self._dev(tbls), self._dev(lens))
+        self._check_probe()
+        slots_t = self._dev(slots, torch.long)
+        self.cache["pos"][slots_t] = self._dev(bases[:n] + lens[:n])
+        # the device table row of each slot follows on the next dispatch
+        # (``_sync_block_tbl``: the reservation marked it dirty)
+        # host sync (intended): first tokens fill req.generated
+        first = self.model.sample_greedy(logits).tolist()
+        self.stats.prefill_batches += 1
+        for j, (r, toks, slot, n_sh, cow) in enumerate(items):
+            self._index_insert(toks, slot)
+            self._install(r, slot, first[j])
+
+    def _cow(self, src: int, dst: int) -> None:
+        """Copy a partially shared boundary block into the slot's own
+        block before any divergent suffix write lands in it (an indexed
+        copy into the pool, as the reference's ``.at[].set``)."""
+        self._note_shape("cow", (), prefill=False)
+        self.bm.note_cow(src, dst)
+        for key in ("k", "v"):
+            self.cache[key][:, dst] = self.cache[key][:, src]
+        self.stats.cow_copies += 1
+
+    def _index_insert(self, toks, slot: int) -> None:
+        """Register a freshly prefilled context's blocks with the prefix
+        index (BEFORE ``_install`` may free an immediately-done slot: a
+        freed block's content stays valid, which is how a hot prefix
+        survives its first request)."""
+        if self._prefix is not None:
+            self._prefix.insert(toks, self.bm.slot_blocks(slot))
 
     def _scatter_group(self, state: Dict[str, torch.Tensor], slots,
                        lens) -> None:
@@ -472,6 +610,22 @@ class Engine:
             self.slots[slot] = None
             self._free_blocks(slot)
             self._admit_finished.append(req)
+
+    def _admit_one_legacy(self, req: ServeRequest, toks: List[int],
+                          slot: int) -> None:
+        """The reference's baseline admission: a batch-1 exact-length
+        prefill into a fresh ``max_len`` cache, installed into the slot's
+        row (one retrace per distinct length)."""
+        self._note_shape("legacy", (len(toks),))
+        logits, one = self.model.prefill(
+            self.params, {"tokens": self._dev([toks])}, max_len=self.max_len)
+        for key, val in one.items():
+            if key == "pos":
+                self.cache["pos"][slot] = len(toks)
+            else:
+                self.cache[key][:, slot] = val[:, 0].to(self.cache[key].dtype)
+        self.stats.prefill_batches += 1
+        self._install(req, slot, self.model.sample_greedy(logits)[0].item())
 
     # -- chunked prefill --------------------------------------------------------
     def _advance_pending(self) -> None:
@@ -541,12 +695,15 @@ class Engine:
             self.cache["pos"][self._dev(slots, torch.long)] = self._dev(lens)
         else:
             rows = self._dev([j for j, _ in finishers], torch.long)
+            self._note_shape("scatter", (len(grp.members), len(finishers)),
+                             prefill=False)
             self._scatter_group({key: grp.cache[key][:, rows]
                                  for key in ("k", "v")}, slots, lens)
             self.stats.chunk_scatters += 1
         for j, m in finishers:
             m.done = True
             self.slots[m.slot] = None     # _install re-marks the slot
+            self._index_insert(m.tokens.tolist(), m.slot)
             self._install(m.req, m.slot, first[j])
 
     # -- decode-time grow / preemption ------------------------------------------
@@ -817,4 +974,67 @@ class Engine:
         self.cache["pos"][slot] = payload["pos"]
         self.slots[slot] = req
         self.stats.kv_imports += 1
+        return True
+
+    # -- shared-prefix publication / warm-up ------------------------------------
+    def export_prefix(self, tokens) -> Optional[Dict]:
+        """Snapshot the KV blocks of a fully indexed token run for
+        publication to the tensor store (content-addressed by the run
+        itself). Full blocks only: partial boundary blocks keep changing
+        under decode and are never published."""
+        if self._prefix is None:
+            return None
+        ids = self._prefix.full_run(tokens)
+        if not ids:
+            return None
+        idx = self._dev(ids, torch.long)
+        toks = [int(t) for t in tokens[:len(ids) * self.bm.block_size]]
+        return {"k": self.cache["k"][:, idx], "v": self.cache["v"][:, idx],
+                "tokens": toks, "block_size": self.bm.block_size,
+                "arch": self.cfg.name}
+
+    def hot_runs(self, min_hits: int = 2) -> List[Tuple[int, ...]]:
+        """The hottest fully indexed token runs (matched at least
+        ``min_hits`` times); cheap, no KV gather, so the server can
+        content-address them against the store before exporting."""
+        return [] if self._prefix is None else self._prefix.hot(min_hits)
+
+    def hot_prefixes(self, min_hits: int = 2) -> List[Dict]:
+        """Payloads of the hottest shared-prefix runs, for the store."""
+        out = []
+        for run in self.hot_runs(min_hits):
+            p = self.export_prefix(run)
+            if p is not None:
+                out.append(p)
+        return out
+
+    def warm_prefix(self, payload: Dict) -> bool:
+        """Attach a published shared-prefix payload: write its KV into
+        free blocks, index them, and hand the blocks straight back to the
+        free list (refcount 0): warm, fully reclaimable, and mapped
+        read-only by the next admission matching the prefix. Returns False
+        (recompute fallback) on any incompatibility or when the prefix is
+        already resident."""
+        if self._prefix is None or self.bm is None:
+            return False
+        if payload.get("arch") != self.cfg.name \
+                or payload.get("block_size") != self.bm.block_size:
+            return False
+        toks = [int(t) for t in payload["tokens"]]
+        nb = len(toks) // self.bm.block_size
+        if nb <= 0 or payload["k"].shape[1] < nb:
+            return False
+        if len(self._prefix.full_run(toks)) >= nb:
+            return False             # already warm (or computed locally)
+        ids = self.bm.warm_blocks(nb)
+        if ids is None:
+            return False             # pool too tight right now
+        self._note_shape("warm", payload["k"][:, :nb].shape, prefill=False)
+        idx = self._dev(ids, torch.long)
+        for key in ("k", "v"):
+            self.cache[key][:, idx] = payload[key][:, :nb].to(
+                device=self.device, dtype=self.cache[key].dtype)
+        self._prefix.insert(toks[:nb * self.bm.block_size], ids)
+        self.bm.warm_release(ids)
+        self.stats.prefix_warmups += 1
         return True

@@ -22,6 +22,11 @@ placement). The ``GlobalServer``:
     interrupt/requeue (migrated requests carry grown contexts, which must
     not reclassify them). With prefix sharing on, near-ties break toward
     a pipeline already holding the request's published prefix;
+  * with ``use_prefix_share``: every engine indexes shared prompt prefixes
+    (``Engine(prefix_share=True)``), the server publishes each pipeline's
+    hot prefix payloads to the store under content-hash keys after its
+    step, and a new or rebuilt pipeline warms its pool from them instead
+    of recomputing (the recompute path stays the fallback);
   * advances the virtual clock by the estimator's bottleneck decode-step
     latency per scheduling round (``tick``), so reported throughput is
     consistent with the simulator instead of a hardcoded 0.01 s/round;
@@ -53,10 +58,6 @@ Wall time is virtual (``clock``): control-plane latencies (provision/load/
 init/grace) advance the clock; token generation is real PyTorch compute on
 the server's ``device``, the card unless the caller passes ``device="cpu"``.
 On the card every engine's attention runs the Hopper kernels.
-
-Not ported yet: prefix sharing (``use_prefix_share=True`` raises; the port's
-engine has no prefix index, ROADMAP A4). Its code paths below are kept as
-in the reference and stay dormant while the option is off.
 """
 
 from __future__ import annotations
@@ -115,10 +116,6 @@ class GlobalServer:
                  prefix_affinity_frac: float = 0.9):
         assert dispatch in ("weighted", "uniform", "throughput", "cost"), \
             dispatch
-        if use_prefix_share:
-            raise NotImplementedError(
-                "repro_torch: use_prefix_share needs the engine's prefix "
-                "index, not ported yet (ROADMAP A4)")
         # every engine of the server runs here; add_pipeline refuses params
         # that live elsewhere
         self.device = resolve_device(device)
@@ -154,6 +151,8 @@ class GlobalServer:
         self.est_workload = est_workload      # (s_in, s_out) for estimates
         self.engine_kw = dict(engine_kw or {})
         self.engine_kw.setdefault("prefill_chunk", prefill_chunk)
+        if use_prefix_share:
+            self.engine_kw.setdefault("prefix_share", True)
         self.pipelines: List[ServingPipeline] = []
         self.clock = 0.0
         # scalar dispatch keys on pid; bucket dispatch on (pid, bucket)

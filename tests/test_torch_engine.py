@@ -8,9 +8,11 @@ tests/test_chunk_prefill.py: batched vs solo admission, more requests than
 slots, chunked prefill interleaving with decode, lazy grow, overcommit
 preemption with KV re-attach, and skip-ahead admission on the paged
 layout; batched, more-than-slots and chunked (transient group cache plus
-finisher scatters) admission on the contiguous layout; and the MoE family
+finisher scatters) admission on the contiguous layout; the MoE family
 (granite-moe, phi3.5-moe) on its auto (contiguous) layout with batch-1
-exact-length admission.
+exact-length admission; and ``admission="legacy"`` (the reference's
+batch-1 exact-length baseline) for the dense and the SSM family, with its
+per-length retrace count.
 """
 
 import dataclasses
@@ -300,9 +302,69 @@ def test_retrace_count_bounded_by_buckets(setup):
 
 
 def test_unported_options_raise(setup):
+    """Enc-dec stays unported; prefix sharing and legacy admission are
+    ported, and the layouts the reference refuses them raise its
+    ValueError."""
     _, _, tcfg, tparams = setup
-    with pytest.raises(NotImplementedError):
-        Engine(tcfg, tparams, device="cpu", prefix_share=True)
     encdec = dataclasses.replace(tcfg, n_encoder_layers=2)   # not ported
     with pytest.raises(NotImplementedError):
         Engine(encdec, tparams, device="cpu")
+    assert Engine(tcfg, tparams, device="cpu", prefix_share=True).bm
+    assert Engine(tcfg, tparams, device="cpu",
+                  admission="legacy").kv_layout == "contig"
+    with pytest.raises(ValueError, match="admission=legacy"):
+        Engine(tcfg, tparams, device="cpu", admission="legacy",
+               kv_layout="paged")
+    with pytest.raises(ValueError, match="requires kv_layout='paged'"):
+        Engine(tcfg, tparams, device="cpu", prefix_share=True,
+               kv_layout="contig")
+
+
+# -- legacy admission (the reference's batch-1 exact-length baseline) ---------
+
+LEGACY_SCENARIOS = {
+    "batched": (_batched, dict(max_batch=8, max_len=64)),
+    "more_than_slots": (_more_than_slots, dict(max_batch=2, max_len=64)),
+    "long_prompts_not_chunked": (_staggered_chunks,
+                                 dict(max_batch=4, max_len=64,
+                                      prefill_chunk=8)),
+}
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-1.3b"])
+@pytest.mark.parametrize("name", sorted(LEGACY_SCENARIOS))
+def test_legacy_engine_matches_jax(arch, name):
+    """``admission="legacy"``: one batch-1 exact-length prefill per request
+    into its contiguous slot row, never chunked; tokens and every
+    EngineStats field (the retrace counters too) equal the JAX legacy
+    engine's, for the dense family and the SSM family."""
+    scenario, kw = LEGACY_SCENARIOS[name]
+    je, te = _run_both(_arch(arch), scenario, dict(kw, admission="legacy"))
+    assert dataclasses.asdict(te.stats) == dataclasses.asdict(je.stats)
+    assert te.kv_layout == "contig" and te.bm is None
+    assert te.stats.prefill_chunks == 0
+    assert te.stats.prefill_batches == te.stats.prefills
+
+
+def test_legacy_retraces_once_per_length(setup):
+    """tests/test_engine_v2.py's legacy count: one prefill retrace per
+    distinct prompt length and none for a repeat, as the JAX engine
+    counts (``retraces`` adds its one decode shape)."""
+    jcfg, jparams, tcfg, tparams = setup
+    out = []
+    for eng, Req in ((JaxEngine(jcfg, jparams, use_pallas=False,
+                                max_batch=4, max_len=64,
+                                admission="legacy"), JaxRequest),
+                     (Engine(tcfg, tparams, device="cpu", max_batch=4,
+                             max_len=64, admission="legacy"),
+                      ServeRequest)):
+        rng = np.random.RandomState(0)
+        for n in [4, 7, 11, 15, 17, 23, 7, 11]:
+            r = Req(prompt=rng.randint(0, tcfg.vocab, n).tolist(),
+                    max_new_tokens=2)
+            assert eng.admit(r)
+            eng.drain()
+            out.append(list(r.generated))
+        assert eng.stats.prefill_retraces == 6
+        assert eng.stats.retraces == 7
+    assert out[8:] == out[:8]

@@ -102,6 +102,31 @@ def test_chunk_kernel_matches_plain(cuda, dtype, c, vecbase, window):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bs", [16, 24])
+@pytest.mark.parametrize("g,d", [(8, 128), (12, 128), (8, 80), (12, 80)])
+def test_chunk_kernel_unaligned_row_bases(cuda, dtype, bs, g, d):
+    """The prefix-sharing suffix dispatch: per-row bases that differ in
+    one call and are multiples of neither the block nor the query tile
+    (the causal diagonal crosses key tiles), one row at base 0; and the
+    same call with the probe over ragged real columns."""
+    rng = np.random.RandomState(7)
+    b, nkv, c, mb = 4, 2, 100, -(-1200 // bs)
+    pk, pv, tbl = _pool(rng, b, mb, bs, nkv, d, dtype, cuda)
+    q = _rand(rng, (b, c, g * nkv, d), dtype, cuda)
+    bases = torch.tensor([0, 17, 1000, 1023], dtype=torch.int32,
+                         device=cuda)
+    out = ops.chunk_attention_paged(q, pk, pv, tbl, bases)
+    ref = _ref(ca.chunk_attention_paged_plain, q, pk, pv, tbl, bases)
+    torch.testing.assert_close(out.float(), ref, **_tol(dtype))
+    cols = torch.tensor([c, 33, 1, c - 7], dtype=torch.int32, device=cuda)
+    out_p, pmax = ops.chunk_attention_paged(q, pk, pv, tbl, bases,
+                                            probe=True, probe_cols=cols)
+    torch.testing.assert_close(out_p, out, atol=0, rtol=0)
+    assert torch.equal(pmax, kvp.kv_probe_plain(pk, pv, tbl, bases, c,
+                                                g * nkv, cols=cols))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,nh,nkv,d,causal,window", [
     (2, 64, 8, 2, 32, True, None),
     (2, 77, 8, 2, 32, True, 16),
@@ -441,10 +466,12 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, nh, hd, n, chunk,
                          model_kw={"ssd_chunk": 8})),
     ("zamba2-2.7b", dict(max_batch=2, max_len=64,
                          model_kw={"ssd_chunk": 8})),
+    ("qwen3-32b", dict(max_batch=4, max_len=64, prefill_chunk=8,
+                       admission="legacy")),
 ])
 def test_engine_tokens_match_cpu(cuda, arch, kw):
     """fp32 greedy tokens and counters: Engine on the card == on the CPU,
-    paged, contig, MoE, SSM and hybrid."""
+    paged, contig, MoE, SSM, hybrid and legacy admission."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serving import Engine, ServeRequest
@@ -491,3 +518,47 @@ def test_server_scenario_matches_cpu(cuda):
     host = smoke.server_scenario(cfg, cpu, "cpu")
     assert card == host
     assert card["ok"] and card["attached"] and card["evicted"]
+
+
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("sanitize", [False, True])
+def test_prefix_scenario_matches_cpu(cuda, sanitize):
+    """The prefix scenarios of ``chip_smoke.py`` phase 4 (donor / sharer
+    waves with full-block sharing, deferred and admission-time
+    copy-on-write; sanitized too) on the card against the CPU: identical
+    tokens, counters and pool state, the tokens of the engine without
+    sharing, 8 hits and 5 copies."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    smoke = _smoke()
+    cfg = get_config("qwen3-32b").reduced()
+    cpu = build_model(cfg, device="cpu").init(seed=0)
+    card = smoke.prefix_scenario(cfg, smoke._tree_to(cpu, cuda), cuda,
+                                 sanitize=sanitize)
+    assert card == smoke.prefix_scenario(cfg, cpu, "cpu", sanitize=sanitize)
+    assert card["tokens"] == smoke.prefix_scenario(cfg, cpu, "cpu",
+                                                   share=False)["tokens"]
+    assert card["stats"]["prefix_hits"] == 8
+    assert card["stats"]["cow_copies"] == 5
+
+
+def test_server_prefix_scenario_matches_cpu(cuda):
+    """``use_prefix_share=True`` behind a GlobalServer on the card against
+    the CPU: identical tokens, events, clock and store accounting."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    smoke = _smoke()
+    cfg = get_config("qwen3-32b").reduced()
+    cpu = build_model(cfg, device="cpu").init(seed=0)
+    card = smoke.server_prefix_scenario(cfg, smoke._tree_to(cpu, cuda), cuda)
+    assert card == smoke.server_prefix_scenario(cfg, cpu, "cpu")
+    assert card["prefix"][1][1] >= 1 and card["no_leak"]

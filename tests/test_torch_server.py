@@ -17,8 +17,9 @@ cases), tests/test_engine_v2.py (interruption equivalence, requeue on a sole
 pipeline, the estimator-driven clock), tests/test_kv_paging.py (KV migration
 and the store's LRU budget), tests/test_kv_lazy.py (the cost victim, the
 pinned-key ``take``, preempt -> publish -> attach, the publish budget),
-tests/test_routing.py (bucket-aware and pricing-aware dispatch; prefix
-affinity and hot-prefix pinning wait for the prefix index) and
+tests/test_routing.py (bucket-aware and pricing-aware dispatch, prefix
+affinity and hot-prefix pinning), tests/test_kv_prefix.py (hot prefixes
+published to the store and warmed into new and rebuilt pipelines) and
 tests/test_store_sanitizer.py.
 """
 
@@ -40,6 +41,7 @@ import repro_torch.core as core
 import repro_torch.hw as hw
 import repro_torch.serving as serving
 import repro_torch.serving.tensor_store as ts
+from repro.cluster.workload import zipf_shared_prompts
 from repro.configs import get_config as jax_config
 from repro.models import build_model as jax_build
 from repro_torch.configs import get_config
@@ -646,6 +648,77 @@ def _san_params(P, scale=1.0):
     return {"w": P.ones((4, 4)) * scale}   # 64 bytes
 
 
+def _prefix_affinity_tie_break(P):
+    """With prefix sharing on, a near-tie routes to the pipeline already
+    holding the prompt's published prefix."""
+    srv = _server(P, None, max_batch=2, max_len=64, use_prefix_share=False)
+    srv.use_prefix_share = True                  # dispatch-side affinity
+    p0 = srv.add_pipeline(P.params, ["a"], weight=1.0)
+    p1 = srv.add_pipeline(P.params, ["b"], weight=1.0)
+    srv._prefix_home[(5, 6, 7, 8)] = {p1.pid}
+    r, r2 = _reqs(P, [[5, 6, 7, 8, 9, 10], [9, 9, 9]], 4)
+    assert srv.submit(r) is p1                   # affinity flips the tie
+    assert srv.submit(r2) is p0                  # no prefix: unaffected
+    return _state(srv, [r, r2])
+
+
+def _store_pins_hot_prefix(P):
+    """Budget-capped LRU skips the top-k keys by hit count: the hottest
+    published prefix survives as the LRU-stalest unreferenced key; without
+    pinning the same sequence evicts it."""
+    kb, out = 1024, []
+    for pin_k, survives in ((1, True), (0, False)):
+        store = P.TensorStore(budget_bytes=3 * kb, pin_hot_k=pin_k)
+        store.put("__prefix__", "hot", {"w": P.zeros(kb // 4)})
+        for _ in range(5):
+            assert store.peek("__prefix__", "hot") is not None
+        assert store.hits("__prefix__", "hot") == 5
+        for i in range(4):
+            store.put("__prefix__", f"cold{i}", {"w": P.zeros(kb // 4)})
+            store.peek("__prefix__", f"cold{i}")
+        assert store.contains("__prefix__", "hot") == survives
+        out.append((_store_state(store), store.hot_keys()))
+        if survives:
+            assert ("__prefix__", "hot") in store.hot_keys()
+            store.evict_unreferenced()           # pinned, still reclaimable
+            assert not store.contains("__prefix__", "hot")
+            out.append(_store_state(store))
+    return out
+
+
+def _server_publishes_and_warms_prefixes(P):
+    """Hot prefixes published to the store under content-hash keys, a new
+    pipeline and an interrupt-rebuilt one warmed from it, and a
+    first-contact request served from the warmed blocks."""
+    prompts = zipf_shared_prompts(10, n_prefixes=2, prefix_len=12,
+                                  suffix_len=4, share_ratio=1.0,
+                                  vocab=P.cfg.vocab, zipf_a=3.0, seed=3)
+    store = P.TensorStore()
+    srv = _server(P, store, max_batch=4, max_len=64,
+                  engine_kw={"kv_layout": "paged", "block_size": 4},
+                  use_prefix_share=True, prefix_hot_hits=2)
+    p0 = srv.add_pipeline(P.params, ["inst-A"])
+    reqs = _reqs(P, prompts, 4)
+    p0.queue.extend(reqs)
+    srv.run_until_drained()
+    assert "prefix_publish" in _kinds(srv) and store.keys("__prefix__")
+    p1 = srv.add_pipeline(P.params, ["inst-B"])
+    assert p1.engine.stats.prefix_warmups >= 1
+    warms = _kinds(srv).count("prefix_warm")
+    srv.interrupt_instance("inst-A")
+    assert _kinds(srv).count("prefix_warm") > warms
+    (probe,) = _reqs(P, [list(prompts[0][:12]) + [7, 9, 11, 13]], 3,
+                     rid0=100)
+    p1.queue.append(probe)
+    srv.run_until_drained()
+    assert p1.engine.stats.prefix_hits >= 1
+    assert all(p.engine.bm.check_no_leak() for p in srv.pipelines)
+    return _state(srv, reqs + [probe]), sorted(
+        (k, sorted(v)) for k, v in srv._prefix_home.items()), [
+        (p.engine.stats.prefix_hits, p.engine.stats.prefix_warmups,
+         p.engine.stats.prefix_shared_tokens) for p in srv.pipelines]
+
+
 def _san_clean_lifecycle(P):
     st = P.TensorStore(sanitize=True)
     st.put("m", "p0", _san_params(P))
@@ -772,6 +845,8 @@ CASES = {f.__name__.lstrip("_"): f for f in (
     _preempt_without_store_recomputes, _kv_publish_budget,
     _dispatch_shunts_longs, _uniform_dispatch, _requeue_preserves_bucket,
     _dispatch_falls_back_without_placements, _pricing_reranks_dispatch,
+    _prefix_affinity_tie_break, _store_pins_hot_prefix,
+    _server_publishes_and_warms_prefixes,
     _san_clean_lifecycle, _san_budgeted_eviction, _san_detach_underflow,
     _san_underflow_tolerated_disarmed, _san_double_evict,
     _san_attach_after_evict, _san_pinned_evict, _san_divergence,
@@ -789,9 +864,15 @@ def test_server_matches_jax(case):
 # -- the port's own entry-point rules -------------------------------------------
 
 def test_server_refuses_prefix_sharing_and_foreign_params():
+    """Prefix sharing is refused where the reference refuses it (contig
+    engines), and params that live on another device are refused."""
     P = _pkgs()["torch"]
-    with pytest.raises(NotImplementedError, match="A4"):
-        _server(P, None, use_prefix_share=True)
+    srv = _server(P, None, max_batch=2, max_len=64, use_prefix_share=True)
+    assert srv.add_pipeline(P.params, ["p"]).engine._prefix is not None
+    srv = _server(P, None, max_batch=2, max_len=64, use_prefix_share=True,
+                  engine_kw={"kv_layout": "contig"})
+    with pytest.raises(ValueError, match="requires kv_layout='paged'"):
+        srv.add_pipeline(P.params, ["c"])
     srv = _server(P, None, max_batch=2, max_len=64)
     def to_meta(tree):
         if isinstance(tree, dict):
