@@ -43,7 +43,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    prefix path's suffix dispatch (paged chunk at per-row bases 0, 17,
    1000 and 1023 in one call: bf16 and fp32, blocks of 16 and 24, g = 8
    and 12, head dims 128 and 80, and with the probe on ragged real
-   columns). At each kernel's main shape it
+   columns); head dim 120 (h2o-danube-3-4b) through every attention
+   kernel and the probe, bf16 and fp32, g = 1 and 4, windows shorter than
+   a tile and of 4096 with positions and bases on both sides of it,
+   ragged lengths; flash at Sq != Sk non-causal with Sk = 8 (whisper's
+   cross attention) and whisper's encoder; command-r-plus's 96/8 heads;
+   the ring cache's decode route (``ops.decode_attention_ring``) against
+   the reference's ``slot_pos`` mask on a ring not yet full, exactly full
+   and wrapped. At each kernel's main shape it
    times the kernel, the plain version and, as a yardstick the port never
    calls, ``F.scaled_dot_product_attention`` on the gathered /
    head-repeated K/V (none for the SSD scan and the probe: no single
@@ -55,8 +62,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    TFLOP/s bf16; only the keys each row reaches, each byte once);
    flash at the MoE, hybrid and legacy prompts, paged chunk at the suffix
    bases, contig decode at d=80 and the SSD scan at zamba2's shape are
-   timed too, and the host time of a flash call through ctypes, bf16
-   (tensor-map encodes) against fp32;
+   timed too, and the new paths' shapes: paged decode and chunk at
+   danube's heads past its window, flash at danube's ring prompt (2 x
+   6000 tokens, window 4096), command-r's 512 group and whisper's encoder
+   and cross attention, contig decode at whisper's heads and through the
+   ring route, contig chunk at whisper's heads; and the host time of a
+   flash call through ctypes, bf16 (tensor-map encodes) against fp32;
 4. engine parity, fp32: reduced configs, one init each, the same requests
    through the Engine on the card (kernels) and on the CPU (plain): paged
    bucketed, direct-to-pool chunked and overcommitted (grow + preempt)
@@ -68,7 +79,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    granite-moe on their auto (contig) layout with more requests than
    slots; mamba2-1.3b and zamba2-2.7b with SSD chunks of 8 (prompts span
    several), more requests than slots and an equal-length pair batched
-   into one group; then the prefix waves (full-block sharing, deferred
+   into one group; qwen2-vl-2b, command-r-plus-104b and h2o-danube-3-4b
+   paged and chunked; whisper-tiny batched, chunked and legacy (contig);
+   then the model entry points the engine does not drive: qwen2-vl's
+   prefill from embeddings under an image grid's distinct M-RoPE streams
+   and its embeds decode, danube's ring cache (a prompt past the window,
+   decode across the ring's end, tokens equal to the linear cache's);
+   then the prefix waves (full-block sharing, deferred
    and admission-time copy-on-write), plain and sanitized, whose tokens
    must also equal sharing off, and in the sanitized engine poison
    planted in a shared block a suffix reads (must raise) and in one it
@@ -94,11 +111,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    KV attach and one eviction; then a ``use_prefix_share=True`` server
    (hot prefixes published, a new and a rebuilt pipeline warmed, a
    first-contact hit): tokens, events, clock and store bytes identical;
-5. nine serving paths at full width, bf16, random weights from a seeded
-   generator on the card, the same traffic but for ``prefix`` (16
-   requests of 64-2048 prompt tokens, some past ``prefill_chunk=512``, 32
-   new tokens each, ``max_len`` 2080, 8 slots); for each, one untimed
-   warm-up pass, then
+5. thirteen serving paths at full width, bf16, random weights from a
+   seeded generator on the card, the same traffic but for ``prefix`` and
+   ``danube`` (16 requests of 64-2048 prompt tokens, some past
+   ``prefill_chunk=512``, 32 new tokens each, ``max_len`` 2080, 8 slots);
+   for each, one untimed warm-up pass, then
    ``--repeats`` timed runs (median wall reported), each on a fresh Engine
    with launch counts zeroed just before and read just after, and the
    kernels that path runs must have launched in each run:
@@ -143,7 +160,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           paged chunk (the suffix dispatches), flash;
    legacy contig's model and traffic through ``admission="legacy"``
           (batch-1 exact-length prefill): flash, contig decode; its
-          admit_s and retraces print beside contig's.
+          admit_s and retraces print beside contig's;
+   vlm    qwen2-vl-2b whole (28 layers, 12/2 heads of 128, qkv bias,
+          tied), paged, served from tokens (M-RoPE's three streams
+          identical): paged decode, paged chunk, flash;
+   cmdr   command-r-plus-104b at ``--cmdr-layers`` (8) of 64 (96/8 heads
+          of 128 at d_model 12288, layernorm, tied 256000-token
+          embedding; 31.5 GB of bf16 weights), paged: paged decode,
+          paged chunk, flash;
+   danube h2o-danube-3-4b whole (24 layers, 32/8 heads of 120, window
+          4096), paged, on its own traffic: 16 requests of 2048-6000
+          prompt tokens, half past the window, ``max_len`` 6176, all
+          chunked: paged decode, paged chunk; then one ring-cache
+          generation (2 rows of 6000 tokens, ``prefill(ring=True)``, 32
+          greedy steps; flash and contig decode must launch) and, fed the
+          same tokens, the linear cache: per-step logit difference and
+          share of equal tokens printed, not gated;
+   whisper whisper-tiny whole (4 + 4 layers, 6/6 heads of 64), contig
+          (8 stubbed encoder frames a request): contig chunk, contig
+          decode, flash (encoder, cross attention, prompt groups).
    Each model's params are freed before the next path is built;
 6. a JSON line of per-kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``. A ``[time]`` line follows each
@@ -180,6 +215,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kv_probe as kvp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.serving import (Engine, GlobalServer,  # noqa: E402
@@ -201,6 +237,16 @@ TOL = {torch.bfloat16: (5e-3, 2e-2), torch.float32: (1e-4, 1e-4)}
 QWEN = dict(nh=64, nkv=8, d=128)              # Qwen3-32B attention geometry
 PHI = dict(nh=32, nkv=8, d=128)               # Phi-3.5-MoE attention geometry
 ZAMBA = dict(nh=32, nkv=32, d=80)             # zamba2-2.7b shared attention
+DANUBE = dict(nh=32, nkv=8, d=120)            # h2o-danube-3-4b (window 4096)
+CMDR = dict(nh=96, nkv=8, d=128)              # command-r-plus-104b
+WHISPER = dict(nh=6, nkv=6, d=64)             # whisper-tiny (MHA)
+DANUBE_WINDOW = 4096
+DANUBE_LEN = 6176             # the danube path's max_len: 6000 + 32 new
+ENC_FRAMES = 8                # whisper's stubbed encoder frames per row
+# positions across danube's window: the first key, either side of 4096,
+# past it, the row's last key and one past it (the frozen dead row)
+DANUBE_POS = [0, DANUBE_WINDOW - 1, DANUBE_WINDOW, DANUBE_WINDOW + 1, 5000,
+              6000, DANUBE_LEN - 1, DANUBE_LEN]
 HEAD_DIMS = _build.HEAD_DIMS
 G_SWEEP = (1, 3, 4, 6, 7, 8, 12, 16)          # query heads per KV head
 # groups that do not divide 128 (the prefill body pads its last rows; the
@@ -238,6 +284,24 @@ PATHS = {
     # contig's model and traffic through the batch-1 legacy admission
     "legacy": ("qwen3-32b", "contig", ("flash_attention",
                                        "decode_attention")),
+    # qwen2-vl-2b whole: M-RoPE (served from tokens: identical streams),
+    # qkv bias, tied embeddings, 12/2 heads (g = 6)
+    "vlm": ("qwen2-vl-2b", "auto",
+            ("decode_attention_paged", "chunk_attention_paged",
+             "flash_attention")),
+    # command-r-plus-104b at --cmdr-layers of 64: 96/8 heads (g = 12) at
+    # d_model 12288, layernorm, a 256000-token tied embedding
+    "cmdr": ("command-r-plus-104b", "auto",
+             ("decode_attention_paged", "chunk_attention_paged",
+              "flash_attention")),
+    # h2o-danube-3-4b whole: head dim 120 and the 4096 window, on prompts
+    # past it (all chunked: no flash); then one ring-cache generation,
+    # which must launch flash and the contiguous decode kernel
+    "danube": ("h2o-danube-3-4b", "auto",
+               ("decode_attention_paged", "chunk_attention_paged")),
+    # whisper-tiny whole: the encoder-decoder on its contiguous layout
+    "whisper": ("whisper-tiny", "auto",
+                ("chunk_attention", "decode_attention", "flash_attention")),
 }
 # Engine keywords a path adds to the shared ones
 PATH_KW = {"sanitize": dict(kv_sanitize=True),
@@ -247,7 +311,9 @@ PATH_KW = {"sanitize": dict(kv_sanitize=True),
 # fits prefill_chunk (its first request prefills in a group), 1024 is
 # block-aligned, 1000 and 1500 are not
 PREFIX_SYSTEM = (300, 1000, 1024, 1500)
-DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers"}
+DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers",
+              "command-r-plus-104b": "cmdr_layers"}
+DANUBE_RING = (2, 6000, 32)   # the ring generation: rows, prompt, new tokens
 ALL_PHASES = ("build", "calibrate", "kernels", "parity") + tuple(PATHS)
 
 
@@ -476,10 +542,13 @@ def chunk_work(bases, b, c, s, nh, nkv, d, window, esz, tbl=None, bs=0):
     return nbytes, 4.0 * nh * d * vis.sum()
 
 
-def flash_work(b, s, nh, nkv, d, window, esz):
-    vis, _ = _visible(np.arange(s), s, window)
-    nbytes = (2 * b * s * nh * d + 2 * b * s * nkv * d) * esz
-    return nbytes, 4.0 * b * nh * d * vis.sum()
+def flash_work(b, s, nh, nkv, d, window, esz, causal=True, sk=None):
+    """q and out of ``s`` rows, K/V of ``sk`` (default ``s``); causal
+    (and windowed) rows see their visible keys, non-causal rows all."""
+    sk = s if sk is None else sk
+    vis = _visible(np.arange(s), s, window)[0].sum() if causal else s * sk
+    nbytes = (2 * b * s * nh * d + 2 * b * sk * nkv * d) * esz
+    return nbytes, 4.0 * b * nh * d * vis
 
 
 def _sdpa_inputs(q, k, v, mask):
@@ -621,6 +690,22 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
         (f32, (8, 2, 64, 2, 300, 16), None, True, "GQA 8/2 d64 S=300 fp32"),
         (bf, (4, 4, 80, 3, 37, 8), None, True, "MHA d80 S=37 bf16"),
         (f32, (4, 4, 80, 3, 37, 8), None, True, "MHA d80 S=37 fp32")]
+    d120 = "danube d120 SWA=4096 pos across the window bf16"
+    whisper = "whisper MHA 6/6 d64 bf16"
+    if not rehearsal:
+        # head dim 120 (h2o-danube-3-4b): its own geometry and window with
+        # positions on both sides of it, g = 1 and 4, bf16 and fp32, short
+        # windows, ragged positions; whisper-tiny's decoder heads
+        specs += [
+            (bf, (*_geometry(DANUBE, rehearsal), len(DANUBE_POS),
+                  DANUBE_LEN, BS), DANUBE_WINDOW, DANUBE_POS, d120),
+            (bf, (8, 8, 120, 3, 300, 24), 20, True,
+             "g=1 d120 SWA=20 blocks of 24 bf16"),
+            (bf, (32, 8, 120, 3, 300, BS), None, True, "g=4 d120 bf16"),
+            (f32, (32, 8, 120, 3, 300, BS), 40, True, "g=4 d120 SWA=40 fp32"),
+            (f32, (8, 8, 120, 3, 300, 24), None, True, "g=1 d120 fp32"),
+            (bf, (*_geometry(WHISPER, rehearsal), B, S, BS), None, True,
+             whisper)]
     if paged and not rehearsal:
         # the bf16 body through the block table (kernel 1 runs the contig
         # body's split walk with a paged key policy): positions at 0, at a
@@ -700,34 +785,97 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
                 pos[-1] = s             # a dead row, frozen past its row's end
             yield label, dtype, (q, *kvs, pos), dict(window=win)
     zlabel = f"main GQA {ZAMBA['nh']}/{ZAMBA['nkv']} bf16"
+    # timed beside the main shape: the hybrid path's d=80 heads (contig),
+    # the danube path's d=120 heads past the window (paged), the whisper
+    # path's decoder heads (contig)
+    timed = [] if rehearsal else (
+        [(d120, DANUBE, DANUBE_WINDOW)] if paged else
+        [(zlabel, ZAMBA, None), (whisper, WHISPER, None)])
     args, err, kept = compare(name, run, plain, cases(),
-                              keep=() if paged else (zlabel,))
+                              keep=[t[0] for t in timed])
     row = measure(name, da, run, plain, args, err,
                   *decode_yardstick(args, B, dev, nh, nkv, d, paged))
-    if zlabel in kept:                  # the hybrid path's d=80 heads
-        z = _geometry(ZAMBA, rehearsal)
-        row["timed_shapes"] = [time_shape(
-            name, run, kept[zlabel],
-            *decode_yardstick(kept[zlabel], B, dev, *z, paged))]
+    row["timed_shapes"] = [
+        time_shape(name, run, kept[label],
+                   *decode_yardstick(kept[label], kept[label][0].shape[0],
+                                     dev, *_geometry(geo, rehearsal), paged,
+                                     window=win), kw=dict(window=win))
+        for label, geo, win in timed]
+    if not paged:
+        row["timed_shapes"] += kernel_ring(cs, dev, rehearsal)
     return row
 
 
-def decode_yardstick(args, b, dev, nh, nkv, d, paged) -> tuple:
-    """SDPA on the gathered K/V with the positions' mask, the bytes and
-    operations of the call, and its shape label."""
+def decode_yardstick(args, b, dev, nh, nkv, d, paged, window=None
+                     ) -> tuple:
+    """SDPA on the gathered K/V with the positions' (and window's) mask,
+    the bytes and operations of the call, and its shape label."""
     q, pos = args[0], args[-1]
     k, v = dense_kv(args[1:-1], b)
     s = k.shape[1]
-    mask = (torch.arange(s, device=dev)[None, :]
-            <= pos.long()[:, None])[:, None, None, :]
-    sq, sk, sv, sm = _sdpa_inputs(q, k, v, mask)
+    t, p = torch.arange(s, device=dev)[None, :], pos.long()[:, None]
+    vis = t <= p
+    if window:
+        vis &= t > p - window
+    sq, sk, sv, sm = _sdpa_inputs(q, k, v, vis[:, None, None, :])
     tbl = args[3].cpu().numpy() if paged else None
-    work = decode_work(pos.cpu().numpy(), s, nh, nkv, d, None, 2, tbl, BS)
+    work = decode_work(pos.cpu().numpy(), s, nh, nkv, d, window, 2, tbl, BS)
     kv_shape = (f"pool=({args[1].shape[0]},{BS},{nkv},{d}) tbl=({b},"
                 f"{tbl.shape[1]})" if paged else f"cache=({b},{s},{nkv},{d})")
+    win = f" SWA={window}" if window else ""
     return (lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm),
-            work, f"q=({b},1,{nh},{d}) {kv_shape} ragged pos, one dead row "
-            f"bf16")
+            work, f"q=({b},1,{nh},{d}) {kv_shape}{win} ragged pos, one dead "
+            f"row bf16")
+
+
+def ring_slots(pos: int, s_alloc: int, dev) -> torch.Tensor:
+    """``slot_pos`` of a ring of ``s_alloc`` slots after the token at
+    ``pos`` was written: slot j holds the latest position p <= pos with p %
+    s_alloc == j, or -1 (empty) where there is none."""
+    j = torch.arange(s_alloc, device=dev)
+    last = pos - (pos - j) % s_alloc
+    return torch.where(j <= pos, last, -1).to(torch.int32)
+
+
+def kernel_ring(cs, dev, rehearsal) -> list:
+    """The ring (sliding-window) cache's decode route
+    (``ops.decode_attention_ring``: the contiguous decode kernel at
+    ``min(pos, S_alloc - 1)`` with no window) against its plain version,
+    the reference's ``slot_pos`` mask, at danube's heads on a ring of 4096
+    slots: not yet full, exactly full, wrapped (by a prompt past the
+    window and by decode), bf16 and fp32. Timed at the ring generation's
+    wrapped shape."""
+    name = "decode_attention"
+
+    def route(q, k, v, pos, slot_pos):     # the route ignores slot_pos
+        return ops.decode_attention_ring(q, k, v, pos)
+    run = in_fp32(route) if rehearsal else route
+    plain = attn.decode_attention_ring
+    nh, nkv, d = _geometry(DANUBE, rehearsal)
+    ring = 32 if rehearsal else DANUBE_WINDOW
+    b = 2
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for pos, what in ((ring // 3, "not full"), (ring - 1, "exactly full"),
+                          (ring + ring // 2, "wrapped"),
+                          (3 * ring + 7, "wrapped twice")):
+            k = cs.randn(b, ring, nkv, d, dtype=dtype)
+            v = cs.randn(b, ring, nkv, d, dtype=dtype)
+            q = cs.randn(b, 1, nh, d, dtype=dtype)
+            args = (q, k, v, torch.full((b,), pos, dtype=torch.int32,
+                                        device=dev),
+                    ring_slots(pos, ring, dev))
+            cases.append((f"ring d{d} S_alloc={ring} pos={pos} {what} "
+                          f"{str(dtype)[6:]}", dtype, args, {}))
+    compare(name, run, plain, iter(cases))
+    if rehearsal:
+        return []
+    q, k, v, pos, _ = cases[2][2]       # bf16, wrapped
+    lib, work, _ = decode_yardstick((q, k, v, torch.clamp(pos, max=ring - 1)),
+                                    b, dev, nh, nkv, d, False)
+    return [time_shape(name, run, cases[2][2], lib, work,
+                       f"ring q=({b},1,{nh},{d}) cache=({b},{ring},{nkv},{d}) "
+                       f"pos={int(pos[0])} (pos_eff {ring - 1}) bf16")]
 
 
 # per-row bases of the prefix path's suffix dispatch: unaligned with the
@@ -782,6 +930,27 @@ def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
          f"g={g} d{dd} C=77{' SWA=50' if win else ''} bf16")
         for i, (g, kv, dd, win) in enumerate(V1_CASES)]
 
+    # head dim 120 (h2o-danube-3-4b): the path's 512-token chunk at bases
+    # on both sides of the 4096 window (a row whose chunk crosses it),
+    # g = 1 and 4, bf16 and fp32, short windows, blocks of 24; whisper's
+    # decoder chunk (contig: the transient group cache of its chunked
+    # prefill)
+    d120 = "danube d120 C=512 SWA=4096 bases across the window bf16"
+    whisper = "whisper MHA 6/6 d64 C=512 base 1024 bf16"
+    if not rehearsal:
+        specs += [
+            (bf, (*_geometry(DANUBE, rehearsal), 4, C, DANUBE_LEN, BS),
+             (3584, 4096, 4608, 5600), DANUBE_WINDOW, d120),
+            (bf, (32, 8, 120, 2, 300, 1100, BS), "rows0", None,
+             "g=4 d120 C=300 bf16"),
+            (bf, (8, 8, 120, 2, 150, 500, 24), "rows0", 50,
+             "g=1 d120 SWA=50 blocks of 24 bf16"),
+            (f32, (32, 8, 120, 2, 100, 600, BS), "rows", 40,
+             "g=4 d120 SWA=40 per-row fp32"),
+            (f32, (8, 8, 120, 2, 77, 500, 24), "rows0", None,
+             "g=1 d120 blocks of 24 fp32"),
+            (bf, (*_geometry(WHISPER, rehearsal), B, C, S, BS), (base,) * B,
+             None, whisper)]
     suffix = "suffix GQA unaligned per-row bases bf16"
     if paged:
         sb = (0, 5, 30, 33) if rehearsal else SUFFIX_BASES
@@ -804,7 +973,7 @@ def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
                 bases = torch.tensor(bases, dtype=torch.int32, device=dev)
             yield label, dtype, (q, *kvs, bases), dict(window=win)
     args, err, kept = compare(name, run, plain, cases(),
-                              keep=(suffix,) if paged else ())
+                              keep=(suffix, d120) if paged else (whisper,))
     # timed with the scalar base as a (B,) device tensor: the wrapper would
     # copy a Python int to the card on every call, a copy that waits for
     # the stream and would put the host's time into the kernel's
@@ -827,21 +996,43 @@ def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
                   plain_iters=3)
     if paged:
         chunk_probe_case(cs, dev, rehearsal)
-        args = kept[suffix]
-        bases = args[-1]
-        k, v = dense_kv(args[1:-1], B)
-        qpos = bases[:, None].long() + torch.arange(C, device=dev)[None]
-        mask = (torch.arange(k.shape[1], device=dev)[None, None, :]
-                <= qpos[:, :, None])[:, None]
-        sq, sk, sv, sm = _sdpa_inputs(args[0], k, v, mask)
-        row["timed_shapes"] = [time_shape(
-            name, run, args,
-            lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm),
-            chunk_work(bases.cpu().numpy(), B, C, k.shape[1], nh, nkv, d,
-                       None, 2, args[3].cpu().numpy(), BS),
-            f"suffix q=({B},{C},{nh},{d}) bases={tuple(bases.tolist())} "
-            f"pool=({args[1].shape[0]},{BS},{nkv},{d}) bf16")]
+    # timed beside the main shape: the prefix path's suffix dispatch and
+    # the danube path's chunk across its window (paged), the whisper path's
+    # decoder chunk (contig)
+    timed = [] if rehearsal else (
+        [(suffix, "suffix ", QWEN, None), (d120, "", DANUBE, DANUBE_WINDOW)]
+        if paged else [(whisper, "", WHISPER, None)])
+    row["timed_shapes"] = [
+        chunk_timed(name, run, kept[label], dev, *_geometry(geo, rehearsal),
+                    win, paged, tag)
+        for label, tag, geo, win in timed]
     return row
+
+
+def chunk_timed(name, run, args, dev, nh, nkv, d, window, paged,
+                tag="") -> dict:
+    """Time one more chunk shape beside SDPA on the gathered K/V under
+    the per-row bases' (and window's) mask."""
+    b, c = args[0].shape[:2]
+    bases = args[-1]
+    k, v = dense_kv(args[1:-1], b)
+    qpos = bases[:, None].long() + torch.arange(c, device=dev)[None]
+    t = torch.arange(k.shape[1], device=dev)[None, None, :]
+    vis = t <= qpos[:, :, None]
+    if window:
+        vis &= t > qpos[:, :, None] - window
+    sq, sk, sv, sm = _sdpa_inputs(args[0], k, v, vis[:, None])
+    tbl = args[3].cpu().numpy() if paged else None
+    kv_shape = (f"pool=({args[1].shape[0]},{BS},{nkv},{d})" if paged
+                else f"cache=({b},{k.shape[1]},{nkv},{d})")
+    win = f" SWA={window}" if window else ""
+    return time_shape(
+        name, run, args,
+        lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm),
+        chunk_work(bases.cpu().numpy(), b, c, k.shape[1], nh, nkv, d,
+                   window, 2, tbl, BS),
+        f"{tag}q=({b},{c},{nh},{d}) bases={tuple(bases.tolist())} "
+        f"{kv_shape}{win} bf16", kw=dict(window=window))
 
 
 def chunk_probe_case(cs, dev, rehearsal) -> None:
@@ -931,23 +1122,63 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
     specs += [(bf, (g * kv, kv, dd, 2, 300), True, win,
                f"g={g} d{dd} S=300{' SWA=50' if win else ''} bf16")
               for g, kv, dd, win in V1_CASES]
+    # head dim 120 (h2o-danube-3-4b): g = 1 and 4, bf16 and fp32, windows
+    # shorter than a tile and of 4096 with queries on both sides of it (the
+    # ring generation's prompt); command-r-plus's 96/8 heads (g = 12) at
+    # the 512 bucket; whisper-tiny's encoder (8 frames, non-causal) and
+    # cross attention (S_dec queries against the 8 encoder keys: Sq != Sk)
+    dn = _geometry(DANUBE, rehearsal)
+    n4 = 23 if rehearsal else 4600
+    ring = f"danube ring prompt d120 S={n4} SWA=4096 bf16"
+    cmdr = "cmdr group 96/8 S=512 bf16"
+    enc = "whisper encoder 6/6 d64 S=8 non-causal bf16"
+    cross = f"whisper cross Sq={S} Sk=8 non-causal bf16"
+    ks = ENC_FRAMES
+    specs += [
+        (bf, (*dn, 1, n4), True, DANUBE_WINDOW, ring),
+        (bf, (32, 8, 120, 2, 300), True, None, "g=4 d120 S=300 bf16"),
+        (bf, (8, 8, 120, 2, 333), True, 50, "g=1 d120 SWA=50 bf16"),
+        (f32, (32, 8, 120, 2, 77), True, 40, "g=4 d120 SWA=40 fp32"),
+        (f32, (8, 8, 120, 2, 77), True, None, "g=1 d120 fp32"),
+        (bf, (*_geometry(CMDR, rehearsal), B, S), True, None, cmdr),
+        (bf, (*_geometry(WHISPER, rehearsal), B, ks), False, None, enc),
+        (bf, (*_geometry(WHISPER, rehearsal), B, S, ks), False, None, cross),
+        (bf, (6, 6, 64, 8, 1, ks), False, None,
+         "whisper cross decode Sq=1 Sk=8 bf16"),
+        (f32, (6, 6, 64, 3, 37, ks), False, None,
+         "whisper cross Sq=37 Sk=8 fp32"),
+        (bf, (8, 2, 120, 2, 77, 8), False, None,
+         "g=4 d120 non-causal Sq=77 Sk=8 bf16")]
 
     def cases():
-        for dtype, (h, kv, dd, b, s), causal, win, label in specs:
+        for dtype, (h, kv, dd, b, s, *sk), causal, win, label in specs:
+            sk = sk[0] if sk else s
             q = cs.randn(b, s, h, dd, dtype=dtype)
-            k = cs.randn(b, s, kv, dd, dtype=dtype)
-            v = cs.randn(b, s, kv, dd, dtype=dtype)
+            k = cs.randn(b, sk, kv, dd, dtype=dtype)
+            v = cs.randn(b, sk, kv, dd, dtype=dtype)
             yield label, dtype, (q, k, v), dict(causal=causal, window=win)
     moe, zamba, legacy = specs[1][4], specs[3][4], specs[11][4]
     args, err, kept = compare("flash_attention", run, plain, cases(),
-                              keep=(moe, zamba, legacy))
+                              keep=(moe, zamba, legacy, cmdr, enc, cross))
     row = measure("flash_attention", fa, run, plain, args, err,
                   *flash_yardstick(args))
-    # the MoE path's batch-1 prompt, the hybrid path's d=80 group and the
-    # legacy path's batch-1 prompt
+    # the MoE path's batch-1 prompt, the hybrid path's d=80 group, the
+    # legacy path's batch-1 prompt, the cmdr path's 512 group, the whisper
+    # path's encoder and cross attention, and the danube ring generation's
+    # 6000-token prompt (timed only: its fp32 plain version would need
+    # tens of GB)
     row["timed_shapes"] = [time_shape("flash_attention", run, kept[k],
-                                      *flash_yardstick(kept[k]))
-                           for k in (moe, zamba, legacy)]
+                                      *flash_yardstick(kept[k], causal=c),
+                                      kw=dict(causal=c))
+                           for k, c in ((moe, True), (zamba, True),
+                                        (legacy, True), (cmdr, True),
+                                        (enc, False), (cross, False))]
+    if not rehearsal:
+        big = tuple(cs.randn(2, 6000, h, 120, dtype=bf) for h in (32, 8, 8))
+        row["timed_shapes"].append(time_shape(
+            "flash_attention", run, big,
+            *flash_yardstick(big, window=DANUBE_WINDOW),
+            kw=dict(window=DANUBE_WINDOW)))
     if not rehearsal:
         row["host_us"] = launch_host_us(cs)
     return row
@@ -980,16 +1211,24 @@ def launch_host_us(cs, n: int = 500) -> dict:
     return out
 
 
-def flash_yardstick(args) -> tuple:
-    """Causal SDPA on head-repeated K/V, the bytes and operations of the
-    call, and its shape label."""
+def flash_yardstick(args, causal: bool = True, window=None) -> tuple:
+    """SDPA on head-repeated K/V (causal, or under the window's mask), the
+    bytes and operations of the call, and its shape label."""
     q, k = args[0], args[1]
-    (b, s, nh, d), nkv = q.shape, k.shape[2]
-    sq, sk, sv, _ = _sdpa_inputs(*args, None)
-    return (lambda: F.scaled_dot_product_attention(sq, sk, sv,
-                                                   is_causal=True),
-            flash_work(b, s, nh, nkv, d, None, 2),
-            f"q=({b},{s},{nh},{d}) k/v=({b},{s},{nkv},{d}) causal bf16")
+    (b, s, nh, d), (sk, nkv) = q.shape, k.shape[1:3]
+    sq, skk, sv, _ = _sdpa_inputs(*args, None)
+    if window:
+        t = torch.arange(s, device=q.device)
+        sm = (t[None, :] <= t[:, None]) & (t[None, :] > t[:, None] - window)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            sq, skk, sv, attn_mask=sm)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            sq, skk, sv, is_causal=causal)
+    kind = ("causal" if causal else "non-causal") + (
+        f" SWA={window}" if window else "")
+    return (lib, flash_work(b, s, nh, nkv, d, window, 2, causal, sk),
+            f"q=({b},{s},{nh},{d}) k/v=({b},{sk},{nkv},{d}) {kind} bf16")
 
 
 def kernel_probe(cs, dev, rehearsal) -> dict:
@@ -1032,6 +1271,20 @@ def kernel_probe(cs, dev, rehearsal) -> dict:
          "chunk paged SWA=40 poison unread fp32"),
         (f32, False, (4, 4, 80, 3, 300, 16), 13, None, "hot",
          "chunk contig d80 poison read fp32")]
+    if not rehearsal:
+        # head dim 120 (h2o-danube-3-4b): 240-byte bf16 and 480-byte fp32
+        # head rows, its window of 4096 over positions on both sides of it
+        specs += [
+            (bf, True, (32, 8, 120, B, DANUBE_LEN, BS), 1, DANUBE_WINDOW,
+             None, "decode paged d120 SWA=4096 bf16"),
+            (bf, True, (32, 8, 120, 4, DANUBE_LEN, 24), C, DANUBE_WINDOW,
+             "hot", "chunk paged d120 SWA=4096 poison read bf16"),
+            (bf, False, (32, 8, 120, 4, 900, BS), C, 100, "cold",
+             "chunk contig d120 SWA=100 poison unread bf16"),
+            (f32, True, (8, 8, 120, 3, 300, 16), 1, None, "hot",
+             "decode paged d120 poison read fp32"),
+            (f32, False, (8, 8, 120, 3, 300, 16), 13, 40, "cold",
+             "chunk contig d120 SWA=40 poison unread fp32")]
     main = None
     for dtype, paged, (h, kv, dd, b, s, bs), c, win, poison, label in specs:
         kvs, s = kv_inputs(cs, paged, b, s, kv, dd, bs, dtype)
@@ -1257,6 +1510,23 @@ PARITY = [
      _MOE),
     ("mamba2", "mamba2-1.3b", _SSD, _RECURRENT),
     ("zamba2", "zamba2-2.7b", _SSD, _RECURRENT),
+    # the M-RoPE VLM from tokens (identical streams), paged, chunked
+    ("vlm", "qwen2-vl-2b", dict(max_batch=4, max_len=64, prefill_chunk=8),
+     _CHUNKED + [(12, 5)]),
+    # command-r-plus's layernorm / tied / GQA trunk, paged, chunked
+    ("cmdr", "command-r-plus-104b",
+     dict(max_batch=4, max_len=64, prefill_chunk=8), _CHUNKED),
+    # h2o-danube's window (8 when reduced) through paged chunk and decode
+    ("danube", "h2o-danube-3-4b",
+     dict(max_batch=4, max_len=64, prefill_chunk=8), _CHUNKED),
+    # the encoder-decoder (contig): batched, chunked (cross cache warmed
+    # per group), legacy batch-1
+    ("whisper", "whisper-tiny", dict(max_batch=4, max_len=64), _BUCKETED),
+    ("whisper_chunked", "whisper-tiny",
+     dict(max_batch=4, max_len=64, prefill_chunk=8), _CHUNKED + [(12, 5)]),
+    ("whisper_legacy", "whisper-tiny",
+     dict(max_batch=4, max_len=64, prefill_chunk=8, admission="legacy"),
+     _CHUNKED),
 ]
 # kernels a scenario's card run must launch itself
 PARITY_REQUIRED = {"sanitized": ("kv_probe", "decode_attention_paged",
@@ -1264,7 +1534,15 @@ PARITY_REQUIRED = {"sanitized": ("kv_probe", "decode_attention_paged",
                    "legacy": ("flash_attention", "decode_attention"),
                    "mamba2": ("ssd_scan",),
                    "zamba2": ("ssd_scan", "flash_attention",
-                              "decode_attention")}
+                              "decode_attention"),
+                   "vlm": ("flash_attention", "chunk_attention_paged",
+                           "decode_attention_paged"),
+                   "danube": ("chunk_attention_paged",
+                              "decode_attention_paged"),
+                   "whisper": ("flash_attention", "decode_attention"),
+                   "whisper_chunked": ("flash_attention", "chunk_attention",
+                                       "decode_attention"),
+                   "whisper_legacy": ("flash_attention", "decode_attention")}
 
 
 class RouterGap:
@@ -1364,10 +1642,96 @@ def phase_engine_parity(dev) -> None:
                 and eng.kv_layout == "contig"):
             raise SystemExit(f"chip_smoke: {name} parity formed no group "
                              f"of equal-length prompts: {st}")
+        if name == "whisper_chunked" and not (st["chunk_scatters"]
+                                              and eng.kv_layout == "contig"):
+            raise SystemExit(f"chip_smoke: whisper chunked parity ran no "
+                             f"chunk scatter: {st}")
     counts = ops.launch_counts()
     log(f"[engine-parity] launches {counts}")
     if str(dev) != "cpu" and not all(counts.values()):
         raise SystemExit(f"chip_smoke: a kernel never launched: {counts}")
+
+
+def image_grid_positions(b: int, t: int, h: int, w: int, n_text: int,
+                         dev) -> torch.Tensor:
+    """(3, B, S) M-RoPE streams of a ``t x h x w`` patch grid, then
+    ``n_text`` text tokens numbered on from one past the grid's largest
+    index in all three streams (Qwen2-VL's numbering)."""
+    ti, hi, wi = torch.meshgrid(torch.arange(t), torch.arange(h),
+                                torch.arange(w), indexing="ij")
+    grid = torch.stack([ti.reshape(-1), hi.reshape(-1), wi.reshape(-1)])
+    text = (grid.max() + 1 + torch.arange(n_text)).expand(3, n_text)
+    pos = torch.cat([grid, text], dim=1)
+    return pos[:, None].expand(3, b, pos.shape[1]).contiguous().to(dev)
+
+
+def phase_model_parity(dev) -> None:
+    """fp32, reduced configs, the card against the CPU through the model
+    entry points the engine does not drive: qwen2-vl-2b's ``prefill`` from
+    patch embeddings under a 2 x 4 x 4 image grid's distinct M-RoPE
+    streams, then embeds decode steps; h2o-danube-3-4b's ring cache,
+    ``prefill(ring=True)`` of a prompt past the window (8) and greedy
+    decode across the ring's end, whose tokens must equal the linear
+    (``ring=False``) run's. Logits within 1e-4, greedy tokens equal."""
+    def same(tag, a, b):
+        err = (a.float().cpu() - b.float()).abs().max().item()
+        ok = err <= 1e-4 and torch.equal(a.argmax(-1).cpu(), b.argmax(-1))
+        log(f"[model-parity] {tag:44s} max_abs_err={err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: model parity failed ({tag})")
+
+    ops.reset_launch_counts()
+    cfg = get_config("qwen2-vl-2b").reduced()
+    m_cpu, m_dev = build_model(cfg, device="cpu"), build_model(cfg,
+                                                                device=dev)
+    cpu = m_cpu.init(seed=0)
+    par = _tree_to(cpu, dev)
+    gen = torch.Generator().manual_seed(3)
+    pos = image_grid_positions(2, 2, 4, 4, 8, "cpu")
+    emb = torch.randn(2, pos.shape[-1], cfg.d_model, generator=gen)
+    lc, cc = m_cpu.prefill(cpu, {"embeds": emb, "positions": pos},
+                           max_len=48)
+    ld, cd = m_dev.prefill(par, {"embeds": emb.to(dev),
+                                 "positions": pos.to(dev)}, max_len=48)
+    same("vlm prefill embeds + image-grid M-RoPE", ld, lc)
+    for i in range(3):
+        e = torch.randn(2, 1, cfg.d_model, generator=gen)
+        lc, cc = m_cpu.decode_step(cpu, cc, e)
+        ld, cd = m_dev.decode_step(par, cd, e.to(dev))
+        same(f"vlm embeds decode step {i}", ld, lc)
+    cfg = get_config("h2o-danube-3-4b").reduced()
+    m_cpu, m_dev = build_model(cfg, device="cpu"), build_model(cfg,
+                                                                device=dev)
+    cpu = m_cpu.init(seed=0)
+    par = _tree_to(cpu, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 20), generator=gen)
+    runs = {}
+    for tag, model, p, where, ring in (("ring dev", m_dev, par, dev, True),
+                                       ("ring cpu", m_cpu, cpu, "cpu", True),
+                                       ("linear dev", m_dev, par, dev, False)):
+        logits, cache = model.prefill(p, {"tokens": toks.to(where)},
+                                      max_len=40, ring=ring)
+        seq, steps = [], []
+        for _ in range(12):
+            seq.append(model.sample_greedy(logits.reshape(2, -1)))
+            steps.append(logits.reshape(2, -1).float().cpu())
+            logits, cache = model.decode_step(p, cache, seq[-1][:, None])
+        runs[tag] = (torch.stack(seq, 1).cpu(), steps)
+    assert runs["ring dev"][0].shape[1] + 20 > 2 * cfg.swa_window
+    for i, (a, b) in enumerate(zip(runs["ring dev"][1], runs["ring cpu"][1])):
+        same(f"danube ring prompt 20 > window 8, step {i}", a, b)
+    equal = torch.equal(runs["ring dev"][0], runs["linear dev"][0])
+    log(f"[model-parity] danube ring tokens == linear tokens: {equal}")
+    counts = ops.launch_counts()
+    log(f"[model-parity] launches {counts}")
+    if not equal:
+        raise SystemExit("chip_smoke: the ring cache's tokens differ from "
+                         "the linear cache's")
+    if str(dev) != "cpu" and not all(
+            counts[k] for k in ("flash_attention", "decode_attention")):
+        raise SystemExit(f"chip_smoke: the model parity runs launched no "
+                         f"flash or contiguous decode: {counts}")
 
 
 # phase 4 prefix scenarios: the donor / sharer traffic of
@@ -1824,6 +2188,8 @@ def path_workload(path: str, depth: int, seed: int, rehearsal: bool):
         if depth is not None:
             cfg = dataclasses.replace(cfg, n_layers=depth)
         n_req, lo, hi, chunk, max_len, new = 16, 64, 2048, 512, MAX_LEN, 32
+        if path == "danube":
+            lo, hi, max_len = 2048, 6000, DANUBE_LEN
     eng_kw = dict(max_batch=8, max_len=max_len, prefill_chunk=chunk,
                   block_size=16, kv_layout=layout,
                   **PATH_KW.get(path, {}))
@@ -1833,6 +2199,14 @@ def path_workload(path: str, depth: int, seed: int, rehearsal: bool):
             rng, cfg.vocab, (5, 20, 16, 25) if rehearsal else PREFIX_SYSTEM,
             *((2, 6, 60) if rehearsal else (64, 512, 2048)), chunk,
             eng_kw["block_size"])
+    elif path == "danube":
+        # 2048-6000 tokens, the first half past the window (at least half
+        # of the traffic is), the longest first
+        lens = rng.randint(lo, hi + 1, n_req)
+        past = cfg.swa_window + 1
+        lens[:n_req // 2] = rng.randint(past, hi + 1, n_req // 2)
+        lens[0] = hi
+        prompts = [rng.randint(0, cfg.vocab, int(n)).tolist() for n in lens]
     else:
         lens = rng.randint(lo, hi + 1, n_req)
         # both admission paths run (MoE admits exact length, never
@@ -1999,6 +2373,8 @@ def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
     if path == "prefix":
         prefix_checks(cfg, params, dev, eng_kw, make_requests, new, runs,
                       tag)
+    if path == "danube":
+        danube_ring(model, params, dev, rehearsal, seed, tag)
     if profile_dir is not None:
         reqs = make_requests()
         eng = Engine(cfg, params, device=dev, **eng_kw)
@@ -2011,6 +2387,55 @@ def phase_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
         torch.cuda.empty_cache()
     return dict(counts=runs[0]["counts"], tokens=runs[0]["tokens"],
                 admit_s=admit_s, stats=st)
+
+
+def danube_ring(model, params, dev, rehearsal: bool, seed: int,
+                tag: str) -> None:
+    """One generation through the ring (sliding-window) cache: 2 rows of a
+    6000-token prompt, ``prefill(ring=True)`` (flash under the 4096
+    window; the prompt's last 4096 positions laid out in the ring), then
+    32 greedy steps through the ring decode route (the contiguous decode
+    kernel at ``min(pos, 4095)``); it must launch flash and the contiguous
+    decode kernel. The linear cache (``ring=False``) is fed the same
+    tokens: the per-step logit difference and the share of equal greedy
+    tokens are printed (bf16: not gated)."""
+    b, s, new = (2, 20, 4) if rehearsal else DANUBE_RING
+    gen = torch.Generator().manual_seed(seed + 7)
+    toks = torch.randint(0, model.cfg.vocab, (b, s), generator=gen).to(dev)
+    ops.reset_launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": toks}, max_len=s + new,
+                                  ring=True)
+    seq, ring_logits = [], []
+    for _ in range(new):
+        ring_logits.append(logits.reshape(b, -1).float())
+        seq.append(model.sample_greedy(ring_logits[-1]))
+        logits, cache = model.decode_step(params, cache, seq[-1][:, None])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    slots = cache["k"].shape[2]
+    del cache
+    missing = [k for k in ("flash_attention", "decode_attention")
+               if not counts[k]]
+    if dev.type == "cuda" and missing:
+        raise SystemExit(f"chip_smoke: the danube ring generation never "
+                         f"launched {missing}: {counts}")
+    logits, cache = model.prefill(params, {"tokens": toks}, max_len=s + new)
+    diffs, equal = [], 0
+    for i in range(new):
+        lin = logits.reshape(b, -1).float()
+        diffs.append((lin - ring_logits[i]).abs().max().item())
+        equal += int((model.sample_greedy(lin) == seq[i]).sum())
+        logits, cache = model.decode_step(params, cache, seq[i][:, None])
+    del cache
+    log(f"{tag} ring generation: {b} rows x {s} prompt tokens, {new} greedy "
+        f"steps, ring of {slots} slots, wall_s={wall:.3f}, launches "
+        f"{counts}")
+    log(f"{tag} ring vs linear (same tokens fed): max |logit diff| per step "
+        f"{[float(f'{d:.4g}') for d in diffs]}; equal greedy tokens "
+        f"{equal}/{b * new}")
 
 
 def prefix_checks(cfg, params, dev, eng_kw, make_requests, new, runs,
@@ -2369,6 +2794,10 @@ def main(argv=None) -> int:
     ap.add_argument("--moe-layers", type=int, default=8,
                     help="depth of the full-width Phi-3.5-MoE model on the "
                          "MoE path (phase 5)")
+    ap.add_argument("--cmdr-layers", type=int, default=8,
+                    help="depth of the full-width command-r-plus-104b model "
+                         "on the cmdr path (phase 5; 64 layers need the "
+                         "multi-device plane)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the phases that need no card on the CPU at a "
@@ -2407,6 +2836,7 @@ def main(argv=None) -> int:
             phase_kernels(dev, rehearsal=True)
         if "parity" in phases:
             phase_engine_parity(dev)
+            phase_model_parity(dev)
             phase_prefix_parity(dev)
             phase_engine_bf16(dev)
             phase_poison_bf16(dev)
@@ -2437,6 +2867,7 @@ def main(argv=None) -> int:
         done("kernels")
     if "parity" in phases:
         phase_engine_parity(dev)
+        phase_model_parity(dev)
         phase_prefix_parity(dev)
         phase_engine_bf16(dev)
         phase_poison_bf16(dev)

@@ -1,5 +1,6 @@
-"""Registry of the configs the port serves, dense GQA, MoE, SSM and hybrid
-(values copied from ``repro/configs/<id>.py``)."""
+"""Registry of the configs the port serves: dense GQA, MoE, SSM, hybrid,
+the M-RoPE VLM and the encoder-decoder (values copied from
+``repro/configs/<id>.py``; the key set equals the reference's)."""
 
 from __future__ import annotations
 
@@ -74,9 +75,39 @@ ZAMBA2_2_7B = ArchConfig(
     supports_decode=True, subquadratic=True,
     source="arXiv:2411.15242; hf")
 
+# Cohere: GQA 96/8, LayerNorm, tied embeddings
+COMMAND_R_PLUS_104B = ArchConfig(
+    name="command-r-plus-104b", family="dense", n_layers=64, d_model=12288,
+    n_heads=96, n_kv_heads=8, d_ff=33792, vocab=256000, norm="layernorm",
+    gated_ffn=True, act="silu", tie_embeddings=True,
+    rope_theta=75_000_000.0, supports_decode=True, subquadratic=False,
+    source="hf:CohereForAI/c4ai-command-r-plus; unverified")
+
+# M-RoPE over (temporal, height, width) position streams; the vision tower
+# is a stub: prefill takes patch embeddings (B, S, d_model) and positions
+# (3, B, S)
+QWEN2_VL_2B = ArchConfig(
+    name="qwen2-vl-2b", family="vlm", n_layers=28, d_model=1536,
+    n_heads=12, n_kv_heads=2, d_ff=8960, vocab=151936, qkv_bias=True,
+    m_rope=True, mrope_sections=(16, 24, 24), norm="rmsnorm",
+    gated_ffn=True, act="silu", tie_embeddings=True,
+    rope_theta=1_000_000.0, frontend="vision_embeds", supports_decode=True,
+    subquadratic=False, source="arXiv:2409.12191; hf")
+
+# encoder-decoder with absolute sinusoidal positions (no RoPE); the audio
+# frontend is a stub: the encoder takes frame embeddings (B, S_enc, d_model)
+WHISPER_TINY = ArchConfig(
+    name="whisper-tiny", family="audio", n_layers=4, n_encoder_layers=4,
+    d_model=384, n_heads=6, n_kv_heads=6, d_ff=1536, vocab=51865,
+    qkv_bias=True, o_bias=True, mlp_bias=True, norm="layernorm",
+    gated_ffn=False, act="gelu", tie_embeddings=True,
+    frontend="audio_frames", rope_theta=0.0, supports_decode=True,
+    subquadratic=False, source="arXiv:2212.04356; unverified")
+
 REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in (
     QWEN3_32B, LLAMA31_70B, QWEN2_0_5B, INTERNLM2_1_8B, H2O_DANUBE3_4B,
-    PHI35_MOE_42B_A6_6B, GRANITE_MOE_3B_A800M, MAMBA2_1_3B, ZAMBA2_2_7B)}
+    PHI35_MOE_42B_A6_6B, GRANITE_MOE_3B_A800M, MAMBA2_1_3B, ZAMBA2_2_7B,
+    COMMAND_R_PLUS_104B, QWEN2_VL_2B, WHISPER_TINY)}
 
 
 def get_config(name: str) -> ArchConfig:

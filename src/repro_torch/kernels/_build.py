@@ -162,7 +162,8 @@ def check(rc: int, name: str) -> None:
 
 
 # -- wrapper helpers ------------------------------------------------------------
-HEAD_DIMS = (16, 32, 64, 80, 128)     # attention kernels (80: zamba2)
+# the attention kernels' head dims (80: zamba2; 120: h2o-danube-3-4b)
+HEAD_DIMS = (16, 32, 64, 80, 120, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

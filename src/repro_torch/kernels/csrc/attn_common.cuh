@@ -166,6 +166,9 @@ __device__ void attend(const P& p, const T* __restrict__ K,
 
 // Instantiate `fn<T, D>` for the supported head dims. 80 is zamba2's: the
 // bf16 prefill body runs its 5 slices of 16 columns and wgmma.m64n80k16.
+// 120 is h2o-danube-3-4b's (3840 / 32): both bf16 bodies pad it to whole
+// 16-column k-steps in shared memory or registers (prefill_sm90.cuh,
+// decode_sm90.cuh); the FP32-pipe body takes any D.
 #define RT_DISPATCH_D(d, T, fn, ...)                      \
   [&]() -> cudaError_t {                                  \
     switch (d) {                                          \
@@ -173,6 +176,7 @@ __device__ void attend(const P& p, const T* __restrict__ K,
       case 32: return fn<T, 32>(__VA_ARGS__);             \
       case 64: return fn<T, 64>(__VA_ARGS__);             \
       case 80: return fn<T, 80>(__VA_ARGS__);             \
+      case 120: return fn<T, 120>(__VA_ARGS__);           \
       case 128: return fn<T, 128>(__VA_ARGS__);           \
       default: return cudaErrorInvalidValue;              \
     }                                                     \

@@ -16,7 +16,7 @@
 //    most that many splits of whole 64-key tiles, at least `min_keys` keys
 //    each. CTAs past the last split return at once and the combine reads
 //    only the splits used.
-//  * K/V ring: stages<D>() tiles of 64 keys (3 at d = 128, 4 below),
+//  * K/V ring: stages<D>() tiles of 64 keys (3 at d = 120, 128, 4 below),
 //    filled by all 128 threads with 16-byte cp.async (zero fill past the
 //    split's end), one commit group per tile, so stages - 1 tiles (68-90 KB
 //    per CTA, two CTAs per SM) are in flight while a tile computes. Rows
@@ -59,10 +59,18 @@ constexpr int kMaxG = 16;           // query heads per KV head (one m16 tile)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// the head dim in whole k16 steps: d = 120 (h2o-danube-3-4b) is 7.5; its
+// last step reads the row's 16-byte pad as columns 120-127, whose K
+// fragments are zeroed in registers (Q's are zero), and P V skips the
+// sixteenth n8 tile
 template <int D>
-__host__ __device__ constexpr int row_bytes() { return D * 2 + 16; }
+__host__ __device__ constexpr int padded() { return (D + 15) / 16 * 16; }
 template <int D>
-__host__ __device__ constexpr int stages() { return D >= 128 ? 3 : 4; }
+__host__ __device__ constexpr int row_bytes() { return padded<D>() * 2 + 16; }
+template <int D>
+__host__ __device__ constexpr int stages() {
+  return padded<D>() >= 128 ? 3 : 4;
+}
 template <int D>
 __host__ __device__ constexpr size_t smem_bytes() {
   const size_t ring = (size_t)stages<D>() * 2 * kKT * row_bytes<D>();
@@ -126,6 +134,8 @@ struct PagedKeys {
 template <int D, class Keys>
 __device__ __forceinline__ void split_body(const Args& a) {
   constexpr int NS = stages<D>(), RB = row_bytes<D>(), NP = D / 8;
+  constexpr int KS = padded<D>() / 16;        // k16 steps of Q K^T
+  constexpr bool kHalf = D % 16 != 0;         // the last step is half real
   constexpr uint32_t kTileB = kKT * RB;       // one K or V tile, bytes
   extern __shared__ __align__(16) uint8_t dec_smem[];
   const uint32_t sbase = smem_u32(dec_smem);
@@ -161,12 +171,13 @@ __device__ __forceinline__ void split_body(const Args& a) {
   const int r = lane / 4, c = 2 * (lane % 4);
   const __nv_bfloat16* qb = a.q + ((long long)b * a.nh + kvh * g) * D;
   auto q32 = [&](int row, int col) -> uint32_t {
-    return row < g ? *reinterpret_cast<const uint32_t*>(qb + row * D + col)
-                   : 0u;
+    return row < g && col < D
+               ? *reinterpret_cast<const uint32_t*>(qb + row * D + col)
+               : 0u;
   };
-  uint32_t qf[D / 16][4];
+  uint32_t qf[KS][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     qf[kk][0] = q32(r, 16 * kk + c);
     qf[kk][1] = q32(r + 8, 16 * kk + c);
     qf[kk][2] = q32(r, 16 * kk + c + 8);
@@ -199,9 +210,10 @@ __device__ __forceinline__ void split_body(const Args& a) {
     // S = Q K^T: 16 rows x 16 keys
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < KS; ++kk) {
       uint32_t kf[4];
       ldsm_x4(kf, sk + k_lane + kk * 32);
+      if (kHalf && kk == KS - 1) kf[1] = kf[3] = 0u;   // columns D..DP-1
       mma16816(s[0], qf[kk], kf[0], kf[1]);
       mma16816(s[1], qf[kk], kf[2], kf[3]);
     }
@@ -245,11 +257,12 @@ __device__ __forceinline__ void split_body(const Args& a) {
                             pack_bf16(s[1][2], s[1][3])};
     // O = O alpha + P V
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
+    for (int dp = 0; dp < KS; ++dp) {
       uint32_t vf[4];
       ldsm_x4_t(vf, sv + v_lane + dp * 32);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
+        if (2 * dp + h >= D / 8) continue;       // d = 120: no 16th tile
         float* on = o[2 * dp + h];
         on[0] *= aa;
         on[1] *= aa;

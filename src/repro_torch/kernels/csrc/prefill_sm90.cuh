@@ -17,7 +17,7 @@
 //    then O += P V as wgmma.m64n{D}k16 with P packed to bf16 in registers
 //    (the A operand) and V read MN-major from shared memory;
 //  * warpgroup 2 produces: it keeps a ring of stages<D>() K/V tiles of
-//    kKT = 128 keys in flight (2 at d = 128, 4 below: what fits beside Q
+//    kKT = 128 keys in flight (2 at d = 120, 128, 4 below: what fits beside Q
 //    in shared memory), each stage completing on a "full" mbarrier, and
 //    reuses a stage once both consumers arrived on its "empty" mbarrier.
 //  `setmaxnreg` gives the producer 56 registers and the consumers 224.
@@ -50,7 +50,13 @@
 // (rows x 32 B) K-major block in the 32-byte swizzle (16-byte halves of a
 // row swapped when bit 2 of the row is set). It is the same for every head
 // dim (16, 32, 64, 80, 128: all multiples of 16), so d = 80's 160-byte rows
-// need no remainder tile; each k-step of 16 columns is one slice. Q, K:
+// need no remainder tile; each k-step of 16 columns is one slice. d = 120
+// (h2o-danube-3-4b) runs as 128 in shared memory: its 240-byte rows fill
+// 7.5 slices, and the last slice's 8 tail columns are zero in Q (the
+// consumers' loads), K and V (TMA's fill past the tensor map's 120
+// columns; cp.async with no source bytes), so Q K^T takes 8 whole k16
+// steps and P V runs at N = 128, whose 8 tail columns are never stored.
+// Nothing outside shared memory is padded or copied. Q, K:
 // K-major descriptors (SBO 256 B: 8 rows x 32 B). V: the same bytes read
 // MN-major (transposed B): LBO = one slice (16 columns of D), SBO = 8 keys.
 //
@@ -80,12 +86,18 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 __host__ __device__ constexpr int stages() { return D <= 80 ? 4 : 2; }
 
-// bytes: Q (kRows x D), then kStages x (K, V) tiles (kKT x D), barriers
+// the head dim as shared memory holds it: whole 16-column slices (d = 120
+// is 7.5 slices; its tail columns are zero in Q and K, so every k-step of
+// the Q K^T contraction is a whole wgmma k16, and O's tail is never stored)
+template <int D>
+__host__ __device__ constexpr int padded() { return (D + 15) / 16 * 16; }
+
+// bytes: Q (kRows x DP), then kStages x (K, V) tiles (kKT x DP), barriers
 template <int D>
 __host__ __device__ constexpr size_t smem_bytes() {
   return 1024                                        // alignment slack
-         + (size_t)kRows * D * 2
-         + (size_t)stages<D>() * 2 * kKT * D * 2
+         + (size_t)kRows * padded<D>() * 2
+         + (size_t)stages<D>() * 2 * kKT * padded<D>() * 2
          + (size_t)stages<D>() * 2 * 8;
 }
 
@@ -357,16 +369,18 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
 template <int D, bool kPaged>
 __device__ __forceinline__ void prefill(const PrefillArgs& a) {
   constexpr int NS = stages<D>();
-  constexpr int NC = D / 16;                  // 16-column slices
+  constexpr int DP = padded<D>();
+  constexpr int NC = DP / 16;                 // 16-column slices
   constexpr int NP = D / 8;                   // 16-byte pieces of a row
+  constexpr int NPP = DP / 8;                 // the same, padded (zero tail)
   constexpr uint32_t kSliceQ = kRows * 32, kSliceKV = kKT * 32;
-  constexpr uint32_t kTile = kKT * D * 2;     // one K or V tile, bytes
+  constexpr uint32_t kTile = kKT * DP * 2;    // one K or V tile, bytes
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* sbase = smem_raw + (base - raw);
   const uint32_t sQ = base;
-  const uint32_t sKV = base + kRows * D * 2;  // stage s: K at +2s tiles
+  const uint32_t sKV = base + kRows * DP * 2; // stage s: K at +2s tiles
   const uint32_t bars = sKV + NS * 2 * kTile;
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (NS + s); };
@@ -414,7 +428,7 @@ __device__ __forceinline__ void prefill(const PrefillArgs& a) {
       // are shuffled to the lanes that copy that key's 16-byte pieces
       // (consecutive lanes on consecutive pieces of a row)
       constexpr int KW = kKT / 4;
-      static_assert(KW <= 32 && KW * NP % 32 == 0, "producer warp tiling");
+      static_assert(KW <= 32 && KW * NPP % 32 == 0, "producer warp tiling");
       const int* tbl_row = a.tbl + (long long)b * a.mb;
       const int lane = pt % 32, pw = pt / 32;
       for (int i = 0; i < n_tiles; ++i) {
@@ -427,12 +441,12 @@ __device__ __forceinline__ void prefill(const PrefillArgs& a) {
         mbar_wait(empty(s), ((i / NS) & 1) ^ 1);
         const uint32_t dk = sKV + 2 * s * kTile, dv = dk + kTile;
 #pragma unroll 4
-        for (int it = 0; it < KW * NP / 32; ++it) {
-          const int idx = it * 32 + lane, kl = idx / NP, piece = idx % NP;
+        for (int it = 0; it < KW * NPP / 32; ++it) {
+          const int idx = it * 32 + lane, kl = idx / NPP, piece = idx % NPP;
           const long long off = __shfl_sync(0xffffffffu, mine, kl);
           const uint32_t o =
               (piece >> 1) * kSliceKV + swz32(KW * pw + kl, piece & 1);
-          const bool ok = off >= 0;
+          const bool ok = off >= 0 && piece < NP;   // the pad piece: zeros
           const long long src = ok ? off + piece * 8 : 0;
           cp_async16(dk + o, a.k + src, ok ? 16 : 0);
           cp_async16(dv + o, a.v + src, ok ? 16 : 0);
@@ -447,11 +461,11 @@ __device__ __forceinline__ void prefill(const PrefillArgs& a) {
   // ---- consumer warpgroups 0 and 1: 64 rows each ----
   setmaxnreg_inc<224>();
   const int w = wg, lane = tid % 32;
-  // Q: 128 rows x D, 16-byte loads, pad rows zero
-  for (int idx = tid; idx < kRows * NP; idx += 128 * kConsumers) {
-    const int r = idx / NP, piece = idx % NP;
+  // Q: 128 rows x DP, 16-byte loads, pad rows and pad columns zero
+  for (int idx = tid; idx < kRows * NPP; idx += 128 * kConsumers) {
+    const int r = idx / NPP, piece = idx % NPP;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < rows) {
+    if (r < rows && piece < NP) {
       const long long qi =
           (((long long)b * a.Sq + j0 + r / g) * a.nh + kvh * g + r % g) * D;
       val = *reinterpret_cast<const uint4*>(a.q + qi + piece * 8);
@@ -472,9 +486,9 @@ __device__ __forceinline__ void prefill(const PrefillArgs& a) {
   const int loa = a.window > 0 ? pa - a.window + 1 : 0;
   const int lob = a.window > 0 ? pb - a.window + 1 : 0;
   const float sc = a.scale_log2;
-  float o[D / 2], sacc[kKT / 2];
+  float o[DP / 2], sacc[kKT / 2];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+  for (int j = 0; j < DP / 2; ++j) o[j] = 0.f;
 #pragma unroll
   for (int j = 0; j < kKT / 2; ++j) sacc[j] = 0.f;
   float ma = kNegInf, mb = kNegInf, la = 0.f, lb = 0.f;
@@ -542,7 +556,7 @@ __device__ __forceinline__ void prefill(const PrefillArgs& a) {
     la = la * aa + sa;              // per-lane partial; reduced at the end
     lb = lb * ab + sb;
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) o[j] *= (j & 2) ? ab : aa;
+    for (int j = 0; j < DP / 2; ++j) o[j] *= (j & 2) ? ab : aa;
     // P as bf16 A fragments: 16 keys = accumulator n-blocks 2kk, 2kk + 1
     uint32_t pf[kKT / 16][4];
 #pragma unroll
@@ -557,7 +571,7 @@ __device__ __forceinline__ void prefill(const PrefillArgs& a) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kKT / 16; ++kk)
-      wgmma_rs<D>(o, pf[kk], desc32(sv + kk * 16 * 32, kSliceKV, 256), 1);
+      wgmma_rs<DP>(o, pf[kk], desc32(sv + kk * 16 * 32, kSliceKV, 256), 1);
     wgmma_commit();
     wgmma_wait0();
     fence_regs(o);
@@ -572,7 +586,7 @@ __device__ __forceinline__ void prefill(const PrefillArgs& a) {
   lb += __shfl_xor_sync(0xffffffffu, lb, 2);
   const float ia = 1.f / fmaxf(la, 1e-30f), ib = 1.f / fmaxf(lb, 1e-30f);
 #pragma unroll
-  for (int j = 0; j < D / 2; j += 2) {
+  for (int j = 0; j < DP / 2; j += 2) {
     const int col = 8 * (j / 4) + 2 * (lane % 4), row = (j & 2) ? rb : ra;
     const float inv = (j & 2) ? ib : ia;
     *reinterpret_cast<uint32_t*>(

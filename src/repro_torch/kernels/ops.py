@@ -70,6 +70,21 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     return fn(q, cache_k, cache_v, pos, window=window)
 
 
+def decode_attention_ring(q: torch.Tensor, cache_k: torch.Tensor,
+                          cache_v: torch.Tensor,
+                          pos: Union[int, torch.Tensor]) -> torch.Tensor:
+    """Decode against a ring (sliding-window) cache of ``S_alloc`` slots.
+    Once full it holds exactly the last ``S_alloc`` positions, and before
+    that slot j holds position j, so the slots the reference's ``slot_pos``
+    mask keeps are slots [0, min(pos, S_alloc - 1)]: the contiguous decode
+    kernel's function at that position with no window (softmax does not
+    care about key order). The reference sends ring decode to its jnp
+    path; here it runs the kernel."""
+    pos = torch.as_tensor(pos, device=q.device)
+    return decode_attention(q, cache_k, cache_v,
+                            torch.clamp(pos, max=cache_k.shape[1] - 1))
+
+
 def chunk_attention(q: torch.Tensor, cache_k: torch.Tensor,
                     cache_v: torch.Tensor, bases: Union[int, torch.Tensor], *,
                     window: Optional[int] = None, probe: bool = False):

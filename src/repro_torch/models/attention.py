@@ -86,9 +86,14 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 #
 # Each row owns ``cache_k/v: (B, S, nkv, d)`` (a per-layer slice of the
 # stacked ``(L, B, max_len, nkv, d)`` engine cache); key position t lives at
-# ``[b, t]``. Sliding windows apply by masking. The reference's ring caches
-# (``slot_pos``) are not an engine path (the engine always allocates linear
-# caches), so they are not ported.
+# ``[b, t]``. Sliding windows apply by masking.
+#
+# A ring (sliding-window) cache holds ``S_alloc = min(max_len, window)``
+# slots shared by rows at one position: position p lives in slot
+# ``p % S_alloc``, and ``slot_pos (S_alloc,)`` records the position each
+# slot holds (-1: empty). The engine never allocates one (it names
+# ``ring=False``, as the reference's does); ``LM.prefill(ring=True)`` and
+# its decode steps do.
 # ---------------------------------------------------------------------------
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: IntLike,
@@ -104,6 +109,20 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     if cache_k.dtype != q.dtype:
         cache_k, cache_v = cache_k.to(q.dtype), cache_v.to(q.dtype)
     return sdpa(q, cache_k, cache_v, mask)
+
+
+def decode_attention_ring(q: torch.Tensor, cache_k: torch.Tensor,
+                          cache_v: torch.Tensor, pos: IntLike,
+                          slot_pos: torch.Tensor) -> torch.Tensor:
+    """One-token attention against a ring cache (the reference's
+    ``slot_pos`` branch): a slot is visible when it holds a position in
+    ``[0, pos]``; the window is in the ring's size."""
+    pos = _row_vector(pos, q.shape[0], q.device)
+    sp = slot_pos.long()[None, :]
+    valid = (sp >= 0) & (sp <= pos[:, None])                  # (B, S)
+    if cache_k.dtype != q.dtype:
+        cache_k, cache_v = cache_k.to(q.dtype), cache_v.to(q.dtype)
+    return sdpa(q, cache_k, cache_v, valid[:, None, None, None, :])
 
 
 def chunk_attention(q: torch.Tensor, cache_k: torch.Tensor,
@@ -135,6 +154,39 @@ def cache_write_token(cache_k: torch.Tensor, cache_v: torch.Tensor,
     cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
     return cache_k, cache_v
+
+
+def cache_write_token_ring(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                           k: torch.Tensor, v: torch.Tensor, pos: IntLike,
+                           slot_pos: torch.Tensor) -> None:
+    """Write one token's K/V (B,1,nkv,d) into a ring cache at slot ``pos %
+    S_alloc`` and record ``pos`` in ``slot_pos``, in place (the
+    reference's ring branch; its rows share one position)."""
+    pos = _row_vector(pos, k.shape[0], k.device)
+    slot = pos % cache_k.shape[1]
+    rows = torch.arange(k.shape[0], device=k.device)
+    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+    slot_pos[slot] = pos.to(slot_pos.dtype)
+
+
+def ring_prefill_layout(kv: torch.Tensor, s_alloc: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A prompt's stacked K or V (L,B,S,nkv,d) laid out in a ring of
+    ``s_alloc`` slots (the reference's ``_write_prefill_stacked``): a
+    prompt that fits lands at slots [0, S), the rest empty; a longer one
+    keeps its last ``s_alloc`` positions, position p at slot p % s_alloc.
+    Returns (the (L,B,s_alloc,nkv,d) contents, ``slot_pos``)."""
+    s = kv.shape[2]
+    ar = torch.arange(s_alloc, device=kv.device)
+    out = kv.new_zeros(kv.shape[:2] + (s_alloc,) + kv.shape[3:])
+    if s <= s_alloc:
+        out[:, :, :s] = kv
+        return out, torch.where(ar < s, ar, -1).to(torch.int32)
+    start = s - s_alloc
+    order = torch.argsort((start + ar) % s_alloc)
+    out[:] = kv[:, :, start:][:, :, order]
+    return out, (start + order).to(torch.int32)
 
 
 def cache_write_chunk(cache_k: torch.Tensor, cache_v: torch.Tensor,

@@ -1,5 +1,6 @@
 """Shared model building blocks (port of ``repro/models/common.py``):
-norms, activations, RoPE, and schema-driven parameter initialization.
+norms, activations, RoPE and M-RoPE, sinusoidal positions, and
+schema-driven parameter initialization.
 
 Parameters are nested dicts of tensors with the same names and the same
 ``(d_in, d_out)`` layouts as the JAX package, so ``models/convert.py`` can
@@ -164,3 +165,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_m_rope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                 sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the head_dim/2 frequency slots are split
+    into (temporal, height, width) sections, each rotated by its own
+    position stream. x: (B, S, n, d); positions3: (3, B, S). Identical
+    streams (text tokens) give ``apply_rope``."""
+    if theta <= 0:
+        return x
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim / 2 = {half}")
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)     # (half,)
+    ang_all = positions3[..., None].float() * freqs            # (3,B,S,half)
+    bounds = [0]
+    for sec in sections:
+        bounds.append(bounds[-1] + sec)
+    ang = torch.cat([ang_all[i, ..., bounds[i]:bounds[i + 1]]
+                     for i in range(len(sections))], dim=-1)   # (B,S,half)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(max_len: int, dim: int,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings (max_len, dim), fp32."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device),
+                            2 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)

@@ -4,7 +4,9 @@
 numpy arrays (``jax.tree.map(np.asarray, params)``, done by the caller so
 this module never imports JAX) and returns the port's params: the same
 names, the same ``(d_in, d_out)`` layouts, stacked on the layer axis — a
-copy with no transposes. Every leaf is checked against the port's schema.
+copy with no transposes (the encoder-decoder's ``encoder`` / ``decoder`` /
+``enc_final_ln`` tree too). Every leaf is checked against the schema of
+the model ``build_model`` gives for ``cfg``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.transformer import LM
+from repro_torch.models.api import build_model
 
 
 def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -30,7 +32,7 @@ def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def params_from_jax(tree: Dict, cfg: ArchConfig,
                     device: DeviceLike = None) -> Dict:
     dev = resolve_device(device)
-    shapes = LM(cfg, device=dev).param_shapes()
+    shapes = build_model(cfg, device=dev).param_shapes()
 
     def walk(node, ref, path):
         if isinstance(ref, dict):

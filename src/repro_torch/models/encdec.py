@@ -1,0 +1,340 @@
+"""Whisper-style encoder-decoder LM (port of ``repro/models/encdec.py``).
+
+The audio frontend (log-mel + conv) is a stub, as in the reference: the
+encoder takes precomputed frame embeddings (B, S_enc, d_model). The
+backbone is real: a bidirectional encoder, a causal decoder with
+cross-attention, LayerNorm, GELU, biases everywhere, absolute sinusoidal
+positions (no RoPE), tied embeddings.
+
+Parameters carry the reference's names and ``(d_in, d_out)`` layouts
+(``encoder``, ``decoder``, ``enc_final_ln``, ``final_norm``, ``embed``),
+stacked on the layer axis, so ``models/convert.py`` copies a JAX tree
+across as it is.
+
+Attention goes through ``repro_torch.kernels.ops`` wherever a port kernel
+computes the function (the hand-written CUDA kernels for tensors on the
+card, their plain versions for CPU tensors): encoder self-attention and
+every cross-attention (queries against the S_enc encoder keys, unmasked)
+through ``flash_attention(causal=False)``, the full prefill's decoder
+self-attention through ``flash_attention(causal=True)``, the chunked
+prefill's through ``chunk_attention`` and decode's through
+``decode_attention``. (The reference reaches a Pallas kernel only in the
+chunk, its other calls being its plain attention, which the plain versions
+here reproduce.)
+
+The cache is contiguous only: ``k``/``v`` (L, B, max_len, nkv, d) for the
+decoder's self-attention, ``ck``/``cv`` (L, B, S_enc, nkv, d) for its
+cross-attention, ``pos`` (B,). Writes update the cache tensors IN PLACE,
+as the decoder-only ``LM`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, dtype_of, resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.models import attention as attn
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.common import (ParamDef, init_params, make_norm,
+                                       norm_schema, param_count,
+                                       schema_shapes, sinusoidal_positions,
+                                       stack_schema)
+
+
+class EncDecLM:
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+        if not cfg.is_encdec:
+            raise ValueError(f"{cfg.name} has no encoder layers")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = dtype_of(cfg.dtype)
+        self.norm = make_norm(cfg.norm)
+        self._schema = self._build_schema()
+
+    # -- schema ------------------------------------------------------------
+    def _attn_schema(self) -> Dict:
+        c = self.cfg
+        return {
+            "wq": ParamDef((c.d_model, c.n_heads * c.hd), ("embed", "heads")),
+            "wk": ParamDef((c.d_model, c.n_kv_heads * c.hd),
+                           ("embed", "kv_heads")),
+            "wv": ParamDef((c.d_model, c.n_kv_heads * c.hd),
+                           ("embed", "kv_heads")),
+            "wo": ParamDef((c.n_heads * c.hd, c.d_model), ("heads", "embed")),
+            "bq": ParamDef((c.n_heads * c.hd,), ("heads",), "zeros"),
+            "bk": ParamDef((c.n_kv_heads * c.hd,), ("kv_heads",), "zeros"),
+            "bv": ParamDef((c.n_kv_heads * c.hd,), ("kv_heads",), "zeros"),
+            "bo": ParamDef((c.d_model,), ("embed",), "zeros"),
+        }
+
+    def _enc_layer_schema(self) -> Dict:
+        c = self.cfg
+        return {
+            "ln1": norm_schema(c.norm, c.d_model),
+            "attn": self._attn_schema(),
+            "ln2": norm_schema(c.norm, c.d_model),
+            "mlp": ffn_mod.ffn_schema(c.d_model, c.d_ff, c.gated_ffn,
+                                      c.mlp_bias),
+        }
+
+    def _dec_layer_schema(self) -> Dict:
+        c = self.cfg
+        return {
+            "ln1": norm_schema(c.norm, c.d_model),
+            "self_attn": self._attn_schema(),
+            "ln2": norm_schema(c.norm, c.d_model),
+            "cross_attn": self._attn_schema(),
+            "ln3": norm_schema(c.norm, c.d_model),
+            "mlp": ffn_mod.ffn_schema(c.d_model, c.d_ff, c.gated_ffn,
+                                      c.mlp_bias),
+        }
+
+    def _build_schema(self) -> Dict:
+        c = self.cfg
+        return {
+            "embed": {"tok": ParamDef((c.padded_vocab, c.d_model),
+                                      ("vocab", "embed"))},
+            "encoder": stack_schema(self._enc_layer_schema(),
+                                    c.n_encoder_layers),
+            "enc_final_ln": norm_schema(c.norm, c.d_model),
+            "decoder": stack_schema(self._dec_layer_schema(), c.n_layers),
+            "final_norm": norm_schema(c.norm, c.d_model),
+        }
+
+    def init(self, seed: int = 0,
+             generator: Optional[torch.Generator] = None) -> Dict:
+        """Random params on the model's device from a seeded generator."""
+        gen = generator
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+        return init_params(self._schema, gen, self.dtype, self.device)
+
+    def param_shapes(self) -> Dict:
+        return schema_shapes(self._schema)
+
+    def param_count(self) -> int:
+        return param_count(self._schema)
+
+    # -- helpers -------------------------------------------------------------
+    @staticmethod
+    def _layer(stack: Dict, i: int) -> Dict:
+        """Layer ``i``'s slice of stacked layer params."""
+        def pick(node):
+            if isinstance(node, dict):
+                return {k: pick(v) for k, v in node.items()}
+            return node[i]
+        return pick(stack)
+
+    def _heads(self, x: torch.Tensor, n: int) -> torch.Tensor:
+        return x.reshape(x.shape[0], x.shape[1], n, self.cfg.hd).contiguous()
+
+    def _proj_q(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+        return self._heads(x @ p["wq"] + p["bq"], self.cfg.n_heads)
+
+    def _proj_kv(self, p: Dict, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        n = self.cfg.n_kv_heads
+        return (self._heads(x @ p["wk"] + p["bk"], n),
+                self._heads(x @ p["wv"] + p["bv"], n))
+
+    def _attn_out(self, p: Dict, o: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        return o.reshape(o.shape[0], o.shape[1], c.n_heads * c.hd) @ p["wo"] \
+            + p["bo"]
+
+    def _pe(self, n: int, device) -> torch.Tensor:
+        return sinusoidal_positions(n, self.cfg.d_model, device).to(
+            self.dtype)
+
+    def _cross(self, p: Dict, h: torch.Tensor, ck: torch.Tensor,
+               cv: torch.Tensor) -> torch.Tensor:
+        """Cross-attention sub-block: the decoder rows (ln2 applied by the
+        caller) against the encoder's K/V, unmasked."""
+        o = kops.flash_attention(self._proj_q(p, h), ck, cv, causal=False)
+        return self._attn_out(p, o)
+
+    def _tail(self, p: Dict, h: torch.Tensor) -> torch.Tensor:
+        """The decoder layer's MLP sub-block (residual included)."""
+        c = self.cfg
+        m = self.norm(h, p["ln3"])
+        return h + ffn_mod.ffn_apply(p["mlp"], m, c.act, c.gated_ffn)
+
+    # -- encoder -------------------------------------------------------------
+    def encode(self, params: Dict, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, S_enc, d_model), the stubbed frontend's output."""
+        c = self.cfg
+        x = frames.to(self.dtype)
+        x = x + self._pe(x.shape[1], x.device)
+        for i in range(c.n_encoder_layers):
+            p = self._layer(params["encoder"], i)
+            a = self.norm(x, p["ln1"])
+            k, v = self._proj_kv(p["attn"], a)
+            o = kops.flash_attention(self._proj_q(p["attn"], a), k, v,
+                                     causal=False)
+            x = x + self._attn_out(p["attn"], o)
+            m = self.norm(x, p["ln2"])
+            x = x + ffn_mod.ffn_apply(p["mlp"], m, c.act, c.gated_ffn)
+        return self.norm(x, params["enc_final_ln"])
+
+    def cross_kv(self, params: Dict, enc_out: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every decoder layer's cross-attention K/V of ``enc_out``, stacked
+        (L, B, S_enc, nkv, d): the cache's ``ck``/``cv`` without running a
+        decoder token, exactly as ``prefill`` projects them (the chunked
+        prefill warms a group's cross cache with it once)."""
+        ks, vs = zip(*(self._proj_kv(self._layer(params["decoder"], i)
+                                     ["cross_attn"], enc_out)
+                       for i in range(self.cfg.n_layers)))
+        return torch.stack(ks), torch.stack(vs)
+
+    # -- decoder ---------------------------------------------------------------
+    def _decoder_full(self, params: Dict, tokens: torch.Tensor,
+                      enc_out: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The decoder over whole prompts: (final-normed x, the stacked
+        self- and cross-attention K/V ``k``/``v``/``ck``/``cv``)."""
+        c = self.cfg
+        x = self.embed(params, tokens)
+        x = x + self._pe(x.shape[1], x.device)
+        kv: Dict[str, list] = {"k": [], "v": [], "ck": [], "cv": []}
+        for i in range(c.n_layers):
+            p = self._layer(params["decoder"], i)
+            a = self.norm(x, p["ln1"])
+            k, v = self._proj_kv(p["self_attn"], a)
+            o = kops.flash_attention(self._proj_q(p["self_attn"], a), k, v,
+                                     causal=True)
+            x = x + self._attn_out(p["self_attn"], o)
+            ck, cv = self._proj_kv(p["cross_attn"], enc_out)
+            x = x + self._cross(p["cross_attn"], self.norm(x, p["ln2"]), ck,
+                                cv)
+            x = self._tail(p, x)
+            for key, t in zip(("k", "v", "ck", "cv"), (k, v, ck, cv)):
+                kv[key].append(t)
+        return (self.norm(x, params["final_norm"]),
+                {key: torch.stack(ts) for key, ts in kv.items()})
+
+    def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"]["tok"][tokens.long()]
+
+    def logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
+        return x @ params["embed"]["tok"].T
+
+    def sample_greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """Greedy next token over the un-padded vocab."""
+        return torch.argmax(logits[..., :self.cfg.vocab], dim=-1)
+
+    def _last(self, params: Dict, x: torch.Tensor,
+              last_pos: Optional[torch.Tensor]) -> torch.Tensor:
+        if last_pos is None:
+            last = x[:, -1:, :]
+        else:
+            rows = torch.arange(x.shape[0], device=x.device)
+            last = x[rows, last_pos.long()][:, None, :]
+        return self.logits(params, last)[:, 0, :]
+
+    # -- public: caches / prefill / decode ---------------------------------------
+    def init_cache(self, batch: int, max_len: int, s_enc: int) -> Dict:
+        """Zero cache: self-attention ``k``/``v`` (L, batch, max_len, nkv,
+        d), cross-attention ``ck``/``cv`` (L, batch, s_enc, nkv, d) and
+        per-row positions ``pos`` (batch,)."""
+        c = self.cfg
+        dev = self.device
+        self_shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.hd)
+        cross_shape = (c.n_layers, batch, s_enc, c.n_kv_heads, c.hd)
+        return {
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "k": torch.zeros(self_shape, dtype=self.dtype, device=dev),
+            "v": torch.zeros(self_shape, dtype=self.dtype, device=dev),
+            "ck": torch.zeros(cross_shape, dtype=self.dtype, device=dev),
+            "cv": torch.zeros(cross_shape, dtype=self.dtype, device=dev),
+        }
+
+    def prefill_kv(self, params: Dict, inputs: Dict,
+                   last_pos: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Dict]:
+        """``inputs``: ``embeds`` (B, S_enc, d_model) frames and ``tokens``
+        (B, S_dec) -> (logits at ``last_pos`` (default: last column), the
+        stacked ``k``/``v`` (L,B,S_dec,nkv,d) and ``ck``/``cv``
+        (L,B,S_enc,nkv,d)). Right-padded rows are exact under causal
+        masking (the engine's batched prefill)."""
+        enc_out = self.encode(params, inputs["embeds"])
+        x, kv = self._decoder_full(params, inputs["tokens"], enc_out)
+        return self._last(params, x, last_pos), kv
+
+    def prefill(self, params: Dict, inputs: Dict,
+                max_len: Optional[int] = None,
+                last_pos: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+        """Prompt -> (logits (B, Vpad), a fresh cache of ``max_len``
+        (default: the decoder prompt's length) positions per row, ``pos``
+        at the prompt's length)."""
+        b, s = inputs["tokens"].shape
+        logits, kv = self.prefill_kv(params, inputs, last_pos)
+        cache = self.init_cache(b, max_len or s, kv["ck"].shape[2])
+        for key, val in kv.items():
+            cache[key][:, :, :val.shape[2]] = val.to(self.dtype)
+        cache["pos"].fill_(s)
+        return logits, cache
+
+    def prefill_chunk(self, params: Dict, cache: Dict, tokens: torch.Tensor,
+                      base: int, last_pos: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Dict]:
+        """Chunked decoder prefill: ``tokens`` (B, C) at decoder positions
+        [base, base+C) of every row. The cross cache ``ck``/``cv`` must be
+        resident (``cross_kv``), so a chunk runs only the decoder body; over
+        consecutive chunks this equals one full ``prefill``. Writes the
+        chunk's K/V into the cache in place and sets ``pos`` to base + C;
+        returns (logits at ``last_pos`` (default: last chunk column), the
+        cache)."""
+        c = self.cfg
+        b, cl = tokens.shape
+        x = self.embed(params, tokens)
+        x = x + self._pe(base + cl, x.device)[base:][None]
+        bases = torch.full((b,), base, dtype=torch.int32, device=x.device)
+        for i in range(c.n_layers):
+            p = self._layer(params["decoder"], i)
+            ck, cv = cache["k"][i], cache["v"][i]
+            a = self.norm(x, p["ln1"])
+            k, v = self._proj_kv(p["self_attn"], a)
+            attn.cache_write_chunk(ck, cv, k, v, base)
+            o = kops.chunk_attention(self._proj_q(p["self_attn"], a), ck, cv,
+                                     bases)
+            x = x + self._attn_out(p["self_attn"], o)
+            x = x + self._cross(p["cross_attn"], self.norm(x, p["ln2"]),
+                                cache["ck"][i], cache["cv"][i])
+            x = self._tail(p, x)
+        cache["pos"].fill_(base + cl)
+        return self._last(params, self.norm(x, params["final_norm"]),
+                          last_pos), cache
+
+    def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict]:
+        """One decoder token per row, tokens (B, 1), at each row's ``pos``
+        (the sinusoid clamped to the cache's last position, as the
+        reference takes it). Writes the tokens' K/V in place; returns
+        (logits (B, 1, Vpad), the cache with ``pos`` advanced)."""
+        c = self.cfg
+        pos = cache["pos"]
+        max_pos = cache["k"].shape[2]
+        x = self.embed(params, tokens)
+        pe = self._pe(max_pos, x.device)
+        x = x + pe[torch.clamp(pos.long(), max=max_pos - 1)][:, None]
+        for i in range(c.n_layers):
+            p = self._layer(params["decoder"], i)
+            ck, cv = cache["k"][i], cache["v"][i]
+            a = self.norm(x, p["ln1"])
+            k, v = self._proj_kv(p["self_attn"], a)
+            attn.cache_write_token(ck, cv, k, v, pos)
+            o = kops.decode_attention(self._proj_q(p["self_attn"], a), ck,
+                                      cv, pos)
+            x = x + self._attn_out(p["self_attn"], o)
+            x = x + self._cross(p["cross_attn"], self.norm(x, p["ln2"]),
+                                cache["ck"][i], cache["cv"][i])
+            x = self._tail(p, x)
+        x = self.norm(x, params["final_norm"])
+        cache["pos"] = pos + 1
+        return self.logits(params, x), cache

@@ -1,5 +1,5 @@
-"""Decoder-only LM: dense GQA, MoE, SSM (Mamba2) and hybrid (Zamba2)
-families (port of ``repro/models/transformer.py``).
+"""Decoder-only LM: dense GQA, MoE, SSM (Mamba2), hybrid (Zamba2) and the
+M-RoPE VLM (Qwen2-VL) families (port of ``repro/models/transformer.py``).
 
 Entry points, as in the reference:
 
@@ -17,9 +17,12 @@ Entry points, as in the reference:
 
 Two KV layouts, both the reference's: the paged pool
 ``(L, n_blocks, block, nkv, d)`` with per-row block tables, and the
-contiguous ``(L, B, max_len, nkv, d)`` with per-row positions (linear only:
-sliding windows by masking; the reference's ring caches are not an engine
-path and raise). The SSM and hybrid families carry recurrent state instead,
+contiguous ``(L, B, max_len, nkv, d)`` with per-row positions, linear
+(sliding windows by masking: what the engine allocates) or, with
+``ring=True`` for a sliding-window config, the reference's ring of
+``min(max_len, window)`` slots and its ``slot_pos`` map, whose decode runs
+the contiguous decode kernel (``ops.decode_attention_ring``). The SSM and
+hybrid families carry recurrent state instead,
 contiguous only: ``conv`` (L, B, K-1, d_inner+2N) in the model dtype and
 ``ssd`` (L, B, nheads, head_dim, N) in fp32, plus, for the hybrid, ``ak`` /
 ``av`` (n_apps, B, max_len, nkv, d) per shared-block application. Where JAX
@@ -38,7 +41,11 @@ hands the caller their maximum once per dispatch. The QKV / O / FFN / SSM
 in-out / LM-head projections stay ``@`` (the JAX package leaves them to
 XLA outside any Pallas kernel).
 
-Enc-dec and M-RoPE raise ``NotImplementedError``.
+The VLM's vision tower is a stub, as in the reference: ``prefill`` takes
+patch embeddings ``inputs["embeds"]`` (B, S, d_model) and M-RoPE position
+streams ``inputs["positions"]`` (3, B, S), ``decode_step`` (B, 1, d_model)
+embeds; from tokens (the engine) its three streams are identical. The
+encoder-decoder is ``models/encdec.py``.
 """
 
 from __future__ import annotations
@@ -54,17 +61,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ParamDef, apply_rope, init_params,
-                                       make_norm, norm_schema, param_count,
-                                       schema_shapes, stack_schema)
+from repro_torch.models.common import (ParamDef, apply_m_rope, apply_rope,
+                                       init_params, make_norm, norm_schema,
+                                       param_count, schema_shapes,
+                                       stack_schema)
 
 IntLike = Union[int, torch.Tensor]
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch: {what} is not ported yet (see ROADMAP.md, port "
-        f"queue)")
 
 
 RECURRENT = ("ssm", "hybrid")       # families whose cache is SSM state
@@ -74,10 +76,10 @@ STATE_KEYS = ("conv", "ssd")        # per-row recurrent state, no seq axis
 class LM:
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
                  ssd_chunk: int = 128, kv_probe: bool = False):
-        if cfg.family not in ("dense", "moe") + RECURRENT or cfg.is_encdec:
-            raise _unported(f"the {cfg.family} family ({cfg.name})")
-        if cfg.m_rope:
-            raise _unported("M-RoPE inputs (VLM)")
+        if cfg.family not in ("dense", "moe", "vlm") + RECURRENT \
+                or cfg.is_encdec:
+            raise ValueError(f"LM serves decoder-only families, not "
+                             f"{cfg.name} ({cfg.family}; enc-dec: EncDecLM)")
         if cfg.family == "hybrid" and cfg.n_layers % cfg.hybrid_period:
             raise ValueError(f"{cfg.name}: {cfg.n_layers} trunk layers are "
                              f"not whole groups of {cfg.hybrid_period}")
@@ -199,6 +201,9 @@ class LM:
     # attention layer bodies
     # ------------------------------------------------------------------ #
     def _qkv(self, p: Dict, x: torch.Tensor, positions: torch.Tensor):
+        """Projections and rotary positions: (3, B, S) streams under
+        M-RoPE; otherwise (B, S) positions (the first stream of (3, B, S)
+        ones, as the reference takes them)."""
         c = self.cfg
         q = x @ p["wq"]
         k = x @ p["wk"]
@@ -209,9 +214,21 @@ class LM:
         q = q.reshape(b, s, c.n_heads, c.hd)
         k = k.reshape(b, s, c.n_kv_heads, c.hd)
         v = v.reshape(b, s, c.n_kv_heads, c.hd)
-        q = apply_rope(q, positions, c.rope_theta)
-        k = apply_rope(k, positions, c.rope_theta)
+        if c.m_rope:
+            q = apply_m_rope(q, positions, c.rope_theta, c.mrope_sections)
+            k = apply_m_rope(k, positions, c.rope_theta, c.mrope_sections)
+        else:
+            pos2 = positions[0] if positions.ndim == 3 else positions
+            q = apply_rope(q, pos2, c.rope_theta)
+            k = apply_rope(k, pos2, c.rope_theta)
         return q.contiguous(), k.contiguous(), v.contiguous()
+
+    def _positions(self, q_pos: torch.Tensor) -> torch.Tensor:
+        """(B, S) positions as ``_qkv`` takes them: broadcast to three
+        identical streams under M-RoPE (text tokens)."""
+        if self.cfg.m_rope:
+            return q_pos[None].expand((3,) + tuple(q_pos.shape))
+        return q_pos
 
     def _out_proj(self, p: Dict, o: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -251,7 +268,7 @@ class LM:
                            block_tbl):
         """One-token attention against this layer's block pool: write the
         token through the block table (in place), attend over the pages."""
-        q, k, v = self._qkv(p, x, pos[:, None])
+        q, k, v = self._qkv(p, x, self._positions(pos[:, None]))
         attn.cache_write_token_paged(ck, cv, k, v, pos, block_tbl)
         o = self._probed(kops.decode_attention_paged(
             q, ck, cv, block_tbl, pos, window=self.cfg.swa_window,
@@ -262,10 +279,20 @@ class LM:
         """One-token attention against this layer's contiguous cache: write
         the token at ``pos`` (clamped to the row end, in place), attend
         the row's keys up to ``pos``."""
-        q, k, v = self._qkv(p, x, pos[:, None])
+        q, k, v = self._qkv(p, x, self._positions(pos[:, None]))
         attn.cache_write_token(ck, cv, k, v, pos)
         o = kops.decode_attention(q, ck, cv, pos, window=self.cfg.swa_window)
         return self._out_proj(p, o)
+
+    def _attn_decode_ring(self, p: Dict, x: torch.Tensor, pos, ck, cv,
+                          slot_pos):
+        """One-token attention against this layer's ring cache: write the
+        token at slot ``pos % S_alloc`` (recording it in ``slot_pos``, in
+        place), attend every slot the ring holds (the window is in its
+        size)."""
+        q, k, v = self._qkv(p, x, self._positions(pos[:, None]))
+        attn.cache_write_token_ring(ck, cv, k, v, pos, slot_pos)
+        return self._out_proj(p, kops.decode_attention_ring(q, ck, cv, pos))
 
     def _mlp_or_moe(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -294,7 +321,7 @@ class LM:
         absolute position (``base``, per row, on the device)."""
         w = self.cfg.swa_window
         h = self.norm(x, p["ln_attn"])
-        q, k, v = self._qkv(p["attn"], h, q_pos)
+        q, k, v = self._qkv(p["attn"], h, self._positions(q_pos))
         if block_tbl is not None:
             attn.cache_write_chunk_paged(ck, cv, k, v, base, block_tbl,
                                          lens=lens)
@@ -404,8 +431,10 @@ class LM:
 
         ``kv_layout="contig"``: each row owns a linear ``max_len`` slice,
         ``k``/``v`` (L, batch, max_len, nkv, d); sliding windows apply by
-        masking (``ring=True``, the reference's windowed ring cache, is not
-        an engine path and raises).
+        masking. With ``ring=True`` a sliding-window config gets the
+        reference's ring instead: ``min(max_len, swa_window)`` slots per
+        row and ``slot_pos`` (S_alloc,), -1 while a slot is empty (not an
+        engine path: the engine names ``ring=False``).
 
         ``kv_layout="paged"``: a pool of ``n_blocks`` ``block_size``-token
         blocks (L, n_blocks, block, nkv, d) shared by all rows, and a
@@ -423,8 +452,6 @@ class LM:
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if kv_layout == "paged" and c.family in RECURRENT:
             raise ValueError("paged KV requires attention caches")
-        if ring and c.swa_window:
-            raise _unported("the ring (sliding-window) KV cache")
         cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
         if c.family in RECURRENT:
             cache["conv"] = torch.zeros(
@@ -440,7 +467,12 @@ class LM:
                 cache["av"] = torch.zeros(shape, dtype=self.dtype, device=dev)
             return cache
         if kv_layout == "contig":
-            shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.hd)
+            ring = bool(ring and c.swa_window)
+            s_alloc = min(max_len, c.swa_window) if ring else max_len
+            shape = (c.n_layers, batch, s_alloc, c.n_kv_heads, c.hd)
+            if ring:
+                cache["slot_pos"] = torch.full((s_alloc,), -1,
+                                               dtype=torch.int32, device=dev)
         else:
             max_blocks = -(-max_len // block_size)
             if n_blocks <= 0:
@@ -452,43 +484,59 @@ class LM:
         cache["v"] = torch.zeros(shape, dtype=self.dtype, device=dev)
         return cache
 
-    def prefill_kv(self, params: Dict, tokens: torch.Tensor,
+    def prefill_kv(self, params: Dict, inputs: Dict,
                    last_pos: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict]:
-        """Prompt (B, S) -> (logits at ``last_pos`` (default: last column),
+        """Prompt ``inputs`` -> (logits at ``last_pos`` (default: last column),
         the stacked per-layer state the prompt leaves, as the reference's
         ``aux``: ``k``/``v`` (L,B,S,nkv,d) for the attention families;
         ``conv``/``ssd`` (L,B,...) and, hybrid, ``ak``/``av``
         (n_apps,B,S,nkv,d)). Right-padded rows are exact for attention
         under causal masking; recurrent state runs through pad columns,
-        so the engine gives those families exact-length groups."""
-        x = self.embed(params, tokens)
-        b, s = tokens.shape
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        so the engine gives those families exact-length groups.
+
+        ``inputs``: ``tokens`` (B, S), or the stubbed frontend's ``embeds``
+        (B, S, d_model); ``positions`` ((3, B, S) under M-RoPE, else (B,
+        S)) default to 0..S-1 in every stream."""
+        if "embeds" in inputs:
+            x = inputs["embeds"].to(self.dtype)
+        else:
+            x = self.embed(params, inputs["tokens"])
+        b, s = x.shape[0], x.shape[1]
+        positions = inputs.get("positions")
+        if positions is None:
+            positions = self._positions(
+                torch.arange(s, device=x.device)[None].expand(b, s))
         x, aux = self._run_trunk_full(params, x, positions)
         return self._last(params, x, last_pos), aux
 
     def prefill(self, params: Dict, inputs: Dict,
                 last_pos: Optional[torch.Tensor] = None,
-                cache: Optional[Dict] = None, max_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Dict]:
-        """Prompt -> (last-position logits (B, Vpad), cache). With a paged
-        ``cache`` (from ``init_cache`` with allocated tables) the prompt K/V
-        are written through its block tables, in place; otherwise into a
-        fresh contiguous cache of ``max_len`` (default: the prompt length)
+                cache: Optional[Dict] = None, max_len: Optional[int] = None,
+                ring: bool = False) -> Tuple[torch.Tensor, Dict]:
+        """Prompt -> (last-position logits (B, Vpad), cache). ``inputs`` as
+        ``prefill_kv`` takes them. With a paged ``cache`` (from
+        ``init_cache`` with allocated tables) the prompt K/V are written
+        through its block tables, in place; otherwise into a fresh
+        contiguous cache of ``max_len`` (default: the prompt length)
         positions per row (SSM / hybrid: the final recurrent state, and the
-        hybrid's shared-block K/V)."""
-        tokens = inputs["tokens"]
-        b, s = tokens.shape
-        logits, aux = self.prefill_kv(params, tokens, last_pos)
+        hybrid's shared-block K/V). ``ring=True`` gives a sliding-window
+        config the ring cache, holding the prompt's last ``S_alloc``
+        positions (position p at slot p % S_alloc) when it is longer."""
+        prompt = inputs["embeds"] if "embeds" in inputs else inputs["tokens"]
+        b, s = prompt.shape[0], prompt.shape[1]
+        logits, aux = self.prefill_kv(params, inputs, last_pos)
         if cache is not None and "block_tbl" in cache:
             attn.cache_write_prefill_paged(cache["k"], cache["v"], aux["k"],
                                            aux["v"], cache["block_tbl"])
         else:
-            cache = self.init_cache(b, max_len or s)
+            cache = self.init_cache(b, max_len or s, ring=ring)
             for key, val in aux.items():
                 if key in STATE_KEYS:           # recurrent state: whole
                     cache[key].copy_(val)
+                elif "slot_pos" in cache:       # K/V in the ring's layout
+                    cache[key], cache["slot_pos"] = attn.ring_prefill_layout(
+                        val.to(self.dtype), cache[key].shape[2])
                 else:                           # K/V: the prompt's positions
                     cache[key][:, :, :s] = val.to(self.dtype)
         cache["pos"] = torch.full_like(cache["pos"], s)
@@ -513,6 +561,9 @@ class LM:
         if self.cfg.family in RECURRENT:
             raise ValueError("chunked prefill requires attention caches "
                              f"({self.cfg.family} carries recurrent state)")
+        if "slot_pos" in cache:
+            raise ValueError("chunked prefill needs a linear cache, not a "
+                             "ring")
         x = self.embed(params, tokens)
         b, cl = tokens.shape
         direct = block_tbl is not None
@@ -556,11 +607,13 @@ class LM:
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict]:
-        """One new token for every row. tokens: (B, 1). Writes the tokens'
-        K/V (paged or contiguous) or the layers' new recurrent state into
-        the cache in place; returns (logits (B,1,Vpad), cache with ``pos``
+        """One new token for every row. tokens: (B, 1), or (B, 1, d_model)
+        embeds under a stubbed frontend. Writes the tokens' K/V (paged,
+        contiguous or ring) or the layers' new recurrent state into the
+        cache in place; returns (logits (B,1,Vpad), cache with ``pos``
         advanced)."""
-        x = self.embed(params, tokens)
+        x = (tokens.to(self.dtype) if tokens.ndim == 3
+             else self.embed(params, tokens))
         if self.cfg.family in RECURRENT:
             x = self._decode_recurrent(params, cache, x, cache["pos"])
         else:
@@ -571,15 +624,20 @@ class LM:
 
     def _decode_attention(self, params: Dict, cache: Dict, x: torch.Tensor,
                           pos: torch.Tensor) -> torch.Tensor:
-        """Dense / MoE layers, each writing its token's K/V through the
-        block tables (paged) or at ``pos`` (contiguous)."""
+        """Dense / MoE / VLM layers, each writing its token's K/V through
+        the block tables (paged), at ``pos`` (contiguous) or at slot ``pos %
+        S_alloc`` (ring)."""
         tbl = cache.get("block_tbl")
+        slot_pos = cache.get("slot_pos")
         for i in range(self.cfg.n_layers):
             p = self._layer(params, i)
             h = self.norm(x, p["ln_attn"])
             ck, cv = cache["k"][i], cache["v"][i]
             if tbl is not None:
                 a = self._attn_decode_paged(p["attn"], h, pos, ck, cv, tbl)
+            elif slot_pos is not None:
+                a = self._attn_decode_ring(p["attn"], h, pos, ck, cv,
+                                           slot_pos)
             else:
                 a = self._attn_decode(p["attn"], h, pos, ck, cv)
             x = x + a

@@ -44,6 +44,14 @@ What carries over from the reference, with the same semantics and stats:
   into a transient group cache, from which finishers are scattered into
   their slot rows (``stats.chunk_scatters``); every row decodes, dead and
   pending rows writing at their frozen position, which is then restored.
+* **Encoder-decoder** (whisper) — contiguous only (``"paged"`` raises):
+  the stubbed frontend hands every request ``enc_frames`` = 8 zero frames;
+  a prefill group runs the encoder and the decoder prompt and installs
+  the self- and cross-attention caches (``k``/``v``, ``ck``/``cv``) into
+  the slots' rows; a chunked group first warms its transient cache's
+  cross-attention K/V with one encoder pass (``EncDecLM.cross_kv``, one
+  warm-up shape per group size, as the reference's jit traces it), then
+  runs decoder chunks; legacy admission prefills batch-1.
 * **MoE admission** — expert capacity is shared across the flattened
   token stream, so padded or chunked prefill would change which tokens
   are dropped: MoE admits batch-1 at exact length, never chunked, and
@@ -77,8 +85,6 @@ the decode, install, copy-on-write and warm-up shapes.
   is 998,244,352, where the reference's ``< 1e9`` never fires; a chunk or
   suffix probes its real columns, not its pad columns). With the
   sanitizer off nothing is launched or synchronised for it.
-
-Enc-dec is not ported (the model raises).
 """
 
 from __future__ import annotations
@@ -180,11 +186,13 @@ class Engine:
         self._group = 1 if self._moe else max(1, min(prefill_group,
                                                      max_batch))
         self._min_bucket = max(1, min(prefill_bucket, max_len))
-        # paged layout: the dense family only (SSM / hybrid carry recurrent
-        # state, not KV rows; MoE rides the contig path with its batch-1
-        # admission, as in the reference). The legacy baseline predates the
-        # block table and stays contiguous.
-        paged_ok = not (self._moe or self._recurrent or admission == "legacy")
+        # paged layout: attention caches only (SSM / hybrid carry recurrent
+        # state, not KV rows; enc-dec has a second, cross-attention cache;
+        # MoE rides the contig path with its batch-1 admission, as in the
+        # reference). The legacy baseline predates the block table and
+        # stays contiguous.
+        paged_ok = not (cfg.is_encdec or self._moe or self._recurrent
+                        or admission == "legacy")
         if kv_layout == "auto":
             kv_layout = "paged" if paged_ok else "contig"
         elif kv_layout == "paged" and not paged_ok:
@@ -230,9 +238,14 @@ class Engine:
             model_kw.setdefault("kv_probe", self.bm.sanitize)
         self._kv_probe = bool(model_kw.get("kv_probe", False))
         self.model = build_model(cfg, device=self.device, **model_kw)
-        self.cache = self.model.init_cache(
-            max_batch, max_len, kv_layout=kv_layout, n_blocks=n_blocks,
-            block_size=block_size)
+        self.enc_frames = 8           # stubbed frontend frames per request
+        if cfg.is_encdec:
+            self.cache = self.model.init_cache(max_batch, max_len,
+                                               s_enc=self.enc_frames)
+        else:
+            self.cache = self.model.init_cache(
+                max_batch, max_len, kv_layout=kv_layout, n_blocks=n_blocks,
+                block_size=block_size, ring=False)
         self.slots: List[Optional[ServeRequest]] = [None] * max_batch
         self.stats = EngineStats()
         self._pending: List[_PendingGroup] = []
@@ -250,6 +263,19 @@ class Engine:
         """Host array -> a fresh tensor on the engine's device (a copy,
         never a view of the host ledger)."""
         return torch.tensor(x, dtype=dtype, device=self.device)
+
+    def _frames(self, g: int) -> torch.Tensor:
+        """The stubbed audio frontend's output for ``g`` rows: zeros."""
+        return torch.zeros((g, self.enc_frames, self.cfg.d_model),
+                           dtype=torch.float32, device=self.device)
+
+    def _prompt(self, tokens) -> Dict[str, torch.Tensor]:
+        """A prefill's model inputs from a (G, S) token array; enc-dec
+        rows also get the stubbed frontend's frames."""
+        inputs = {"tokens": self._dev(tokens)}
+        if self.cfg.is_encdec:
+            inputs["embeds"] = self._frames(len(tokens))
+        return inputs
 
     def _note_shape(self, kind: str, shape, prefill: bool = True) -> None:
         """Retrace analogue: count each distinct dispatch shape once."""
@@ -502,7 +528,8 @@ class Engine:
         # the reference's install jit sees the group's max_len cache and
         # g slots: one trace per group size, whatever the bucket
         self._note_shape("scatter", (g, g), prefill=False)
-        logits, state = self.model.prefill_kv(self.params, self._dev(tokens),
+        logits, state = self.model.prefill_kv(self.params,
+                                              self._prompt(tokens),
                                               self._dev(lens - 1))
         self._scatter_group({key: val[:, :n] for key, val in state.items()},
                             slots[:n], lens[:n])
@@ -579,9 +606,10 @@ class Engine:
         ``LM.prefill_kv``'s dict, rows on axis 1) into the slots and set
         their positions: paged, K/V (L, n, S, nkv, d) into the slots' pool
         blocks through their table rows (positions past each real length to
-        the trash block); contig, as whole slot rows: K/V and the hybrid's
-        ``ak``/``av`` zero past S, as the reference installs a ``max_len``
-        group cache row, and SSM ``conv``/``ssd`` state whole."""
+        the trash block); contig, as whole slot rows: K/V, the hybrid's
+        ``ak``/``av`` and the enc-dec ``ck``/``cv`` zero past S, as the
+        reference installs a ``max_len`` group cache row, and SSM
+        ``conv``/``ssd`` state whole."""
         lens_t = self._dev(lens)
         slots_t = self._dev(slots, torch.long)
         if self.bm is not None:
@@ -617,8 +645,9 @@ class Engine:
         prefill into a fresh ``max_len`` cache, installed into the slot's
         row (one retrace per distinct length)."""
         self._note_shape("legacy", (len(toks),))
-        logits, one = self.model.prefill(
-            self.params, {"tokens": self._dev([toks])}, max_len=self.max_len)
+        kw = {} if self.cfg.is_encdec else {"ring": False}
+        logits, one = self.model.prefill(self.params, self._prompt([toks]),
+                                         max_len=self.max_len, **kw)
         for key, val in one.items():
             if key == "pos":
                 self.cache["pos"][slot] = len(toks)
@@ -667,7 +696,7 @@ class Engine:
                 self.stats.chunk_direct += 1
             else:
                 if grp.cache is None:
-                    grp.cache = self.model.init_cache(g, self.max_len)
+                    grp.cache = self._chunk_init(g)
                 logits, _ = self.model.prefill_chunk(
                     self.params, grp.cache, self._dev(chunk), grp.base,
                     last_pos=self._dev(last_idx))
@@ -684,6 +713,18 @@ class Engine:
                 still.append(grp)
         self._pending = still
 
+    def _chunk_init(self, g: int) -> Dict:
+        """A contig chunked group's transient cache; an enc-dec group's
+        has its cross-attention K/V warmed by one encoder pass over the
+        stubbed frames (one warm-up shape per group size)."""
+        if not self.cfg.is_encdec:
+            return self.model.init_cache(g, self.max_len, ring=False)
+        self._note_shape("enc_warm", (g,), prefill=False)
+        cache = self.model.init_cache(g, self.max_len, s_enc=self.enc_frames)
+        cache["ck"], cache["cv"] = self.model.cross_kv(
+            self.params, self.model.encode(self.params, self._frames(g)))
+        return cache
+
     def _finish_pending(self, grp: _PendingGroup, finishers, first) -> None:
         """Finish fully-prefilled members. Paged: every chunk is already in
         their pool blocks, so only the per-slot positions need setting.
@@ -697,8 +738,9 @@ class Engine:
             rows = self._dev([j for j, _ in finishers], torch.long)
             self._note_shape("scatter", (len(grp.members), len(finishers)),
                              prefill=False)
-            self._scatter_group({key: grp.cache[key][:, rows]
-                                 for key in ("k", "v")}, slots, lens)
+            self._scatter_group({key: val[:, rows]
+                                 for key, val in grp.cache.items()
+                                 if key != "pos"}, slots, lens)
             self.stats.chunk_scatters += 1
         for j, m in finishers:
             m.done = True

@@ -302,13 +302,14 @@ def test_retrace_count_bounded_by_buckets(setup):
 
 
 def test_unported_options_raise(setup):
-    """Enc-dec stays unported; prefix sharing and legacy admission are
-    ported, and the layouts the reference refuses them raise its
-    ValueError."""
+    """The layouts the reference refuses raise its ValueError: the paged
+    layout for an encoder-decoder (its cross-attention cache has no
+    block table), legacy admission on the paged layout, prefix sharing on
+    the contiguous one; prefix sharing and legacy admission are ported."""
     _, _, tcfg, tparams = setup
-    encdec = dataclasses.replace(tcfg, n_encoder_layers=2)   # not ported
-    with pytest.raises(NotImplementedError):
-        Engine(encdec, tparams, device="cpu")
+    encdec = dataclasses.replace(tcfg, n_encoder_layers=2)
+    with pytest.raises(ValueError, match="kv_layout='paged' unsupported"):
+        Engine(encdec, tparams, device="cpu", kv_layout="paged")
     assert Engine(tcfg, tparams, device="cpu", prefix_share=True).bm
     assert Engine(tcfg, tparams, device="cpu",
                   admission="legacy").kv_layout == "contig"

@@ -26,6 +26,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_probe as kvp
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.models import attention as attn
 from repro_torch.serving.kv_blocks import KV_POISON
 
 pytestmark = pytest.mark.gpu
@@ -348,6 +349,68 @@ def test_bf16_groups_not_dividing_128(cuda, kind, nh, nkv, d, window):
         out = ops.chunk_attention(q, *kv, at, window=window)
         ref = _ref(ca.chunk_attention_plain, q, *kv, at, window=window)
     torch.testing.assert_close(out.float(), ref, **_tol(dt))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["flash", "paged_chunk", "contig_chunk",
+                                  "paged_decode", "contig_decode", "ring",
+                                  "probe"])
+@pytest.mark.parametrize("g,window", [(1, None), (4, 20), (4, 4096)])
+def test_head_dim_120_kernels_match_plain(cuda, dtype, kind, g, window):
+    """Head dim 120 (h2o-danube-3-4b: 3840 / 32) through every attention
+    kernel and the probe, g = 1 and 4 (danube's 32 / 8), windows shorter
+    than a tile and of 4096 with positions on both sides of it; the ring
+    cache's decode route against the reference's slot_pos mask."""
+    rng = np.random.RandomState(12)
+    nkv, d, b, c, bs = 2, 120, 2, 77, 24
+    nh, s = g * nkv, (4300 if window == 4096 else 500)
+    if kind == "flash":
+        q, k, v = (_rand(rng, (b, s, n, d), dtype, cuda)
+                   for n in (nh, nkv, nkv))
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        ref = _ref(fa.flash_attention_plain, q, k, v, causal=True,
+                   window=window)
+        torch.testing.assert_close(out.float(), ref, **_tol(dtype))
+        return
+    if kind == "ring":
+        ring = window or 256
+        k, v = (_rand(rng, (b, ring, nkv, d), dtype, cuda) for _ in range(2))
+        q = _rand(rng, (b, 1, nh, d), dtype, cuda)
+        for p in (ring // 3, ring - 1, ring + 5, 3 * ring + 1):
+            j = torch.arange(ring, device=cuda)
+            slot_pos = torch.where(j <= p, p - (p - j) % ring, -1)
+            pos = torch.full((b,), p, dtype=torch.int32, device=cuda)
+            out = ops.decode_attention_ring(q, k, v, pos)
+            ref = _ref(attn.decode_attention_ring, q, k, v, pos, slot_pos)
+            torch.testing.assert_close(out.float(), ref, **_tol(dtype))
+        return
+    paged = kind.startswith("paged") or kind == "probe"
+    cols = 1 if kind.endswith("decode") else c
+    q = _rand(rng, (b, cols, nh, d), dtype, cuda)
+    if paged:
+        kv = _pool(rng, b, -(-s // bs), bs, nkv, d, dtype, cuda)
+        s = kv[2].shape[1] * bs
+    else:
+        kv = tuple(_rand(rng, (b, s, nkv, d), dtype, cuda) for _ in range(2))
+    at = torch.tensor([s // 3, s - cols], dtype=torch.int32, device=cuda)
+    if kind == "probe":
+        out = kvp.kv_probe(*kv, at, c, nh, window=window)
+        assert torch.equal(out, kvp.kv_probe_plain(*kv, at, c, nh,
+                                                   window=window))
+        return
+    if kind == "paged_decode":
+        out = ops.decode_attention_paged(q, *kv, at, window=window)
+        ref = _ref(da.decode_attention_paged_plain, q, *kv, at, window=window)
+    elif kind == "contig_decode":
+        out = ops.decode_attention(q, *kv, at, window=window)
+        ref = _ref(da.decode_attention_plain, q, *kv, at, window=window)
+    elif kind == "paged_chunk":
+        out = ops.chunk_attention_paged(q, *kv, at, window=window)
+        ref = _ref(ca.chunk_attention_paged_plain, q, *kv, at, window=window)
+    else:
+        out = ops.chunk_attention(q, *kv, at, window=window)
+        ref = _ref(ca.chunk_attention_plain, q, *kv, at, window=window)
+    torch.testing.assert_close(out.float(), ref, **_tol(dtype))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -21,7 +21,7 @@ import torch
 from repro.configs import get_config as jax_config
 from repro.models import build_model as jax_build
 from repro_torch.configs import get_config
-from repro_torch.models import build_model
+from repro_torch.models import EncDecLM, LM, build_model
 from repro_torch.models.convert import params_from_jax
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -256,14 +256,26 @@ def test_params_from_jax_takes_the_moe_tree(moe_models):
 
 
 def test_ring_cache_and_unported_families_raise():
-    tm = build_model(get_config("h2o-danube-3-4b").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.init_cache(1, 16, ring=True)
-    # enc-dec (whisper's n_encoder_layers > 0) is not ported yet
+    """The ring cache and the encoder-decoder are ported: ``ring=True``
+    gives a sliding-window config ``swa_window`` slots (not ``max_len``)
+    and an empty ``slot_pos``, a config without a window a linear cache;
+    ``build_model`` returns an ``EncDecLM`` for whisper, and ``LM`` refuses
+    an encoder-decoder config."""
+    cfg = get_config("h2o-danube-3-4b").reduced()
+    tm = build_model(cfg, device="cpu")
+    ring = tm.init_cache(2, 16, ring=True)
+    assert tuple(ring["k"].shape) == (cfg.n_layers, 2, cfg.swa_window,
+                                      cfg.n_kv_heads, cfg.hd)
+    assert ring["slot_pos"].tolist() == [-1] * cfg.swa_window
+    assert "slot_pos" not in tm.init_cache(2, 16)
+    lin = build_model(get_config("qwen3-32b").reduced(), device="cpu")
+    assert "slot_pos" not in lin.init_cache(2, 16, ring=True)
+    assert isinstance(build_model(get_config("whisper-tiny").reduced(),
+                                  device="cpu"), EncDecLM)
     encdec = dataclasses.replace(get_config("qwen3-32b").reduced(),
                                  n_encoder_layers=2)
-    with pytest.raises(NotImplementedError):
-        build_model(encdec, device="cpu")
+    with pytest.raises(ValueError):
+        LM(encdec, device="cpu")
 
 
 def test_prefill_chunk_without_table_needs_a_contig_cache():
