@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one card.
 
     python3 chip_smoke.py                  # all phases, one card
     python3 chip_smoke.py --cpu-rehearsal  # tiny CPU rehearsal, no card
@@ -15,7 +15,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (GEMM 4096-8192, GEMV 8192-16384): effective FLOP/s and HBM bytes/s
    printed beside the H100 profile's data-sheet peaks and their derates
    (nothing is gated on them);
-3. kernels vs plain on the card: each of the seven kernels against its
+3. kernels vs plain on the card: each of the eight kernels against its
    plain PyTorch version evaluated in fp32 on the same input values (the
    bf16 plain version's own error is logged beside it), at the shapes
    each serving path of phase 5 gives it and at small ragged shapes, in
@@ -68,6 +68,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    and cross attention, contig decode at whisper's heads and through the
    ring route, contig chunk at whisper's heads; and the host time of a
    flash call through ctypes, bf16 (tensor-map encodes) against fp32;
+   then the training kernels: the flash forward's log-sum-exp against the
+   plain one, and the flash backward (kernel 8, no Pallas counterpart)
+   against the plain gradient in fp32 (fp32 within 1e-4 of each
+   gradient's largest element, bf16 within 3x the bf16 plain version's
+   own error) at the train path's q (1,2048,16,128) / k/v (1,2048,8,128)
+   causal, g = 6 and 12, d 120 under danube's 4096 window, d 80, d 64
+   non-causal with Sq != Sk (whisper's 448 x 1500 cross attention) and
+   small ragged fp32 / bf16 edges; each of the first six timed with the
+   forward-with-lse beside it and SDPA's backward as the yardstick;
 4. engine parity, fp32: reduced configs, one init each, the same requests
    through the Engine on the card (kernels) and on the CPU (plain): paged
    bucketed, direct-to-pool chunked and overcommitted (grow + preempt)
@@ -111,6 +120,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    KV attach and one eviction; then a ``use_prefix_share=True`` server
    (hot prefixes published, a new and a rebuilt pipeline warmed, a
    first-contact hit): tokens, events, clock and store bytes identical;
+   then training: two fp32 train steps (2 microbatches, the reference's
+   AdamW without bf16 compression) of reduced qwen3-32b, granite-moe,
+   qwen2-vl-2b and whisper-tiny on the card and the CPU from one init,
+   loss, every parameter and every first moment within 1e-4 relative,
+   the flash forward and backward launched; a checkpoint after step 2
+   restored into a fresh card state gives step 3's loss within 1e-6; and
+   mamba2's loss on the card must raise the SSD scan's missing backward
+   (ROADMAP A8b);
 5. thirteen serving paths at full width, bf16, random weights from a
    seeded generator on the card, the same traffic but for ``prefix`` and
    ``danube`` (16 requests of 64-2048 prompt tokens, some past
@@ -180,7 +197,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           (8 stubbed encoder frames a request): contig chunk, contig
           decode, flash (encoder, cross attention, prompt groups).
    Each model's params are freed before the next path is built;
-6. a JSON line of per-kernel numbers, the nvidia-smi line, and last
+6. ``train``: internlm2-1.8b whole (24 layers, d_model 2048, 16/8 heads
+   of 128, vocab 92544, 1.9 B params), bf16, remat on, SyntheticLM(8,
+   2048, seed 0) in choose_microbatches(8, 2048, 92544, 1) = 8
+   microbatches, the reference's AdamW defaults (lr 3e-4 after 100
+   warm-up steps): one warm-up step and six timed ones; the
+   loss must be finite and fall, the flash forward and backward must
+   launch; prints step seconds, tok/s, model FLOPs / (step x 989
+   TFLOP/s), peak GB and launches per step (with ``--profile``, device
+   busy / idle and time by category); no checkpoint at this width;
+7. a JSON line of per-kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``. A ``[time]`` line follows each
    phase.
 """
@@ -192,6 +218,7 @@ import dataclasses
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -222,6 +249,12 @@ from repro_torch.serving import (Engine, GlobalServer,  # noqa: E402
                                  ServeRequest, TensorStore)
 from repro_torch.serving.kv_blocks import (KV_POISON,  # noqa: E402
                                            KVSanitizerError)
+from repro_torch.train import (AdamWConfig, DataConfig,  # noqa: E402
+                               SyntheticLM, choose_microbatches,
+                               init_train_state, make_train_step)
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train.data import to_torch  # noqa: E402
+from repro_torch.train.optimizer import leaves  # noqa: E402
 
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3, bytes/s (data sheet)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense FLOP/s
@@ -314,7 +347,8 @@ PREFIX_SYSTEM = (300, 1000, 1024, 1500)
 DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers",
               "command-r-plus-104b": "cmdr_layers"}
 DANUBE_RING = (2, 6000, 32)   # the ring generation: rows, prompt, new tokens
-ALL_PHASES = ("build", "calibrate", "kernels", "parity") + tuple(PATHS)
+ALL_PHASES = ("build", "calibrate", "kernels", "parity") + tuple(PATHS) + (
+    "train",)
 
 
 def log(msg: str = "") -> None:
@@ -606,7 +640,10 @@ def time_both(fn) -> tuple:
 
 
 def fmt_ms(ms, dev_ms) -> str:
-    return "none" if ms is None else f"{ms:.4f} ms (device {dev_ms:.4f})"
+    if ms is None:
+        return "none"
+    return f"{ms:.4f} ms" + ("" if dev_ms is None else
+                             f" (device {dev_ms:.4f})")
 
 
 def time_shape(name, run, args, library, work, shape, kw=None) -> dict:
@@ -1195,9 +1232,9 @@ def launch_host_us(cs, n: int = 500) -> dict:
         k = cs.randn(1, 16, 8, 128, dtype=dtype)
         o = torch.empty_like(q)
         stream = _build.stream_ptr(q.device)
-        args = (q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(), 1,
-                16, 16, 8, 8, 128, 1, 0, 0.088, int(dtype == torch.bfloat16),
-                stream)
+        args = (q.data_ptr(), k.data_ptr(), k.data_ptr(), o.data_ptr(),
+                None, 1, 16, 16, 8, 8, 128, 1, 0, 0.088,
+                int(dtype == torch.bfloat16), stream)
         lib.rt_flash_attention(*args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1450,6 +1487,184 @@ def ssd_shape(b, s, nh, hd, n, q) -> str:
             f"bf16")
 
 
+# -- the flash backward (training) -------------------------------------------------
+# (label, dtype, (nh, nkv, d, b, sq, sk), causal, window): the train path's
+# shape first (internlm2-1.8b: 16/8 heads of 128, one 2048-token row per
+# microbatch), then g = 6 (qwen2-vl-2b), g = 12 (command-r-plus), d 120
+# under danube's 4096 window past it, d 80 (zamba2), d 64 non-causal with
+# Sq != Sk (whisper's cross attention at full width), and small fp32 and
+# bf16 edges (ragged, windows, Sq != Sk both ways)
+BWD_TRAIN = ("train q=(1,2048,16,128) k/v=(1,2048,8,128) causal bf16",
+             torch.bfloat16, (16, 8, 128, 1, 2048, 2048), True, None)
+BWD_SPECS = [
+    BWD_TRAIN,
+    ("g=6 qwen2-vl 12/2 d128 S=2048 causal bf16", torch.bfloat16,
+     (12, 2, 128, 1, 2048, 2048), True, None),
+    ("g=12 cmdr 96/8 d128 S=512 causal bf16", torch.bfloat16,
+     (96, 8, 128, 1, 512, 512), True, None),
+    ("d120 danube 32/8 S=4600 SWA=4096 bf16", torch.bfloat16,
+     (32, 8, 120, 1, 4600, 4600), True, 4096),
+    ("d80 zamba2 32/32 S=2048 causal bf16", torch.bfloat16,
+     (32, 32, 80, 1, 2048, 2048), True, None),
+    ("d64 whisper cross Sq=448 Sk=1500 non-causal bf16", torch.bfloat16,
+     (6, 6, 64, 2, 448, 1500), False, None),
+    ("train shape fp32 S=512", torch.float32,
+     (16, 8, 128, 1, 512, 512), True, None),
+    ("g=6 d120 S=37 SWA=9 fp32", torch.float32,
+     (12, 2, 120, 2, 37, 37), True, 9),
+    ("g=12 d80 S=37 fp32", torch.float32, (12, 1, 80, 2, 37, 37), True, None),
+    ("d16 Sq=13 Sk=37 non-causal fp32", torch.float32,
+     (4, 2, 16, 2, 13, 37), False, None),
+    ("d32 Sq=37 Sk=13 causal fp32", torch.float32,
+     (4, 2, 32, 2, 37, 13), True, None),
+    ("d64 S=200 SWA=40 non-causal fp32", torch.float32,
+     (4, 2, 64, 2, 200, 200), False, 40),
+    ("d16 S=37 g=2 bf16", torch.bfloat16, (4, 2, 16, 2, 37, 37), True, None),
+    ("d32 Sq=13 Sk=37 non-causal bf16", torch.bfloat16,
+     (6, 6, 32, 2, 13, 37), False, None),
+    ("d64 S=300 SWA=50 g=8 bf16", torch.bfloat16,
+     (16, 2, 64, 2, 300, 300), True, 50),
+]
+BWD_TIMED = [s[0] for s in BWD_SPECS[:6]]
+BWD_MULTIPLE = 3              # bf16: within 3x the plain version's own error
+
+
+def bwd_work(b, sq, sk, nh, nkv, d, causal, window, esz) -> tuple:
+    """Bytes (q, out, dout, dq; k, v, dk, dv; lse once each) and operations
+    of one backward: 2.5x the forward's matmul FLOPs over the visible
+    keys."""
+    qpos = np.arange(sq)
+    hi = np.minimum(qpos, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, qpos - window + 1) if window else np.zeros(sq, int)
+    vis = np.maximum(hi - lo + 1, 0).sum()
+    nbytes = (4 * b * sq * nh * d + 4 * b * sk * nkv * d) * esz \
+        + 4 * b * nh * sq
+    return nbytes, 2.5 * 4.0 * b * nh * d * vis
+
+
+def _bwd_case(cs, dtype, geo, causal, window):
+    nh, nkv, d, b, sq, sk = geo
+    return (cs.randn(b, sq, nh, d, dtype=dtype),
+            cs.randn(b, sk, nkv, d, dtype=dtype),
+            cs.randn(b, sk, nkv, d, dtype=dtype),
+            cs.randn(b, sq, nh, d, dtype=dtype))
+
+
+def sdpa_backward(q, k, v, dout, causal, window):
+    """SDPA's backward alone on head-repeated K/V (the yardstick the port
+    never calls): the forward runs once, each call is one
+    ``autograd.grad`` of it."""
+    sq, sk, sv, _ = _sdpa_inputs(q, k, v, None)
+    leaves = [t.detach().requires_grad_(True) for t in (sq, sk, sv)]
+    kw = dict(is_causal=causal)
+    if window:
+        kw = dict(attn_mask=fa._mask(q.shape[1], k.shape[1], causal, window,
+                                     q.device)[0, 0, 0])
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(*leaves, **kw)
+    g = dout.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def kernel_flash_bwd(cs, dev, rehearsal) -> dict:
+    """The flash forward's log-sum-exp (held to the plain one) and the
+    backward kernel (held to the plain gradient in fp32: fp32 within 1e-4
+    of each gradient's largest element, bf16 within 3x the plain version's
+    own bf16 error), at the train path's shape and the other families';
+    each timed shape also times the forward with the log-sum-exp and
+    SDPA's backward."""
+    name = "flash_attention_bwd"
+    timed, main = {}, None
+    for label, dtype, geo, causal, window in BWD_SPECS:
+        if rehearsal:
+            nh, nkv, d, b, sq, sk = geo
+            short = min(sq, 40)
+            geo = (nh // nkv, 1, d, 1, short, short if sq == sk else
+                   min(sk, 50))
+        q, k, v, dout = _bwd_case(cs, dtype, geo, causal, window)
+        kw = dict(causal=causal, window=window)
+        lse_ref = fa.flash_lse_plain(q, k, **kw)
+        refs = fa.flash_attention_bwd_plain(q, k, v, dout, **kw)
+        own = None
+        if dtype == torch.bfloat16:
+            with torch.enable_grad():
+                ls = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                own = torch.autograd.grad(
+                    fa.flash_attention_plain(*ls, **kw), ls, dout)
+        if rehearsal:
+            lse, got = lse_ref, tuple(r.to(dtype) for r in refs)
+            out = in_fp32(fa.flash_attention_plain)(q, k, v, **kw).to(dtype)
+        else:
+            lse = torch.empty(lse_ref.shape, dtype=torch.float32, device=dev)
+            out = fa.flash_attention(q, k, v, lse=lse, **kw)
+            got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        lse_err = (lse - lse_ref).abs().max().item()
+        errs, ok = [], lse_err <= 1e-3 + 1e-4 * lse_ref.abs().max().item()
+        for i, (g, r) in enumerate(zip(got, refs)):
+            err = (g.float() - r).abs().max().item()
+            lim = (1e-4 * r.abs().max().item() + 1e-7 if own is None else
+                   BWD_MULTIPLE * (own[i].float() - r).abs().max().item())
+            finite = bool(torch.isfinite(g.float()).all())
+            ok = ok and finite and err <= lim
+            errs.append((err, lim))
+        log(f"[kernels] {name:24s} {label:50s} lse {lse_err:.2e}; "
+            + "; ".join(f"d{n} {e:.2e} (limit {lim:.2e})"
+                        for n, (e, lim) in zip("qkv", errs))
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {name} disagrees with its plain "
+                             f"version ({label})")
+        if main is None:
+            main = max(e for e, _ in errs)
+        if label in BWD_TIMED:
+            timed[label] = (q, k, v, out, dout, lse, kw, geo)
+        del q, k, v, dout, refs, own, got, out, lse
+    rows = []
+    for label in BWD_TIMED:
+        q, k, v, out, dout, lse, kw, geo = timed[label]
+        nh, nkv, d, b, sq, sk = geo
+        work = bwd_work(b, sq, sk, nh, nkv, d, kw["causal"], kw["window"], 2)
+        if rehearsal:
+            run = lambda: fa.flash_attention_bwd_plain(  # noqa: E731
+                q, k, v, dout, **kw)
+            fwd = lambda: in_fp32(fa.flash_attention_plain)(  # noqa: E731
+                q, k, v, **kw)
+        else:
+            run = lambda: fa.flash_attention_bwd(  # noqa: E731
+                q, k, v, out, dout, lse, **kw)
+            fwd = lambda: fa.flash_attention(  # noqa: E731
+                q, k, v, lse=lse, **kw)
+        ms, dev_ms = time_both(run)
+        lib_ms = time_ms(sdpa_backward(q, k, v, dout, **kw))
+        f_ms, f_dev_ms = time_both(fwd)
+        f_lib = flash_yardstick((q, k, v), **kw)
+        f_lib_ms = time_ms(f_lib[0])
+        b_ms, b_by = bound(*work, torch.bfloat16)
+        fb_ms, fb_by = bound(*f_lib[1], torch.bfloat16)
+        row = dict(shape=label, ms=ms, device_ms=dev_ms, library_ms=lib_ms,
+                   library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   fwd_lse=dict(ms=f_ms, device_ms=f_dev_ms,
+                                library_ms=f_lib_ms, bound_ms=fb_ms,
+                                bound_by=fb_by))
+        log(f"[kernels] {name:24s} backward {ms:.4f} ms (device "
+            f"{dev_ms:.4f})  SDPA backward {lib_ms:.4f} ms  bound "
+            f"{b_ms:.4f} ms ({b_by}); forward with lse {f_ms:.4f} ms "
+            f"(device {f_dev_ms:.4f})  SDPA {f_lib_ms:.4f} ms  bound "
+            f"{fb_ms:.4f} ms ({fb_by})  {label}")
+        rows.append(row)
+    q, k, v, out, dout, lse, kw, geo = timed[BWD_TIMED[0]]
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, dout, **kw), iters=3, warmup=1)
+    first = rows[0]
+    return dict(name=name, route="cuda", source=fa.BWD_SOURCE,
+                replaces=fa.REPLACES[name], max_abs_err=main,
+                ms=first["ms"], device_ms=first["device_ms"],
+                plain_ms=plain_ms, bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=first["library_ms"],
+                library_device_ms=None, shape=first["shape"],
+                fwd_lse=first["fwd_lse"], timed_shapes=rows[1:])
+
+
 def phase_kernels(dev, rehearsal: bool) -> list:
     cs = Cases(dev)
     rows = [kernel_decode(cs, dev, rehearsal, paged=True),
@@ -1458,7 +1673,8 @@ def phase_kernels(dev, rehearsal: bool) -> list:
             kernel_decode(cs, dev, rehearsal, paged=False),
             kernel_chunk(cs, dev, rehearsal, paged=False),
             kernel_ssd(cs, dev, rehearsal),
-            kernel_probe(cs, dev, rehearsal)]
+            kernel_probe(cs, dev, rehearsal),
+            kernel_flash_bwd(cs, dev, rehearsal)]
     for r in rows:
         lib = fmt_ms(r["library_ms"], r["library_device_ms"])
         log(f"[kernels] {r['name']:24s} kernel {r['ms']:.4f} ms (device "
@@ -1648,7 +1864,9 @@ def phase_engine_parity(dev) -> None:
                              f"chunk scatter: {st}")
     counts = ops.launch_counts()
     log(f"[engine-parity] launches {counts}")
-    if str(dev) != "cpu" and not all(counts.values()):
+    # serving launches every kernel but the backward (phase 4b trains)
+    serving = {k: n for k, n in counts.items() if k != "flash_attention_bwd"}
+    if str(dev) != "cpu" and not all(serving.values()):
         raise SystemExit(f"chip_smoke: a kernel never launched: {counts}")
 
 
@@ -2714,7 +2932,215 @@ def check_paths(res: dict) -> None:
             f"{sum(a == b for a, b in pairs)}/{len(pairs)}")
 
 
+# -- phase 4b: training, card vs CPU -----------------------------------------------
+TRAIN_PARITY = ("qwen3-32b", "granite-moe-3b-a800m", "qwen2-vl-2b",
+                "whisper-tiny")
+# the parity steps run the reference's AdamW defaults (lr warming up from
+# 3e-6) without the bf16 gradient compression: Adam's first steps move
+# each weight by ~lr x sign(g), so a weight whose gradient lies within the
+# two devices' rounding of 0 may move the other way (~1e-5 of a weight at
+# the defaults, under the limit), and a gradient within an fp32 ulp of a
+# bf16 rounding boundary rounds to the next bf16 value on one device only
+# (2^-8 of the element). The first moment m, linear in the fp32
+# gradients, is held too. Compression is held to the reference on the CPU
+# (tests/test_torch_train_step.py).
+PARITY_OPT = AdamWConfig(compress_grads_bf16=False)
+# the train path's: the reference's defaults too (lr 3e-4 reached after
+# 100 warm-up steps). Without the warm-up a fresh 1.9 B model oscillates
+# (lr 1e-3: 11.31 -> 17.13 by step 3; 1e-4: 11.31, 9.71, 14.41, 8.22;
+# NVIDIA H100 80GB HBM3, 700 W)
+TRAIN_OPT = AdamWConfig()
+
+
+def _max_rel(tree, ref, floor: float = 1e-7) -> tuple:
+    """Over the leaves, the largest max|a - b| / (max|b| + floor / 1e-4)
+    (at most 1e-4 passes: 1e-4 of the leaf's largest element, plus an
+    absolute floor for leaves whose exact gradient is 0, a key bias, where
+    both devices hold rounding noise), and its leaf's index."""
+    errs = [(a.cpu() - b).abs().max().item()
+            / (b.abs().max().item() + floor / 1e-4)
+            for a, b in zip(leaves(tree), leaves(ref))]
+    return max(errs), int(np.argmax(errs))
+
+
+def _train_run(cfg, params, dev, steps, n_micro, state=None):
+    """``steps`` train steps of reduced ``cfg`` on ``dev`` from ``params``
+    (or ``state``): (losses, the state)."""
+    model = build_model(cfg, device=dev)
+    state = state or init_train_state(
+        _tree_map(params, lambda t: t.to(dev, copy=True)))
+    step_fn = make_train_step(model, PARITY_OPT, n_micro)
+    data = SyntheticLM(cfg, DataConfig(4, 32, 0))
+    losses = []
+    for s in range(state.opt.step, state.opt.step + steps):
+        state, m = step_fn(state, to_torch(data.batch_at(s), dev))
+        losses.append(m["loss"].item())
+    return losses, state
+
+
+def phase_train_parity(dev) -> None:
+    """Two fp32 train steps (2 microbatches, the reference's AdamW
+    defaults but for the bf16 compression) of reduced qwen3-32b, granite-moe, qwen2-vl-2b and
+    whisper-tiny on the card and on the CPU from one init: the loss, every
+    parameter and every first moment within 1e-4 relative (of the leaf's
+    largest element, + 1e-7); the card's steps launch the flash forward and
+    backward. Then
+    a checkpoint of the card's state after step 2, restored into a fresh
+    state on the card: its step 3 loss equals the uninterrupted run's
+    within 1e-6 relative. mamba2's loss on the card must raise the SSD
+    scan's missing-backward error (ROADMAP A8b)."""
+    card = dev.type == "cuda"
+    ck_dir = ROOT / "build" / "chip_smoke_ckpt"
+    for arch in TRAIN_PARITY:
+        cfg = get_config(arch).reduced()
+        params = build_model(cfg, device="cpu").init(seed=0)
+        ops.reset_launch_counts()
+        got, state = _train_run(cfg, params, dev, 2, 2)
+        counts = ops.launch_counts()
+        ref, ref_state = _train_run(cfg, params, "cpu", 2, 2)
+        worst, at = _max_rel(state.params, ref_state.params)
+        worst_m, at_m = _max_rel(state.opt.m, ref_state.opt.m)
+        names = [n for n, _ in ckpt._flatten(ref_state.params)]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+        launched = counts["flash_attention"] and counts["flash_attention_bwd"]
+        ok = (worst <= 1e-4 and worst_m <= 1e-4 and loss_err <= 1e-4
+              and (launched or not card))
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        ckpt.save_checkpoint(str(ck_dir), 2, state)
+        fresh = init_train_state(build_model(cfg, device=dev).init(seed=1))
+        restored = ckpt.restore_checkpoint(str(ck_dir), 2, fresh)
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        resumed, _ = _train_run(cfg, None, dev, 1, 2, state=restored)
+        whole, _ = _train_run(cfg, None, dev, 1, 2, state=state)
+        resume_err = abs(resumed[0] - whole[0]) / abs(whole[0])
+        ok = ok and resume_err <= 1e-6
+        log(f"[train-parity] {arch}: losses {got} vs CPU {ref} (max rel "
+            f"{loss_err:.2e}); params max rel {worst:.2e} ({names[at]}), "
+            f"m max rel {worst_m:.2e} ({names[at_m]}); flash launches "
+            f"fwd {counts['flash_attention']} bwd "
+            f"{counts['flash_attention_bwd']}; checkpoint at step 2 -> "
+            f"step 3 loss {resumed[0]:.6f} vs uninterrupted {whole[0]:.6f} "
+            f"(rel {resume_err:.1e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: training on the card disagrees "
+                             f"with the CPU ({arch})")
+    cfg = get_config("mamba2-1.3b").reduced()
+    model = build_model(cfg, device=dev)
+    params = _tree_map(model.init(seed=0),
+                       lambda t: t.detach().requires_grad_(True))
+    batch = to_torch(SyntheticLM(cfg, DataConfig(2, 16)).batch_at(0), dev)
+    if card:
+        try:
+            model.loss(params, batch)
+        except RuntimeError as e:
+            if "A8b" not in str(e):
+                raise
+            log(f"[train-parity] mamba2-1.3b loss on the card raises: {e}")
+        else:
+            raise SystemExit("chip_smoke: mamba2's loss on the card did not "
+                             "refuse the missing SSD scan backward")
+    else:
+        log("[train-parity] mamba2-1.3b: CPU rehearsal, the plain scan is "
+            "differentiable (the A8b refusal is a card check)")
+
+
+# -- phase 6: training at full width --------------------------------------------------
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_STEPS = 6               # timed, after one warm-up step
+
+
+def phase_train(dev, seed: int, rehearsal: bool,
+                profile_dir: Path | None = None) -> dict:
+    """internlm2-1.8b whole (24 layers, d_model 2048, 16/8 heads of 128,
+    vocab 92544), bf16, ``remat`` on, ``SyntheticLM(8, 2048, seed 0)`` in
+    ``choose_microbatches(8, 2048, 92544, 1)`` = 8 microbatches, the
+    reference's AdamW defaults: one
+    warm-up step and ``TRAIN_STEPS`` timed ones, each with launch counts
+    zeroed just before and read just after. The loss must stay finite and
+    fall; no checkpoint is written at this width."""
+    tag = "[train]"
+    cfg = get_config(TRAIN_ARCH)
+    batch, seq = TRAIN_BATCH, TRAIN_SEQ
+    if rehearsal:
+        cfg, batch, seq = cfg.reduced(), 4, 32
+    n_micro = choose_microbatches(batch, seq, cfg.vocab, 1)
+    model = build_model(cfg, device=dev, remat=True)
+    t0 = time.perf_counter()
+    state = init_train_state(model.init(seed=seed))
+    _sync(dev)
+    n_params = model.param_count()
+    log(f"{tag} {cfg.name} {'reduced' if rehearsal else 'whole'}: "
+        f"{cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"vocab {cfg.vocab}, {n_params / 1e9:.3f} B params {cfg.dtype}; "
+        f"batch {batch} x {seq}, {n_micro} microbatches, remat on; init "
+        f"{time.perf_counter() - t0:.1f} s")
+    step_fn = make_train_step(model, TRAIN_OPT, n_micro)
+    data = SyntheticLM(cfg, DataConfig(batch, seq, 0))
+    batches = [to_torch(data.batch_at(s), dev) for s in range(TRAIN_STEPS + 1)]
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batches[0])
+    first = m["loss"].item()
+    log(f"{tag} warm-up step 0: loss {first:.4f} grad_norm "
+        f"{m['grad_norm'].item():.4f} ({time.perf_counter() - t0:.2f} s)")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    walls, losses, counts = [], [], []
+    for s in range(1, TRAIN_STEPS + 1):
+        ops.reset_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[s])
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+        counts.append(ops.launch_counts())
+        losses.append(m["loss"].item())
+        log(f"{tag} step {s}: loss {losses[-1]:.4f} grad_norm "
+            f"{m['grad_norm'].item():.4f} step_s {walls[-1]:.3f}")
+    wall = float(np.median(walls))
+    tokens = batch * seq
+    vis = seq * (seq + 1) // 2            # causal keys per row, summed
+    attn_flops = 12.0 * cfg.n_layers * cfg.n_heads * cfg.hd * vis * batch
+    model_flops = 6.0 * n_params * tokens + attn_flops
+    log(f"{tag} step_s median={wall:.3f} min={min(walls):.3f} "
+        f"max={max(walls):.3f}; tok_per_s={tokens / wall:.1f}; model FLOPs "
+        f"per step {model_flops:.4e} (6 N tokens + attention, remat's "
+        f"recompute not counted)")
+    if dev.type == "cuda":
+        log(f"{tag} model FLOPs / (step_s x 989 TFLOP/s) = "
+            f"{model_flops / wall / PEAK_OPS[torch.bfloat16]:.4f}")
+        log(f"{tag} peak_mem_GB={torch.cuda.max_memory_allocated() / 1e9:.3f}"
+            f" (nvidia-smi: {smi_line()})")
+    per_step = {k: v for k, v in counts[0].items() if v}
+    log(f"{tag} launches per step {per_step} (every timed step equal: "
+        f"{all(c == counts[0] for c in counts)})")
+    finite = all(np.isfinite([first] + losses))
+    falls = losses[-1] < first
+    every = all(b < a for a, b in zip([first] + losses, losses))
+    log(f"{tag} losses finite {finite}, falling {falls} "
+        f"({first:.4f} -> {losses[-1]:.4f}; at every step {every})")
+    if not (finite and falls):
+        raise SystemExit("chip_smoke: the train path's loss is not finite "
+                         "and falling")
+    need = ("flash_attention", "flash_attention_bwd")
+    if dev.type == "cuda" and not all(counts[0][k] for k in need):
+        raise SystemExit(f"chip_smoke: {need} did not launch on the train "
+                         f"path: {counts[0]}")
+    if profile_dir is not None:
+        nxt = to_torch(data.batch_at(TRAIN_STEPS + 1), dev)
+        phase_profile("train", lambda: step_fn(state, nxt), dev, wall,
+                      profile_dir)
+    del state, model, batches, step_fn
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(counts=counts[0], wall=wall, losses=losses)
+
+
 # -- optional: profiler breakdown of each path -----------------------------------
+BWD_KERNEL_NAMES = ("dkdv_mma", "dq_mma", "dkdv_fma", "dq_fma",
+                    "bwd_preprocess")
 KERNEL_NAMES = ("decode_split_kernel", "decode_combine_kernel",
                 "decode_sm90_kernel", "dec::combine_kernel", "chunk_kernel",
                 "flash_kernel")
@@ -2724,6 +3150,8 @@ SSD_KERNEL_NAMES = ("ssd_cb_kernel", "ssd_scan_kernel", "ssd::scan_kernel")
 def _category(name: str) -> str:
     if "probe_kernel" in name:
         return "kv probe (port kernel)"
+    if any(k in name for k in BWD_KERNEL_NAMES):
+        return "attention backward (port kernel)"
     if any(k in name for k in KERNEL_NAMES):
         return "attention (port kernels)"
     if any(k in name for k in SSD_KERNEL_NAMES):
@@ -2842,9 +3270,12 @@ def main(argv=None) -> int:
             phase_poison_bf16(dev)
             phase_server_parity(dev)
             phase_server_prefix_parity(dev)
+            phase_train_parity(dev)
         check_paths({p: PATH_PHASE.get(p, phase_path)(
             dev, p, depth[p], args.seed, rehearsal=True,
             repeats=args.repeats) for p in paths})
+        if "train" in phases:
+            phase_train(dev, args.seed, rehearsal=True)
         log("[rehearsal] done")
         return 0
     t0 = time.perf_counter()
@@ -2873,6 +3304,7 @@ def main(argv=None) -> int:
         phase_poison_bf16(dev)
         phase_server_parity(dev)
         phase_server_prefix_parity(dev)
+        phase_train_parity(dev)
         done("parity")
     res = {}
     for p in paths:
@@ -2882,6 +3314,10 @@ def main(argv=None) -> int:
         counts[p] = res[p]["counts"]
         done(p)
     check_paths(res)
+    if "train" in phases:
+        counts["train"] = phase_train(dev, args.seed, rehearsal=False,
+                                      profile_dir=args.profile)["counts"]
+        done("train")
     if phases != set(ALL_PHASES):
         log("[partial] phases run: " + ",".join(sorted(phases)))
         return 0
@@ -2893,7 +3329,7 @@ def main(argv=None) -> int:
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_device_ms",
-            "shape", "timed_shapes", "host_us"]
+            "shape", "timed_shapes", "host_us", "fwd_lse"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi_line())

@@ -49,7 +49,9 @@ SIGNATURES: Dict[str, List] = {
     "rt_chunk_attention":
         [_P] * 5 + [_I] * 7 + [_F, _I, _P],
     "rt_flash_attention":
-        [_P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P],
+        [_P] * 5 + [_I] * 8 + [_F, _I, _P],
+    "rt_flash_attention_bwd":
+        [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     "rt_ssd_scan":
         [_P] * 9 + [_I] * 6 + [_L] * 9 + [_I, _P],
     "rt_kv_probe":
@@ -184,6 +186,24 @@ def expect_attention(name: str, q: torch.Tensor, k: torch.Tensor,
                f"k/v={tuple(k.shape)}")
     expect(q.dtype in DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
            f"{name}: q, k and v must share fp32 or bf16")
+
+
+# what the serving kernels' gradient refusal names as missing
+SERVING = "a serving kernel; training differentiates flash attention only"
+
+
+def refuse_grad(name: str, *tensors, missing: str) -> None:
+    """Raise when autograd is recording and an input requires grad. A
+    kernel writes its output through ctypes, so the output has no
+    ``grad_fn``: without this check a model on the card would silently
+    drop every gradient upstream of the call. ``missing`` names the
+    backward the kernel lacks."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this kernel has no "
+            f"backward ({missing}); run it under torch.no_grad() or on "
+            f"tensors that do not require grad")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

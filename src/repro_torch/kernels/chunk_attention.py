@@ -73,6 +73,7 @@ def chunk_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,
     returns (out, the (B, nh) probe over every column, or over each row's
     first ``probe_cols[b]`` ((B,) int32)), the probe a second launch."""
     name = "chunk_attention_paged"
+    _build.refuse_grad(name, q, cache_k, cache_v, missing=_build.SERVING)
     _build.require_cuda(name, q, cache_k, cache_v, block_tbl)
     _build.expect_attention(name, q, cache_k, cache_v)
     b, c, nh, d = q.shape
@@ -119,6 +120,7 @@ def chunk_attention(q: torch.Tensor, cache_k: torch.Tensor,
     (B,). CUDA tensors only. With ``probe``, returns (out, the (B, nh)
     probe), the probe a second launch."""
     name = "chunk_attention"
+    _build.refuse_grad(name, q, cache_k, cache_v, missing=_build.SERVING)
     _build.require_cuda(name, q, cache_k, cache_v)
     _build.expect_attention(name, q, cache_k, cache_v)
     b, c, nh, d = q.shape

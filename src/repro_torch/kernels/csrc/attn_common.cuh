@@ -53,8 +53,12 @@ __device__ __forceinline__ bool visible(int qp, int t, int causal,
 
 // kPartial: write the unnormalised accumulator and (m, l) per row through
 // p.part_acc(r) / p.part_ml(r) instead of the output (split-KV decode,
-// combined by a second kernel).
-template <typename T, int D, bool kPartial = false, class P>
+// combined by a second kernel). kLse: also store each row's log-sum-exp
+// through p.lse_row(r) when it is not null (the flash forward of a
+// training step), in base-2 units, (m + ln l) * log2(e), as the bf16
+// Hopper body stores it; a row that saw no key stores -1e30.
+template <typename T, int D, bool kPartial = false, bool kLse = false,
+          class P>
 __device__ void attend(const P& p, const T* __restrict__ K,
                        const T* __restrict__ V) {
   extern __shared__ float smem[];
@@ -158,6 +162,14 @@ __device__ void attend(const P& p, const T* __restrict__ K,
     for (int i = tid; i < rows * D; i += nthr) {
       const int r = i / D, c = i % D;
       p.o_row(r)[c] = from_f<T>(sAcc[i] / fmaxf(sL[r], 1e-30f));
+    }
+    if constexpr (kLse) {
+      for (int r = tid; r < rows; r += nthr) {
+        float* out = p.lse_row(r);
+        if (out)
+          *out = sL[r] > 0.f ? (sM[r] + logf(sL[r])) * 1.4426950408889634f
+                             : kNegInf;
+      }
     }
   }
 }

@@ -24,6 +24,10 @@
 //    block-multiple requirement, unlike the Pallas wrapper's assert);
 //  * fp32, and bf16 groups of more than 128 query heads per KV head, keep
 //    the FP32-pipe body (attn_common.cuh) with one CTA per query head.
+//
+// With a non-null `lse` (fp32, (B, nh, Sq)), both bodies also store each
+// query row's log-sum-exp in base-2 units for the backward
+// (flash_attention_bwd.cu); serving passes null.
 #include <type_traits>
 
 #include "attn_common.cuh"
@@ -38,6 +42,7 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* out;
+  float* lse;
   int B, Sq, Sk, nh, nkv, causal, window;
   float scale;
 };
@@ -46,6 +51,7 @@ template <typename T, int D>
 struct FlashP {
   const T* q;
   T* o;
+  float* lse;
   int b, Sq, Sk, nh, h, i0;
   int rows, nkv, kvh, kv_lo, kv_hi, causal, window;
   float scale;
@@ -56,6 +62,9 @@ struct FlashP {
   __device__ T* o_row(int r) const { return o + idx(r); }
   __device__ int q_pos(int r) const { return i0 + r; }
   __device__ int kv_row(int t) const { return b * Sk + t; }
+  __device__ float* lse_row(int r) const {
+    return lse ? lse + ((long long)b * nh + h) * Sq + i0 + r : nullptr;
+  }
 };
 
 template <typename T, int D>
@@ -66,13 +75,14 @@ flash_kernel(FlashArgs a) {
   FlashP<T, D> p;
   p.q = static_cast<const T*>(a.q);
   p.o = static_cast<T*>(a.out);
+  p.lse = a.lse;
   p.b = b; p.Sq = a.Sq; p.Sk = a.Sk; p.nh = a.nh; p.h = h; p.i0 = i0;
   p.rows = min(kTQ, a.Sq - i0);
   p.nkv = a.nkv; p.kvh = h / (a.nh / a.nkv);
   p.causal = a.causal; p.window = a.window; p.scale = a.scale;
   p.kv_lo = a.window > 0 ? max(0, i0 - a.window + 1) : 0;
   p.kv_hi = a.causal ? min(a.Sk, i0 + p.rows) : a.Sk;
-  rt::attend<T, D>(p, static_cast<const T*>(a.k),
+  rt::attend<T, D, false, true>(p, static_cast<const T*>(a.k),
                    static_cast<const T*>(a.v));
 }
 
@@ -93,6 +103,7 @@ cudaError_t run(const FlashArgs& a, cudaStream_t s) {
       if (e != cudaSuccess) return e;
       p.q = static_cast<const T*>(a.q);
       p.out = static_cast<T*>(a.out);
+      p.lse = a.lse;
       p.B = a.B; p.Sq = a.Sq; p.nh = a.nh; p.nkv = a.nkv; p.S = a.Sk;
       p.causal = a.causal; p.window = a.window;
       p.scale_log2 = a.scale * rt::sm90::kLog2e;
@@ -107,11 +118,12 @@ cudaError_t run(const FlashArgs& a, cudaStream_t s) {
 }  // namespace
 
 extern "C" int rt_flash_attention(
-    const void* q, const void* k, const void* v, void* out, int B, int Sq,
-    int Sk, int nh, int nkv, int d, int causal, int window, float scale,
-    int is_bf16, void* stream) {
+    const void* q, const void* k, const void* v, void* out, void* lse, int B,
+    int Sq, int Sk, int nh, int nkv, int d, int causal, int window,
+    float scale, int is_bf16, void* stream) {
   cudaGetLastError();
-  FlashArgs a{q, k, v, out, B, Sq, Sk, nh, nkv, causal, window, scale};
+  FlashArgs a{q, k, v, out, static_cast<float*>(lse), B, Sq, Sk, nh, nkv,
+              causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = is_bf16 ? RT_DISPATCH_D(d, __nv_bfloat16, run, a, s)
                           : RT_DISPATCH_D(d, float, run, a, s);

@@ -64,7 +64,11 @@
 // softmax, masked scores -1e30 and masked probabilities exactly 0, P
 // rounded to bf16 before the PV product, the output divided by max(l,
 // 1e-30). Keys past kv_hi inside a contiguous tile are real cache rows
-// (finite) or TMA zero-fill, and get P = 0.
+// (finite) or TMA zero-fill, and get P = 0. With `lse` set (the flash
+// forward of a training step), the epilogue also stores each row's
+// log-sum-exp in BASE-2 units, m + log2(l) over scores scaled by
+// scale * log2(e), which the backward (flash_attention_bwd.cu) reads back
+// as P = exp2(s * scale * log2(e) - lse); the chunk kernels leave it null.
 #pragma once
 
 #include <cuda.h>
@@ -109,6 +113,7 @@ struct PrefillArgs {
   const __nv_bfloat16* v;
   const int* tbl;           // paged: (B, mb) block table
   const int* bases;         // per-row position offsets; null: 0
+  float* lse;               // flash with a gradient: (B, nh, Sq); null: off
   int B, Sq, nh, nkv, g, tq;
   int S;                    // keys a row holds (flash Sk; mb * bs paged)
   int bs, mb, causal, window;
@@ -585,6 +590,17 @@ __device__ __forceinline__ void prefill(const PrefillArgs& a) {
   lb += __shfl_xor_sync(0xffffffffu, lb, 1);
   lb += __shfl_xor_sync(0xffffffffu, lb, 2);
   const float ia = 1.f / fmaxf(la, 1e-30f), ib = 1.f / fmaxf(lb, 1e-30f);
+  if (a.lse && lane % 4 == 0) {
+    // each real row's log-sum-exp for the backward, in the base-2 units
+    // the scores carry here: log2(sum_j exp2(s_j * scale * log2(e))), with
+    // m and l final (a row that saw no key: -1e30)
+    if (ra < rows)
+      a.lse[((long long)b * a.nh + kvh * g + ra % g) * a.Sq + j0 + ra / g] =
+          la > 0.f ? ma + log2f(la) : kNegInf;
+    if (rb < rows)
+      a.lse[((long long)b * a.nh + kvh * g + rb % g) * a.Sq + j0 + rb / g] =
+          lb > 0.f ? mb + log2f(lb) : kNegInf;
+  }
 #pragma unroll
   for (int j = 0; j < DP / 2; j += 2) {
     const int col = 8 * (j / 4) + 2 * (lane % 4), row = (j & 2) ? rb : ra;

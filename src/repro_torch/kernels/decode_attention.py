@@ -103,6 +103,7 @@ def decode_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,
     ``probe``, returns (out, the (B, nh) probe), the probe a second
     launch."""
     name = "decode_attention_paged"
+    _build.refuse_grad(name, q, cache_k, cache_v, missing=_build.SERVING)
     _build.require_cuda(name, q, cache_k, cache_v, block_tbl)
     _check_q(name, q, cache_k, cache_v)
     b, _, nh, d = q.shape
@@ -146,6 +147,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     token; a row whose pos is past the cache end reads the whole cache.
     CUDA tensors only."""
     name = "decode_attention"
+    _build.refuse_grad(name, q, cache_k, cache_v, missing=_build.SERVING)
     _build.require_cuda(name, q, cache_k, cache_v)
     _check_q(name, q, cache_k, cache_v)
     b, _, nh, d = q.shape

@@ -75,6 +75,7 @@ def kv_probe(cache_k: torch.Tensor, cache_v: torch.Tensor,
     name = "kv_probe"
     paged = block_tbl is not None
     tensors = (cache_k, cache_v) + ((block_tbl,) if paged else ())
+    _build.refuse_grad(name, cache_k, cache_v, missing=_build.SERVING)
     _build.require_cuda(name, *tensors)
     _build.expect(cache_k.ndim == 4 and cache_v.shape == cache_k.shape
                   and cache_k.dtype == cache_v.dtype

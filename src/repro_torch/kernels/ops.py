@@ -6,6 +6,13 @@ hand-written kernel (which raises on what it does not take), a CPU tensor
 through the kernel's plain PyTorch version. There is no fallback from a
 failed build or launch to the plain version.
 
+Gradients: on the card, flash attention trains through
+``FlashAttentionFn`` (a hand-written backward kernel); every other kernel
+raises when autograd records a gradient of its inputs
+(``_build.refuse_grad``) instead of returning an output without a
+``grad_fn``. On the CPU the plain versions are differentiable as they
+are.
+
 With ``probe=True`` the three attention calls whose Pallas kernels have a
 probe output return ``(out, pmax)``, the (B, nh) maximum readable |K| /
 |V| (``kernels/kv_probe.py``). Where the reference's wrappers checkify it
@@ -31,6 +38,7 @@ KERNEL_MODULES = {"decode_attention_paged": _da,
                   "chunk_attention_paged": _ca,
                   "chunk_attention": _ca,
                   "flash_attention": _fa,
+                  "flash_attention_bwd": _fa,
                   "ssd_scan": _ssd,
                   "kv_probe": _kvp}
 
@@ -38,8 +46,16 @@ KERNEL_MODULES = {"decode_attention_paged": _da,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None
                     ) -> torch.Tensor:
-    fn = _fa.flash_attention if q.is_cuda else _fa.flash_attention_plain
-    return fn(q, k, v, causal=causal, window=window)
+    """On the card: ``FlashAttentionFn`` (forward and backward kernels)
+    while autograd records a gradient of q, k or v, else the forward kernel
+    alone, as serving calls it."""
+    if not q.is_cuda:
+        return _fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def decode_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,

@@ -118,6 +118,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     """Kernel launch (CUDA tensors only). Same arguments and results as
     ``ssd_scan_plain``."""
     name = "ssd_scan"
+    _build.refuse_grad(name, x, dt, a, b, c, h0,
+                       missing="the SSD scan's backward is ROADMAP A8b")
     _build.expect(x.ndim == 4 and dt.ndim == 3 and a.ndim == 1
                   and b.ndim == 3 and c.shape == b.shape,
                   f"{name}: bad ranks x={tuple(x.shape)} dt={tuple(dt.shape)}"

@@ -14,10 +14,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,3 +203,56 @@ def sinusoidal_positions(max_len: int, dim: int,
     angle = pos / torch.pow(torch.tensor(10000.0, device=device),
                             2 * i / dim)
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def lm_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                     mask: Optional[torch.Tensor], vocab: int
+                     ) -> torch.Tensor:
+    """The reference's causal-LM loss of ``logits`` (B, S, padded vocab):
+    fp32, the padded vocab columns at -1e30, ``log_softmax`` NLL of
+    ``targets``, summed over ``mask`` and divided by max(sum(mask), 1), or
+    the mean over every token without a mask."""
+    logits = logits.float()
+    if logits.shape[-1] != vocab:
+        keep = torch.arange(logits.shape[-1], device=logits.device) < vocab
+        logits = torch.where(keep, logits,
+                             torch.full((), -1e30, device=logits.device))
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def remat(enabled: bool, fn: Callable, *args):
+    """``fn(*args)``; with ``enabled`` and autograd recording, its
+    activations are recomputed in the backward pass instead of kept
+    (per-layer activation checkpointing, the reference's ``_remat``). The
+    layers draw no random numbers, so no RNG state is carried."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def unbind_layers(stack: Dict) -> List[Dict]:
+    """Every layer's slice of stacked layer params (leading axis L), from
+    one ``unbind`` per leaf. Under autograd the L slices' gradients come
+    back as one ``stack``; indexing ``stack[i]`` layer by layer would
+    scatter each layer's gradient into a zero tensor the size of the
+    whole stack and add L of those (L x the stack's bytes, twice)."""
+    def split(node):
+        if isinstance(node, dict):
+            return {k: split(v) for k, v in node.items()}
+        return node.unbind(0)
+
+    def pick(node, i):
+        if isinstance(node, dict):
+            return {k: pick(v, i) for k, v in node.items()}
+        return node[i]
+    parts = split(stack)
+    first = parts
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return [pick(parts, i) for i in range(len(first))]

@@ -7,6 +7,12 @@ names, the same ``(d_in, d_out)`` layouts, stacked on the layer axis — a
 copy with no transposes (the encoder-decoder's ``encoder`` / ``decoder`` /
 ``enc_final_ln`` tree too). Every leaf is checked against the schema of
 the model ``build_model`` gives for ``cfg``.
+
+``train_state_from_jax(params, opt, cfg, device)`` carries the reference's
+``TrainState`` across the same way: its params, and its ``AdamWState``'s
+fp32 moments ``m`` / ``v`` (trees of the params' names and shapes) and
+``step``, all numpy (the caller's ``np.asarray``), into the port's
+``TrainState``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import build_model
+from repro_torch.train.optimizer import AdamWState
+from repro_torch.train.train_step import TrainState
 
 
 def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -47,3 +55,14 @@ def params_from_jax(tree: Dict, cfg: ArchConfig,
         return _to_tensor(np.asarray(node), dev)
 
     return walk(tree, shapes, "")
+
+
+def train_state_from_jax(params: Dict, opt, cfg: ArchConfig,
+                         device: DeviceLike = None):
+    """The reference's (params, AdamWState(step, m, v)), numpy leaves, as
+    the port's ``TrainState`` on ``device``."""
+    return TrainState(
+        params_from_jax(params, cfg, device),
+        AdamWState(int(np.asarray(opt.step)),
+                   params_from_jax(opt.m, cfg, device),
+                   params_from_jax(opt.v, cfg, device)))

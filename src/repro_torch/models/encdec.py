@@ -39,17 +39,22 @@ from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.common import (ParamDef, init_params, make_norm,
-                                       norm_schema, param_count,
+from repro_torch.models.common import (ParamDef, init_params,
+                                       lm_cross_entropy, make_norm,
+                                       norm_schema, param_count, remat,
                                        schema_shapes, sinusoidal_positions,
-                                       stack_schema)
+                                       stack_schema, unbind_layers)
 
 
 class EncDecLM:
-    def __init__(self, cfg: ArchConfig, device: DeviceLike = None):
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
+                 remat: bool = True):
         if not cfg.is_encdec:
             raise ValueError(f"{cfg.name} has no encoder layers")
         self.cfg = cfg
+        # per-layer activation checkpointing in ``loss`` (the reference's
+        # ``remat``)
+        self.remat = remat
         self.device = resolve_device(device)
         self.dtype = dtype_of(cfg.dtype)
         self.norm = make_norm(cfg.norm)
@@ -164,20 +169,27 @@ class EncDecLM:
         return h + ffn_mod.ffn_apply(p["mlp"], m, c.act, c.gated_ffn)
 
     # -- encoder -------------------------------------------------------------
-    def encode(self, params: Dict, frames: torch.Tensor) -> torch.Tensor:
-        """frames: (B, S_enc, d_model), the stubbed frontend's output."""
+    def _enc_layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
+        a = self.norm(x, p["ln1"])
+        k, v = self._proj_kv(p["attn"], a)
+        o = kops.flash_attention(self._proj_q(p["attn"], a), k, v,
+                                 causal=False)
+        x = x + self._attn_out(p["attn"], o)
+        m = self.norm(x, p["ln2"])
+        return x + ffn_mod.ffn_apply(p["mlp"], m, c.act, c.gated_ffn)
+
+    def encode(self, params: Dict, frames: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
+        """frames: (B, S_enc, d_model), the stubbed frontend's output.
+        ``train`` (``loss``): each layer under ``remat``."""
         x = frames.to(self.dtype)
         x = x + self._pe(x.shape[1], x.device)
-        for i in range(c.n_encoder_layers):
-            p = self._layer(params["encoder"], i)
-            a = self.norm(x, p["ln1"])
-            k, v = self._proj_kv(p["attn"], a)
-            o = kops.flash_attention(self._proj_q(p["attn"], a), k, v,
-                                     causal=False)
-            x = x + self._attn_out(p["attn"], o)
-            m = self.norm(x, p["ln2"])
-            x = x + ffn_mod.ffn_apply(p["mlp"], m, c.act, c.gated_ffn)
+        n = self.cfg.n_encoder_layers
+        layers = (unbind_layers(params["encoder"]) if train else
+                  [self._layer(params["encoder"], i) for i in range(n)])
+        for p in layers:
+            x = remat(train and self.remat, self._enc_layer, p, x)
         return self.norm(x, params["enc_final_ln"])
 
     def cross_kv(self, params: Dict, enc_out: torch.Tensor
@@ -192,30 +204,44 @@ class EncDecLM:
         return torch.stack(ks), torch.stack(vs)
 
     # -- decoder ---------------------------------------------------------------
+    def _dec_layer(self, p: Dict, x: torch.Tensor, enc_out: torch.Tensor):
+        """One decoder layer over whole prompts: (x, k, v, ck, cv)."""
+        a = self.norm(x, p["ln1"])
+        k, v = self._proj_kv(p["self_attn"], a)
+        o = kops.flash_attention(self._proj_q(p["self_attn"], a), k, v,
+                                 causal=True)
+        x = x + self._attn_out(p["self_attn"], o)
+        ck, cv = self._proj_kv(p["cross_attn"], enc_out)
+        x = x + self._cross(p["cross_attn"], self.norm(x, p["ln2"]), ck, cv)
+        return self._tail(p, x), k, v, ck, cv
+
     def _decoder_full(self, params: Dict, tokens: torch.Tensor,
-                      enc_out: torch.Tensor
+                      enc_out: torch.Tensor, collect_kv: bool = True
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The decoder over whole prompts: (final-normed x, the stacked
-        self- and cross-attention K/V ``k``/``v``/``ck``/``cv``)."""
+        self- and cross-attention K/V ``k``/``v``/``ck``/``cv``); with
+        ``collect_kv=False`` (``loss``) no K/V, each layer under
+        ``remat``."""
         c = self.cfg
         x = self.embed(params, tokens)
         x = x + self._pe(x.shape[1], x.device)
         kv: Dict[str, list] = {"k": [], "v": [], "ck": [], "cv": []}
-        for i in range(c.n_layers):
-            p = self._layer(params["decoder"], i)
-            a = self.norm(x, p["ln1"])
-            k, v = self._proj_kv(p["self_attn"], a)
-            o = kops.flash_attention(self._proj_q(p["self_attn"], a), k, v,
-                                     causal=True)
-            x = x + self._attn_out(p["self_attn"], o)
-            ck, cv = self._proj_kv(p["cross_attn"], enc_out)
-            x = x + self._cross(p["cross_attn"], self.norm(x, p["ln2"]), ck,
-                                cv)
-            x = self._tail(p, x)
-            for key, t in zip(("k", "v", "ck", "cv"), (k, v, ck, cv)):
+        layers = (unbind_layers(params["decoder"]) if not collect_kv else
+                  [self._layer(params["decoder"], i)
+                   for i in range(c.n_layers)])
+        for p in layers:
+            if not collect_kv:
+                x = remat(self.remat,
+                          lambda pl, h, e: self._dec_layer(pl, h, e)[0],
+                          p, x, enc_out)
+                continue
+            x, *kvs = self._dec_layer(p, x, enc_out)
+            for key, t in zip(("k", "v", "ck", "cv"), kvs):
                 kv[key].append(t)
-        return (self.norm(x, params["final_norm"]),
-                {key: torch.stack(ts) for key, ts in kv.items()})
+        x = self.norm(x, params["final_norm"])
+        if not collect_kv:
+            return x, {}
+        return x, {key: torch.stack(ts) for key, ts in kv.items()}
 
     def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"]["tok"][tokens.long()]
@@ -236,7 +262,19 @@ class EncDecLM:
             last = x[rows, last_pos.long()][:, None, :]
         return self.logits(params, last)[:, 0, :]
 
-    # -- public: caches / prefill / decode ---------------------------------------
+    # -- public: loss / caches / prefill / decode --------------------------------
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """The reference's ``EncDecLM.loss``: decoder cross entropy (the
+        mean over ``mask``) of ``tokens`` against ``targets`` given encoder
+        frames ``embeds``. Encoder self-attention, decoder causal
+        self-attention and cross attention all train through the flash
+        kernels on the card (``FlashAttentionFn``)."""
+        enc_out = self.encode(params, batch["embeds"], train=True)
+        x, _ = self._decoder_full(params, batch["tokens"], enc_out,
+                                  collect_kv=False)
+        return lm_cross_entropy(self.logits(params, x), batch["targets"],
+                                batch.get("mask"), self.cfg.vocab)
+
     def init_cache(self, batch: int, max_len: int, s_enc: int) -> Dict:
         """Zero cache: self-attention ``k``/``v`` (L, batch, max_len, nkv,
         d), cross-attention ``ck``/``cv`` (L, batch, s_enc, nkv, d) and

@@ -114,3 +114,13 @@ def moe_aux(probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     me = probs.mean(dim=0)                                       # (E,)
     ce = torch.nn.functional.one_hot(idx[:, 0], e).float().mean(dim=0)
     return e * torch.sum(me * ce)
+
+
+def moe_apply_aux(p: Dict, x: torch.Tensor, top_k: int, act: str,
+                  gated: bool, capacity_factor: float = 1.25
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training path's MoE layer: (``moe_apply``'s output, the Switch
+    load-balancing loss of its router), the pair the reference's
+    ``moe_apply`` returns."""
+    out, probs, idx = moe_apply(p, x, top_k, act, gated, capacity_factor)
+    return out, moe_aux(probs, idx)

@@ -3,6 +3,9 @@ M-RoPE VLM (Qwen2-VL) families (port of ``repro/models/transformer.py``).
 
 Entry points, as in the reference:
 
+  * ``loss(params, batch)`` — the training objective (causal-LM cross
+    entropy plus the MoE load-balancing loss), each layer rematerialised
+    in the backward pass with ``remat`` (the default);
   * ``prefill(params, inputs, cache=paged)`` — prompt -> (last logits,
     cache with the prompt K/V written through the block tables); without
     a paged cache, a fresh contiguous cache at ``max_len``;
@@ -62,9 +65,10 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamDef, apply_m_rope, apply_rope,
-                                       init_params, make_norm, norm_schema,
-                                       param_count, schema_shapes,
-                                       stack_schema)
+                                       init_params, lm_cross_entropy,
+                                       make_norm, norm_schema, param_count,
+                                       remat, schema_shapes, stack_schema,
+                                       unbind_layers)
 
 IntLike = Union[int, torch.Tensor]
 
@@ -75,7 +79,8 @@ STATE_KEYS = ("conv", "ssd")        # per-row recurrent state, no seq axis
 
 class LM:
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
-                 ssd_chunk: int = 128, kv_probe: bool = False):
+                 ssd_chunk: int = 128, kv_probe: bool = False,
+                 remat: bool = True):
         if cfg.family not in ("dense", "moe", "vlm") + RECURRENT \
                 or cfg.is_encdec:
             raise ValueError(f"LM serves decoder-only families, not "
@@ -85,6 +90,9 @@ class LM:
                              f"not whole groups of {cfg.hybrid_period}")
         self.cfg = cfg
         self.ssd_chunk = ssd_chunk
+        # per-layer activation checkpointing in ``loss`` while autograd
+        # records (the reference's ``remat``); serving never records
+        self.remat = remat
         # KV sanitizer probe on the paged attention calls; their (B, nh)
         # maxima since the last ``take_probe``, on the device
         self.kv_probe = kv_probe
@@ -303,6 +311,26 @@ class LM:
             return out
         return ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn)
 
+    def _mlp_or_moe_aux(self, p: Dict, x: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The training path's FFN sub-block: (``_mlp_or_moe``'s output,
+        the MoE layer's load-balancing loss; 0 for a dense layer)."""
+        c = self.cfg
+        if c.n_experts == 0:
+            return (self._mlp_or_moe(p, x),
+                    torch.zeros((), dtype=torch.float32, device=x.device))
+        return moe_mod.moe_apply_aux(p["moe"], self.norm(x, p["ln_mlp"]),
+                                     c.moe_top_k, c.act, c.gated_ffn)
+
+    def _dense_layer_train(self, p: Dict, x: torch.Tensor, positions
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One attention layer of ``loss``: (x, its MoE aux loss)."""
+        h = self.norm(x, p["ln_attn"])
+        a, _, _ = self._attn_full(p["attn"], h, positions)
+        x = x + a
+        m, aux = self._mlp_or_moe_aux(p, x)
+        return x + m, aux
+
     @staticmethod
     def _layer(params: Dict, i: int) -> Dict:
         """Layer ``i``'s slice of the stacked layer params."""
@@ -378,15 +406,19 @@ class LM:
         h = self.norm(x, p["ln_mlp"])
         return x + ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn)
 
-    def _run_trunk_full(self, params: Dict, x: torch.Tensor, positions
-                        ) -> Tuple[torch.Tensor, Dict]:
-        """Full-sequence pass over all layers (prefill). Returns (x, the
-        stacked per-layer state): ``k``/``v`` for the attention families;
+    def _run_trunk_full(self, params: Dict, x: torch.Tensor, positions,
+                        collect_kv: bool = True) -> Tuple[torch.Tensor, Dict]:
+        """Full-sequence pass over all layers (prefill / train). Returns (x,
+        the stacked per-layer state): ``k``/``v`` for the attention families;
         ``conv``/``ssd`` for SSM and hybrid, plus the hybrid's shared-block
         K/V ``ak``/``av``, one entry per application (it fires after every
         ``hybrid_period`` trunk layers, as the reference's grouped scan
-        does)."""
+        does). With ``collect_kv=False`` (``loss``) it keeps no state and
+        returns ``{"aux": the MoE load-balancing losses summed over the
+        layers}`` (0 without experts), each layer under ``remat``."""
         c = self.cfg
+        if not collect_kv:
+            return self._run_trunk_train(params, x, positions)
         state: Dict[str, list] = {}
         if c.family in RECURRENT:
             fire = c.shared_attn_positions()
@@ -411,6 +443,30 @@ class LM:
                 state.setdefault("v", []).append(v)
         return x, {key: torch.stack(vals) for key, vals in state.items()}
 
+    def _run_trunk_train(self, params: Dict, x: torch.Tensor, positions
+                         ) -> Tuple[torch.Tensor, Dict]:
+        c = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        layers = unbind_layers(params["layers"])
+        if c.family in RECURRENT:
+            fire = c.shared_attn_positions()
+            x0 = x
+            for i, p in enumerate(layers):
+                x = remat(self.remat,
+                          lambda pl, h: self._mamba_layer_fwd(pl, h)[0],
+                          p, x)
+                if i in fire:
+                    x = remat(self.remat,
+                              lambda pl, h, h0: self._shared_block_fwd(
+                                  pl, h, h0, positions)[0],
+                              params["shared"], x, x0)
+            return x, {"aux": aux}
+        for p in layers:
+            x, a = remat(self.remat, self._dense_layer_train, p, x,
+                         positions)
+            aux = aux + a
+        return x, {"aux": aux}
+
     def _last(self, params: Dict, x: torch.Tensor,
               last_pos: Optional[torch.Tensor]) -> torch.Tensor:
         x = self.norm(x, params["final_norm"])
@@ -422,8 +478,37 @@ class LM:
         return self.logits(params, last)[:, 0, :]
 
     # ------------------------------------------------------------------ #
-    # public: caches / prefill / decode
+    # public: loss / caches / prefill / decode
     # ------------------------------------------------------------------ #
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """Causal-LM cross entropy (the mean over ``mask``) plus, with
+        experts, 0.01 x the layers' summed load-balancing loss / n_layers:
+        the reference's ``LM.loss``. ``batch``: ``tokens`` (or ``embeds``
+        (B, S, d_model) for the vision frontend), ``targets``, optional
+        ``mask`` and ``positions`` (default arange; (3, B, S) identical
+        streams under M-RoPE). On the card attention trains through the
+        flash forward and backward kernels; the SSM scan has no backward
+        kernel yet and raises (ROADMAP A8b)."""
+        c = self.cfg
+        if "embeds" in batch:
+            x = batch["embeds"].to(self.dtype)
+        else:
+            x = self.embed(params, batch["tokens"])
+        positions = batch.get("positions")
+        if positions is None:
+            b, s = x.shape[0], x.shape[1]
+            positions = torch.arange(s, dtype=torch.int32, device=x.device
+                                     )[None].expand(b, s)
+            if c.m_rope:
+                positions = positions[None].expand(3, b, s)
+        x, aux = self._run_trunk_full(params, x, positions, collect_kv=False)
+        x = self.norm(x, params["final_norm"])
+        loss = lm_cross_entropy(self.logits(params, x), batch["targets"],
+                                batch.get("mask"), c.vocab)
+        if c.n_experts > 0:
+            loss = loss + 0.01 * aux["aux"] / max(1, c.n_layers)
+        return loss
+
     def init_cache(self, batch: int, max_len: int, kv_layout: str = "contig",
                    n_blocks: int = 0, block_size: int = 16,
                    ring: bool = False) -> Dict:

@@ -310,6 +310,7 @@ def test_ops_dispatch_cpu_goes_plain_and_kernels_refuse_cpu():
                                     "chunk_attention_paged": 0,
                                     "chunk_attention": 0,
                                     "flash_attention": 0,
+                                    "flash_attention_bwd": 0,
                                     "ssd_scan": 0,
                                     "kv_probe": 0}
     with pytest.raises(ValueError):

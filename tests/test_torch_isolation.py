@@ -37,7 +37,8 @@ def test_port_sources_import_no_jax_or_repro(path):
 def test_importing_the_engine_loads_no_jax():
     code = ("import sys; import repro_torch.serving.engine, "
             "repro_torch.models.convert, repro_torch.core, repro_torch.hw, "
-            "repro_torch.cluster.recovery, repro_torch.serving.server; "
+            "repro_torch.cluster.recovery, repro_torch.serving.server, "
+            "repro_torch.train, repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

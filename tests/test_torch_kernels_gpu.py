@@ -1,4 +1,4 @@
-"""The port's seven CUDA kernels against their plain PyTorch versions, on
+"""The port's eight CUDA kernels against their plain PyTorch versions, on
 the card, and the engine and the global server on the card against the
 same on the CPU.
 
@@ -13,7 +13,12 @@ kernel rounds P and the output to bf16; the bf16 plain version rounds the
 normalised probabilities too and is itself up to ~2e-2 off in rows of a few
 keys), fp32 1e-4 (the kernels sum in another order than the plain
 versions' einsums). The SSD scan's ``y`` and final state are held the same
-way (it rounds y to bf16 once; it sums in another order).
+way (it rounds y to bf16 once; it sums in another order). The flash
+backward is held to the plain gradient in fp32 (``_check_bwd``): fp32
+within 1e-4 of each gradient's largest element, bf16 within 3x the bf16
+plain version's own error (the kernel rounds P and dS to bf16 as mma
+operands, the plain version rounds far more: scores, probabilities and
+every product in bf16).
 """
 
 import numpy as np
@@ -625,3 +630,144 @@ def test_server_prefix_scenario_matches_cpu(cuda):
     card = smoke.server_prefix_scenario(cfg, smoke._tree_to(cpu, cuda), cuda)
     assert card == smoke.server_prefix_scenario(cfg, cpu, "cpu")
     assert card["prefix"][1][1] >= 1 and card["no_leak"]
+
+
+# -- the flash backward (training) ---------------------------------------------
+def _bwd_inputs(seed, b, sq, sk, nh, nkv, d, dtype, dev):
+    rng = np.random.RandomState(seed)
+    return (_rand(rng, (b, sq, nh, d), dtype, dev),
+            _rand(rng, (b, sk, nkv, d), dtype, dev),
+            _rand(rng, (b, sk, nkv, d), dtype, dev),
+            _rand(rng, (b, sq, nh, d), dtype, dev))
+
+
+def _plain_bf16_grads(q, k, v, dout, causal, window):
+    """The plain version's gradient in bf16 itself (its own error)."""
+    with torch.enable_grad():
+        qs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = fa.flash_attention_plain(*qs, causal=causal, window=window)
+        return torch.autograd.grad(out, qs, dout)
+
+
+def _check_bwd(q, k, v, dout, causal, window):
+    """The forward kernel's log-sum-exp against the plain one, then the
+    backward kernel's (dq, dk, dv) against the plain gradient in fp32:
+    fp32 within 1e-4 of each gradient's largest element (another summation
+    order), bf16 within 3x the plain version's own bf16 error."""
+    b, sq, nh, _ = q.shape
+    lse = torch.empty((b, nh, sq), dtype=torch.float32, device=q.device)
+    out = fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    lse_ref = fa.flash_lse_plain(q, k, causal=causal, window=window)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-3, rtol=1e-4)
+    n0 = fa.launch_counts["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
+                                 window=window)
+    assert fa.launch_counts["flash_attention_bwd"] == n0 + 1
+    refs = fa.flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                        window=window)
+    own = (_plain_bf16_grads(q, k, v, dout, causal, window)
+           if q.dtype == torch.bfloat16 else None)
+    for i, (g, r) in enumerate(zip(got, refs)):
+        assert g.dtype == q.dtype and g.shape == r.shape
+        err = (g.float() - r).abs().max().item()
+        assert np.isfinite(err)
+        if own is None:
+            assert err <= 1e-4 * r.abs().max().item() + 1e-7, (i, err)
+        else:
+            lim = 3 * (own[i].float() - r).abs().max().item()
+            assert err <= lim, ("dq dk dv".split()[i], err, lim)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 120, 128])
+@pytest.mark.parametrize("g", [1, 2, 6, 8, 12])
+def test_flash_bwd_kernel_head_dims_and_groups(cuda, dtype, d, g):
+    """Every head dim and GQA group on a ragged causal sequence of 37."""
+    nkv = 2 if g < 8 else 1
+    args = _bwd_inputs(11, 2, 37, 37, g * nkv, nkv, d, dtype, cuda)
+    _check_bwd(*args, causal=True, window=None)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,sk,nh,nkv,d,causal,window", [
+    (37, 37, 4, 2, 64, False, None),        # non-causal
+    (300, 300, 4, 2, 64, True, 50),         # window across tiles, causal
+    (200, 200, 4, 2, 32, False, 40),        # window without causal
+    (13, 37, 6, 6, 64, False, None),        # Sq != Sk (cross attention)
+    (37, 13, 6, 6, 64, False, None),        # Sq > Sk
+    (37, 13, 4, 2, 64, True, None),         # causal with Sq > Sk
+    (13, 1500, 6, 6, 64, False, None),      # whisper's 1500 encoder frames
+    (333, 333, 8, 2, 120, True, 100),       # danube's head dim, windowed
+    (257, 257, 16, 8, 128, True, None),     # internlm2's heads, ragged
+    (130, 130, 12, 1, 80, True, None),      # g = 12 at d = 80
+])
+def test_flash_bwd_kernel_masks(cuda, dtype, sq, sk, nh, nkv, d, causal,
+                                window):
+    args = _bwd_inputs(12, 2, sq, sk, nh, nkv, d, dtype, cuda)
+    _check_bwd(*args, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_autograd_through_kernels(cuda, dtype):
+    """``ops.flash_attention`` with inputs that require grad runs
+    ``FlashAttentionFn``: one forward and one backward launch, the
+    gradient of a non-contiguous upstream (a transposed output
+    gradient), and no launch without a recorded gradient."""
+    q, k, v, dout = _bwd_inputs(13, 1, 64, 64, 8, 2, 64, dtype, cuda)
+    qs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    n_f = fa.launch_counts["flash_attention"]
+    n_b = fa.launch_counts["flash_attention_bwd"]
+    out = ops.flash_attention(*qs, causal=True)
+    assert out.grad_fn is not None
+    dnc = dout.transpose(1, 2).contiguous().transpose(1, 2)
+    got = torch.autograd.grad(out, qs, dnc)
+    assert fa.launch_counts["flash_attention"] == n_f + 1
+    assert fa.launch_counts["flash_attention_bwd"] == n_b + 1
+    refs = fa.flash_attention_bwd_plain(q, k, v, dout, causal=True)
+    for g, r in zip(got, refs):
+        tol = 1e-4 if dtype == torch.float32 else 3e-2
+        assert (g.float() - r).abs().max().item() <= tol * r.abs().max()
+    with torch.no_grad():
+        assert ops.flash_attention(*qs).grad_fn is None
+
+
+def _guard_calls(dev):
+    """One call of every non-flash kernel wrapper through ``ops`` on CUDA
+    inputs, q (or x) requiring grad."""
+    rng = np.random.RandomState(14)
+    f32 = torch.float32
+    q = _rand(rng, (2, 1, 4, 16), f32, dev).requires_grad_(True)
+    qc = _rand(rng, (2, 3, 4, 16), f32, dev).requires_grad_(True)
+    ck, cv = (_rand(rng, (2, 32, 2, 16), f32, dev) for _ in range(2))
+    pk, pv, tbl = _pool(rng, 2, 2, 16, 2, 16, f32, dev)
+    x = _rand(rng, (1, 8, 2, 16), f32, dev).requires_grad_(True)
+    bm, cm = (_rand(rng, (1, 8, 16), f32, dev) for _ in range(2))
+    dt = torch.full((1, 8, 2), 0.1, device=dev)
+    a = torch.full((2,), -0.5, device=dev)
+    return {
+        "decode_attention_paged": lambda: ops.decode_attention_paged(
+            q, pk, pv, tbl, 5),
+        "decode_attention": lambda: ops.decode_attention(q, ck, cv, 5),
+        "chunk_attention_paged": lambda: ops.chunk_attention_paged(
+            qc, pk, pv, tbl, 4),
+        "chunk_attention": lambda: ops.chunk_attention(qc, ck, cv, 4),
+        "kv_probe": lambda: kvp.kv_probe(ck.requires_grad_(True), cv, None,
+                                         0, 3, 4),
+        "ssd_scan": lambda: ops.ssd_scan(x, dt, a, bm, cm, chunk=4),
+    }
+
+
+@pytest.mark.parametrize("name", ["decode_attention_paged",
+                                  "decode_attention",
+                                  "chunk_attention_paged", "chunk_attention",
+                                  "kv_probe", "ssd_scan"])
+def test_kernel_wrappers_refuse_gradients_on_card(cuda, name):
+    """No kernel without a backward returns an output that silently drops
+    the gradient: each raises while autograd records, and runs under
+    ``torch.no_grad()``."""
+    call = _guard_calls(cuda)[name]
+    missing = "A8b" if name == "ssd_scan" else "no backward"
+    with pytest.raises(RuntimeError, match=missing):
+        call()
+    with torch.no_grad():
+        call()
