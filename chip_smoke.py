@@ -1493,7 +1493,11 @@ def ssd_shape(b, s, nh, hd, n, q) -> str:
 # microbatch), then g = 6 (qwen2-vl-2b), g = 12 (command-r-plus), d 120
 # under danube's 4096 window past it, d 80 (zamba2), d 64 non-causal with
 # Sq != Sk (whisper's cross attention at full width), and small fp32 and
-# bf16 edges (ragged, windows, Sq != Sk both ways)
+# bf16 edges (ragged, windows, Sq != Sk both ways; a grid of 16 key tiles
+# x KV heads whose steps the bf16 body splits over CTAs; lengths and a
+# window that end inside its 128-key tiles). Every query row sees a key: a row that sees none gets
+# the reference's uniform softmax from the plain version and 0 from the
+# kernels, in the forward as in the backward
 BWD_TRAIN = ("train q=(1,2048,16,128) k/v=(1,2048,8,128) causal bf16",
              torch.bfloat16, (16, 8, 128, 1, 2048, 2048), True, None)
 BWD_SPECS = [
@@ -1524,6 +1528,10 @@ BWD_SPECS = [
      (6, 6, 32, 2, 13, 37), False, None),
     ("d64 S=300 SWA=50 g=8 bf16", torch.bfloat16,
      (16, 2, 64, 2, 300, 300), True, 50),
+    ("split g=12 B=1 S=1024 d128 bf16", torch.bfloat16,
+     (24, 2, 128, 1, 1024, 1024), True, None),
+    ("tile edges Sq=129 Sk=257 SWA=70 g=4 bf16", torch.bfloat16,
+     (8, 2, 128, 2, 129, 257), True, 70),
 ]
 BWD_TIMED = [s[0] for s in BWD_SPECS[:6]]
 BWD_MULTIPLE = 3              # bf16: within 3x the plain version's own error
@@ -1594,10 +1602,15 @@ def kernel_flash_bwd(cs, dev, rehearsal) -> dict:
         if rehearsal:
             lse, got = lse_ref, tuple(r.to(dtype) for r in refs)
             out = in_fp32(fa.flash_attention_plain)(q, k, v, **kw).to(dtype)
+            nsplit = 1
         else:
             lse = torch.empty(lse_ref.shape, dtype=torch.float32, device=dev)
             out = fa.flash_attention(q, k, v, lse=lse, **kw)
             got = fa.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+            nsplit = fa.bwd_plan(q, k, **kw)[1]
+            if label.startswith("split") and nsplit == 1:
+                raise SystemExit(f"chip_smoke: {name} did not split its "
+                                 f"key tiles' steps ({label})")
         lse_err = (lse - lse_ref).abs().max().item()
         errs, ok = [], lse_err <= 1e-3 + 1e-4 * lse_ref.abs().max().item()
         for i, (g, r) in enumerate(zip(got, refs)):
@@ -1607,7 +1620,8 @@ def kernel_flash_bwd(cs, dev, rehearsal) -> dict:
             finite = bool(torch.isfinite(g.float()).all())
             ok = ok and finite and err <= lim
             errs.append((err, lim))
-        log(f"[kernels] {name:24s} {label:50s} lse {lse_err:.2e}; "
+        log(f"[kernels] {name:24s} {label:50s} split {nsplit}; lse "
+            f"{lse_err:.2e}; "
             + "; ".join(f"d{n} {e:.2e} (limit {lim:.2e})"
                         for n, (e, lim) in zip("qkv", errs))
             + f" {'ok' if ok else 'FAIL'}")
@@ -1641,16 +1655,18 @@ def kernel_flash_bwd(cs, dev, rehearsal) -> dict:
         f_lib_ms = time_ms(f_lib[0])
         b_ms, b_by = bound(*work, torch.bfloat16)
         fb_ms, fb_by = bound(*f_lib[1], torch.bfloat16)
+        share = b_ms / dev_ms
         row = dict(shape=label, ms=ms, device_ms=dev_ms, library_ms=lib_ms,
                    library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   share_of_bound=share,
                    fwd_lse=dict(ms=f_ms, device_ms=f_dev_ms,
                                 library_ms=f_lib_ms, bound_ms=fb_ms,
                                 bound_by=fb_by))
         log(f"[kernels] {name:24s} backward {ms:.4f} ms (device "
-            f"{dev_ms:.4f})  SDPA backward {lib_ms:.4f} ms  bound "
-            f"{b_ms:.4f} ms ({b_by}); forward with lse {f_ms:.4f} ms "
-            f"(device {f_dev_ms:.4f})  SDPA {f_lib_ms:.4f} ms  bound "
-            f"{fb_ms:.4f} ms ({fb_by})  {label}")
+            f"{dev_ms:.4f}, {100 * share:.1f}% of bound)  SDPA backward "
+            f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}); forward with "
+            f"lse {f_ms:.4f} ms (device {f_dev_ms:.4f})  SDPA "
+            f"{f_lib_ms:.4f} ms  bound {fb_ms:.4f} ms ({fb_by})  {label}")
         rows.append(row)
     q, k, v, out, dout, lse, kw, geo = timed[BWD_TIMED[0]]
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
@@ -1662,7 +1678,54 @@ def kernel_flash_bwd(cs, dev, rehearsal) -> dict:
                 plain_ms=plain_ms, bound_ms=first["bound_ms"],
                 bound_by=first["bound_by"], library_ms=first["library_ms"],
                 library_device_ms=None, shape=first["shape"],
-                fwd_lse=first["fwd_lse"], timed_shapes=rows[1:])
+                share_of_bound=first["share_of_bound"],
+                fwd_lse=first["fwd_lse"], timed_shapes=rows[1:],
+                host_us=None if rehearsal else bwd_host_us(cs))
+
+
+def bwd_host_us(cs, n: int = 200, rounds: int = 7) -> dict:
+    """Host microseconds per call of the backward entry point at a tiny
+    shape, straight through ctypes: bf16 (the SM-count read, four
+    tensor-map encodes, then three launches) against fp32 (three
+    launches), in alternating rounds of ``n`` calls, median per dtype (the
+    host's cores are shared, so one round of each can invert the order);
+    the difference is the encodes' host time, the SM-count read
+    included."""
+    lib = _build.load()
+    calls, times = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q = cs.randn(1, 16, 8, 128, dtype=dtype)
+        k = cs.randn(1, 16, 8, 128, dtype=dtype)
+        lse = torch.zeros((1, 8, 16), device=q.device)
+        grads = [torch.empty_like(q) for _ in range(3)]
+        work = torch.empty(fa.bwd_plan(q, k)[0], device=q.device)
+        keep = (q, k, lse, grads, work)
+        args = (q.data_ptr(), k.data_ptr(), k.data_ptr(), q.data_ptr(),
+                q.data_ptr(), lse.data_ptr(), work.data_ptr(),
+                *(g.data_ptr() for g in grads), 1, 16, 16, 8, 8, 128, 1, 0,
+                0.088, int(dtype == torch.bfloat16),
+                _build.stream_ptr(q.device))
+        calls[str(dtype)[6:]] = (args, keep)
+        times[str(dtype)[6:]] = []
+        lib.rt_flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for r in range(rounds):
+        for key in (("bfloat16", "float32") if r % 2 == 0
+                    else ("float32", "bfloat16")):
+            args = calls[key][0]
+            t0 = time.perf_counter()
+            for _ in range(n):
+                lib.rt_flash_attention_bwd(*args)
+            times[key].append((time.perf_counter() - t0) * 1e6 / n)
+            torch.cuda.synchronize()
+    out = {key: float(np.median(v)) for key, v in times.items()}
+    out["encode"] = out["bfloat16"] - out["float32"]
+    log(f"[kernels] flash_attention_bwd host us per call (ctypes, tiny "
+        f"shape, median of {rounds} alternating rounds of {n}): bf16 "
+        f"{out['bfloat16']:.2f} (SM count, four tensor-map encodes + three "
+        f"launches), fp32 {out['float32']:.2f} (three launches); encodes "
+        f"{out['encode']:.2f}")
+    return out
 
 
 def phase_kernels(dev, rehearsal: bool) -> list:
@@ -3139,7 +3202,8 @@ def phase_train(dev, seed: int, rehearsal: bool,
 
 
 # -- optional: profiler breakdown of each path -----------------------------------
-BWD_KERNEL_NAMES = ("dkdv_mma", "dq_mma", "dkdv_fma", "dq_fma",
+BWD_KERNEL_NAMES = ("bwd::prep_kernel", "bwd::main_kernel",
+                    "bwd::post_kernel", "dkdv_fma", "dq_fma",
                     "bwd_preprocess")
 KERNEL_NAMES = ("decode_split_kernel", "decode_combine_kernel",
                 "decode_sm90_kernel", "dec::combine_kernel", "chunk_kernel",

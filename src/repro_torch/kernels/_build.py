@@ -148,6 +148,8 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.rt_decode_plan.argtypes = [_I] * 7 + [_P]
         lib.rt_decode_plan.restype = ctypes.c_int
+        lib.rt_flash_attention_bwd_plan.argtypes = [_I] * 9 + [_P]
+        lib.rt_flash_attention_bwd_plan.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         build_info.update(path=str(lib_path), built=built,

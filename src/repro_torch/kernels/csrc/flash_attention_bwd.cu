@@ -3,10 +3,10 @@
 // q (B, Sq, nh, d) against k/v (B, Sk, nkv, d), causal and/or sliding
 // window, GQA, ragged Sq / Sk and Sq != Sk.
 //
-// No Pallas counterpart: the JAX package trains with use_pallas=False and
-// lets XLA differentiate its jnp attention (repro/models/attention.py).
-// This is the attention gradient of the port's training path
-// (FlashAttentionFn in kernels/flash_attention.py).
+// Replaces no Pallas kernel: the JAX package trains with use_pallas=False
+// and lets XLA differentiate its jnp attention (repro/models/attention.py:61,
+// prefill_attention, under jax.grad). This is the attention gradient of
+// the port's training path (FlashAttentionFn in kernels/flash_attention.py).
 //
 // Math, in natural units with s = scale * q.k: P = softmax(s) under the
 // forward's mask, D_i = sum_c dO_ic O_ic, dP = dO V^T, dS = P o (dP - D),
@@ -14,44 +14,65 @@
 // the forward's log-sum-exp, which both forward bodies store in base-2
 // units: P_ij = exp2(q_i.k_j * scale * log2(e) - lse_i).
 //
-// Three launches:
-//  (a) preprocess: D (B, nh, Sq) fp32, one warp per query row;
-//  (b) dK / dV: one CTA per (key tile, KV head, batch row). It keeps its
-//      K / V tile in shared memory and fp32 dK / dV accumulators for the
-//      whole walk, and loops over the g query heads of its KV head and over
-//      the query tiles that can see its keys, so GQA's sum over the group
-//      happens inside the CTA: no atomics, the result is deterministic.
-//      Under causal masking the first key tiles see the most queries, and
-//      they are issued first;
-//  (c) dQ: one CTA per (query tile, query head, batch row), walking the key
-//      tiles its queries reach; the last (longest) query tiles first.
-// (b) and (c) each recompute S and dP, 7 matmuls where the least is 5
-// (2.5x the forward's 2): the price of no atomics and no dS in memory.
-//
 // Bound on the card: OPERATIONS at the training shapes (internlm2-1.8b's
 // 2048-token causal rows, 16/8 heads of 128, need ~1700 FLOPs per byte
-// they must move; the card's balance point is ~295).
+// they must move; the card's balance point is ~295). Five matmuls per
+// (key, query) pair, 2.5x the forward's two.
 //
-// Bodies:
-//  * bf16: mma.sync m16n8k16 (warp_mma.cuh) with fp32 accumulators, four
-//    warps of 16 rows each. Tiles are staged with 16-byte loads into shared
-//    memory rows padded by 16 bytes (ldmatrix reads 8 rows without bank
-//    conflicts at every head dim); P and dS are rounded to bf16 as the A
-//    operand of the dV / dK / dQ products, as the forward rounds P before
-//    P V. Head dim 120 runs as 128 in shared memory: the 8 tail columns
-//    are zero in Q, K, V and dO, so their accumulators stay 0 and are never
-//    stored. Nothing outside shared memory is padded.
-//  * fp32: FP32 FMA in shared memory (the card-vs-CPU training check runs
-//    it): one (key, query) pair per thread iteration for S and dP, one
-//    output element per thread iteration for the products, accumulators in
-//    registers.
-// wgmma, TMA and warp specialisation are later work (ROADMAP.md section B).
+// Bodies, chosen by dtype alone (every head dim and group takes its body):
+//  * bf16: the Hopper body of flash_bwd_sm90.cuh, three launches.
+//    (a) prep: D and the log-sum-exp into rows padded to 64-query tiles,
+//        the fp32 dQ accumulator zeroed.
+//    (b) main: one CTA per (128-key tile, KV head, split, batch row), 384
+//        threads. A producer warpgroup loads K and V once by TMA and keeps
+//        a ring of Q / dO tiles (64 queries, 3 stages at d 120 / 128, 4
+//        below) with their lse / D rows in flight, each stage completing on
+//        a "full" mbarrier and reused once both consumers arrive on its
+//        "empty" one. Two consumer warpgroups own 64 keys each and walk
+//        every query tile that can see them (tiles that the causal diagonal
+//        or the window hide entirely are never loaded): S^T = K Q^T and
+//        dP^T = V dO^T by wgmma from shared memory, P^T and dS^T in
+//        registers, dV += P^T dO and dK += dS^T Q by wgmma with A from
+//        registers (dO, Q read MN-major), then dQ = dS K from dS^T written
+//        to shared memory, the two warpgroups splitting dQ's columns by
+//        16-column slices (d 80: 48 + 32; d 16: warpgroup 0 alone). dQ
+//        leaves by TMA reduce-add into the fp32 accumulator; dK and dV
+//        stay in registers for the whole walk. One pass, five matmuls.
+//    (c) post: dQ scaled to bf16, one CTA per 64-query tile.
+//    Split: a key tile's steps (g query heads x its query tiles) can go to
+//    `nsplit` CTAs, each a contiguous range of them, so that small grids
+//    fill the card's SMs and causal grids do not wait on their longest
+//    key tiles. rt::bwd::splits picks nsplit from the SM count read from
+//    the device and the steps each key tile has. Each split writes fp32
+//    dK / dV partials; the split that finishes last (an atomic count per
+//    key tile) reads them back from L2 and sums them in split order
+//    before the bf16 store. The plan entry point
+//    rt_flash_attention_bwd_plan gives the wrapper the scratch size and
+//    split for the same choice; the Python side holds no limits.
+//    Registers (ptxas -v, sm_90a): 168 a thread at launch, `setmaxnreg`
+//    moves the producer to 24 and the consumers to 240; no spill at d 16,
+//    32, 64, 80, 120 or 128. Shared memory: 232,000 bytes at d 128 / 120
+//    (K, V 64 KB; three Q / dO stages 96 KB; two dS buffers 32 KB; dQ
+//    staging 32 KB), 179,280 at d 80, 150,608 at d 64, 64,592 at d 16.
+//    Determinism: dK and dV are bitwise repeatable (registers, and split
+//    partials summed in split order whichever split sums them). dQ is
+//    not: the CTAs reduce-add their fp32 contributions in the order they
+//    finish, so dQ can differ between calls in its last bf16 place. No
+//    check depends on bitwise bf16 gradients; the fp32 body below is
+//    deterministic.
+//    d 120 runs as 128 in shared memory: TMA zero-fills the 8 tail columns
+//    of K, V, Q and dO, so their products stay 0 and are never stored.
+//  * fp32: FP32 FMA in shared memory (the card-vs-CPU training check and
+//    the bit-exact resume run it): a preprocess of D, one dK / dV CTA per
+//    (32-key tile, KV head, row) walking the g query heads, one dQ CTA per
+//    (32-query tile, head, row); one (key, query) pair per thread
+//    iteration for S and dP, accumulators in registers.
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "attn_common.cuh"
-#include "warp_mma.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
@@ -64,11 +85,12 @@ struct BwdArgs {
   const void* o;
   const void* dout;
   const float* lse;       // (B, nh, Sq), base 2
-  float* dvec;            // (B, nh, Sq) scratch: D
+  float* dvec;            // scratch: fp32 D (B, nh, Sq); bf16 all of it
   void* dq;
   void* dk;
   void* dv;
   int B, Sq, Sk, nh, nkv, causal, window;
+  int nsplit;             // bf16: CTAs per (key tile, KV head, row)
   float scale;            // softmax scale (natural units)
   float scale_log2;       // scale * log2(e)
 };
@@ -310,297 +332,49 @@ inline size_t fma_smem(int D) {
          * sizeof(float);
 }
 
-// -- bf16 body (mma.sync m16n8k16) --------------------------------------------
-using bf16 = __nv_bfloat16;
-constexpr int kMThreads = 128;       // four warps of 16 rows
-constexpr int kKeys = 64;            // dK / dV: keys per CTA
-constexpr int kQTile = 32;           // dK / dV: queries per step
-constexpr int kQueries = 64;         // dQ: queries per CTA
-constexpr int kKTile = 32;           // dQ: keys per step
-
-template <int D>
-__host__ __device__ constexpr int padded() { return (D + 15) / 16 * 16; }
-// shared-memory row stride in elements: 16 bytes past the padded row
-template <int D>
-__host__ __device__ constexpr int ld() { return padded<D>() + 8; }
-
-// rows [t0, t0 + ROWS) of head h into a bf16 tile of stride ld<D>(): 16-byte
-// pieces, zeros past S and in the pad columns
-template <int D, int ROWS>
-__device__ void stage_bf16(bf16* dst, const bf16* src, int b, int S,
-                           int heads, int h, int t0) {
-  constexpr int NPP = padded<D>() / 8, NP = D / 8;
-  for (int i = threadIdx.x; i < ROWS * NPP; i += kMThreads) {
-    const int r = i / NPP, piece = i % NPP, t = t0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (t < S && piece < NP)
-      val = *reinterpret_cast<const uint4*>(
-          src + row_off<D>(b, S, heads, h, t) + piece * 8);
-    *reinterpret_cast<uint4*>(dst + r * ld<D>() + piece * 8) = val;
-  }
+// SMs of the current device (0 if it cannot be read)
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
 }
 
-template <int ROWS>
-__device__ void stage_rows_n(float* sLse, float* sDv, const BwdArgs& a,
-                             int b, int h, int i0) {
-  for (int r = threadIdx.x; r < ROWS; r += kMThreads) {
-    const int i = i0 + r;
-    const long long at = ((long long)b * a.nh + h) * a.Sq + i;
-    sLse[r] = i < a.Sq ? a.lse[at] : 0.f;
-    sDv[r] = i < a.Sq ? a.dvec[at] : 0.f;
-  }
-}
-
-// A fragment (16 rows x 16 k) at (r0, k0) of a row-major tile
-__device__ __forceinline__ void frag_a(uint32_t (&f)[4], const bf16* t,
-                                       int stride, int r0, int k0, int lane) {
-  rt::ldsm_x4(f, rt::smem_u32(t + (r0 + lane % 16) * stride + k0 +
-                              (lane / 16) * 8));
-}
-
-// B fragments of k rows k0..k0+15 for the two n-blocks n0..n0+15, from a
-// tile stored (n, k): f[0], f[1] n-block 0; f[2], f[3] n-block 1
-__device__ __forceinline__ void frag_b_nk(uint32_t (&f)[4], const bf16* t,
-                                          int stride, int n0, int k0,
-                                          int lane) {
-  rt::ldsm_x4(f, rt::smem_u32(t + (n0 + lane % 8 + (lane / 16) * 8) * stride
-                              + k0 + ((lane / 8) % 2) * 8));
-}
-
-// the same from a tile stored (k, n), through ldmatrix.trans
-__device__ __forceinline__ void frag_b_kn(uint32_t (&f)[4], const bf16* t,
-                                          int stride, int k0, int n0,
-                                          int lane) {
-  rt::ldsm_x4_t(f, rt::smem_u32(t + (k0 + lane % 8 + ((lane / 8) % 2) * 8)
-                                * stride + n0 + (lane / 16) * 8));
-}
-
-// acc (16 x 8 NB blocks) += A (16 rows of `ta` at r0, all DP columns) times
-// the transpose of tile `tb` (NB * 8 rows, stored (n, k)): S = Q K^T-style
-template <int DP, int NB>
-__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const bf16* ta,
-                                        const bf16* tb, int stride, int r0,
-                                        int lane) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t fa[4];
-    frag_a(fa, ta, stride, r0, kk * 16, lane);
-#pragma unroll
-    for (int n2 = 0; n2 < NB / 2; ++n2) {
-      uint32_t fb[4];
-      frag_b_nk(fb, tb, stride, n2 * 16, kk * 16, lane);
-      rt::mma16816(acc[2 * n2], fa, fb[0], fb[1]);
-      rt::mma16816(acc[2 * n2 + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// acc (16 x DP) += P (16 x KB*16, bf16 A fragments in registers) times tile
-// `tb` (KB*16 rows stored (k, n), DP columns): dV = P^T dO-style
-template <int DP, int KB>
-__device__ __forceinline__ void mma_pb(float (&acc)[DP / 8][4],
-                                       const uint32_t (&pa)[KB][4],
-                                       const bf16* tb, int stride, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KB; ++kk) {
-#pragma unroll
-    for (int n2 = 0; n2 < DP / 16; ++n2) {
-      uint32_t fb[4];
-      frag_b_kn(fb, tb, stride, kk * 16, n2 * 16, lane);
-      rt::mma16816(acc[2 * n2], pa[kk], fb[0], fb[1]);
-      rt::mma16816(acc[2 * n2 + 1], pa[kk], fb[2], fb[3]);
-    }
-  }
-}
-
-// accumulator blocks 2kk, 2kk + 1 as the bf16 A fragment of k-step kk
-template <int NB>
-__device__ __forceinline__ void pack_a(uint32_t (&pa)[NB / 2][4],
-                                       const float (&x)[NB][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NB / 2; ++kk) {
-    pa[kk][0] = rt::pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-    pa[kk][1] = rt::pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-    pa[kk][2] = rt::pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    pa[kk][3] = rt::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-  }
-}
-
-// store a 16 x DP fp32 accumulator, times `mul`, as bf16 rows r (of this
-// warp's 16, those with row0 + r < S) of head h: pairs of columns < D
-template <int D>
-__device__ __forceinline__ void store_rows(
-    bf16* out, const float (&acc)[padded<D>() / 8][4], float mul, int b,
-    int S, int heads, int h, int row0, int lane) {
-#pragma unroll
-  for (int nb = 0; nb < padded<D>() / 8; ++nb) {
-    const int c = nb * 8 + 2 * (lane % 4);
-    if (nb * 8 >= D) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int t = row0 + lane / 4 + 8 * half;
-      if (t < S)
-        *reinterpret_cast<uint32_t*>(out + row_off<D>(b, S, heads, h, t) + c)
-            = rt::pack_bf16(acc[nb][2 * half] * mul,
-                            acc[nb][2 * half + 1] * mul);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMThreads) dkdv_mma(BwdArgs a) {
-  constexpr int DP = padded<D>(), LD = ld<D>(), NQ = kQTile / 8;
-  extern __shared__ uint4 smem_u4[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_u4);
-  bf16* sV = sK + kKeys * LD;
-  bf16* sQ = sV + kKeys * LD;
-  bf16* sO = sQ + kQTile * LD;           // dO
-  float* sLse = reinterpret_cast<float*>(sO + kQTile * LD);
-  float* sDv = sLse + kQTile;
-  const int k0 = blockIdx.x * kKeys, kvh = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = a.nh / a.nkv;
-  const int kw = 16 * w;                 // this warp's keys in the tile
-  stage_bf16<D, kKeys>(sK, static_cast<const bf16*>(a.k), b, a.Sk, a.nkv,
-                       kvh, k0);
-  stage_bf16<D, kKeys>(sV, static_cast<const bf16*>(a.v), b, a.Sk, a.nkv,
-                       kvh, k0);
-  float dk[DP / 8][4], dv[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  int q_lo, q_hi;
-  query_range(a, k0, kKeys, &q_lo, &q_hi);
-  for (int hq = 0; hq < g; ++hq) {
-    const int h = kvh * g + hq;
-    for (int i0 = q_lo; i0 < q_hi; i0 += kQTile) {
-      __syncthreads();
-      stage_bf16<D, kQTile>(sQ, static_cast<const bf16*>(a.q), b, a.Sq,
-                            a.nh, h, i0);
-      stage_bf16<D, kQTile>(sO, static_cast<const bf16*>(a.dout), b, a.Sq,
-                            a.nh, h, i0);
-      stage_rows_n<kQTile>(sLse, sDv, a, b, h, i0);
-      __syncthreads();
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x kQTile queries
-      float st[NQ][4], dpt[NQ][4];
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-      mma_abt<DP, NQ>(st, sK, sQ, LD, kw, lane);
-      mma_abt<DP, NQ>(dpt, sV, sO, LD, kw, lane);
-      // P^T and dS^T = P^T o (dP^T - D)
-#pragma unroll
-      for (int j = 0; j < NQ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = j * 8 + 2 * (lane % 4) + (e & 1);     // query
-          const int t = k0 + kw + lane / 4 + 8 * (e >> 1);    // key
-          const float p = seen(i0 + r, t, a)
-                              ? rt::ex2(st[j][e] * a.scale_log2 - sLse[r])
-                              : 0.f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - sDv[r]);
-        }
-      uint32_t pa[NQ / 2][4], sa[NQ / 2][4];
-      pack_a<NQ>(pa, st);
-      pack_a<NQ>(sa, dpt);
-      mma_pb<DP, NQ / 2>(dv, pa, sO, LD, lane);     // dV += P^T dO
-      mma_pb<DP, NQ / 2>(dk, sa, sQ, LD, lane);     // dK += dS^T Q
-    }
-  }
-  store_rows<D>(static_cast<bf16*>(a.dk), dk, a.scale, b, a.Sk, a.nkv, kvh,
-                k0 + kw, lane);
-  store_rows<D>(static_cast<bf16*>(a.dv), dv, 1.f, b, a.Sk, a.nkv, kvh,
-                k0 + kw, lane);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMThreads) dq_mma(BwdArgs a) {
-  constexpr int DP = padded<D>(), LD = ld<D>(), NK = kKTile / 8;
-  extern __shared__ uint4 smem_u4[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_u4);
-  bf16* sO = sQ + kQueries * LD;         // dO
-  bf16* sK = sO + kQueries * LD;
-  bf16* sV = sK + kKTile * LD;
-  float* sLse = reinterpret_cast<float*>(sV + kKTile * LD);
-  float* sDv = sLse + kQueries;
-  const int it = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int i0 = it * kQueries, kvh = h / (a.nh / a.nkv);
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, qw = 16 * w;
-  stage_bf16<D, kQueries>(sQ, static_cast<const bf16*>(a.q), b, a.Sq, a.nh,
-                          h, i0);
-  stage_bf16<D, kQueries>(sO, static_cast<const bf16*>(a.dout), b, a.Sq,
-                          a.nh, h, i0);
-  stage_rows_n<kQueries>(sLse, sDv, a, b, h, i0);
-  // this thread's two query rows (accumulator rows lane / 4 and + 8)
-  const int ra = qw + lane / 4, rb = ra + 8;
-  float dq[DP / 8][4];
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-  int k_lo, k_hi;
-  key_range(a, i0, min(kQueries, a.Sq - i0), &k_lo, &k_hi);
-  for (int t0 = k_lo; t0 < k_hi; t0 += kKTile) {
-    __syncthreads();
-    stage_bf16<D, kKTile>(sK, static_cast<const bf16*>(a.k), b, a.Sk, a.nkv,
-                          kvh, t0);
-    stage_bf16<D, kKTile>(sV, static_cast<const bf16*>(a.v), b, a.Sk, a.nkv,
-                          kvh, t0);
-    __syncthreads();
-    // S = Q K^T and dP = dO V^T: this warp's 16 queries x kKTile keys
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_abt<DP, NK>(s, sQ, sK, LD, qw, lane);
-    mma_abt<DP, NK>(dp, sO, sV, LD, qw, lane);
-    const float la = sLse[ra], lb = sLse[rb], da = sDv[ra], db = sDv[rb];
-#pragma unroll
-    for (int j = 0; j < NK; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int t = t0 + j * 8 + 2 * (lane % 4) + (e & 1);   // key
-        const bool hi = e >> 1;
-        const int r = hi ? rb : ra;
-        const float p = seen(i0 + r, t, a)
-                            ? rt::ex2(s[j][e] * a.scale_log2 - (hi ? lb : la))
-                            : 0.f;
-        dp[j][e] = p * (dp[j][e] - (hi ? db : da));
-      }
-    uint32_t sa[NK / 2][4];
-    pack_a<NK>(sa, dp);
-    mma_pb<DP, NK / 2>(dq, sa, sK, LD, lane);       // dQ += dS K
-  }
-  store_rows<D>(static_cast<bf16*>(a.dq), dq, a.scale, b, a.Sq, a.nh, h,
-                i0 + qw, lane);
-}
-
-template <int D>
-constexpr size_t mma_smem(int tile_a, int tile_b) {
-  return 2 * (size_t)(tile_a + tile_b) * ld<D>() * sizeof(bf16)
-         + 2 * (size_t)(tile_a > tile_b ? tile_a : tile_b) * sizeof(float);
+bool valid(int B, int Sq, int Sk, int nh, int nkv, int d) {
+  return B > 0 && Sq > 0 && Sk > 0 && nkv > 0 && nh % nkv == 0 &&
+         (d == 16 || d == 32 || d == 64 || d == 80 || d == 120 || d == 128);
 }
 
 template <typename T, int D>
 cudaError_t run(const BwdArgs& a, cudaStream_t s) {
-  const long long rows = (long long)a.B * a.Sq * a.nh;
-  cudaError_t e = rt::launch<bwd_preprocess<T, D>>(
-      dim3((unsigned)((rows + 7) / 8)), 256, 0, a, s);
-  if (e != cudaSuccess) return e;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    // dK / dV: K/V tiles of kKeys + query steps of kQTile; dQ: query tiles
-    // of kQueries + key steps of kKTile (the lse / D rows of the larger)
-    e = rt::launch<dkdv_mma<D>>(
-        dim3((a.Sk + kKeys - 1) / kKeys, a.nkv, a.B), kMThreads,
-        mma_smem<D>(kKeys, kQTile), a, s);
+    rt::bwd::Args p{};
+    cudaError_t e = rt::sm90::kv_map(&p.tmK, a.k, a.B, a.Sk, a.nkv, D);
+    if (e == cudaSuccess)
+      e = rt::sm90::kv_map(&p.tmV, a.v, a.B, a.Sk, a.nkv, D);
+    if (e == cudaSuccess)
+      e = rt::sm90::tile_map(&p.tmQ, a.q, a.B, a.Sq, a.nh, D, rt::bwd::kQ);
+    if (e == cudaSuccess)
+      e = rt::sm90::tile_map(&p.tmO, a.dout, a.B, a.Sq, a.nh, D,
+                             rt::bwd::kQ);
     if (e != cudaSuccess) return e;
-    return rt::launch<dq_mma<D>>(
-        dim3((a.Sq + kQueries - 1) / kQueries, a.nh, a.B), kMThreads,
-        mma_smem<D>(kQueries, kKTile), a, s);
+    p.o = static_cast<const T*>(a.o);
+    p.dout = static_cast<const T*>(a.dout);
+    p.lse = a.lse;
+    p.dq = static_cast<T*>(a.dq);
+    p.dk = static_cast<T*>(a.dk);
+    p.dv = static_cast<T*>(a.dv);
+    p.B = a.B; p.Sq = a.Sq; p.Sk = a.Sk; p.nh = a.nh; p.nkv = a.nkv;
+    p.causal = a.causal; p.window = a.window;
+    p.scale = a.scale; p.scale_log2 = a.scale_log2;
+    return rt::bwd::launch<D>(p, a.dvec, a.nsplit, s);
   } else {
+    const long long rows = (long long)a.B * a.Sq * a.nh;
+    cudaError_t e = rt::launch<bwd_preprocess<T, D>>(
+        dim3((unsigned)((rows + 7) / 8)), 256, 0, a, s);
+    if (e != cudaSuccess) return e;
     e = rt::launch<dkdv_fma<T, D>>(dim3((a.Sk + kFT - 1) / kFT, a.nkv, a.B),
                                    kFThreads, fma_smem(D), a, s);
     if (e != cudaSuccess) return e;
@@ -611,15 +385,46 @@ cudaError_t run(const BwdArgs& a, cudaStream_t s) {
 
 }  // namespace
 
+// The body and its scratch for a launch of rt_flash_attention_bwd with
+// these arguments: out[0] = fp32 floats of scratch (`work`), out[1] = the
+// split count (CTAs per key tile, KV head and row; 1 for fp32). The launch
+// makes the same choice from the same device.
+extern "C" int rt_flash_attention_bwd_plan(int B, int Sq, int Sk, int nh,
+                                           int nkv, int d, int causal,
+                                           int window, int is_bf16,
+                                           long long* out) {
+  if (!valid(B, Sq, Sk, nh, nkv, d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!is_bf16) {
+    out[0] = (long long)B * nh * Sq;        // D
+    out[1] = 1;
+    return 0;
+  }
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);
+  out[1] = rt::bwd::splits(B, Sq, Sk, nh, nkv, causal, window, sms);
+  out[0] = rt::bwd::work_floats(B, Sq, Sk, nh, nkv, d, (int)out[1]);
+  return 0;
+}
+
+// `work`: fp32 scratch of the size rt_flash_attention_bwd_plan gives
 extern "C" int rt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* dvec, void* dq, void* dk,
+    const void* dout, const void* lse, void* work, void* dq, void* dk,
     void* dv, int B, int Sq, int Sk, int nh, int nkv, int d, int causal,
     int window, float scale, int is_bf16, void* stream) {
   cudaGetLastError();
+  if (!valid(B, Sq, Sk, nh, nkv, d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int nsplit = 1;
+  if (is_bf16) {
+    const int sms = sm_count();
+    if (sms <= 0) return static_cast<int>(cudaErrorNoDevice);
+    nsplit = rt::bwd::splits(B, Sq, Sk, nh, nkv, causal, window, sms);
+  }
   BwdArgs a{q, k, v, o, dout, static_cast<const float*>(lse),
-            static_cast<float*>(dvec), dq, dk, dv, B, Sq, Sk, nh, nkv,
-            causal, window, scale, scale * kLog2e};
+            static_cast<float*>(work), dq, dk, dv, B, Sq, Sk, nh, nkv,
+            causal, window, nsplit, scale, scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = is_bf16 ? RT_DISPATCH_D(d, __nv_bfloat16, run, a, s)
                           : RT_DISPATCH_D(d, float, run, a, s);

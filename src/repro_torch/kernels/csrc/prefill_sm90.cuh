@@ -638,17 +638,18 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// TMA map of a contiguous (B, S, nkv, D) bf16 K or V: boxes of 16 columns
-// x kKT keys of one head, 32-byte swizzle, zero fill past S
-inline cudaError_t kv_map(CUtensorMap* m, const void* p, int B, int S,
-                          int nkv, int D) {
+// TMA map of a contiguous (B, S, heads, D) bf16 tensor: boxes of 16
+// columns x `rows` rows of one head, 32-byte swizzle, zero fill past S (and
+// past D's last 16-column slice at d = 120)
+inline cudaError_t tile_map(CUtensorMap* m, const void* p, int B, int S,
+                            int heads, int D, int rows) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return cudaErrorSharedObjectInitFailed;
-  const cuuint64_t row = (cuuint64_t)nkv * D * 2;       // bytes per key
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)nkv, (cuuint64_t)S,
-                              (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)heads * D * 2;     // bytes per row
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, row, row * S};
-  const cuuint32_t box[4] = {16, 1, kKT, 1};
+  const cuuint32_t box[4] = {16, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(p), dims, strides, box, unit,
@@ -657,6 +658,12 @@ inline cudaError_t kv_map(CUtensorMap* m, const void* p, int B, int S,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the map of a contiguous (B, S, nkv, D) K or V: boxes of kKT keys
+inline cudaError_t kv_map(CUtensorMap* m, const void* p, int B, int S,
+                          int nkv, int D) {
+  return tile_map(m, p, B, S, nkv, D, kKT);
 }
 
 // Launch `Kern` (a __global__ wrapper of prefill<D, kPaged>) over

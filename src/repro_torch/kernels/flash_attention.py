@@ -17,6 +17,8 @@ ways.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -95,6 +97,33 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         return torch.autograd.grad(out, (q32, k32, v32), dout.float())
 
 
+@functools.lru_cache(maxsize=1024)
+def _bwd_plan(b: int, sq: int, sk: int, nh: int, nkv: int, d: int,
+              causal: bool, window: int, bf16: bool,
+              device: int) -> Tuple[int, int]:
+    """(scratch floats, split count) of a backward launch from
+    ``rt_flash_attention_bwd_plan``, the C side that also picks the body
+    and the split from the device's SM count (``device`` keys the cache)."""
+    out = (ctypes.c_longlong * 2)()
+    rc = _build.load().rt_flash_attention_bwd_plan(
+        b, sq, sk, nh, nkv, d, int(causal), window, int(bf16), out)
+    _build.check(rc, "rt_flash_attention_bwd_plan")
+    return out[0], out[1]
+
+
+def bwd_plan(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+             window: Optional[int] = None) -> Tuple[int, int]:
+    """(scratch floats, split count) the backward kernel takes for these
+    q (B, Sq, nh, d), k (B, Sk, nkv, d) and mask on their card. With a
+    split of s > 1 the bf16 body runs s CTAs per (key tile, KV head, row),
+    each on a contiguous range of the key tile's (query head, query tile)
+    steps."""
+    b, sq, nh, d = q.shape
+    _, sk, nkv, _ = k.shape
+    return _bwd_plan(b, sq, sk, nh, nkv, d, causal, window or 0,
+                     q.dtype == torch.bfloat16, q.device.index or 0)
+
+
 def _check(name: str, q, k, v) -> None:
     _build.require_cuda(name, q, k, v)
     _build.expect_attention(name, q, k, v)
@@ -153,16 +182,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.expect(lse.dtype == torch.float32
                   and tuple(lse.shape) == (b, nh, sq),
                   f"{name}: lse must be fp32 ({b}, {nh}, {sq})")
-    _build.expect(all(t.data_ptr() % 16 == 0 for t in (q, k, v, dout)),
-                  f"{name}: q, k, v and dout must be 16-byte aligned")
+    _build.expect(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout)),
+                  f"{name}: q, k, v, out and dout must be 16-byte aligned")
     if min(b, sq, sk) == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dvec = torch.empty((b, nh, sq), dtype=torch.float32, device=q.device)
+    work = torch.empty(bwd_plan(q, k, causal=causal, window=window)[0],
+                       dtype=torch.float32, device=q.device)
     lib = _build.load()
     rc = lib.rt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), b, sq, sk, nh, nkv, d, int(causal),
         window or 0, 1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
         _build.stream_ptr(q.device))

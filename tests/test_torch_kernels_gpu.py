@@ -18,7 +18,9 @@ backward is held to the plain gradient in fp32 (``_check_bwd``): fp32
 within 1e-4 of each gradient's largest element, bf16 within 3x the bf16
 plain version's own error (the kernel rounds P and dS to bf16 as mma
 operands, the plain version rounds far more: scores, probabilities and
-every product in bf16).
+every product in bf16). The bf16 backward's dQ is reduce-added in fp32 in
+no fixed order, so two calls may differ in its last bf16 place; dK / dV
+are bitwise repeatable.
 """
 
 import numpy as np
@@ -705,6 +707,63 @@ def test_flash_bwd_kernel_masks(cuda, dtype, sq, sk, nh, nkv, d, causal,
                                 window):
     args = _bwd_inputs(12, 2, sq, sk, nh, nkv, d, dtype, cuda)
     _check_bwd(*args, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,sk,causal,window", [
+    (127, 127, True, None),                 # one short of a 128-key tile
+    (128, 128, True, None),
+    (129, 129, True, None),                 # one key into the second tile
+    (255, 255, True, None),
+    (257, 257, True, None),
+    (129, 257, False, None),                # Sq != Sk at the edges
+    (257, 127, False, None),
+    (255, 128, True, None),
+    (128, 257, True, None),
+    (300, 300, True, 37),                   # window edges inside key tiles
+    (257, 257, True, 130),                  # ... and across a tile boundary
+    (255, 255, False, 70),                  # a window without causal
+])
+def test_flash_bwd_kernel_tile_edges(cuda, dtype, sq, sk, causal, window):
+    """Lengths and windows that end inside or just past the bf16 body's
+    128-key tiles and 64-query steps."""
+    args = _bwd_inputs(15, 2, sq, sk, 8, 2, 128, dtype, cuda)
+    _check_bwd(*args, causal=causal, window=window)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nh,nkv", [(12, 2), (24, 2), (16, 1)])
+def test_flash_bwd_kernel_head_split(cuda, dtype, nh, nkv):
+    """g = 6, 12 and 16 at B 1, S 1024: 8 key tiles x nkv CTAs would leave
+    most SMs idle, so the bf16 body splits each key tile's (query head,
+    query tile) steps over CTAs (fp32 partial dK / dV summed in split
+    order); fp32 never splits."""
+    args = _bwd_inputs(16, 1, 1024, 1024, nh, nkv, 128, dtype, cuda)
+    nsplit = fa.bwd_plan(args[0], args[1], causal=True)[1]
+    assert (nsplit > 1) == (dtype == torch.bfloat16)
+    _check_bwd(*args, causal=True, window=None)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nh,nkv,s,d,causal", [(12, 2, 1024, 128, True),
+                                               (8, 8, 2048, 64, False)])
+def test_flash_bwd_kernel_repeats(cuda, dtype, nh, nkv, s, d, causal):
+    """Two calls on the same inputs, with a split (causal) and without:
+    dK and dV bitwise equal (no atomics; split partials summed in a fixed
+    order), dQ within one bf16 unit in the last place of its largest
+    element (the bf16 body reduce-adds dQ in fp32 in the order the CTAs
+    finish); fp32 all bitwise."""
+    q, k, v, dout = _bwd_inputs(17, 1, s, s, nh, nkv, d, dtype, cuda)
+    lse = torch.empty((1, nh, s), dtype=torch.float32, device=cuda)
+    out = fa.flash_attention(q, k, v, causal=causal, lse=lse)
+    one = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+    two = fa.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal)
+    assert torch.equal(one[1], two[1]) and torch.equal(one[2], two[2])
+    if dtype == torch.float32:
+        assert torch.equal(one[0], two[0])
+    else:
+        big = one[0].float().abs().max().item()
+        assert (one[0].float() - two[0].float()).abs().max() <= 2 ** -7 * big
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
