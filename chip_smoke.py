@@ -15,7 +15,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (GEMM 4096-8192, GEMV 8192-16384): effective FLOP/s and HBM bytes/s
    printed beside the H100 profile's data-sheet peaks and their derates
    (nothing is gated on them);
-3. kernels vs plain on the card: each of the eight kernels against its
+3. kernels vs plain on the card: each of the nine kernels against its
    plain PyTorch version evaluated in fp32 on the same input values (the
    bf16 plain version's own error is logged beside it), at the shapes
    each serving path of phase 5 gives it and at small ragged shapes, in
@@ -77,6 +77,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    non-causal with Sq != Sk (whisper's 448 x 1500 cross attention) and
    small ragged fp32 / bf16 edges; each of the first six timed with the
    forward-with-lse beside it and SDPA's backward as the yardstick;
+   then the SSD scan's backward (kernel 9, no Pallas counterpart) against
+   its plain version in fp32, both given the exact chunk entry states:
+   every gradient within 1e-4 of its largest element, a bf16 dx / dB /
+   dC also within one bf16 rounding, at mamba2's and zamba2's train
+   shapes (rows 9 and 9a, one 2048-token row, timed, no library call
+   computes it; the forward with and without its states output beside
+   row 9) and at reduced edges (ragged S, S < Q, Q 128 / 64 / 12 / 8, N
+   16 to 256, head dims 16 to 64, h0 and dh_final, bf16 and fp32);
 4. engine parity, fp32: reduced configs, one init each, the same requests
    through the Engine on the card (kernels) and on the CPU (plain): paged
    bucketed, direct-to-pool chunked and overcommitted (grow + preempt)
@@ -122,12 +130,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    first-contact hit): tokens, events, clock and store bytes identical;
    then training: two fp32 train steps (2 microbatches, the reference's
    AdamW without bf16 compression) of reduced qwen3-32b, granite-moe,
-   qwen2-vl-2b and whisper-tiny on the card and the CPU from one init,
-   loss, every parameter and every first moment within 1e-4 relative,
-   the flash forward and backward launched; a checkpoint after step 2
-   restored into a fresh card state gives step 3's loss within 1e-6; and
-   mamba2's loss on the card must raise the SSD scan's missing backward
-   (ROADMAP A8b);
+   qwen2-vl-2b, whisper-tiny, mamba2-1.3b and zamba2-2.7b (SSD chunks of
+   12: 32 tokens walk two full chunks and a ragged one of 8) on the card
+   and the CPU from one init, loss, every parameter and every first
+   moment within 1e-4 relative, the flash forward and backward launched
+   (the SSD scan and its backward for mamba2, all four for zamba2); a
+   checkpoint after step 2 restored into a fresh card state gives step
+   3's loss within 1e-6;
 5. thirteen serving paths at full width, bf16, random weights from a
    seeded generator on the card, the same traffic but for ``prefix`` and
    ``danube`` (16 requests of 64-2048 prompt tokens, some past
@@ -205,7 +214,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    loss must be finite and fall, the flash forward and backward must
    launch; prints step seconds, tok/s, model FLOPs / (step x 989
    TFLOP/s), peak GB and launches per step (with ``--profile``, device
-   busy / idle and time by category); no checkpoint at this width;
+   busy / idle and time by category); no checkpoint at this width; then
+   ``train_mamba2``: mamba2-1.3b whole (48 layers, d_model 2048, 64 SSD
+   heads of 64, N 128, vocab 50280) the same way, four timed steps, the
+   SSD scan and its backward launched;
 7. a JSON line of per-kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``. A ``[time]`` line follows each
    phase.
@@ -348,7 +360,7 @@ DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers",
               "command-r-plus-104b": "cmdr_layers"}
 DANUBE_RING = (2, 6000, 32)   # the ring generation: rows, prompt, new tokens
 ALL_PHASES = ("build", "calibrate", "kernels", "parity") + tuple(PATHS) + (
-    "train",)
+    "train", "train_mamba2")
 
 
 def log(msg: str = "") -> None:
@@ -1487,6 +1499,150 @@ def ssd_shape(b, s, nh, hd, n, q) -> str:
             f"bf16")
 
 
+# -- the SSD scan's backward (training) --------------------------------------------
+# (label, dtype, (b, s, nh, hd, n, q), h0, dh_final): row 9 (mamba2-1.3b's
+# train shape: one 2048-token row per microbatch, 64 heads of 64, N 128) and
+# row 9a (zamba2-2.7b's: 80 heads of 64, N 64), as LM.loss gives them (no
+# initial state, the final state's gradient None); then reduced edges: a
+# ragged S, S < Q, Q 128 / 64 / 12 / 8, N 16 to 256, head dims 16 / 32 /
+# 48, an initial state and a final-state gradient, bf16 and fp32
+SSD_BWD_SPECS = [
+    ("row 9 mamba2 train x=(1,2048,64,64) N=128 bf16", torch.bfloat16,
+     (1, 2048, 64, 64, 128, 128), False, False),
+    ("row 9a zamba2 train x=(1,2048,80,64) N=64 bf16", torch.bfloat16,
+     (1, 2048, 80, 64, 64, 128), False, False),
+    ("S=300 Q=128 h0 dh_final bf16", torch.bfloat16,
+     (2, 300, 4, 64, 128, 128), True, True),
+    ("S=300 Q=128 h0 dh_final fp32", torch.float32,
+     (2, 300, 4, 64, 128, 128), True, True),
+    ("S=100 Q=12 hd=32 h0 dh_final fp32", torch.float32,
+     (3, 100, 4, 32, 32, 12), True, True),
+    ("S=100 Q=12 hd=32 h0 dh_final bf16", torch.bfloat16,
+     (3, 100, 4, 32, 32, 12), True, True),
+    ("S=37 Q=64 hd=16 N=16 dh_final fp32", torch.float32,
+     (2, 37, 4, 16, 16, 64), False, True),
+    ("S=50 < Q=128 N=256 bf16", torch.bfloat16,
+     (1, 50, 2, 64, 256, 128), False, True),
+    ("S=45 Q=8 hd=48 h0 bf16", torch.bfloat16,
+     (2, 45, 4, 48, 64, 8), True, False),
+]
+SSD_BWD_NAMES = ("dx", "ddt", "da", "db", "dc", "dh0")
+
+
+def ssd_bwd_work(b, s, nh, hd, n, q, esz, init, dhf) -> tuple:
+    """Bytes and operations of one SSD backward. Bytes: x, dy, dx (x's
+    type), B, C, dB, dC, dt, ddt, a, da, the saved chunk entry states
+    (fp32) and dh_final / dh0 once each. Operations over the causal
+    triangles, per (row, head, chunk of c real positions): dy . xdt^T and
+    M^T dy (c^2 hd each), the Q x Q products of dB and dC (c^2 N each), and
+    the five c hd N products (S, h_in^T dy, dH^T xdt, dH B, h_in C); plus
+    C B^T once per (row, chunk) (c^2 N, shared by the heads); 2 FLOPs a
+    multiply-add."""
+    qs = [min(q, s - t) for t in range(0, s, q)]
+    state = 4 * b * nh * hd * n
+    nbytes = (3 * b * s * nh * hd * esz + 4 * b * s * n * esz
+              + 4 * (2 * b * s * nh + 2 * nh) + state * len(qs)
+              + state * (int(init) + int(dhf)))
+    flops = sum(b * c * c * n + b * nh * (c * c * hd + c * c * n
+                                          + 5 * c * hd * n) for c in qs)
+    return nbytes, 2.0 * flops
+
+
+def kernel_ssd_bwd(cs, dev, rehearsal) -> dict:
+    """The SSD scan's backward (kernel 9, no Pallas counterpart) against
+    its plain version evaluated in fp32 on the same input values, both
+    given the exact chunk entry states (``ssd_states_plain`` in fp32):
+    every gradient within 1e-4 of its largest element (another summation
+    order), a bf16 dx / dB / dC also within one bf16 rounding of it (2^-8
+    of the largest element). Rows 9 and 9a are timed, with the forward
+    with and without its states output beside row 9."""
+    name = "ssd_scan_bwd"
+    rows, main = [], None
+    for label, dtype, shp, init, dhf in SSD_BWD_SPECS:
+        b, s, nh, hd, n, q = shp
+        if rehearsal:
+            b, s, nh, hd, n, q = (min(b, 2), min(s, 40), min(nh, 4),
+                                  min(hd, 16), min(n, 16), min(q, 16))
+        args, h0 = ssd_inputs(cs, b, s, nh, hd, n, dtype, init)
+        dy = cs.randn(b, s, nh, hd, dtype=dtype)
+        dh = cs.randn(b, nh, hd, n, dtype=torch.float32) if dhf else None
+        states = in_fp32(ssd.ssd_states_plain)(*args, q, h0)
+        refs = in_fp32(ssd.ssd_scan_bwd_plain)(*args, q, h0, dy, dh)
+        if rehearsal:
+            run = lambda: in_fp32(ssd.ssd_scan_bwd_plain)(  # noqa: E731
+                *args, q, h0, dy, dh)
+        else:
+            run = lambda: ssd.ssd_scan_bwd(  # noqa: E731
+                *args, q, states, dy, dh, want_dh0=init)
+        got = run()
+        errs, ok = [], True
+        for i, (g, r) in enumerate(zip(got, refs)):
+            if r is None:
+                ok = ok and g is None
+                continue
+            big = r.abs().max().item()
+            lim = 1e-4 * big + 1e-7 + (2 ** -8 * big if dtype ==
+                                       torch.bfloat16 and i in (0, 3, 4)
+                                       else 0.0)
+            err = (g.float() - r).abs().max().item()
+            ok = ok and bool(torch.isfinite(g.float()).all()) and err <= lim
+            errs.append((SSD_BWD_NAMES[i], err, lim))
+        log(f"[kernels] {name:24s} {label:44s} "
+            + "; ".join(f"{k} {e:.2e} (limit {lim:.2e})"
+                        for k, e, lim in errs) + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: {name} disagrees with its plain "
+                             f"version ({label})")
+        if main is None:
+            main = max(e for _, e, _ in errs)
+        if label.startswith("row 9"):
+            work = ssd_bwd_work(b, s, nh, hd, n, q, 2, init, dhf)
+            ms, dev_ms = time_both(run)
+            b_ms, b_by = bound(*work, torch.bfloat16)
+            row = dict(shape=label, ms=ms, device_ms=dev_ms, library_ms=None,
+                       library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       share_of_bound=b_ms / dev_ms)
+            if not rows:
+                row["plain_ms"] = time_ms(lambda: ssd.ssd_scan_bwd_plain(
+                    *args, q, h0, dy, dh), iters=3, warmup=1)
+                row["fwd_states"] = ssd_fwd_states_ms(args, q, h0, rehearsal)
+            log(f"[kernels] {name:24s} backward {ms:.4f} ms (device "
+                f"{dev_ms:.4f}, {100 * b_ms / dev_ms:.2f}% of bound)  bound "
+                f"{b_ms:.4f} ms ({b_by}, {work[0] / 1e6:.1f} MB, "
+                f"{work[1] / 1e9:.2f} GFLOP)  {label}")
+            rows.append(row)
+        del args, h0, dy, dh, states, refs, got
+    first = rows[0]
+    return dict(name=name, route="cuda", source=ssd.BWD_SOURCE,
+                replaces=ssd.REPLACES[name], max_abs_err=main,
+                ms=first["ms"], device_ms=first["device_ms"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=None,
+                library_device_ms=None, shape=first["shape"],
+                share_of_bound=first["share_of_bound"],
+                fwd_states=first["fwd_states"], timed_shapes=rows[1:])
+
+
+def ssd_fwd_states_ms(args, q, h0, rehearsal) -> dict:
+    """Device ms of the forward kernel at the backward's main shape,
+    without and with its chunk entry states output (what training adds
+    to the serving launch)."""
+    if rehearsal:
+        return {}
+    x, _, _, bm, _ = args
+    states = torch.empty((x.shape[0], -(-x.shape[1] // q), *x.shape[2:],
+                          bm.shape[-1]), dtype=torch.float32,
+                         device=x.device)
+    out = {}
+    for key, st in (("without", None), ("with", states)):
+        out[key] = time_ms(lambda: ssd.ssd_scan(  # noqa: E731
+            *args, chunk=q, h0=h0, states=st), graph=True)
+    log(f"[kernels] ssd_scan forward at the train shape: device "
+        f"{out['without']:.4f} ms without the states output, "
+        f"{out['with']:.4f} ms with it")
+    return out
+
+
 # -- the flash backward (training) -------------------------------------------------
 # (label, dtype, (nh, nkv, d, b, sq, sk), causal, window): the train path's
 # shape first (internlm2-1.8b: 16/8 heads of 128, one 2048-token row per
@@ -1737,7 +1893,8 @@ def phase_kernels(dev, rehearsal: bool) -> list:
             kernel_chunk(cs, dev, rehearsal, paged=False),
             kernel_ssd(cs, dev, rehearsal),
             kernel_probe(cs, dev, rehearsal),
-            kernel_flash_bwd(cs, dev, rehearsal)]
+            kernel_flash_bwd(cs, dev, rehearsal),
+            kernel_ssd_bwd(cs, dev, rehearsal)]
     for r in rows:
         lib = fmt_ms(r["library_ms"], r["library_device_ms"])
         log(f"[kernels] {r['name']:24s} kernel {r['ms']:.4f} ms (device "
@@ -1927,8 +2084,9 @@ def phase_engine_parity(dev) -> None:
                              f"chunk scatter: {st}")
     counts = ops.launch_counts()
     log(f"[engine-parity] launches {counts}")
-    # serving launches every kernel but the backward (phase 4b trains)
-    serving = {k: n for k, n in counts.items() if k != "flash_attention_bwd"}
+    # serving launches every kernel but the backwards (phase 4b trains)
+    serving = {k: n for k, n in counts.items()
+               if k not in ("flash_attention_bwd", "ssd_scan_bwd")}
     if str(dev) != "cpu" and not all(serving.values()):
         raise SystemExit(f"chip_smoke: a kernel never launched: {counts}")
 
@@ -2997,7 +3155,15 @@ def check_paths(res: dict) -> None:
 
 # -- phase 4b: training, card vs CPU -----------------------------------------------
 TRAIN_PARITY = ("qwen3-32b", "granite-moe-3b-a800m", "qwen2-vl-2b",
-                "whisper-tiny")
+                "whisper-tiny", "mamba2-1.3b", "zamba2-2.7b")
+# the kernels each parity case must launch on the card, and its model
+# keywords: SSD chunks of 12, so 32 tokens walk two full chunks and a
+# ragged one of 8
+FLASH = ("flash_attention", "flash_attention_bwd")
+SSD = ("ssd_scan", "ssd_scan_bwd")
+TRAIN_NEED = {"mamba2-1.3b": SSD, "zamba2-2.7b": SSD + FLASH}
+TRAIN_MODEL_KW = {"mamba2-1.3b": {"ssd_chunk": 12},
+                  "zamba2-2.7b": {"ssd_chunk": 12}}
 # the parity steps run the reference's AdamW defaults (lr warming up from
 # 3e-6) without the bf16 gradient compression: Adam's first steps move
 # each weight by ~lr x sign(g), so a weight whose gradient lies within the
@@ -3029,7 +3195,7 @@ def _max_rel(tree, ref, floor: float = 1e-7) -> tuple:
 def _train_run(cfg, params, dev, steps, n_micro, state=None):
     """``steps`` train steps of reduced ``cfg`` on ``dev`` from ``params``
     (or ``state``): (losses, the state)."""
-    model = build_model(cfg, device=dev)
+    model = build_model(cfg, device=dev, **TRAIN_MODEL_KW.get(cfg.name, {}))
     state = state or init_train_state(
         _tree_map(params, lambda t: t.to(dev, copy=True)))
     step_fn = make_train_step(model, PARITY_OPT, n_micro)
@@ -3043,15 +3209,15 @@ def _train_run(cfg, params, dev, steps, n_micro, state=None):
 
 def phase_train_parity(dev) -> None:
     """Two fp32 train steps (2 microbatches, the reference's AdamW
-    defaults but for the bf16 compression) of reduced qwen3-32b, granite-moe, qwen2-vl-2b and
-    whisper-tiny on the card and on the CPU from one init: the loss, every
-    parameter and every first moment within 1e-4 relative (of the leaf's
-    largest element, + 1e-7); the card's steps launch the flash forward and
-    backward. Then
-    a checkpoint of the card's state after step 2, restored into a fresh
-    state on the card: its step 3 loss equals the uninterrupted run's
-    within 1e-6 relative. mamba2's loss on the card must raise the SSD
-    scan's missing-backward error (ROADMAP A8b)."""
+    defaults but for the bf16 compression) of reduced qwen3-32b,
+    granite-moe, qwen2-vl-2b, whisper-tiny, mamba2-1.3b and zamba2-2.7b
+    (SSD chunks of 12) on the card and on the CPU from one init: the
+    loss, every parameter and every first moment within 1e-4 relative (of
+    the leaf's largest element, + 1e-7); the card's steps launch the
+    flash forward and backward, and for the recurrent families the SSD
+    scan and its backward. Then a checkpoint of the card's state after
+    step 2, restored into a fresh state on the card: its step 3 loss
+    equals the uninterrupted run's within 1e-6 relative."""
     card = dev.type == "cuda"
     ck_dir = ROOT / "build" / "chip_smoke_ckpt"
     for arch in TRAIN_PARITY:
@@ -3065,7 +3231,8 @@ def phase_train_parity(dev) -> None:
         worst_m, at_m = _max_rel(state.opt.m, ref_state.opt.m)
         names = [n for n, _ in ckpt._flatten(ref_state.params)]
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
-        launched = counts["flash_attention"] and counts["flash_attention_bwd"]
+        need = TRAIN_NEED.get(arch, FLASH)
+        launched = all(counts[k] for k in need)
         ok = (worst <= 1e-4 and worst_m <= 1e-4 and loss_err <= 1e-4
               and (launched or not card))
         shutil.rmtree(ck_dir, ignore_errors=True)
@@ -3079,51 +3246,38 @@ def phase_train_parity(dev) -> None:
         ok = ok and resume_err <= 1e-6
         log(f"[train-parity] {arch}: losses {got} vs CPU {ref} (max rel "
             f"{loss_err:.2e}); params max rel {worst:.2e} ({names[at]}), "
-            f"m max rel {worst_m:.2e} ({names[at_m]}); flash launches "
-            f"fwd {counts['flash_attention']} bwd "
-            f"{counts['flash_attention_bwd']}; checkpoint at step 2 -> "
+            f"m max rel {worst_m:.2e} ({names[at_m]}); launches "
+            f"{ {k: counts[k] for k in need} }; checkpoint at step 2 -> "
             f"step 3 loss {resumed[0]:.6f} vs uninterrupted {whole[0]:.6f} "
             f"(rel {resume_err:.1e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"chip_smoke: training on the card disagrees "
                              f"with the CPU ({arch})")
-    cfg = get_config("mamba2-1.3b").reduced()
-    model = build_model(cfg, device=dev)
-    params = _tree_map(model.init(seed=0),
-                       lambda t: t.detach().requires_grad_(True))
-    batch = to_torch(SyntheticLM(cfg, DataConfig(2, 16)).batch_at(0), dev)
-    if card:
-        try:
-            model.loss(params, batch)
-        except RuntimeError as e:
-            if "A8b" not in str(e):
-                raise
-            log(f"[train-parity] mamba2-1.3b loss on the card raises: {e}")
-        else:
-            raise SystemExit("chip_smoke: mamba2's loss on the card did not "
-                             "refuse the missing SSD scan backward")
-    else:
-        log("[train-parity] mamba2-1.3b: CPU rehearsal, the plain scan is "
-            "differentiable (the A8b refusal is a card check)")
 
 
 # -- phase 6: training at full width --------------------------------------------------
-TRAIN_ARCH = "internlm2-1.8b"
+# (arch, timed steps after one warm-up, kernels that must launch): the
+# dense case and the recurrent one. mamba2's step is several times
+# internlm2's (the SSD backward runs on the CUDA cores), so it times four
+# steps to keep the run inside its limit
+TRAIN_CASES = {"train": ("internlm2-1.8b", 6, FLASH),
+               "train_mamba2": ("mamba2-1.3b", 4, SSD)}
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
-TRAIN_STEPS = 6               # timed, after one warm-up step
 
 
-def phase_train(dev, seed: int, rehearsal: bool,
+def phase_train(dev, case: str, seed: int, rehearsal: bool,
                 profile_dir: Path | None = None) -> dict:
-    """internlm2-1.8b whole (24 layers, d_model 2048, 16/8 heads of 128,
-    vocab 92544), bf16, ``remat`` on, ``SyntheticLM(8, 2048, seed 0)`` in
-    ``choose_microbatches(8, 2048, 92544, 1)`` = 8 microbatches, the
-    reference's AdamW defaults: one
-    warm-up step and ``TRAIN_STEPS`` timed ones, each with launch counts
-    zeroed just before and read just after. The loss must stay finite and
-    fall; no checkpoint is written at this width."""
-    tag = "[train]"
-    cfg = get_config(TRAIN_ARCH)
+    """One ``TRAIN_CASES`` model whole (internlm2-1.8b: 24 layers, d_model
+    2048, 16/8 heads of 128, vocab 92544; mamba2-1.3b: 48 layers, d_model
+    2048, 64 SSD heads of 64, N 128, vocab 50280), bf16, ``remat`` on,
+    ``SyntheticLM(8, 2048, seed 0)`` in ``choose_microbatches(8, 2048,
+    vocab, 1)`` microbatches, the reference's AdamW defaults: one warm-up
+    step and the case's timed ones, each with launch counts zeroed just
+    before and read just after. The loss must stay finite and fall and the
+    case's kernels must launch; no checkpoint is written at this width."""
+    tag = f"[{case}]"
+    arch, steps, need = TRAIN_CASES[case]
+    cfg = get_config(arch)
     batch, seq = TRAIN_BATCH, TRAIN_SEQ
     if rehearsal:
         cfg, batch, seq = cfg.reduced(), 4, 32
@@ -3133,15 +3287,17 @@ def phase_train(dev, seed: int, rehearsal: bool,
     state = init_train_state(model.init(seed=seed))
     _sync(dev)
     n_params = model.param_count()
+    heads = (f"{cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, N "
+             f"{cfg.ssm_state}" if cfg.family == "ssm" else
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}")
     log(f"{tag} {cfg.name} {'reduced' if rehearsal else 'whole'}: "
-        f"{cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
-        f"vocab {cfg.vocab}, {n_params / 1e9:.3f} B params {cfg.dtype}; "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {heads}, vocab "
+        f"{cfg.vocab}, {n_params / 1e9:.3f} B params {cfg.dtype}; "
         f"batch {batch} x {seq}, {n_micro} microbatches, remat on; init "
         f"{time.perf_counter() - t0:.1f} s")
     step_fn = make_train_step(model, TRAIN_OPT, n_micro)
     data = SyntheticLM(cfg, DataConfig(batch, seq, 0))
-    batches = [to_torch(data.batch_at(s), dev) for s in range(TRAIN_STEPS + 1)]
+    batches = [to_torch(data.batch_at(s), dev) for s in range(steps + 1)]
     t0 = time.perf_counter()
     state, m = step_fn(state, batches[0])
     first = m["loss"].item()
@@ -3150,7 +3306,7 @@ def phase_train(dev, seed: int, rehearsal: bool,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     walls, losses, counts = [], [], []
-    for s in range(1, TRAIN_STEPS + 1):
+    for s in range(1, steps + 1):
         ops.reset_launch_counts()
         _sync(dev)
         t0 = time.perf_counter()
@@ -3163,13 +3319,15 @@ def phase_train(dev, seed: int, rehearsal: bool,
             f"{m['grad_norm'].item():.4f} step_s {walls[-1]:.3f}")
     wall = float(np.median(walls))
     tokens = batch * seq
+    # attention: 12 x layers x heads x hd x causal keys (none for an SSM)
     vis = seq * (seq + 1) // 2            # causal keys per row, summed
-    attn_flops = 12.0 * cfg.n_layers * cfg.n_heads * cfg.hd * vis * batch
+    attn_flops = (0.0 if cfg.family == "ssm" else
+                  12.0 * cfg.n_layers * cfg.n_heads * cfg.hd * vis * batch)
     model_flops = 6.0 * n_params * tokens + attn_flops
     log(f"{tag} step_s median={wall:.3f} min={min(walls):.3f} "
         f"max={max(walls):.3f}; tok_per_s={tokens / wall:.1f}; model FLOPs "
         f"per step {model_flops:.4e} (6 N tokens + attention, remat's "
-        f"recompute not counted)")
+        f"recompute and the SSD scan's own FLOPs not counted)")
     if dev.type == "cuda":
         log(f"{tag} model FLOPs / (step_s x 989 TFLOP/s) = "
             f"{model_flops / wall / PEAK_OPS[torch.bfloat16]:.4f}")
@@ -3184,15 +3342,14 @@ def phase_train(dev, seed: int, rehearsal: bool,
     log(f"{tag} losses finite {finite}, falling {falls} "
         f"({first:.4f} -> {losses[-1]:.4f}; at every step {every})")
     if not (finite and falls):
-        raise SystemExit("chip_smoke: the train path's loss is not finite "
-                         "and falling")
-    need = ("flash_attention", "flash_attention_bwd")
+        raise SystemExit(f"chip_smoke: the {case} path's loss is not finite "
+                         f"and falling")
     if dev.type == "cuda" and not all(counts[0][k] for k in need):
-        raise SystemExit(f"chip_smoke: {need} did not launch on the train "
+        raise SystemExit(f"chip_smoke: {need} did not launch on the {case} "
                          f"path: {counts[0]}")
     if profile_dir is not None:
-        nxt = to_torch(data.batch_at(TRAIN_STEPS + 1), dev)
-        phase_profile("train", lambda: step_fn(state, nxt), dev, wall,
+        nxt = to_torch(data.batch_at(steps + 1), dev)
+        phase_profile(case, lambda: step_fn(state, nxt), dev, wall,
                       profile_dir)
     del state, model, batches, step_fn
     gc.collect()
@@ -3214,6 +3371,8 @@ SSD_KERNEL_NAMES = ("ssd_cb_kernel", "ssd_scan_kernel", "ssd::scan_kernel")
 def _category(name: str) -> str:
     if "probe_kernel" in name:
         return "kv probe (port kernel)"
+    if "ssd_bwd::" in name:             # before "bwd::main_kernel"
+        return "ssd scan backward (port kernel)"
     if any(k in name for k in BWD_KERNEL_NAMES):
         return "attention backward (port kernel)"
     if any(k in name for k in KERNEL_NAMES):
@@ -3338,8 +3497,9 @@ def main(argv=None) -> int:
         check_paths({p: PATH_PHASE.get(p, phase_path)(
             dev, p, depth[p], args.seed, rehearsal=True,
             repeats=args.repeats) for p in paths})
-        if "train" in phases:
-            phase_train(dev, args.seed, rehearsal=True)
+        for case in TRAIN_CASES:
+            if case in phases:
+                phase_train(dev, case, args.seed, rehearsal=True)
         log("[rehearsal] done")
         return 0
     t0 = time.perf_counter()
@@ -3378,10 +3538,11 @@ def main(argv=None) -> int:
         counts[p] = res[p]["counts"]
         done(p)
     check_paths(res)
-    if "train" in phases:
-        counts["train"] = phase_train(dev, args.seed, rehearsal=False,
-                                      profile_dir=args.profile)["counts"]
-        done("train")
+    for case in TRAIN_CASES:
+        if case in phases:
+            counts[case] = phase_train(dev, case, args.seed, rehearsal=False,
+                                       profile_dir=args.profile)["counts"]
+            done(case)
     if phases != set(ALL_PHASES):
         log("[partial] phases run: " + ",".join(sorted(phases)))
         return 0
@@ -3393,7 +3554,7 @@ def main(argv=None) -> int:
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "library_device_ms",
-            "shape", "timed_shapes", "host_us", "fwd_lse"]
+            "shape", "timed_shapes", "host_us", "fwd_lse", "fwd_states"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi_line())

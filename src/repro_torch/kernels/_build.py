@@ -53,7 +53,9 @@ SIGNATURES: Dict[str, List] = {
     "rt_flash_attention_bwd":
         [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     "rt_ssd_scan":
-        [_P] * 9 + [_I] * 6 + [_L] * 9 + [_I, _P],
+        [_P] * 10 + [_I] * 6 + [_L] * 9 + [_I, _P],
+    "rt_ssd_scan_bwd":
+        [_P] * 19 + [_I] * 6 + [_L] * 9 + [_I, _P],
     "rt_kv_probe":
         [_P] * 6 + [_I] * 10 + [_P],
 }
@@ -191,7 +193,8 @@ def expect_attention(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 # what the serving kernels' gradient refusal names as missing
-SERVING = "a serving kernel; training differentiates flash attention only"
+SERVING = ("a serving kernel; training differentiates flash attention and "
+           "the SSD scan only")
 
 
 def refuse_grad(name: str, *tensors, missing: str) -> None:

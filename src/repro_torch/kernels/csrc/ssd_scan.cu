@@ -4,8 +4,10 @@
 // (`_ssd_kernel`): x (B, S, nh, hd), dt (B, S, nh) fp32 (after softplus),
 // a (nh,) fp32 < 0, b / c (B, S, N) shared by every head (n_groups = 1),
 // optional h0 (B, nh, hd, N) fp32 -> y (B, S, nh, hd) in x's type and the
-// final state h (B, nh, hd, N) fp32. Per chunk of Q positions, with
-// l = cumsum(dt * a) inside the chunk:
+// final state h (B, nh, hd, N) fp32; optionally also the state each chunk
+// starts from (B, n_chunks, nh, hd, N) fp32, which the backward
+// (ssd_scan_bwd.cu) walks; serving passes none. Per chunk of Q positions,
+// with l = cumsum(dt * a) inside the chunk:
 //   y  = ((C B^T) o tril(exp(l_i - l_j))) (x dt) + exp(l) o (C h^T)
 //   h <- h exp(l_last) + ((x dt) o exp(l_last - l))^T B
 //
@@ -64,6 +66,7 @@ struct SsdArgs {
   void* y;
   float* h;
   float* cb;           // (B, nc, Q, Q) scratch: C B^T per chunk
+  float* states;       // (B, nc, nh, hd, N) or nullptr: chunk entry states
   int B, S, nh, hd, N, Q, nc;
   long long x_sb, x_ss, x_sh, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss;
 };
@@ -162,6 +165,14 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_scan_kernel(SsdArgs a) {
   for (int ch = 0; ch < a.nc; ++ch) {
     const int t0 = ch * Q, nq = min(Q, a.S - t0);
     __syncthreads();                    // the previous chunk is done
+    if (a.states != nullptr) {          // the state this chunk starts from
+      float* hs = a.states + ((((long long)b * a.nc + ch) * a.nh + hh) *
+                              a.hd + d0) * N;
+      for (int i = tid; i < kDP * N; i += kThreads) {
+        const int d = i / N, n = i % N;
+        if (d0 + d < a.hd) hs[(long long)d * N + n] = sH[d * ldh + n];
+      }
+    }
     // 1. l = cumsum(dt * a): warp 0, four positions a lane, then a scan of
     //    the lane sums
     if (warp == 0) {
@@ -312,18 +323,19 @@ cudaError_t run(const SsdArgs& a, cudaStream_t s) {
 
 extern "C" int rt_ssd_scan(
     const void* x, const void* dt, const void* a, const void* b,
-    const void* c, const void* h0, void* y, void* h, void* cb, int B, int S,
-    int nh, int hd, int N, int Q, long long x_sb, long long x_ss,
-    long long x_sh, long long dt_sb, long long dt_ss, long long b_sb,
-    long long b_ss, long long c_sb, long long c_ss, int is_bf16,
-    void* stream) {
+    const void* c, const void* h0, void* y, void* h, void* cb, void* states,
+    int B, int S, int nh, int hd, int N, int Q, long long x_sb,
+    long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
+    long long b_sb, long long b_ss, long long c_sb, long long c_ss,
+    int is_bf16, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
   SsdArgs args{x, static_cast<const float*>(dt), static_cast<const float*>(a),
                b, c, static_cast<const float*>(h0), y,
                static_cast<float*>(h), static_cast<float*>(cb),
-               B, S, nh, hd, N, Q, (S + Q - 1) / Q,
+               static_cast<float*>(states), B, S, nh, hd, N, Q,
+               (S + Q - 1) / Q,
                x_sb, x_ss, x_sh, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the tensor-core body copies 16-byte pieces of x, B and C rows
@@ -340,7 +352,8 @@ extern "C" int rt_ssd_scan(
         static_cast<const __nv_bfloat16*>(x), args.dt, args.a,
         static_cast<const __nv_bfloat16*>(b),
         static_cast<const __nv_bfloat16*>(c), args.h0,
-        static_cast<__nv_bfloat16*>(y), args.h, B, S, nh, hd, N, Q, args.nc,
+        static_cast<__nv_bfloat16*>(y), args.h, args.states, B, S, nh, hd,
+        N, Q, args.nc,
         x_sb, x_ss, x_sh, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss};
     e = N <= 64 ? rt::ssd::run<64>(sa, st)
         : N <= 128 ? rt::ssd::run<128>(sa, st)

@@ -68,6 +68,7 @@ struct Args {
   const float* h0;          // nullptr: zero initial state
   __nv_bfloat16* y;
   float* h;
+  float* states;            // (B, nc, nh, hd, N) or nullptr: entry states
   int B, S, nh, hd, N, Q, nc;
   long long x_sb, x_ss, x_sh, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss;
 };
@@ -196,6 +197,19 @@ __global__ void __launch_bounds__(32 * kWarps, 1) scan_kernel(Args a) {
 
   for (int ch = 0; ch < a.nc; ++ch) {
     const int t0 = ch * Q, nq = min(Q, a.S - t0);
+    if (a.states != nullptr) {  // the state this chunk starts from
+      float* hs_out = a.states + (((long long)b * a.nc + ch) * a.nh + hh) *
+                                     a.hd * a.N;
+#pragma unroll
+      for (int nt = 0; nt < NH; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int d = 16 * p + r + 4 * e, n = n0 + 8 * nt + c;
+          if (d0 + d < a.hd && n < a.N)
+            *reinterpret_cast<float2*>(hs_out + (long long)(d0 + d) * a.N +
+                                       n) = make_float2(h[nt][e], h[nt][e + 1]);
+        }
+    }
     if constexpr (NB == 2) {
       if (ch + 1 < a.nc)
         load_chunk<NT>(a, buf_of(ch + 1), b, hh, d0, t0 + Q,

@@ -7,8 +7,9 @@ through the kernel's plain PyTorch version. There is no fallback from a
 failed build or launch to the plain version.
 
 Gradients: on the card, flash attention trains through
-``FlashAttentionFn`` (a hand-written backward kernel); every other kernel
-raises when autograd records a gradient of its inputs
+``FlashAttentionFn`` and the SSD scan through ``SsdScanFn`` (each a
+hand-written backward kernel); the serving kernels (decode, chunk, the
+probe) raise when autograd records a gradient of their inputs
 (``_build.refuse_grad``) instead of returning an output without a
 ``grad_fn``. On the CPU the plain versions are differentiable as they
 are.
@@ -40,6 +41,7 @@ KERNEL_MODULES = {"decode_attention_paged": _da,
                   "flash_attention": _fa,
                   "flash_attention_bwd": _fa,
                   "ssd_scan": _ssd,
+                  "ssd_scan_bwd": _ssd,
                   "kv_probe": _kvp}
 
 
@@ -112,8 +114,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, chunk: int = 128,
              h0: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    fn = _ssd.ssd_scan if x.is_cuda else _ssd.ssd_scan_plain
-    return fn(x, dt, a, b, c, chunk=chunk, h0=h0)
+    """On the card: ``SsdScanFn`` (forward and backward kernels) while
+    autograd records a gradient of an input, else the forward kernel
+    alone, as serving calls it."""
+    if not x.is_cuda:
+        return _ssd.ssd_scan_plain(x, dt, a, b, c, chunk=chunk, h0=h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, dt, a, b, c, h0)):
+        return _ssd.SsdScanFn.apply(x, dt, a, b, c, chunk, h0)
+    return _ssd.ssd_scan(x, dt, a, b, c, chunk=chunk, h0=h0)
 
 
 def launch_counts() -> Dict[str, int]:

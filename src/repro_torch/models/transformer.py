@@ -487,8 +487,8 @@ class LM:
         (B, S, d_model) for the vision frontend), ``targets``, optional
         ``mask`` and ``positions`` (default arange; (3, B, S) identical
         streams under M-RoPE). On the card attention trains through the
-        flash forward and backward kernels; the SSM scan has no backward
-        kernel yet and raises (ROADMAP A8b)."""
+        flash forward and backward kernels and the SSD scan through its
+        forward and backward kernels."""
         c = self.cfg
         if "embeds" in batch:
             x = batch["embeds"].to(self.dtype)

@@ -312,6 +312,7 @@ def test_ops_dispatch_cpu_goes_plain_and_kernels_refuse_cpu():
                                     "flash_attention": 0,
                                     "flash_attention_bwd": 0,
                                     "ssd_scan": 0,
+                                    "ssd_scan_bwd": 0,
                                     "kv_probe": 0}
     with pytest.raises(ValueError):
         tda.decode_attention_paged(q, tk, tv, tt, 5)

@@ -1,4 +1,4 @@
-"""The port's eight CUDA kernels against their plain PyTorch versions, on
+"""The port's nine CUDA kernels against their plain PyTorch versions, on
 the card, and the engine and the global server on the card against the
 same on the CPU.
 
@@ -20,7 +20,11 @@ plain version's own error (the kernel rounds P and dS to bf16 as mma
 operands, the plain version rounds far more: scores, probabilities and
 every product in bf16). The bf16 backward's dQ is reduce-added in fp32 in
 no fixed order, so two calls may differ in its last bf16 place; dK / dV
-are bitwise repeatable.
+are bitwise repeatable. The SSD scan's backward is held to its plain
+version (``ssd_scan_bwd_plain``) in fp32: every gradient within 1e-4 of
+its largest element (another summation order), a bf16 dx / dB / dC also
+within one bf16 rounding; it sums in a fixed order, so it repeats bit for
+bit.
 """
 
 import numpy as np
@@ -527,6 +531,184 @@ def test_ssd_scan_kernel_matches_plain(cuda, dtype, b, s, nh, hd, n, chunk,
     torch.testing.assert_close(h, hr, **_tol(dtype))
 
 
+# -- the SSD scan's backward (training) ------------------------------------------
+# (b, s, nh, hd, n, chunk, h0, dh_final): mamba2-1.3b's and zamba2-2.7b's
+# train shapes (one 2048-token row: 64 heads of 64, N 128; 80 heads of 64,
+# N 64), then reduced shapes: ragged S, S < Q, Q 128 / 64 / 12 / 8, N 16 to
+# 256, head dims 16 / 32 / 64, an initial state and a final-state gradient
+_SSD_BWD_CASES = [
+    (1, 2048, 64, 64, 128, 128, False, False),
+    (1, 2048, 80, 64, 64, 128, False, False),
+    (2, 300, 4, 64, 128, 128, True, True),
+    (2, 150, 6, 32, 64, 64, True, False),
+    (2, 37, 4, 16, 16, 12, False, True),
+    (3, 100, 4, 64, 32, 12, True, True),
+    (1, 50, 2, 64, 256, 128, False, True),
+    (2, 45, 4, 48, 64, 8, True, True),
+]
+_SSD_BWD_NAMES = ("dx", "ddt", "da", "db", "dc", "dh0")
+
+
+def _ssd_bwd_inputs(seed, b, s, nh, hd, n, dtype, dev, init, dhf):
+    """The forward's arguments as the model gives them (x, B and C strided
+    views of one buffer), h0, dy in x's dtype and an fp32 dh_final."""
+    rng = np.random.RandomState(seed)
+    xbc = _rand(rng, (b, s, nh * hd + 2 * n), dtype, dev) * 0.5
+    x = xbc[..., :nh * hd].reshape(b, s, nh, hd)
+    bm, cm = xbc[..., nh * hd:nh * hd + n], xbc[..., nh * hd + n:]
+    dt = torch.from_numpy(np.abs(rng.randn(b, s, nh)).astype(np.float32)
+                          * 0.1 + 0.01).to(dev)
+    a = torch.from_numpy(-np.abs(rng.randn(nh)).astype(np.float32)
+                         - 0.1).to(dev)
+    h0 = (_rand(rng, (b, nh, hd, n), torch.float32, dev) * 0.2 if init
+          else None)
+    dy = _rand(rng, (b, s, nh, hd), dtype, dev)
+    dh = _rand(rng, (b, nh, hd, n), torch.float32, dev) if dhf else None
+    return (x, dt, a, bm, cm), h0, dy, dh
+
+
+def _check_ssd_grads(got, refs, bf16_outputs: bool, rel: float = 1e-4):
+    """Each gradient within ``rel`` of its reference's largest element
+    (fp32 sums in another order); dx, dB and dC in bf16 also within one
+    bf16 rounding of it (2^-8 of the largest element)."""
+    for i, (g, r) in enumerate(zip(got, refs)):
+        name = _SSD_BWD_NAMES[i]
+        if r is None:
+            assert g is None, name
+            continue
+        big = r.abs().max().item()
+        lim = rel * big + (2 ** -8 * big if bf16_outputs and i in (0, 3, 4)
+                           else 0.0) + 1e-7
+        err = (g.float() - r.float()).abs().max().item()
+        assert g.shape == r.shape and np.isfinite(err), name
+        assert err <= lim, (name, err, lim)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,nh,hd,n,chunk,init,dhf", _SSD_BWD_CASES)
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, dtype, b, s, nh, hd, n,
+                                           chunk, init, dhf):
+    """The backward kernel alone, given the exact chunk entry states
+    (``ssd_states_plain`` in fp32), against the plain backward evaluated
+    in fp32 on the same input values."""
+    args, h0, dy, dh = _ssd_bwd_inputs(21, b, s, nh, hd, n, dtype, cuda,
+                                       init, dhf)
+    states = _ref(ssd.ssd_states_plain, *args, chunk, h0)
+    n0 = ssd.launch_counts["ssd_scan_bwd"]
+    got = ssd.ssd_scan_bwd(*args, chunk, states, dy, dh, want_dh0=init)
+    assert ssd.launch_counts["ssd_scan_bwd"] == n0 + 1
+    refs = _ref(ssd.ssd_scan_bwd_plain, *args, chunk, h0, dy, dh)
+    assert [None if t is None else t.dtype for t in got] == [
+        dtype, torch.float32, torch.float32, dtype, dtype,
+        torch.float32 if init else None]
+    _check_ssd_grads(got, refs, dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_scan_bwd_kernel_repeats(cuda, dtype):
+    """Two calls on one input agree bit for bit: the heads' dB / dC shares
+    and the da partials are summed in a fixed order, with no atomics."""
+    args, h0, dy, dh = _ssd_bwd_inputs(22, 1, 2048, 64, 64, 128, dtype,
+                                       cuda, True, True)
+    states = _ref(ssd.ssd_states_plain, *args, 128, h0)
+    one = ssd.ssd_scan_bwd(*args, 128, states, dy, dh, want_dh0=True)
+    two = ssd.ssd_scan_bwd(*args, 128, states, dy, dh, want_dh0=True)
+    assert all(torch.equal(p, q) for p, q in zip(one, two))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,nh,hd,n,chunk,init", [
+    (1, 2048, 64, 64, 128, 128, False), (2, 300, 4, 64, 128, 128, True),
+    (2, 100, 4, 32, 20, 12, True), (2, 150, 3, 80, 64, 64, True)])
+def test_ssd_scan_states_output(cuda, dtype, b, s, nh, hd, n, chunk, init):
+    """The forward with the chunk entry states gives the same y and final
+    state as without them, and the states equal ``ssd_states_plain``
+    within the forward's own tolerance (both bodies: N 20 takes the FP32
+    one in bf16)."""
+    args, h0, _, _ = _ssd_bwd_inputs(23, b, s, nh, hd, n, dtype, cuda,
+                                     init, False)
+    states = torch.empty((b, -(-s // chunk), nh, hd, n), device=cuda)
+    y0, h_0 = ssd.ssd_scan(*args, chunk=chunk, h0=h0)
+    y1, h_1 = ssd.ssd_scan(*args, chunk=chunk, h0=h0, states=states)
+    assert torch.equal(y0, y1) and torch.equal(h_0, h_1)
+    ref = _ref(ssd.ssd_states_plain, *args, chunk, h0)
+    torch.testing.assert_close(states, ref, **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("use_h", [False, True])
+def test_ssd_scan_trains_through_ssdscanfn(cuda, dtype, use_h):
+    """``ops.ssd_scan`` with inputs that require grad runs ``SsdScanFn``:
+    one forward and one backward launch, gradients of every input (h0
+    too) against the plain backward evaluated in fp32, with the final
+    state's gradient None (discarded, as ``LM.loss`` does) or given; no
+    backward without a recorded gradient. bf16 within 1e-2 of each leaf's
+    largest element: the forward's tensor-core body computes the saved
+    states with tf32 products (about 1e-3 relative)."""
+    args, h0, dy, dh = _ssd_bwd_inputs(24, 2, 150, 4, 64, 64, dtype, cuda,
+                                       True, use_h)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in args + (h0,)]
+    n_f = ssd.launch_counts["ssd_scan"]
+    n_b = ssd.launch_counts["ssd_scan_bwd"]
+    y, h = ops.ssd_scan(*leaves[:5], chunk=64, h0=leaves[5])
+    assert y.grad_fn is not None
+    outs, grads = ((y, h), (dy, dh)) if use_h else ((y,), (dy,))
+    got = torch.autograd.grad(outs, leaves, grads)
+    assert ssd.launch_counts["ssd_scan"] == n_f + 1
+    assert ssd.launch_counts["ssd_scan_bwd"] == n_b + 1
+    refs = _ref(ssd.ssd_scan_bwd_plain, *args, 64, h0, dy, dh)
+    assert [t.dtype for t in got] == [dtype, torch.float32, torch.float32,
+                                      dtype, dtype, torch.float32]
+    _check_ssd_grads(got, refs, dtype == torch.bfloat16,
+                     rel=1e-4 if dtype == torch.float32 else 1e-2)
+    with torch.no_grad():
+        assert ops.ssd_scan(*leaves[:5], chunk=64)[0].grad_fn is None
+    assert ssd.launch_counts["ssd_scan_bwd"] == n_b + 1
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
+def test_ssm_loss_gradients_match_cpu(cuda, arch):
+    """Reduced mamba2 / zamba2 ``LM.loss`` and every gradient leaf in fp32
+    on the card (the SSD scan through ``SsdScanFn``, zamba2's shared
+    attention through ``FlashAttentionFn``) against the CPU, chunks of 12
+    over 32 tokens (two full chunks and a ragged one of 8): each leaf
+    within 1e-4 of its largest CPU element + 1e-6, as in
+    ``tests/test_torch_train.py``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import DataConfig, SyntheticLM
+    from repro_torch.train.data import to_torch
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg, device="cpu").init(seed=0)
+    batch = SyntheticLM(cfg, DataConfig(2, 32, 0)).batch_at(1)
+    batch["mask"][1, 20:] = 0.0
+
+    def run(dev):
+        model = build_model(cfg, device=dev, ssd_chunk=12)
+        leaves = {}
+
+        def to(tree, path=""):
+            if isinstance(tree, dict):
+                return {k: to(v, f"{path}/{k}") for k, v in tree.items()}
+            leaves[path] = tree.detach().to(dev).requires_grad_(True)
+            return leaves[path]
+        tree = to(params)
+        loss = model.loss(tree, to_torch(batch, dev))
+        names = sorted(leaves)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+        return loss.item(), {k: g.cpu() for k, g in zip(names, grads)}
+
+    n_b = ssd.launch_counts["ssd_scan_bwd"]
+    loss, grads = run(cuda)
+    assert ssd.launch_counts["ssd_scan_bwd"] > n_b
+    ref_loss, ref = run("cpu")
+    assert abs(loss - ref_loss) <= 2e-5 * abs(ref_loss)
+    for k, r in ref.items():
+        err = (grads[k] - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item() + 1e-6, (k, err)
+
+
 @pytest.mark.parametrize("arch,kw", [
     ("qwen3-32b", dict(max_batch=4, max_len=64, prefill_chunk=8)),
     ("qwen3-32b", dict(max_batch=4, max_len=64, prefill_chunk=8,
@@ -791,18 +973,14 @@ def test_flash_autograd_through_kernels(cuda, dtype):
 
 
 def _guard_calls(dev):
-    """One call of every non-flash kernel wrapper through ``ops`` on CUDA
-    inputs, q (or x) requiring grad."""
+    """One call of every serving kernel wrapper through ``ops`` on CUDA
+    inputs, q (or the cache) requiring grad."""
     rng = np.random.RandomState(14)
     f32 = torch.float32
     q = _rand(rng, (2, 1, 4, 16), f32, dev).requires_grad_(True)
     qc = _rand(rng, (2, 3, 4, 16), f32, dev).requires_grad_(True)
     ck, cv = (_rand(rng, (2, 32, 2, 16), f32, dev) for _ in range(2))
     pk, pv, tbl = _pool(rng, 2, 2, 16, 2, 16, f32, dev)
-    x = _rand(rng, (1, 8, 2, 16), f32, dev).requires_grad_(True)
-    bm, cm = (_rand(rng, (1, 8, 16), f32, dev) for _ in range(2))
-    dt = torch.full((1, 8, 2), 0.1, device=dev)
-    a = torch.full((2,), -0.5, device=dev)
     return {
         "decode_attention_paged": lambda: ops.decode_attention_paged(
             q, pk, pv, tbl, 5),
@@ -812,21 +990,20 @@ def _guard_calls(dev):
         "chunk_attention": lambda: ops.chunk_attention(qc, ck, cv, 4),
         "kv_probe": lambda: kvp.kv_probe(ck.requires_grad_(True), cv, None,
                                          0, 3, 4),
-        "ssd_scan": lambda: ops.ssd_scan(x, dt, a, bm, cm, chunk=4),
     }
 
 
 @pytest.mark.parametrize("name", ["decode_attention_paged",
                                   "decode_attention",
                                   "chunk_attention_paged", "chunk_attention",
-                                  "kv_probe", "ssd_scan"])
+                                  "kv_probe"])
 def test_kernel_wrappers_refuse_gradients_on_card(cuda, name):
     """No kernel without a backward returns an output that silently drops
-    the gradient: each raises while autograd records, and runs under
-    ``torch.no_grad()``."""
+    the gradient: each serving kernel raises while autograd records, and
+    runs under ``torch.no_grad()`` (the SSD scan trains through
+    ``SsdScanFn``: ``test_ssd_scan_trains_through_ssdscanfn``)."""
     call = _guard_calls(cuda)[name]
-    missing = "A8b" if name == "ssd_scan" else "no backward"
-    with pytest.raises(RuntimeError, match=missing):
+    with pytest.raises(RuntimeError, match="no backward"):
         call()
     with torch.no_grad():
         call()

@@ -265,11 +265,12 @@ def _wrapper_calls():
 def test_kernel_wrapper_refuses_gradients(name):
     """A kernel wrapper never returns an output that silently drops the
     gradient: with autograd recording a gradient of an input it raises,
-    naming the backward it lacks (the SSD scan's is ROADMAP A8b; flash
-    attention's is ``FlashAttentionFn``); under ``torch.no_grad()`` the
-    guard lets the call through (to the CUDA device check here)."""
+    naming the autograd function that trains through it (the SSD scan's
+    is ``SsdScanFn``, flash attention's ``FlashAttentionFn``) or saying
+    that it is a serving kernel; under ``torch.no_grad()`` the guard lets
+    the call through (to the CUDA device check here)."""
     call = _wrapper_calls()[name]
-    missing = {"ssd_scan": "A8b",
+    missing = {"ssd_scan": "SsdScanFn",
                "flash_attention": "FlashAttentionFn"}.get(name, "serving")
     with pytest.raises(RuntimeError, match=missing):
         call()
