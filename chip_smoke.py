@@ -212,8 +212,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    microbatches, the reference's AdamW defaults (lr 3e-4 after 100
    warm-up steps): one warm-up step and six timed ones; the
    loss must be finite and fall, the flash forward and backward must
-   launch; prints step seconds, tok/s, model FLOPs / (step x 989
-   TFLOP/s), peak GB and launches per step (with ``--profile``, device
+   launch; prints step seconds, the host's seconds to queue a step
+   (``dispatch_s``, timed from a drained device), tok/s, model FLOPs /
+   (step x 989 TFLOP/s), peak GB and launches per step (with ``--profile``, device
    busy / idle and time by category); no checkpoint at this width; then
    ``train_mamba2``: mamba2-1.3b whole (48 layers, d_model 2048, 64 SSD
    heads of 64, N 128, vocab 50280) the same way, four timed steps, the
@@ -1567,6 +1568,13 @@ def kernel_ssd_bwd(cs, dev, rehearsal) -> dict:
         dy = cs.randn(b, s, nh, hd, dtype=dtype)
         dh = cs.randn(b, nh, hd, n, dtype=torch.float32) if dhf else None
         states = in_fp32(ssd.ssd_states_plain)(*args, q, h0)
+        body = "plain version"
+        if not rehearsal:
+            kind, group, _ = ssd.bwd_plan(args[0], args[3], args[4], q)
+            body = f"{kind} body, {group} heads a CTA"
+            if label.startswith("row 9") and kind != "tensor-core":
+                raise SystemExit(f"chip_smoke: {name} {label} took the "
+                                 f"{body}, not the tensor-core body")
         refs = in_fp32(ssd.ssd_scan_bwd_plain)(*args, q, h0, dy, dh)
         if rehearsal:
             run = lambda: in_fp32(ssd.ssd_scan_bwd_plain)(  # noqa: E731
@@ -1587,7 +1595,7 @@ def kernel_ssd_bwd(cs, dev, rehearsal) -> dict:
             err = (g.float() - r).abs().max().item()
             ok = ok and bool(torch.isfinite(g.float()).all()) and err <= lim
             errs.append((SSD_BWD_NAMES[i], err, lim))
-        log(f"[kernels] {name:24s} {label:44s} "
+        log(f"[kernels] {name:24s} {label:44s} ({body}) "
             + "; ".join(f"{k} {e:.2e} (limit {lim:.2e})"
                         for k, e, lim in errs) + f" {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -1599,8 +1607,9 @@ def kernel_ssd_bwd(cs, dev, rehearsal) -> dict:
             work = ssd_bwd_work(b, s, nh, hd, n, q, 2, init, dhf)
             ms, dev_ms = time_both(run)
             b_ms, b_by = bound(*work, torch.bfloat16)
-            row = dict(shape=label, ms=ms, device_ms=dev_ms, library_ms=None,
-                       library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
+            row = dict(shape=label, body=body, ms=ms, device_ms=dev_ms,
+                       library_ms=None, library_device_ms=None,
+                       bound_ms=b_ms, bound_by=b_by,
                        share_of_bound=b_ms / dev_ms)
             if not rows:
                 row["plain_ms"] = time_ms(lambda: ssd.ssd_scan_bwd_plain(
@@ -3257,9 +3266,8 @@ def phase_train_parity(dev) -> None:
 
 # -- phase 6: training at full width --------------------------------------------------
 # (arch, timed steps after one warm-up, kernels that must launch): the
-# dense case and the recurrent one. mamba2's step is several times
-# internlm2's (the SSD backward runs on the CUDA cores), so it times four
-# steps to keep the run inside its limit
+# dense case and the recurrent one. mamba2's step is about twice
+# internlm2's, so it times four steps to keep the run inside its limit
 TRAIN_CASES = {"train": ("internlm2-1.8b", 6, FLASH),
                "train_mamba2": ("mamba2-1.3b", 4, SSD)}
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
@@ -3305,19 +3313,27 @@ def phase_train(dev, case: str, seed: int, rehearsal: bool,
         f"{m['grad_norm'].item():.4f} ({time.perf_counter() - t0:.2f} s)")
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    walls, losses, counts = [], [], []
+    walls, queued, losses, counts = [], [], [], []
     for s in range(1, steps + 1):
         ops.reset_launch_counts()
         _sync(dev)
         t0 = time.perf_counter()
         state, m = step_fn(state, batches[s])
+        queued.append(time.perf_counter() - t0)
         _sync(dev)
         walls.append(time.perf_counter() - t0)
         counts.append(ops.launch_counts())
         losses.append(m["loss"].item())
         log(f"{tag} step {s}: loss {losses[-1]:.4f} grad_norm "
-            f"{m['grad_norm'].item():.4f} step_s {walls[-1]:.3f}")
+            f"{m['grad_norm'].item():.4f} step_s {walls[-1]:.3f} "
+            f"dispatch_s {queued[-1]:.3f}")
     wall = float(np.median(walls))
+    # the step queues its work without a sync: when the host returns
+    # about as the device finishes (a short tail), the host set the pace
+    tails = [w - q for w, q in zip(walls, queued)]
+    log(f"{tag} host dispatch median={np.median(queued):.3f} s, device "
+        f"tail after it median={np.median(tails):.3f} s (a step starts on a "
+        f"drained device)")
     tokens = batch * seq
     # attention: 12 x layers x heads x hd x causal keys (none for an SSM)
     vis = seq * (seq + 1) // 2            # causal keys per row, summed
@@ -3371,7 +3387,9 @@ SSD_KERNEL_NAMES = ("ssd_cb_kernel", "ssd_scan_kernel", "ssd::scan_kernel")
 def _category(name: str) -> str:
     if "probe_kernel" in name:
         return "kv probe (port kernel)"
-    if "ssd_bwd::" in name:             # before "bwd::main_kernel"
+    # before "bwd::main_kernel" and "chunk_kernel": ssd_bwd::* (the
+    # backward's CUDA-core body) and ssd_bwd_sm90::* (its tensor-core one)
+    if "ssd_bwd" in name:
         return "ssd scan backward (port kernel)"
     if any(k in name for k in BWD_KERNEL_NAMES):
         return "attention backward (port kernel)"

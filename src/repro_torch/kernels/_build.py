@@ -55,7 +55,7 @@ SIGNATURES: Dict[str, List] = {
     "rt_ssd_scan":
         [_P] * 10 + [_I] * 6 + [_L] * 9 + [_I, _P],
     "rt_ssd_scan_bwd":
-        [_P] * 19 + [_I] * 6 + [_L] * 9 + [_I, _P],
+        [_P] * 15 + [_I] * 6 + [_L] * 9 + [_I, _P],
     "rt_kv_probe":
         [_P] * 6 + [_I] * 10 + [_P],
 }
@@ -152,6 +152,8 @@ def load() -> ctypes.CDLL:
         lib.rt_decode_plan.restype = ctypes.c_int
         lib.rt_flash_attention_bwd_plan.argtypes = [_I] * 9 + [_P]
         lib.rt_flash_attention_bwd_plan.restype = ctypes.c_int
+        lib.rt_ssd_scan_bwd_plan.argtypes = [_I] * 7 + [_L] * 7 + [_I, _P]
+        lib.rt_ssd_scan_bwd_plan.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         build_info.update(path=str(lib_path), built=built,

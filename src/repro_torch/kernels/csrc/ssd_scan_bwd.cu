@@ -22,17 +22,18 @@
 //   g = reverse cumsum of dl: ddt = g a + sum_d dxdt x, da = sum g dt.
 // (ssd_scan.py `ssd_scan_bwd_plain` is the same walk in plain PyTorch.)
 //
-// Bound on the card: BYTES at mamba2-1.3b's train shape (one 2048-token
-// row, 64 heads of 64, N 128, Q 128: x, dy, dx in bf16 and the saved
-// states in fp32 are 87 MB with B, C, dB, dC, dt and ddt, 26 us at 3.35
-// TB/s, against 17 GFLOP over the causal triangles, 17 us at the bf16
-// tensor-core peak). This body runs fp32 on the CUDA cores out of shared
-// memory, so the FP32 pipe (67 TFLOP/s: 0.26 ms for the same work, more
-// for the full squares it computes) and the shared-memory load rate bound
-// it, not either of the card's bounds.
+// Two bodies. bf16 x, B and C whose rows and strides are 16-byte aligned
+// (head dim and state width multiples of 8: the forward's route rule) run
+// the tensor-core body of ssd_bwd_sm90.cuh, whose note gives the bound at
+// the train shapes and its design. `plan_of` alone decides the body; the
+// launch and rt_ssd_scan_bwd_plan (which the wrapper and chip_smoke.py ask
+// for the scratch size and the body) both call it. fp32 inputs, and bf16
+// ones that fail the rule, run the body below: fp32 on the CUDA cores out
+// of shared memory, bound by the FP32 pipe (67 TFLOP/s) and the shared-
+// memory load rate rather than by either of the card's bounds. Its sums
+// are the card == CPU training check's (fp32 losses equal bit for bit).
 //
-// What the design does about it (the simple version; tensor cores are
-// later work):
+// What the CUDA-core body does:
 //  * The forward carried h across the chunks in one CTA. The backward's
 //    only carried quantity is dH, and it depends on the chunk's inputs
 //    only through S (the chunk's own term) and l_last: so S is computed
@@ -59,6 +60,7 @@
 //    = 0 and dt = 0 and write nothing; x, dt, b and c are strided views
 //    read in place, as in the forward.
 #include "common.cuh"
+#include "ssd_bwd_sm90.cuh"
 
 namespace {
 namespace ssd_bwd {   // the kernels' names in a profile: ssd_bwd::*
@@ -670,31 +672,132 @@ cudaError_t run(const BwdArgs& a, cudaStream_t s) {
 }
 
 }  // namespace ssd_bwd
-}  // namespace
 
-extern "C" int rt_ssd_scan_bwd(
-    const void* x, const void* dt, const void* a, const void* b,
-    const void* c, const void* dy, const void* states, const void* dh_final,
-    void* dx, void* ddt, void* db, void* dc, void* dh0, void* cb, void* dhs,
-    void* lsum, void* pdb, void* pdc, void* pda, int B, int S, int nh,
-    int hd, int N, int Q, long long x_sb, long long x_ss, long long x_sh,
-    long long dt_sb, long long dt_ss, long long b_sb, long long b_ss,
-    long long c_sb, long long c_ss, int is_bf16, void* stream) {
-  cudaGetLastError();  // clear a stale error so the return is this launch's
+// SM count of the current device, read once per device
+int sm_count() {
+  static int cached[64] = {};
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 0;
+  if (dev < 64 && cached[dev] > 0) return cached[dev];
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < 64) cached[dev] = n;
+  return n;
+}
+
+struct Plan {
+  bool sm90;            // the tensor-core body
+  int group, ngroups;   // its heads per CTA, and CTAs per chunk
+  long long work;       // fp32 scratch floats
+};
+
+// The body and scratch of a launch with these arguments. The route rule
+// is the forward's (ssd_scan.cu): the tensor-core body copies 16-byte
+// pieces of x, B and C rows, so `aligned` says whether their data starts
+// on 16 bytes. Its heads per CTA come from the SM count. Returns false on
+// arguments the kernels do not take or a device it cannot read.
+bool plan_of(int B, int S, int nh, int hd, int N, int Q, bool aligned,
+             long long x_sb, long long x_ss, long long x_sh, long long b_sb,
+             long long b_ss, long long c_sb, long long c_ss, int is_bf16,
+             Plan* p) {
   using namespace ssd_bwd;
   if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxN || hd < 1 || hd > kMaxD
       || B < 1 || S < 1 || nh < 1)
+    return false;
+  const long long nc = (S + Q - 1) / Q;
+  const long long state = (long long)B * nc * nh * hd * N;
+  p->sm90 = is_bf16 && hd % 8 == 0 && N % 8 == 0 && aligned
+            && x_sb % 8 == 0 && x_ss % 8 == 0 && x_sh % 8 == 0
+            && b_sb % 8 == 0 && b_ss % 8 == 0 && c_sb % 8 == 0
+            && c_ss % 8 == 0;
+  if (!p->sm90) {
+    // cb, dhs, lsum, pdb and pdc
+    p->group = 1;
+    p->ngroups = nh;
+    p->work = B * nc * Q * Q + state + B * nc * nh
+              + 2LL * B * nc * nh * Q * N;
+    return true;
+  }
+  const int sms = sm_count();
+  if (sms <= 0) return false;
+  p->group = rt::ssd_bwd_sm90::group_of(B, static_cast<int>(nc), nh, sms);
+  p->ngroups = (nh + p->group - 1) / p->group;
+  // dH per chunk, and with more than one group their dB / dC shares
+  p->work = state + (p->ngroups > 1 ? 2LL * B * nc * p->ngroups * Q * N : 0);
+  return true;
+}
+
+}  // namespace
+
+// out[0] = 1 for the tensor-core body (0: the CUDA-core one), out[1] its
+// heads per CTA, out[2] the fp32 floats of scratch (`work`) the launch
+// with the same arguments takes. `aligned`: x, B and C start on 16 bytes.
+extern "C" int rt_ssd_scan_bwd_plan(
+    int aligned, int B, int S, int nh, int hd, int N, int Q, long long x_sb,
+    long long x_ss, long long x_sh, long long b_sb, long long b_ss,
+    long long c_sb, long long c_ss, int is_bf16, long long* out) {
+  Plan p;
+  if (!plan_of(B, S, nh, hd, N, Q, aligned != 0, x_sb, x_ss, x_sh, b_sb,
+               b_ss, c_sb, c_ss, is_bf16, &p))
     return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = p.sm90;
+  out[1] = p.group;
+  out[2] = p.work;
+  return 0;
+}
+
+// `work`: fp32 scratch of the size rt_ssd_scan_bwd_plan gives; `pda`: the
+// (B, n_chunks, nh) da partials the wrapper sums.
+extern "C" int rt_ssd_scan_bwd(
+    const void* x, const void* dt, const void* a, const void* b,
+    const void* c, const void* dy, const void* states, const void* dh_final,
+    void* dx, void* ddt, void* db, void* dc, void* dh0, void* pda,
+    void* work, int B, int S, int nh, int hd, int N, int Q, long long x_sb,
+    long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
+    long long b_sb, long long b_ss, long long c_sb, long long c_ss,
+    int is_bf16, void* stream) {
+  cudaGetLastError();  // clear a stale error so the return is this launch's
+  auto al16 = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  Plan p;
+  if (!plan_of(B, S, nh, hd, N, Q, al16(x) && al16(b) && al16(c), x_sb,
+               x_ss, x_sh, b_sb, b_ss, c_sb, c_ss, is_bf16, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = (S + Q - 1) / Q;
+  float* w = static_cast<float*>(work);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.sm90) {
+    const long long state = (long long)B * nc * nh * hd * N;
+    const rt::ssd_bwd_sm90::Args sa{
+        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dt),
+        static_cast<const float*>(a), static_cast<const __nv_bfloat16*>(b),
+        static_cast<const __nv_bfloat16*>(c),
+        static_cast<const __nv_bfloat16*>(dy),
+        static_cast<const float*>(states),
+        static_cast<const float*>(dh_final),
+        static_cast<__nv_bfloat16*>(dx), static_cast<float*>(ddt),
+        static_cast<__nv_bfloat16*>(db), static_cast<__nv_bfloat16*>(dc),
+        static_cast<float*>(dh0), static_cast<float*>(pda), w,
+        p.ngroups > 1 ? w + state : nullptr, B, S, nh, hd, N, Q, nc,
+        p.group, p.ngroups,
+        x_sb, x_ss, x_sh, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss};
+    return static_cast<int>(rt::ssd_bwd_sm90::run(sa, st));
+  }
+  // the CUDA-core body's scratch, in the order plan_of counts it
+  float* cb = w;
+  float* dhs = cb + (long long)B * nc * Q * Q;
+  float* lsum = dhs + (long long)B * nc * nh * hd * N;
+  float* pdb = lsum + (long long)B * nc * nh;
+  float* pdc = pdb + (long long)B * nc * nh * Q * N;
   const ssd_bwd::BwdArgs args{
       x, static_cast<const float*>(dt), static_cast<const float*>(a), b, c,
       dy, static_cast<const float*>(states),
       static_cast<const float*>(dh_final), dx, static_cast<float*>(ddt), db,
-      dc, static_cast<float*>(dh0), static_cast<float*>(cb),
-      static_cast<float*>(dhs), static_cast<float*>(lsum),
-      static_cast<float*>(pdb), static_cast<float*>(pdc),
-      static_cast<float*>(pda), B, S, nh, hd, N, Q, (S + Q - 1) / Q,
+      dc, static_cast<float*>(dh0), cb, dhs, lsum, pdb, pdc,
+      static_cast<float*>(pda), B, S, nh, hd, N, Q, nc,
       x_sb, x_ss, x_sh, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = is_bf16 ? ssd_bwd::run<__nv_bfloat16>(args, st)
                                 : ssd_bwd::run<float>(args, st);
   return static_cast<int>(e);

@@ -89,18 +89,6 @@ __host__ __device__ constexpr size_t smem_bytes() {
          + (size_t)kWarps * kQ * 4;                 // per-warp L
 }
 
-// byte offset of 16-byte piece `pc` of row `row` in rows of `rb` bytes
-// (rb >= 128), pieces XOR-swizzled by row % 8
-__device__ __forceinline__ uint32_t swz(int row, int pc, int rb) {
-  return row * rb + ((pc ^ (row & 7)) << 4);
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
 // x (this CTA's 64 head dims), B, C and dt of positions [t0, t0 + nq) of
 // batch row b into the chunk buffer at `buf`; rows past nq zero-filled
 template <int NT>

@@ -1,9 +1,10 @@
 // Warp-level building blocks shared by the port's tensor-core kernels:
-// 16-byte cp.async copies, ldmatrix, mma.sync m16n8k16 (bf16 in) and
-// m16n8k8 (tf32 in), both with fp32 accumulators, bf16 packing and exp2.
-// The bf16 decode body (decode_sm90.cuh) and the SSD scan (ssd_sm90.cuh)
-// build on these; the prefill body (prefill_sm90.cuh) takes the copy and
-// packing helpers.
+// 16- and 4-byte cp.async copies, a swizzled row layout, ldmatrix,
+// mma.sync m16n8k16 (bf16 in) and m16n8k8 (tf32 in), both with fp32
+// accumulators, bf16 packing and exp2. The bf16 decode body
+// (decode_sm90.cuh), the SSD scan (ssd_sm90.cuh) and its backward
+// (ssd_bwd_sm90.cuh) build on these; the prefill body (prefill_sm90.cuh)
+// takes the copy and packing helpers.
 //
 // Fragment layouts of mma.m16n8k16 (lane = threadIdx.x % 32, r = lane / 4,
 // c = 2 * (lane % 4)), as the PTX ISA defines them:
@@ -32,6 +33,20 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 4-byte cp.async (a scalar such as dt); src_bytes 0 writes zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// byte offset of 16-byte piece `pc` of row `row` in rows of `rb` bytes
+// (rb >= 128), pieces XOR-swizzled by row % 8, so an ldmatrix of eight
+// rows at one piece hits eight bank groups
+__device__ __forceinline__ uint32_t swz(int row, int pc, int rb) {
+  return row * rb + ((pc ^ (row & 7)) << 4);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -22,13 +22,17 @@ package trains with ``use_pallas=False`` and lets XLA differentiate the
 jnp ``ssd_chunked``. ``SsdScanFn`` runs the forward kernel, which also
 stores the state each chunk starts from, and the backward kernel on the
 output gradients, so a Mamba2 layer on the card trains through
-hand-written kernels both ways. ``ssd_scan_bwd_plain`` is the backward
-written out as a reverse walk over the chunks: the specification the
-kernel mirrors.
+hand-written kernels both ways. bf16 inputs under the forward's route
+rule run the backward's tensor-core body (``csrc/ssd_bwd_sm90.cuh``),
+everything else its CUDA-core body; ``bwd_plan`` says which.
+``ssd_scan_bwd_plain`` is the backward written out as a reverse walk over
+the chunks: the specification the kernel mirrors.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -39,6 +43,8 @@ from repro_torch.kernels import _build
 
 SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
+# the backward's bodies, as rt_ssd_scan_bwd_plan numbers them
+BWD_BODIES = ("cuda-core", "tensor-core")
 REPLACES = {"ssd_scan": "src/repro/kernels/ssd_scan.py:69",
             # no Pallas kernel: XLA's gradient of the jnp scan
             "ssd_scan_bwd": "src/repro/models/ssm.py:70 (XLA's gradient of "
@@ -320,6 +326,43 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, h
 
 
+@functools.lru_cache(maxsize=1024)
+def _bwd_plan(bsz: int, s: int, nh: int, hd: int, n: int, chunk: int,
+              aligned: bool, strides: Tuple[int, ...], bf16: bool,
+              device: int) -> Tuple[int, int, int]:
+    """``rt_ssd_scan_bwd_plan``'s (body index, heads per CTA, scratch
+    floats): the C side whose choice the launch makes too, from the
+    device's SM count (``device`` keys the cache)."""
+    out = (ctypes.c_longlong * 3)()
+    rc = _build.load().rt_ssd_scan_bwd_plan(
+        int(aligned), bsz, s, nh, hd, n, chunk, *strides, int(bf16), out)
+    _build.check(rc, "rt_ssd_scan_bwd_plan")
+    return out[0], out[1], out[2]
+
+
+def bwd_plan(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+             chunk: int) -> Tuple[str, int, int]:
+    """``(body, heads per CTA, scratch floats)`` of a backward launch on
+    these x, B and C (CUDA tensors). The body is ``"tensor-core"`` for
+    bf16 under the forward's route rule (head dim and state width
+    multiples of 8, 16-byte aligned rows and strides), else
+    ``"cuda-core"``; the tensor-core body's heads per CTA come from the
+    card's SM count."""
+    bsz, s, nh, hd = x.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, b, c))
+    strides = (*x.stride()[:3], *b.stride()[:2], *c.stride()[:2])
+    body, group, work = _bwd_plan(
+        bsz, s, nh, hd, b.shape[-1], chunk, aligned, strides,
+        x.dtype == torch.bfloat16, x.device.index or 0)
+    return BWD_BODIES[body], group, work
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it whose data starts on 16 bytes: the
+    tensor-core body copies dy and the states in 16-byte pieces."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  b: torch.Tensor, c: torch.Tensor, chunk: int,
                  states: torch.Tensor, dy: torch.Tensor,
@@ -330,7 +373,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     forward's inputs (the same strided views the forward takes), the
     chunk entry ``states`` the forward stored, a contiguous ``dy`` in x's
     dtype and ``dh_final`` (None: zero); dh0 only with ``want_dh0``, else
-    None. Head dims up to ``MAX_BWD_HEAD_DIM``."""
+    None. Head dims up to ``MAX_BWD_HEAD_DIM``; ``bwd_plan`` names the
+    body it takes."""
     name = "ssd_scan_bwd"
     strides = _check_inputs(name, x, dt, a, b, c, chunk)
     bsz, s, nh, hd = x.shape
@@ -355,13 +399,12 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if min(bsz, s, nh, hd) == 0:
         return (dx.zero_(), ddt.zero_(), torch.zeros(nh, **f32), db.zero_(),
                 dc.zero_(), None if dh0 is None else dh0.zero_())
-    # scratch: C B^T per chunk; S then dH per chunk; l_last per chunk; each
-    # head's dB / dC; da per (row, chunk, head)
-    cb = torch.empty((bsz, nc, chunk, chunk), **f32)
-    dhs = torch.empty((bsz, nc, nh, hd, n), **f32)
-    lsum = torch.empty((bsz, nc, nh), **f32)
-    pdb = torch.empty((bsz, nc, nh, chunk, n), **f32)
-    pdc = torch.empty((bsz, nc, nh, chunk, n), **f32)
+    body, _, nwork = bwd_plan(x, b, c, chunk)
+    if body == "tensor-core":
+        dy, states = _aligned16(dy), _aligned16(states)
+    # scratch of the body (tensor-core: dH per chunk and the head groups'
+    # dB / dC shares); da per (row, chunk, head), summed here
+    work = torch.empty(nwork, **f32)
     pda = torch.empty((bsz, nc, nh), **f32)
     lib = _build.load()
     rc = lib.rt_ssd_scan_bwd(
@@ -369,9 +412,8 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         c.data_ptr(), dy.data_ptr(), states.data_ptr(),
         dh_final.data_ptr() if dh_final is not None else None,
         dx.data_ptr(), ddt.data_ptr(), db.data_ptr(), dc.data_ptr(),
-        dh0.data_ptr() if dh0 is not None else None, cb.data_ptr(),
-        dhs.data_ptr(), lsum.data_ptr(), pdb.data_ptr(), pdc.data_ptr(),
-        pda.data_ptr(), bsz, s, nh, hd, n, chunk, *strides,
+        dh0.data_ptr() if dh0 is not None else None, pda.data_ptr(),
+        work.data_ptr(), bsz, s, nh, hd, n, chunk, *strides,
         int(x.dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check(rc, name)
     launch_counts[name] += 1

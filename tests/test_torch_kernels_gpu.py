@@ -24,7 +24,8 @@ are bitwise repeatable. The SSD scan's backward is held to its plain
 version (``ssd_scan_bwd_plain``) in fp32: every gradient within 1e-4 of
 its largest element (another summation order), a bf16 dx / dB / dC also
 within one bf16 rounding; it sums in a fixed order, so it repeats bit for
-bit.
+bit. Its bf16 cases under the forward's route rule take the tensor-core
+body, fp32 and the rest the CUDA-core one (``ssd.bwd_plan``).
 """
 
 import numpy as np
@@ -584,15 +585,43 @@ def _check_ssd_grads(got, refs, bf16_outputs: bool, rel: float = 1e-4):
         assert err <= lim, (name, err, lim)
 
 
+# the tensor-core body's head groups: (b, s, nh, hd, n, chunk, h0,
+# dh_final, heads per CTA the plan picks on 132 SMs): groups that leave a
+# remainder (nh 80 in 6s, nh 3 in 2s at a ragged S, nh 5 in 2s at Q 8),
+# one group holding every head (dB / dC written by the kernel, no shares:
+# nh 3 at N 256 and Q 12, nh 4 at Q 8, nh 1 at S < Q with N 256)
+_SSD_BWD_GROUPS = [
+    (1, 1152, 80, 64, 64, 128, False, False, 6),
+    (2, 1450, 3, 32, 64, 64, True, True, 2),
+    (2, 109, 5, 48, 64, 8, True, False, 2),
+    (1, 1066, 3, 64, 256, 12, True, True, 3),
+    (2, 397, 4, 64, 128, 8, True, True, 4),
+    (1, 50, 1, 64, 256, 128, False, True, 1),
+]
+
+
+def _bwd_body(args, chunk):
+    """(body, heads per CTA) the backward takes for these inputs."""
+    return ssd.bwd_plan(args[0], args[3], args[4], chunk)[:2]
+
+
+def _sm132(dev) -> bool:
+    """The card the plan's head groups were chosen on (H100 SXM)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count == 132
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,nh,hd,n,chunk,init,dhf", _SSD_BWD_CASES)
 def test_ssd_scan_bwd_kernel_matches_plain(cuda, dtype, b, s, nh, hd, n,
                                            chunk, init, dhf):
     """The backward kernel alone, given the exact chunk entry states
     (``ssd_states_plain`` in fp32), against the plain backward evaluated
-    in fp32 on the same input values."""
+    in fp32 on the same input values; bf16 on the tensor-core body, fp32
+    on the CUDA-core one."""
     args, h0, dy, dh = _ssd_bwd_inputs(21, b, s, nh, hd, n, dtype, cuda,
                                        init, dhf)
+    assert _bwd_body(args, chunk)[0] == (
+        "tensor-core" if dtype == torch.bfloat16 else "cuda-core")
     states = _ref(ssd.ssd_states_plain, *args, chunk, h0)
     n0 = ssd.launch_counts["ssd_scan_bwd"]
     got = ssd.ssd_scan_bwd(*args, chunk, states, dy, dh, want_dh0=init)
@@ -604,12 +633,62 @@ def test_ssd_scan_bwd_kernel_matches_plain(cuda, dtype, b, s, nh, hd, n,
     _check_ssd_grads(got, refs, dtype == torch.bfloat16)
 
 
+@pytest.mark.parametrize("b,s,nh,hd,n,chunk,init,dhf,group",
+                         _SSD_BWD_GROUPS)
+def test_ssd_scan_bwd_tensor_core_groups(cuda, b, s, nh, hd, n, chunk,
+                                         init, dhf, group):
+    """The tensor-core body at the heads per CTA its plan picks: head
+    counts the group leaves a remainder of, one group (no dB / dC shares),
+    N 256, Q 12 and 8, S < Q, ragged S; x, B and C strided views of one
+    buffer. The groups are asserted on a 132-SM card."""
+    args, h0, dy, dh = _ssd_bwd_inputs(25, b, s, nh, hd, n, torch.bfloat16,
+                                       cuda, init, dhf)
+    body, got_group = _bwd_body(args, chunk)
+    assert body == "tensor-core"
+    if _sm132(cuda):
+        assert got_group == group
+    states = _ref(ssd.ssd_states_plain, *args, chunk, h0)
+    got = ssd.ssd_scan_bwd(*args, chunk, states, dy, dh, want_dh0=init)
+    refs = _ref(ssd.ssd_scan_bwd_plain, *args, chunk, h0, dy, dh)
+    _check_ssd_grads(got, refs, True)
+
+
+def test_ssd_scan_bwd_route_rule(cuda):
+    """bf16 inputs that fail the forward's route rule take the CUDA-core
+    body: N 20 (not a multiple of 8), and x copied to an odd offset. The
+    train shapes take the tensor-core body with 8 and 10 heads a CTA on
+    132 SMs (one wave of 128 CTAs)."""
+    args, h0, dy, dh = _ssd_bwd_inputs(26, 1, 40, 2, 16, 20,
+                                       torch.bfloat16, cuda, True, True)
+    assert _bwd_body(args, 16)[0] == "cuda-core"
+    states = _ref(ssd.ssd_states_plain, *args, 16, h0)
+    got = ssd.ssd_scan_bwd(*args, 16, states, dy, dh, want_dh0=True)
+    _check_ssd_grads(got, _ref(ssd.ssd_scan_bwd_plain, *args, 16, h0, dy,
+                               dh), True)
+    args, h0, dy, dh = _ssd_bwd_inputs(26, 1, 40, 2, 16, 16,
+                                       torch.bfloat16, cuda, False, False)
+    buf = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                      device=cuda)
+    x_odd = buf[1:].view(args[0].shape)
+    x_odd.copy_(args[0])
+    assert _bwd_body((x_odd,) + args[1:], 16)[0] == "cuda-core"
+    if _sm132(cuda):
+        for nh, n, g in ((64, 128, 8), (80, 64, 10)):
+            args = _ssd_bwd_inputs(27, 1, 2048, nh, 64, n, torch.bfloat16,
+                                   cuda, False, False)[0]
+            assert _bwd_body(args, 128) == ("tensor-core", g)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_ssd_scan_bwd_kernel_repeats(cuda, dtype):
-    """Two calls on one input agree bit for bit: the heads' dB / dC shares
-    and the da partials are summed in a fixed order, with no atomics."""
+    """Two calls on one input agree bit for bit, on both bodies (bf16: the
+    tensor-core one, with head groups; fp32: the CUDA-core one): the
+    heads' and groups' dB / dC shares and the da partials are summed in a
+    fixed order, with no atomics."""
     args, h0, dy, dh = _ssd_bwd_inputs(22, 1, 2048, 64, 64, 128, dtype,
                                        cuda, True, True)
+    assert _bwd_body(args, 128)[0] == (
+        "tensor-core" if dtype == torch.bfloat16 else "cuda-core")
     states = _ref(ssd.ssd_states_plain, *args, 128, h0)
     one = ssd.ssd_scan_bwd(*args, 128, states, dy, dh, want_dh0=True)
     two = ssd.ssd_scan_bwd(*args, 128, states, dy, dh, want_dh0=True)
