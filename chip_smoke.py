@@ -65,8 +65,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    timed too, and the new paths' shapes: paged decode and chunk at
    danube's heads past its window, flash at danube's ring prompt (2 x
    6000 tokens, window 4096), command-r's 512 group and whisper's encoder
-   and cross attention, contig decode at whisper's heads and through the
-   ring route, contig chunk at whisper's heads; and the host time of a
+   and cross attention, contig decode at whisper's heads, through the
+   ring route and at a ``pp`` step's microbatch (2 rows at one position),
+   contig chunk at whisper's heads; and the host time of a
    flash call through ctypes, bf16 (tensor-map encodes) against fp32;
    then the training kernels: the flash forward's log-sum-exp against the
    plain one, and the flash backward (kernel 8, no Pallas counterpart)
@@ -128,6 +129,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    KV attach and one eviction; then a ``use_prefix_share=True`` server
    (hot prefixes published, a new and a rebuilt pipeline warmed, a
    first-contact hit): tokens, events, clock and store bytes identical;
+   then the pipeline-parallel serve step (``launch/pipeline.py``) at the
+   reduced qwen3-32b in fp32, both of the ``pp`` path's stage layouts:
+   four steps' tokens on the card equal the CPU's and the unsplit
+   decode's, ``decode_attention`` launched m x sum(split) times a step;
    then training: two fp32 train steps (2 microbatches, the reference's
    AdamW without bf16 compression) of reduced qwen3-32b, granite-moe,
    qwen2-vl-2b, whisper-tiny, mamba2-1.3b and zamba2-2.7b (SSD chunks of
@@ -137,7 +142,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    (the SSD scan and its backward for mamba2, all four for zamba2); a
    checkpoint after step 2 restored into a fresh card state gives step
    3's loss within 1e-6;
-5. thirteen serving paths at full width, bf16, random weights from a
+4c. ``cluster`` (host only): the port's discrete-event cluster simulator
+   (``repro_torch.cluster``) on the paper's qwen3-32b cluster
+   (``populate_cluster`` over ``paper_cluster``) for the worst 50-minute
+   interruption window of a ``PAPER_POOLS`` trace, 3 req/s of
+   azure-conversation-like traffic: on a ``Topology`` whose links stay
+   idle (each pipeline a store link of its own; no transfer may wait) the
+   DES must equal the closed form to 1e-6 in rps, downtime and cost;
+   prints rps, cost and downtime;
+5. fourteen serving paths at full width, bf16, random weights from a
    seeded generator on the card, the same traffic but for ``prefix`` and
    ``danube`` (16 requests of 64-2048 prompt tokens, some past
    ``prefill_chunk=512``, 32 new tokens each, ``max_len`` 2080, 8 slots);
@@ -175,6 +188,18 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           chunk, flash. It prints the virtual clock and round_s beside the
           wall, the events, the store's bytes at the interrupt, the engine
           rebuild's seconds and each pipeline's dispatches;
+   pp     the paper's pipeline-parallel serve step: main's widths and
+          depth, 8 rows of one 1024-token prompt length prefilled by the
+          unsplit ``LM.prefill`` (contig, ``max_len`` 2080), the K/V laid
+          into the PP layout, then 32 greedy PP steps in two stage layouts
+          on this card: 2 stages at ``pod_flops`` [1.0, 0.5] (split [5,
+          3], m 4) and 3 at [1.0, 0.6, 0.35] with m 4 (split [4, 3, 1]);
+          the tokens must equal the unsplit ``LM.decode_step`` run one
+          microbatch at a time (the same GEMM shapes) and
+          ``decode_attention`` must launch m x sum(split) times a step;
+          prints per layout the split, m, ticks per step, the median wall
+          per step over ``--repeats`` runs, tok/s, the device-busy share,
+          the launches per step and the peak GB: contig decode;
    prefix main with ``prefix_share=True`` on its own traffic: four
           four-turn conversations over system prompts of 300, 1000, 1024
           and 1500 tokens, each request extending its predecessor's
@@ -244,7 +269,13 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.cluster import (PAPER_POOLS, ClusterSim,  # noqa: E402
+                                 FTConfig, Topology,
+                                 azure_conversation_like, generate_trace,
+                                 interruption_events_for_window,
+                                 select_scenario)
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.core import Placement, Stage, populate_cluster  # noqa: E402
 from repro_torch.hw import (AWS_INSTANCES, calibrate,  # noqa: E402
                             effective, paper_cluster, profiles)
@@ -255,6 +286,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kv_probe as kvp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.launch.pipeline import (build_pp_serve_step,  # noqa: E402
+                                         pack_pp_params)
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -323,6 +356,9 @@ PATHS = {
     "server": ("qwen3-32b", "auto",
                ("decode_attention_paged", "chunk_attention_paged",
                 "flash_attention")),
+    # main's widths and depth through the pipeline-parallel serve step
+    # (launch/pipeline.py): two uneven stage layouts on this card
+    "pp": ("qwen3-32b", "contig", ("decode_attention",)),
     # main's model with prefix sharing, on shared-system-prompt traffic
     "prefix": ("qwen3-32b", "auto",
                ("decode_attention_paged", "chunk_attention_paged",
@@ -360,8 +396,8 @@ PREFIX_SYSTEM = (300, 1000, 1024, 1500)
 DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers",
               "command-r-plus-104b": "cmdr_layers"}
 DANUBE_RING = (2, 6000, 32)   # the ring generation: rows, prompt, new tokens
-ALL_PHASES = ("build", "calibrate", "kernels", "parity") + tuple(PATHS) + (
-    "train", "train_mamba2")
+ALL_PHASES = ("build", "calibrate", "kernels", "parity", "cluster") + tuple(
+    PATHS) + ("train", "train_mamba2")
 
 
 def log(msg: str = "") -> None:
@@ -742,6 +778,9 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
         (f32, (4, 4, 80, 3, 37, 8), None, True, "MHA d80 S=37 fp32")]
     d120 = "danube d120 SWA=4096 pos across the window bf16"
     whisper = "whisper MHA 6/6 d64 bf16"
+    # a microbatch of the pp path's step: 2 rows at one position
+    pp_label = "pp step mb=2 GQA 64/8 one pos bf16"
+    pp_pos = PP_PROMPT + PP_STEPS // 2
     if not rehearsal:
         # head dim 120 (h2o-danube-3-4b): its own geometry and window with
         # positions on both sides of it, g = 1 and 4, bf16 and fp32, short
@@ -756,6 +795,9 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
             (f32, (8, 8, 120, 3, 300, 24), None, True, "g=1 d120 fp32"),
             (bf, (*_geometry(WHISPER, rehearsal), B, S, BS), None, True,
              whisper)]
+    if not paged and not rehearsal:
+        specs.append((bf, (*_geometry(QWEN, rehearsal), 2, S, BS), None,
+                      [pp_pos] * 2, pp_label))
     if paged and not rehearsal:
         # the bf16 body through the block table (kernel 1 runs the contig
         # body's split walk with a paged key policy): positions at 0, at a
@@ -837,10 +879,12 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
     zlabel = f"main GQA {ZAMBA['nh']}/{ZAMBA['nkv']} bf16"
     # timed beside the main shape: the hybrid path's d=80 heads (contig),
     # the danube path's d=120 heads past the window (paged), the whisper
-    # path's decoder heads (contig)
+    # path's decoder heads (contig), a pp path step's microbatch (contig)
+    ragged = "ragged pos, one dead row"
     timed = [] if rehearsal else (
-        [(d120, DANUBE, DANUBE_WINDOW)] if paged else
-        [(zlabel, ZAMBA, None), (whisper, WHISPER, None)])
+        [(d120, DANUBE, DANUBE_WINDOW, ragged)] if paged else
+        [(zlabel, ZAMBA, None, ragged), (whisper, WHISPER, None, ragged),
+         (pp_label, QWEN, None, f"pos {pp_pos} in both rows")])
     args, err, kept = compare(name, run, plain, cases(),
                               keep=[t[0] for t in timed])
     row = measure(name, da, run, plain, args, err,
@@ -849,15 +893,16 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
         time_shape(name, run, kept[label],
                    *decode_yardstick(kept[label], kept[label][0].shape[0],
                                      dev, *_geometry(geo, rehearsal), paged,
-                                     window=win), kw=dict(window=win))
-        for label, geo, win in timed]
+                                     window=win, note=note),
+                   kw=dict(window=win))
+        for label, geo, win, note in timed]
     if not paged:
         row["timed_shapes"] += kernel_ring(cs, dev, rehearsal)
     return row
 
 
-def decode_yardstick(args, b, dev, nh, nkv, d, paged, window=None
-                     ) -> tuple:
+def decode_yardstick(args, b, dev, nh, nkv, d, paged, window=None,
+                     note: str = "ragged pos, one dead row") -> tuple:
     """SDPA on the gathered K/V with the positions' (and window's) mask,
     the bytes and operations of the call, and its shape label."""
     q, pos = args[0], args[-1]
@@ -874,8 +919,7 @@ def decode_yardstick(args, b, dev, nh, nkv, d, paged, window=None
                 f"{tbl.shape[1]})" if paged else f"cache=({b},{s},{nkv},{d})")
     win = f" SWA={window}" if window else ""
     return (lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=sm),
-            work, f"q=({b},1,{nh},{d}) {kv_shape}{win} ragged pos, one dead "
-            f"row bf16")
+            work, f"q=({b},1,{nh},{d}) {kv_shape}{win} {note} bf16")
 
 
 def ring_slots(pos: int, s_alloc: int, dev) -> torch.Tensor:
@@ -2950,15 +2994,22 @@ def prefix_checks(cfg, params, dev, eng_kw, make_requests, new, runs,
 SERVER_INTERRUPT_ROUND = 8
 
 
-def server_placements() -> list:
-    """The first three pipelines of the port's paper-cluster plan for the
-    whole qwen3-32b (``populate_cluster``, beam_k=1, the paper's derated
-    instances); when those three use one instance type, the third is
-    swapped for the first later pipeline that adds one."""
+def paper_plan() -> tuple:
+    """(model spec, plan): the port's paper-cluster plan for the whole
+    qwen3-32b (``populate_cluster``, beam_k=1, the paper's derated
+    instances)."""
     spec = get_config("qwen3-32b").to_modelspec()
     insts = {n: dataclasses.replace(i, device=effective(i.device))
              for n, i in AWS_INSTANCES.items()}
-    plan = populate_cluster(spec, paper_cluster(), insts, 763, 232, beam_k=1)
+    return spec, populate_cluster(spec, paper_cluster(), insts, 763, 232,
+                                  beam_k=1)
+
+
+def server_placements() -> list:
+    """The first three pipelines of ``paper_plan``; when those three use
+    one instance type, the third is swapped for the first later pipeline
+    that adds one."""
+    plan = paper_plan()[1]
 
     def kinds(pls):
         return {st.instance.name for p in pls for st in p.stages}
@@ -3134,8 +3185,321 @@ def phase_server_path(dev, path: str, depth: int, seed: int,
     return dict(counts=runs[0]["counts"], tokens=runs[0]["tokens"])
 
 
+# -- the pipeline-parallel serve step (path ``pp``) --------------------------------
+# stage layouts: (name, pod_flops, n_microbatches or None for the
+# reference's choice); at 8 of Qwen3-32B's layers, 8 rows and S 2080 the
+# split comes out [5, 3] (m 4) and [4, 3, 1] (a one-layer stage)
+PP_LAYOUTS = (("2 stages", [1.0, 0.5], None),
+              ("3 stages", [1.0, 0.6, 0.35], 4))
+PP_ROWS, PP_PROMPT, PP_STEPS = 8, 1024, 32
+
+
+def pp_layout_kv(full: torch.Tensor, split, m: int) -> torch.Tensor:
+    """The unsplit prefill's contiguous K or V (L, b, S, nkv, d) laid into
+    the PP step's layout (n_stages, lmax, m, b // m, S, nkv, d): stage s
+    slot j holds layer sum(split[:s]) + j, microbatch i rows i*mb.. of it;
+    padded slots are zero."""
+    L, b = full.shape[:2]
+    out = full.new_zeros((len(split), max(split), m, b // m)
+                         + tuple(full.shape[2:]))
+    off = 0
+    for s, n in enumerate(split):
+        out[s, :n] = full[off:off + n].reshape(
+            (n, m, b // m) + tuple(full.shape[2:]))
+        off += n
+    assert off == L, (split, L)
+    return out
+
+
+def pp_unsplit_reference(model, params, full, first, m, steps) -> tuple:
+    """The unsplit ``LM.decode_step`` on each microbatch's rows in turn
+    (the PP step's GEMM shapes), ``steps`` greedy steps from the prefill:
+    (tokens (b, steps), the last step's logits (b, 1, Vpad))."""
+    b = first.shape[0]
+    mb = b // m
+    toks, last = [], []
+    for i in range(m):
+        rows = slice(i * mb, (i + 1) * mb)
+        cache = {"k": full["k"][:, rows].clone(),
+                 "v": full["v"][:, rows].clone(),
+                 "pos": full["pos"][rows].clone()}
+        cur, seq = first[rows], []
+        for _ in range(steps):
+            logits, cache = model.decode_step(params, cache, cur)
+            cur = model.sample_greedy(logits).reshape(mb, 1)
+            seq.append(cur)
+        toks.append(torch.cat(seq, 1))
+        last.append(logits)
+        del cache
+    return torch.cat(toks), torch.cat(last)
+
+
+def _busy_s(fn, dev) -> tuple:
+    """(device busy seconds, wall seconds) of ``fn()`` under
+    torch.profiler: the device-side kernel and memcpy time (device
+    activity only: recording every host op would slow the host-bound
+    run it measures)."""
+    from torch.profiler import ProfilerActivity, profile
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    busy = 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            dt = getattr(evt, "self_device_time_total", None)
+            busy += evt.self_cuda_time_total if dt is None else dt
+    if busy <= 0:
+        raise SystemExit("chip_smoke: torch.profiler recorded no device "
+                         "time")
+    return busy / 1e6, wall
+
+
+def phase_pp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
+                  repeats: int, profile_dir: Path | None = None) -> dict:
+    """The paper's pipeline-parallel serve step (``launch/pipeline.py``):
+    Qwen3-32B widths at ``depth`` layers, bf16, random weights; 8 rows of
+    one 1024-token prompt length prefilled by the unsplit ``LM.prefill``
+    (contiguous cache of ``MAX_LEN``), their K/V laid into the PP layout,
+    then ``PP_STEPS`` greedy PP steps for each of ``PP_LAYOUTS``, every
+    stage on this card. Gate: the tokens equal the unsplit
+    ``LM.decode_step`` run one microbatch at a time on the same card (the
+    same GEMM shapes), every logit finite; each step launches
+    ``decode_attention`` m x sum(split) times. The layouts' ``repeats``
+    timed runs alternate (a b, b a, a b, ...), each on freshly packed
+    params and a fresh cache. Prints per layout the split, m, ticks per
+    step, the median wall per step, tok/s, the device-busy share
+    (torch.profiler), launches per step and the peak GB of its runs."""
+    arch = PATHS[path][0]
+    required = PATHS[path][2]
+    tag = f"[{path}]"
+    if rehearsal:
+        cfg = get_config(arch).reduced()
+        rows, prompt_len, steps, s_max = PP_ROWS, 6, 4, 16
+    else:
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        rows, prompt_len, steps, s_max = PP_ROWS, PP_PROMPT, PP_STEPS, MAX_LEN
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, (rows, prompt_len), generator=gen,
+                           device=dev)
+    logits, full = model.prefill(params, {"tokens": prompt}, max_len=s_max)
+    first = model.sample_greedy(logits).reshape(rows, 1)
+    _sync(dev)
+    log(f"{tag} {cfg.name} widths, {cfg.n_layers} of "
+        f"{get_config(arch).n_layers} layers, {model.param_count() / 1e9:.3f}"
+        f" B params {cfg.dtype}; {rows} rows of a {prompt_len}-token prompt "
+        f"prefilled by the unsplit LM.prefill, cache S={s_max}; "
+        f"{steps} PP steps per run")
+    refs: dict = {}         # m -> the unsplit decode's (tokens, logits)
+    layouts = []
+    for name, flops, n_micro in PP_LAYOUTS:
+        step, meta = build_pp_serve_step(
+            cfg, ShapeSpec("pp", s_max, rows, "serve_step"), len(flops),
+            devices=[dev] * len(flops), n_microbatches=n_micro,
+            pod_flops=flops)
+        m = meta["n_microbatches"]
+        if m not in refs:
+            refs[m] = pp_unsplit_reference(model, params, full, first, m,
+                                           steps)
+        seen: list = []
+        head = meta["model"].logits
+        meta["model"].logits = lambda p, x, head=head, seen=seen: (
+            seen.append(head(p, x)) or seen[-1])
+        layouts.append(dict(name=name, flops=flops, step=step, m=m,
+                            split=meta["pp_split"], seen=seen, runs=[],
+                            queued=[], peak=0.0))
+
+    def run(lay: dict) -> tuple:
+        split, m = lay["split"], lay["m"]
+        packed = pack_pp_params(params, split)
+        cache = {"k": pp_layout_kv(full["k"], split, m),
+                 "v": pp_layout_kv(full["v"], split, m),
+                 "pos": torch.tensor(prompt_len, dtype=torch.int32,
+                                     device=dev)}
+        cur, out = first, []
+        lay["seen"].clear()
+        ops.reset_launch_counts()
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cur, cache = lay["step"](packed, cache, cur)
+            out.append(cur)
+        queued = time.perf_counter() - t0
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        if dev.type == "cuda":
+            lay["peak"] = max(lay["peak"],
+                              torch.cuda.max_memory_allocated() / 1e9)
+        lay["queued"].append(queued)
+        return wall, ops.launch_counts(), torch.cat(out, 1)
+
+    # the gate run doubles as each layout's warm-up
+    for lay in layouts:
+        _, _, got = run(lay)
+        ref_toks, ref_logits = refs[lay["m"]]
+        seen, m = lay["seen"], lay["m"]
+        finite = bool(torch.stack([torch.isfinite(x).all()
+                                   for x in seen]).all())
+        same = torch.equal(got.long(), ref_toks.long())
+        dlog = (torch.cat(seen[-m:]).float()
+                - ref_logits.float()).abs().max().item()
+        lay["tokens"] = got.tolist()
+        log(f"{tag} {lay['name']}: pod_flops={lay['flops']} split="
+            f"{lay['split']} m={m} mb={rows // m} ticks_per_step="
+            f"{m + len(lay['split']) - 1}; tokens over {steps} steps equal "
+            f"to the unsplit decode (one microbatch at a time): {same}; last "
+            f"step's logits max |diff| {dlog:.3e}; all logits finite "
+            f"{finite}")
+        if not (same and finite):
+            raise SystemExit(f"chip_smoke: the PP step ({lay['name']}, "
+                             f"split {lay['split']}) disagrees with the "
+                             f"unsplit decode")
+    for r in range(repeats):
+        for lay in (layouts if r % 2 == 0 else layouts[::-1]):
+            lay["runs"].append(run(lay))
+    counts: dict = {}
+    for lay in layouts:
+        m, split, runs = lay["m"], lay["split"], lay["runs"]
+        want = steps * m * sum(split)
+        launched = runs[0][1]["decode_attention"]
+        if dev.type == "cuda" and (launched != want or any(
+                not runs[0][1][k] for k in required)):
+            raise SystemExit(f"chip_smoke: the PP step launched "
+                             f"decode_attention {launched} times in "
+                             f"{steps} steps, not {want}: {runs[0][1]}")
+        walls = sorted(w / steps for w, _, _ in runs)
+        per_step = float(np.median(walls))
+        # the host's seconds to queue a step (each run starts drained)
+        queued = float(np.median(lay["queued"][-repeats:])) / steps
+        busy = peak = "not measured (CPU)"
+        if dev.type == "cuda":
+            peak = f"{lay['peak']:.3f}"
+            busy_s, wall_s = _busy_s(lambda: run(lay), dev)
+            busy = (f"{busy_s / (per_step * steps):.3f} ({busy_s:.4f} s "
+                    f"of device time in a run; against the profiled run's "
+                    f"{wall_s:.3f} s wall {busy_s / wall_s:.3f})")
+        log(f"{tag} {lay['name']}: step_wall_s median={per_step:.5f} min="
+            f"{walls[0]:.5f} max={walls[-1]:.5f} over {repeats} runs of "
+            f"{steps} steps (layouts in turns); host_queue_s per step "
+            f"median={queued:.5f}; out_tok_per_s={rows / per_step:.2f}; "
+            f"device_busy_share={busy}; "
+            f"decode_attention launches per step {launched / steps:g} (m x "
+            f"sum(split) = {m * sum(split)}); launches per run {runs[0][1]}; "
+            f"peak_mem_GB={peak}")
+        for k, v in runs[0][1].items():
+            counts[k] = counts.get(k, 0) + v
+    if dev.type == "cuda":
+        log(f"{tag} nvidia-smi: {smi_line()}")
+    tokens = [lay["tokens"] for lay in layouts]
+    del params, model, full, layouts, refs
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(counts=counts, tokens=tokens)
+
+
+def phase_pp_parity(dev) -> None:
+    """The PP step in fp32 at the reduced qwen3-32b: both stage layouts'
+    tokens over 4 steps on the card equal the same run on the CPU (and the
+    unsplit decode's); the card's steps launch ``decode_attention``."""
+    cfg = get_config("qwen3-32b").reduced()
+    params = build_model(cfg, device="cpu").init(seed=0)
+    prompt = torch.from_numpy(
+        np.random.RandomState(0).randint(0, cfg.vocab, (PP_ROWS, 6)))
+    for name, flops, n_micro in PP_LAYOUTS:
+        out = {}
+        for where in (dev, torch.device("cpu")):
+            model = build_model(cfg, device=where)
+            p = _tree_to(params, where)
+            logits, full = model.prefill(p, {"tokens": prompt.to(where)},
+                                         max_len=16)
+            first = model.sample_greedy(logits).reshape(PP_ROWS, 1)
+            step, meta = build_pp_serve_step(
+                cfg, ShapeSpec("pp", 16, PP_ROWS, "serve_step"), len(flops),
+                devices=[where] * len(flops), n_microbatches=n_micro,
+                pod_flops=flops)
+            split, m = meta["pp_split"], meta["n_microbatches"]
+            cache = {"k": pp_layout_kv(full["k"], split, m),
+                     "v": pp_layout_kv(full["v"], split, m),
+                     "pos": torch.tensor(6, dtype=torch.int32, device=where)}
+            packed, cur, seq = pack_pp_params(p, split), first, []
+            ops.reset_launch_counts()
+            for _ in range(4):
+                cur, cache = step(packed, cache, cur)
+                seq.append(cur.cpu())
+            launches = ops.launch_counts()["decode_attention"]
+            ref, _ = pp_unsplit_reference(model, p, full, first, m, 4)
+            out[where.type] = (torch.cat(seq, 1), ref.cpu(), launches)
+        card, host = out[dev.type], out["cpu"]
+        ok = (torch.equal(card[0], host[0]) and torch.equal(card[0].long(),
+                                                            card[1].long())
+              and (card[2] == 4 * m * sum(split) or dev.type != "cuda"))
+        log(f"[pp-parity] {name}: split {split} m {m}, fp32 tokens card == "
+            f"CPU {torch.equal(card[0], host[0])}, == unsplit decode "
+            f"{torch.equal(card[0].long(), card[1].long())}; card "
+            f"decode_attention launches {card[2]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"chip_smoke: the fp32 PP step on the card "
+                             f"disagrees with the CPU ({name})")
+
+
+# -- the cluster simulator (phase ``cluster``, host only) -----------------------
+CLUSTER_WINDOW_MIN, CLUSTER_RATE = 50, 3.0
+
+
+def phase_cluster(seed: int) -> None:
+    """The port's ``ClusterSim`` on the paper's qwen3-32b cluster
+    (``populate_cluster`` over ``paper_cluster``) for the worst
+    ``CLUSTER_WINDOW_MIN``-minute interruption window of a ``PAPER_POOLS``
+    trace (``select_scenario``), azure-conversation-like traffic at
+    ``CLUSTER_RATE`` req/s: the closed form, then the discrete-event run
+    on a ``Topology`` in which each pipeline has a store link of its own.
+    The parity gate of tests/test_cluster_des.py: on idle links (checked:
+    no transfer waited) the DES equals the closed form to 1e-6 in rps,
+    downtime and cost, with the same completions and interruptions."""
+    t0 = time.perf_counter()
+    spec, plan = paper_plan()
+    trace = generate_trace(PAPER_POOLS, minutes=2000, seed=seed)
+    start, score, _ = select_scenario(trace, dur_min=CLUSTER_WINDOW_MIN)
+    events = interruption_events_for_window(trace, start, CLUSTER_WINDOW_MIN)
+    dur = CLUSTER_WINDOW_MIN * 60.0
+    reqs = azure_conversation_like(duration_s=dur, rate_rps=CLUSTER_RATE,
+                                   seed=seed)
+    regions = [f"p{i}" for i in range(len(plan.pipelines))]
+    base = ClusterSim(spec, plan.pipelines, FTConfig(),
+                      regions=regions).run(reqs, dur, events=events)
+    des = ClusterSim(spec, plan.pipelines, FTConfig(), network=Topology(),
+                     regions=regions).run(reqs, dur, events=events)
+    idle = all(v["wait_s"] == 0.0 for v in des.link_stats.values())
+    close = all(abs(a - b) <= 1e-6 for a, b in (
+        (des.rps, base.rps), (des.total_downtime_s, base.total_downtime_s),
+        (des.cost_usd, base.cost_usd)))
+    ok = (idle and close and len(des.completed) == len(base.completed)
+          and des.interruptions == base.interruptions)
+    for tag, r in (("closed form", base), ("DES, idle links", des)):
+        log(f"[cluster] {tag}: rps={r.rps:.6f} cost_usd={r.cost_usd:.6f} "
+            f"downtime_s={r.total_downtime_s:.6f} interruptions="
+            f"{r.interruptions} completed={len(r.completed)} transfers="
+            f"{r.transfers}")
+    log(f"[cluster] {len(plan.pipelines)} pipelines "
+        f"{[p.describe() for p in plan.pipelines]}; window start "
+        f"{start} min (score {score}), {len(events)} pool events, "
+        f"{len(reqs)} requests; links {des.link_stats}; idle {idle}; DES "
+        f"== closed form {close}; {time.perf_counter() - t0:.1f} s host "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("chip_smoke: the cluster simulator's DES differs "
+                         "from its closed form on idle links")
+
+
 # serving paths with a driver of their own (the rest run ``phase_path``)
-PATH_PHASE = {"server": phase_server_path}
+PATH_PHASE = {"server": phase_server_path, "pp": phase_pp_path}
 
 
 def check_paths(res: dict) -> None:
@@ -3511,7 +3875,10 @@ def main(argv=None) -> int:
             phase_poison_bf16(dev)
             phase_server_parity(dev)
             phase_server_prefix_parity(dev)
+            phase_pp_parity(dev)
             phase_train_parity(dev)
+        if "cluster" in phases:
+            phase_cluster(args.seed)
         check_paths({p: PATH_PHASE.get(p, phase_path)(
             dev, p, depth[p], args.seed, rehearsal=True,
             repeats=args.repeats) for p in paths})
@@ -3546,8 +3913,12 @@ def main(argv=None) -> int:
         phase_poison_bf16(dev)
         phase_server_parity(dev)
         phase_server_prefix_parity(dev)
+        phase_pp_parity(dev)
         phase_train_parity(dev)
         done("parity")
+    if "cluster" in phases:
+        phase_cluster(args.seed)
+        done("cluster")
     res = {}
     for p in paths:
         res[p] = PATH_PHASE.get(p, phase_path)(

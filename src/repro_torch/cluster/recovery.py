@@ -24,8 +24,8 @@ This module is that policy. Per interrupted request:
                    store happens after revival, so it carries no grace-
                    period constraint — publication already completed.
 
-The JAX package's cluster simulator charges the chosen mechanism's cost on
-re-admission (the simulator is not ported yet). In the port, the engine's
+The cluster simulator (``repro_torch/cluster/simulator.py``) charges the
+chosen mechanism's cost on re-admission. In the serving engine, the
 cost-aware preemption-victim policy prices a slot's re-admission with
 ``preemption_seconds`` and ``recompute_seconds``.
 """

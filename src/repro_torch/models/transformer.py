@@ -716,18 +716,30 @@ class LM:
         slot_pos = cache.get("slot_pos")
         for i in range(self.cfg.n_layers):
             p = self._layer(params, i)
-            h = self.norm(x, p["ln_attn"])
             ck, cv = cache["k"][i], cache["v"][i]
+            if tbl is None and slot_pos is None:
+                x = self._dense_layer_decode(p, x, pos, ck, cv)
+                continue
+            h = self.norm(x, p["ln_attn"])
             if tbl is not None:
                 a = self._attn_decode_paged(p["attn"], h, pos, ck, cv, tbl)
-            elif slot_pos is not None:
+            else:
                 a = self._attn_decode_ring(p["attn"], h, pos, ck, cv,
                                            slot_pos)
-            else:
-                a = self._attn_decode(p["attn"], h, pos, ck, cv)
             x = x + a
             x = x + self._mlp_or_moe(p, x)
         return x
+
+    def _dense_layer_decode(self, p: Dict, x: torch.Tensor, pos, ck, cv
+                            ) -> torch.Tensor:
+        """One dense / MoE / VLM layer of a decode step against its
+        contiguous cache slice ``ck`` / ``cv`` (B, S, nkv, d), written in
+        place at ``pos`` (B,): the norm, attention, the residual, then the
+        FFN or MoE sub-block. The unsplit decode and each stage of the
+        pipeline-parallel step (``launch/pipeline.py``) run it."""
+        x = x + self._attn_decode(p["attn"], self.norm(x, p["ln_attn"]),
+                                  pos, ck, cv)
+        return x + self._mlp_or_moe(p, x)
 
     def _decode_recurrent(self, params: Dict, cache: Dict, x: torch.Tensor,
                           pos: torch.Tensor) -> torch.Tensor:

@@ -39,7 +39,10 @@ def test_importing_the_engine_loads_no_jax():
             "repro_torch.models.convert, repro_torch.core, repro_torch.hw, "
             "repro_torch.cluster.recovery, repro_torch.serving.server, "
             "repro_torch.train, repro_torch.launch.train, "
-            "repro_torch.launch.serve, repro_torch.kernels.ssd_scan; "
+            "repro_torch.launch.serve, repro_torch.kernels.ssd_scan, "
+            "repro_torch.launch.pipeline, repro_torch.configs.shapes, "
+            "repro_torch.cluster, repro_torch.cluster.simulator, "
+            "repro_torch.cluster.frontier; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
