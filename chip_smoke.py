@@ -67,6 +67,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    6000 tokens, window 4096), command-r's 512 group and whisper's encoder
    and cross attention, contig decode at whisper's heads, through the
    ring route and at a ``pp`` step's microbatch (2 rows at one position),
+   at a ``tp`` step's shard on one rank (8 rows at one position, 16/2 and
+   32/4 heads, with its split over S and CTAs per SM printed), flash at the
+   ``tp`` prefill's shard (16/2 heads, 1024 tokens, 4 and 8 rows),
    contig chunk at whisper's heads; and the host time of a
    flash call through ctypes, bf16 (tensor-map encodes) against fp32;
    then the training kernels: the flash forward's log-sum-exp against the
@@ -150,7 +153,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    idle (each pipeline a store link of its own; no transfer may wait) the
    DES must equal the closed form to 1e-6 in rps, downtime and cost;
    prints rps, cost and downtime;
-5. fourteen serving paths at full width, bf16, random weights from a
+5. fifteen serving paths at full width, bf16, random weights from a
    seeded generator on the card, the same traffic but for ``prefix`` and
    ``danube`` (16 requests of 64-2048 prompt tokens, some past
    ``prefill_chunk=512``, 32 new tokens each, ``max_len`` 2080, 8 slots);
@@ -200,6 +203,30 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           prints per layout the split, m, ticks per step, the median wall
           per step over ``--repeats`` runs, tok/s, the device-busy share,
           the launches per step and the peak GB: contig decode;
+   tp     tensor parallelism (``launch/steps.py``'s ``build_step`` over a
+          ``launch/mesh.py`` mesh of ranks, ``run_ranks``): main's widths,
+          8 rows of a 1024-token prompt through ``prefill_step`` (cache
+          S 2080), then 32 greedy ``serve_step``s, on meshes (data 1,
+          model 2), (1, 4) and (2, 2) in turns, every rank a process on
+          this card (gloo over CUDA tensors, each all_reduce staged
+          through the host); the unsplit ``LM`` runs first on the same
+          card and weights. fp32 at 2 layers: every rank's tokens must
+          equal the unsplit model's; bf16 at ``--layers``: the prefill's
+          last logits within 2e-2 of max |logit| of the unsplit bf16
+          LM's; the first serve step's, on the fp32 prefill's cache as
+          bf16 stores it (sharded) and tokens, at most 1.25 times as far
+          from the unsplit LM evaluated in fp32 on the same values (the
+          yardstick of phase 3) as the unsplit bf16 LM's (printed, with
+          that LM on its rows in two halves against itself); then 32
+          steps from the ranks' own prefill, each fed the
+          unsplit bf16 model's token (equal argmaxes and
+          the first divergence printed), decode and flash launched at the
+          local heads (16/2 at model 4). Per mesh and rank: step wall,
+          host queue, device busy, launches and all_reduce calls and
+          bytes per step, peak GB and ``calibrate_allreduce`` over the
+          model group (gloo through the host on one card: not a link);
+          with four cards, (1, 4) over nccl, one rank per card: contig
+          decode, flash;
    prefix main with ``prefix_share=True`` on its own traffic: four
           four-turn conversations over system prompts of 300, 1000, 1024
           and 1500 tokens, each request extending its predecessor's
@@ -279,6 +306,8 @@ from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.core import Placement, Stage, populate_cluster  # noqa: E402
 from repro_torch.hw import (AWS_INSTANCES, calibrate,  # noqa: E402
                             effective, paper_cluster, profiles)
+from repro_torch.hw.calibration import (  # noqa: E402
+    calibrate_model_allreduce)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import chunk_attention as ca  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
@@ -286,8 +315,10 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kv_probe as kvp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.launch.mesh import run_ranks  # noqa: E402
 from repro_torch.launch.pipeline import (build_pp_serve_step,  # noqa: E402
                                          pack_pp_params)
+from repro_torch.launch.steps import serving_steps  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -359,6 +390,9 @@ PATHS = {
     # main's widths and depth through the pipeline-parallel serve step
     # (launch/pipeline.py): two uneven stage layouts on this card
     "pp": ("qwen3-32b", "contig", ("decode_attention",)),
+    # main's widths and depth through build_step's prefill and serve steps
+    # on tensor-parallel meshes of ranks on this card (launch/steps.py)
+    "tp": ("qwen3-32b", "contig", ("decode_attention", "flash_attention")),
     # main's model with prefix sharing, on shared-system-prompt traffic
     "prefix": ("qwen3-32b", "auto",
                ("decode_attention_paged", "chunk_attention_paged",
@@ -795,9 +829,18 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
             (f32, (8, 8, 120, 3, 300, 24), None, True, "g=1 d120 fp32"),
             (bf, (*_geometry(WHISPER, rehearsal), B, S, BS), None, True,
              whisper)]
+    # a tp path step on one rank: 8 rows at one position, Qwen3-32B's heads
+    # split over a model axis of 4 (16/2) and of 2 (32/4)
+    tp_pos = TP_PROMPT + TP_STEPS // 2
+    tp_geo = {m: dict(nh=QWEN["nh"] // m, nkv=QWEN["nkv"] // m, d=QWEN["d"])
+              for m in (4, 2)}
+    tp_label = {m: f"tp model {m} shard GQA {g['nh']}/{g['nkv']} one pos "
+                   f"bf16" for m, g in tp_geo.items()}
     if not paged and not rehearsal:
         specs.append((bf, (*_geometry(QWEN, rehearsal), 2, S, BS), None,
                       [pp_pos] * 2, pp_label))
+        specs += [(bf, (*_geometry(g, rehearsal), B, S, BS), None,
+                   [tp_pos] * B, tp_label[m]) for m, g in tp_geo.items()]
     if paged and not rehearsal:
         # the bf16 body through the block table (kernel 1 runs the contig
         # body's split walk with a paged key policy): positions at 0, at a
@@ -884,7 +927,9 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
     timed = [] if rehearsal else (
         [(d120, DANUBE, DANUBE_WINDOW, ragged)] if paged else
         [(zlabel, ZAMBA, None, ragged), (whisper, WHISPER, None, ragged),
-         (pp_label, QWEN, None, f"pos {pp_pos} in both rows")])
+         (pp_label, QWEN, None, f"pos {pp_pos} in both rows")] + [
+            (tp_label[m], g, None, f"pos {tp_pos} in every row")
+            for m, g in tp_geo.items()])
     args, err, kept = compare(name, run, plain, cases(),
                               keep=[t[0] for t in timed])
     row = measure(name, da, run, plain, args, err,
@@ -896,6 +941,14 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
                                      window=win, note=note),
                    kw=dict(window=win))
         for label, geo, win, note in timed]
+    if not paged and not rehearsal:
+        for m, g in tp_geo.items():
+            split, nsplit = da._plan(B, g["nh"], g["nkv"], S, 0, True,
+                                     da._sm_count(dev.index or 0))
+            log(f"[kernels] decode_attention {tp_label[m]}: S {S} in "
+                f"{nsplit} splits of {split} keys, B x nkv x splits = "
+                f"{B * g['nkv'] * nsplit} CTAs over "
+                f"{da._sm_count(dev.index or 0)} SMs")
     if not paged:
         row["timed_shapes"] += kernel_ring(cs, dev, rehearsal)
     return row
@@ -1251,9 +1304,16 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
             k = cs.randn(b, sk, kv, dd, dtype=dtype)
             v = cs.randn(b, sk, kv, dd, dtype=dtype)
             yield label, dtype, (q, k, v), dict(causal=causal, window=win)
+    # the tp path's prefill on one rank of a model axis of 4 (16/2 heads
+    # of 128, 1024 tokens): 4 rows, and the 8 of the (1, 4) mesh
+    tp = {b: f"tp model 4 shard 16/2 S=1024 {b} rows bf16" for b in (4, 8)}
+    if not rehearsal:
+        specs += [(bf, (16, 2, 128, b, 1024), True, None, tp[b])
+                  for b in (4, 8)]
     moe, zamba, legacy = specs[1][4], specs[3][4], specs[11][4]
     args, err, kept = compare("flash_attention", run, plain, cases(),
-                              keep=(moe, zamba, legacy, cmdr, enc, cross))
+                              keep=(moe, zamba, legacy, cmdr, enc, cross)
+                              + (() if rehearsal else tuple(tp.values())))
     row = measure("flash_attention", fa, run, plain, args, err,
                   *flash_yardstick(args))
     # the MoE path's batch-1 prompt, the hybrid path's d=80 group, the
@@ -1266,7 +1326,9 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
                                       kw=dict(causal=c))
                            for k, c in ((moe, True), (zamba, True),
                                         (legacy, True), (cmdr, True),
-                                        (enc, False), (cross, False))]
+                                        (enc, False), (cross, False))
+                           + (() if rehearsal else tuple(
+                               (t, True) for t in tp.values()))]
     if not rehearsal:
         big = tuple(cs.randn(2, 6000, h, 120, dtype=bf) for h in (32, 8, 8))
         row["timed_shapes"].append(time_shape(
@@ -3449,6 +3511,392 @@ def phase_pp_parity(dev) -> None:
                              f"disagrees with the CPU ({name})")
 
 
+# -- tensor parallelism over a mesh of ranks (path ``tp``) ------------------------
+# meshes run in turns, every rank on this card (gloo stages each all_reduce
+# through the host); then (1, 4) over nccl, one rank per card, when there
+# are four cards
+TP_MESHES = ((1, 2), (1, 4), (2, 2))
+TP_AXES = ("data", "model")
+TP_ROWS, TP_PROMPT, TP_STEPS = 8, 1024, 32
+TP_FP32_LAYERS = 2
+# bf16 gates. Prefill: the ranks' last-position logits within TP_REL of max
+# |logit| of the unsplit bf16 LM's. First serve step (on one cache and one
+# set of tokens): its error against the unsplit LM evaluated in fp32 on the
+# same values (the yardstick phase 3 holds a bf16 kernel to) at most
+# TP_STEP_RATIO times the unsplit bf16 LM's own error there. A step is not
+# held to TP_REL against the unsplit bf16 LM: that LM on its rows in two
+# halves already differs from itself by about that much on this step
+# (printed), while its prefill halves agree (PERF.md, tensor parallel).
+TP_REL = 2e-2
+TP_STEP_RATIO = 1.25
+
+
+def _free(dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def tp_unsplit(cfg, dev, prompt: np.ndarray, steps: int, seed: int,
+               max_len: int) -> dict:
+    """The unsplit ``LM`` on this card, the ranks' weights (``init(seed)``):
+    prefill logits and the greedy tokens (B, 1 + steps), on the host; its
+    memory freed before the ranks start."""
+    model = build_model(cfg, device=dev)
+    params = model.init(seed=seed)
+    with torch.no_grad():
+        logits, cache = model.prefill(
+            params, {"tokens": torch.from_numpy(prompt).to(dev)},
+            max_len=max_len, ring=True)
+        cur = model.sample_greedy(logits).reshape(-1, 1).to(torch.int32)
+        toks = [cur]
+        for _ in range(steps):
+            lg, cache = model.decode_step(params, cache, cur)
+            cur = model.sample_greedy(lg).to(torch.int32)
+            toks.append(cur)
+    out = dict(prefill_logits=logits.float().cpu().numpy(),
+               tokens=torch.cat(toks, 1).cpu().numpy())
+    del model, params, cache, logits, lg
+    _free(dev)
+    return out
+
+
+def tp_fp32_reference(cfg, dev, prompt: np.ndarray, seed: int,
+                      max_len: int) -> dict:
+    """The yardstick of the bf16 gate, as phase 3 holds a bf16 kernel to
+    its plain version evaluated in fp32 on the same input values: the
+    unsplit ``LM`` in fp32 on the bf16 weights (``init(seed)`` upcast).
+    Its prefill logits; a first serve step's input, its prefill cache as
+    the bf16 cache stores it (k / v rounded to bf16) and its greedy
+    tokens; that step's logits in fp32 on those values, and in bf16 by the
+    unsplit bf16 ``LM`` (the unsplit model's own error, printed beside the
+    ranks'). All on the host; the card's memory freed after."""
+    m16 = build_model(cfg, device=dev)
+    p16 = m16.init(seed=seed)
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
+    p32 = _tree_map(p16, lambda t: t.float())
+    with torch.no_grad():
+        logits, cache = m32.prefill(
+            p32, {"tokens": torch.from_numpy(prompt).to(dev)},
+            max_len=max_len, ring=True)
+        tok = m32.sample_greedy(logits).reshape(-1, 1).to(torch.int32)
+        cache_in = {k: v.to(m16.dtype) if v.is_floating_point() else v
+                    for k, v in cache.items()}
+        del cache
+        first32, _ = m32.decode_step(
+            p32, {k: v.float() if v.is_floating_point() else v.clone()
+                  for k, v in cache_in.items()}, tok)
+        first16, _ = m16.decode_step(
+            p16, {k: v.clone() for k, v in cache_in.items()}, tok)
+        # the same unsplit bf16 LM on the rows in two halves: the same
+        # function, other GEMM shapes (its own run-to-run floor)
+        h = prompt.shape[0] // 2
+        halves, steps = [], []
+        for rows in (slice(0, h), slice(h, None)):
+            lg, _ = m16.prefill(
+                p16, {"tokens": torch.from_numpy(prompt[rows]).to(dev)},
+                max_len=max_len, ring=True)
+            halves.append(lg.float().cpu())
+            part = {k: v[:, rows].clone() if v.ndim == 5 else v[rows].clone()
+                    for k, v in cache_in.items()}
+            st, _ = m16.decode_step(p16, part, tok[rows])
+            steps.append(st.float().cpu())
+    out = dict(prefill_logits=logits.float().cpu().numpy(),
+               cache={k: v.cpu() for k, v in cache_in.items()},
+               tokens=tok.cpu().numpy(), first=first32.float().cpu().numpy(),
+               first16=first16.float().cpu().numpy(),
+               halves=torch.cat(halves).numpy(),
+               first16_halves=torch.cat(steps).numpy())
+    del m16, p16, m32, p32, logits, cache_in, first32, first16
+    _free(dev)
+    return out
+
+
+def _rel(a: np.ndarray, b: np.ndarray) -> float:
+    """max |a - b| / max |b|."""
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _ulps(a: np.ndarray, b: np.ndarray) -> float:
+    """max |a - b| in bf16 units in the last place of max |b|."""
+    top = max(float(np.abs(b).max()), 1e-30)
+    return float(np.abs(a - b).max()) / 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def _tp_busy(fn, dev) -> tuple:
+    """(device busy seconds, wall seconds) of ``fn()`` under a device-only
+    torch.profiler pass."""
+    from torch.profiler import ProfilerActivity, profile
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    busy = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            dt = getattr(evt, "self_device_time_total", None)
+            busy += evt.self_cuda_time_total if dt is None else dt
+    return busy / 1e6, wall
+
+
+def _tp_tokens32(mesh, dev, cfg, x, steps: int, max_len: int,
+                 seed: int) -> np.ndarray:
+    """The greedy tokens (B, 1 + steps) of this rank's prefill and serve
+    steps of ``cfg`` from ``init(seed)``."""
+    b = x["tokens"].shape[0]
+    pre, srv, params = serving_steps(mesh, dev, cfg, b, max_len, seed=seed)
+    tok, cache = pre.fn(params, x)
+    cur = tok.reshape(b, 1)
+    toks = [cur]
+    for _ in range(steps):
+        cur, cache = srv.fn(params, cache, cur)
+        toks.append(cur)
+    return torch.cat(toks, 1).cpu().numpy()
+
+
+def tp_rank(mesh, dev, cfg32, cfg16, prompt: np.ndarray, steps: int,
+            max_len: int, seed: int, forced: np.ndarray,
+            first_step: tuple) -> dict:
+    """One rank of path ``tp`` (``run_ranks`` calls it in every rank). fp32
+    (``cfg32``): the greedy tokens. bf16 (``cfg16``): the prefill's
+    last-position logits; ``steps`` serve steps, step i fed ``forced[:,
+    i]`` (the unsplit model's tokens), with the kernel launches of the
+    prefill and those steps; the logits of one serve step from this rank's
+    shard of ``first_step`` = (a full cache, tokens (B, 1)); then, timed
+    from the prefill's cache on the rank's own greedy tokens, each step's
+    wall and host queue seconds, its launches and all_reduce calls and
+    bytes, peak memory, the device's busy seconds in a profiled third run,
+    and ``calibrate_model_allreduce``."""
+    b = prompt.shape[0]
+    x = {"tokens": torch.from_numpy(prompt).to(dev)}
+    with torch.no_grad():
+        out = {"tokens32": _tp_tokens32(mesh, dev, cfg32, x, steps,
+                                        max_len, seed)}
+        _free(dev)
+        pre, srv, params = serving_steps(mesh, dev, cfg16, b, max_len,
+                                         seed=seed)
+        rows = pre.meta["rows"]
+        ops.reset_launch_counts()
+        tok, cache = pre.fn(params, x)
+        keep = {k: v.clone() for k, v in cache.items()}
+        out.update(rows=(rows.start, rows.stop),
+                   prefill_logits=pre.last_logits.float().cpu().numpy(),
+                   n_heads_local=pre.model.n_heads_local,
+                   n_kv_local=pre.model.n_kv_local)
+        feed = torch.from_numpy(forced).to(device=dev, dtype=torch.int32)
+        first = tok.reshape(b, 1)
+        toks = [first]
+        for i in range(steps):
+            cur, cache = srv.fn(params, cache, feed[:, i:i + 1])
+            toks.append(cur)
+        out["tokens"] = torch.cat(toks, 1).cpu().numpy()
+        out["launches"] = ops.launch_counts()
+        full, tokens = first_step
+        shard = {k: v.to(dev) for k, v in srv.shard_cache(full).items()}
+        srv.fn(params, shard, torch.from_numpy(tokens).to(
+            device=dev, dtype=torch.int32))
+        out["first_logits"] = srv.last_logits.float().cpu().numpy()
+        del shard, cache, toks
+        sharder = srv.meta["sharder"]
+        cache = {k: v.clone() for k, v in keep.items()}
+        ops.reset_launch_counts()
+        sharder.stats.update(calls=0, bytes=0)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _sync(dev)
+        walls, queued = [], []
+        cur = first
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            cur, cache = srv.fn(params, cache, cur)
+            queued.append(time.perf_counter() - t0)
+            _sync(dev)
+            walls.append(time.perf_counter() - t0)
+        out.update(step_wall_s=walls, host_queue_s=queued,
+                   timed_launches=ops.launch_counts(),
+                   allreduce=dict(sharder.stats),
+                   peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                            if dev.type == "cuda" else None))
+        if dev.type == "cuda":
+            cache = {k: v.clone() for k, v in keep.items()}
+
+            def run():
+                cur, c = first, cache
+                for _ in range(steps):
+                    cur, c = srv.fn(params, c, cur)
+            out["busy_s"], out["busy_wall_s"] = _tp_busy(run, dev)
+        if mesh.shape["model"] > 1:
+            out["calibrate"] = calibrate_model_allreduce(mesh, dev)
+    return out
+
+
+def phase_tp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
+                  repeats: int, profile_dir: Path | None = None) -> dict:
+    """Tensor parallelism (``launch/steps.py``'s ``build_step`` over a
+    ``launch/mesh.py`` mesh): Qwen3-32B widths, 8 rows of one 1024-token
+    prompt through ``prefill_step`` (cache of ``MAX_LEN``), then 32 greedy
+    ``serve_step``s, on meshes (data 1, model 2), (1, 4) and (2, 2) in
+    turns, every rank a process on this card (gloo over CUDA tensors).
+    The unsplit ``LM`` runs first on the same card and weights; each rank
+    runs ``tp_rank``. Gates: fp32 at 2 of the layers, every rank's tokens
+    equal the unsplit model's; bf16 at ``depth``: the prefill's
+    last-position logits within ``TP_REL`` (2e-2) of max |logit| of the
+    unsplit bf16 LM's; the first serve step, run on the unsplit fp32
+    prefill's cache as bf16 stores it (each rank's shard) and its tokens,
+    at most ``TP_STEP_RATIO`` (1.25) times as far from the unsplit LM
+    evaluated in fp32 on the same values (``tp_fp32_reference``) as the
+    unsplit bf16 LM's step is (the other readings printed beside: the
+    ranks' prefill against the fp32 LM, their step against the unsplit
+    bf16 LM's, that LM re-batched against itself); every rank
+    launches ``decode_attention`` and
+    ``flash_attention`` at its local head counts. The bf16 run feeds every
+    step the unsplit bf16 model's token: the equal argmaxes and the first
+    divergence are printed, not gated. Per mesh and rank: step wall and
+    host queue time, device busy, launches and all_reduce calls and bytes
+    per step, peak GB, ``calibrate_allreduce`` over the model group. With
+    four cards, (1, 4) once more over nccl, one rank per card."""
+    arch = PATHS[path][0]
+    required = PATHS[path][2]
+    tag = f"[{path}]"
+    base = get_config(arch)
+    if rehearsal:
+        cfg32 = base.reduced()
+        cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+        rows, prompt_len, steps, s_max = 4, 6, 4, 16
+        meshes = ((2, 2),)
+    else:
+        cfg16 = dataclasses.replace(base, n_layers=depth)
+        cfg32 = dataclasses.replace(base, n_layers=TP_FP32_LAYERS,
+                                    dtype="float32")
+        rows, prompt_len, steps, s_max = (TP_ROWS, TP_PROMPT, TP_STEPS,
+                                          MAX_LEN)
+        meshes = TP_MESHES
+    prompt = np.random.RandomState(seed).randint(
+        0, cfg16.vocab, (rows, prompt_len)).astype(np.int32)
+    t0 = time.perf_counter()
+    ref32 = tp_unsplit(cfg32, dev, prompt, steps, seed, s_max)
+    ref16 = tp_unsplit(cfg16, dev, prompt, steps, seed, s_max)
+    exact = tp_fp32_reference(cfg16, dev, prompt, seed, s_max)
+    log(f"{tag} {base.name} widths; fp32 at {cfg32.n_layers} layers, "
+        f"{cfg16.dtype} at {cfg16.n_layers} of {base.n_layers}; {rows} rows "
+        f"of a {prompt_len}-token prompt, cache S={s_max}, {steps} steps; "
+        f"unsplit LM on this card {time.perf_counter() - t0:.1f} s")
+    rank_args = (cfg32, cfg16, prompt, steps, s_max, seed,
+                 ref16["tokens"][:, :steps].copy(),
+                 (exact.pop("cache"), exact["tokens"]))
+    runs = [(m, "gloo", "cuda" if dev.type == "cuda" else "cpu")
+            for m in meshes]
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards >= 4:
+        runs.append(((1, 4), "nccl", "cuda"))
+    counts: dict = {}
+    failed = []
+    for mesh, backend, where in runs:
+        t1 = time.perf_counter()
+        outs = run_ranks(tp_rank, mesh, TP_AXES, backend=backend,
+                         device=where, args=rank_args)
+        name = f"mesh (data {mesh[0]}, model {mesh[1]}) {backend}"
+        log(f"{tag} {name}: {len(outs)} ranks, "
+            f"{time.perf_counter() - t1:.1f} s with the ranks' start")
+        model_n = mesh[1]
+        for rank, o16 in enumerate(outs):
+            lo, hi = o16["rows"]
+            same32 = bool(np.array_equal(o16["tokens32"], ref32["tokens"]))
+            pre = _rel(o16["prefill_logits"], exact["prefill_logits"][lo:hi])
+            first = _rel(o16["first_logits"][:, 0], exact["first"][lo:hi, 0])
+            # the unsplit bf16 model's own error against the same yardstick,
+            # and the ranks' prefill against the unsplit bf16 model's
+            pre16 = _rel(ref16["prefill_logits"][lo:hi],
+                         exact["prefill_logits"][lo:hi])
+            first16 = _rel(exact["first16"][lo:hi, 0],
+                           exact["first"][lo:hi, 0])
+            step_vs16 = _rel(o16["first_logits"][:, 0],
+                             exact["first16"][lo:hi, 0])
+            vs16 = _rel(o16["prefill_logits"], ref16["prefill_logits"][lo:hi])
+            got, want = o16["tokens"][:, 1:], ref16["tokens"][:, 1:]
+            eq = got == want
+            col = np.where(~eq.all(axis=0))[0]
+            diverge = int(col[0]) if len(col) else None
+            heads = (o16["n_heads_local"], o16["n_kv_local"])
+            want_heads = (cfg16.n_heads // model_n,
+                          cfg16.n_kv_heads // model_n)
+            launched = o16["launches"]
+            ok = (same32 and vs16 <= TP_REL
+                  and first <= TP_STEP_RATIO * first16
+                  and heads == want_heads
+                  and (dev.type != "cuda"
+                       or all(launched[k] for k in required)))
+            walls = sorted(o16["step_wall_s"])
+            per_step = float(np.median(walls))
+            queue = float(np.median(o16["host_queue_s"]))
+            ar = o16["allreduce"]
+            tl = o16["timed_launches"]
+            cal, peak = o16.get("calibrate"), o16["peak_gb"]
+            busy = "not measured (CPU)"
+            if "busy_s" in o16:
+                busy = (f"{o16['busy_s'] / (per_step * steps):.3f} "
+                        f"({o16['busy_s']:.4f} s of device time in a run of "
+                        f"{steps} steps; against the profiled run's "
+                        f"{o16['busy_wall_s']:.3f} s wall "
+                        f"{o16['busy_s'] / o16['busy_wall_s']:.3f})")
+            ulps = _ulps(o16["prefill_logits"],
+                         ref16["prefill_logits"][lo:hi])
+            log(f"{tag} {name} rank {rank}: rows [{lo}, {hi}) heads "
+                f"{heads[0]}/{heads[1]}; fp32 tokens == unsplit {same32}; "
+                f"{cfg16.dtype} prefill logits against the unsplit "
+                f"{cfg16.dtype} LM's rel {vs16:.3e} ({ulps:.1f} bf16 ulps; "
+                f"limit {TP_REL} of max |logit|); against the unsplit LM "
+                f"in fp32 on the same weights {pre:.3e} (the unsplit "
+                f"{cfg16.dtype} LM's own {pre16:.3e}); first step on the "
+                f"fp32 prefill's cache as bf16 stores it and its tokens, "
+                f"against the fp32 LM's step rel {first:.3e} (limit "
+                f"{TP_STEP_RATIO} x the unsplit {cfg16.dtype} LM's own "
+                f"{first16:.3e} = {TP_STEP_RATIO * first16:.3e}; against "
+                f"the unsplit {cfg16.dtype} LM's step {step_vs16:.3e}); "
+                f"{cfg16.dtype} argmax == unsplit {cfg16.dtype} "
+                f"{int(eq.sum())}/{eq.size} fed the unsplit tokens, first "
+                f"divergence at step {diverge}; launches prefill + "
+                f"{steps} steps {launched} "
+                f"{'ok' if ok else 'FAIL'}")
+            log(f"{tag} {name} rank {rank}: step_wall_s median="
+                f"{per_step:.5f} min={walls[0]:.5f} max={walls[-1]:.5f}; "
+                f"host_queue_s median={queue:.5f}; device_busy_share="
+                f"{busy}; decode_attention per step "
+                f"{tl['decode_attention'] / steps:g}, flash_attention "
+                f"{launched['flash_attention']} in the prefill; all_reduce "
+                f"per step {ar['calls'] / steps:g} calls, "
+                f"{ar['bytes'] / steps:.0f} bytes; peak_mem_GB="
+                f"{'not measured (CPU)' if peak is None else round(peak, 3)}")
+            if cal is not None:
+                log(f"{tag} {name} rank {rank}: calibrate_allreduce over the "
+                    f"model group: alpha {cal['alpha_s'] * 1e6:.2f} us, beta "
+                    f"{cal['beta_bps'] / 1e9:.3f} GB/s ("
+                    + ("gloo staged through the host, every rank on one "
+                       "card: not a link" if backend == "gloo" else
+                       "nccl, one rank per card") + ")")
+            if not ok:
+                failed.append(f"{name} rank {rank}")
+            for k, v in launched.items():
+                counts[k] = counts.get(k, 0) + v
+    log(f"{tag} the unsplit {cfg16.dtype} LM on its rows in two halves "
+        f"against itself on all 8 (the same function, other GEMM shapes): "
+        f"prefill logits rel "
+        f"{_rel(exact['halves'], ref16['prefill_logits']):.3e}, first step "
+        f"rel {_rel(exact['first16_halves'], exact['first16']):.3e}")
+    if failed:
+        raise SystemExit(f"chip_smoke: tensor parallelism disagrees with the "
+                         f"unsplit model or missed a kernel on {failed}")
+    if n_cards < 4:
+        log(f"{tag} (1, 4) over nccl did not run: it needs four cards, one "
+            f"rank each (NCCL refuses two ranks on one device); this "
+            f"machine has {n_cards}")
+    if dev.type == "cuda":
+        log(f"{tag} nvidia-smi: {smi_line()}")
+    return dict(counts=counts, tokens=ref32["tokens"].tolist())
+
+
 # -- the cluster simulator (phase ``cluster``, host only) -----------------------
 CLUSTER_WINDOW_MIN, CLUSTER_RATE = 50, 3.0
 
@@ -3499,7 +3947,8 @@ def phase_cluster(seed: int) -> None:
 
 
 # serving paths with a driver of their own (the rest run ``phase_path``)
-PATH_PHASE = {"server": phase_server_path, "pp": phase_pp_path}
+PATH_PHASE = {"server": phase_server_path, "pp": phase_pp_path,
+              "tp": phase_tp_path}
 
 
 def check_paths(res: dict) -> None:

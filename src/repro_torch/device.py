@@ -3,6 +3,8 @@
 ``resolve_device(None)`` means the card: with no card it raises instead of
 falling back to the CPU, so a run that was meant for the GPU can never
 silently measure the host. Tests pass ``device="cpu"`` explicitly.
+``"meta"`` allocates nothing: ``models.api.input_specs`` reads a cache's
+shapes and dtypes from it.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "repro_torch: no CUDA device is available; pass device='cpu' "
             "to run the plain PyTorch path on the host")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

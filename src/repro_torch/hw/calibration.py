@@ -14,8 +14,10 @@ and summarised by the **median**, and (alpha, beta) are fitted by least
 squares over message sizes. Calibration measures the library, so the GEMM
 and GEMV are plain ``torch.matmul`` calls (the reference times ``a @ b``
 outside any Pallas kernel). On the card, timings end in
-``torch.cuda.synchronize()``. The collective runs on one device only: the
-copy-based bound the reference falls back to with a single device.
+``torch.cuda.synchronize()``. The collective is a real ``all_reduce``
+over a process group when the caller passes one of two or more ranks, and
+otherwise the copy-based bound the reference falls back to with a single
+device.
 """
 
 from __future__ import annotations
@@ -106,19 +108,31 @@ def calibrate_gemv(sizes: Sequence[int] = (1024, 2048, 4096),
 
 def calibrate_allreduce(sizes_bytes: Sequence[int] = (1 << 16, 1 << 20),
                         dtype: torch.dtype = torch.float32,
-                        device: DeviceLike = None) -> Dict[str, float]:
-    """Effective collective beta (bytes/s) and alpha (s) on one device: the
-    collective degenerates to a copy-based bound. Fits (alpha, beta) by
-    least squares over message sizes:
+                        device: DeviceLike = None,
+                        group=None) -> Dict[str, float]:
+    """Effective collective beta (bytes/s) and alpha (s). Fits (alpha,
+    beta) by least squares over message sizes:
         t(N) = alpha + N / beta
-    """
+
+    With a process ``group`` of at least 2 ranks (the reference's several
+    devices) it times a real ``dist.all_reduce`` SUM of N bytes on
+    ``device`` over the group; every rank of the group must call it.
+    Otherwise the collective degenerates to a copy-based bound on one
+    device, as the reference falls back with a single device."""
     dev = resolve_device(device)
     itemsize = torch.empty((), dtype=dtype).element_size()
     times, sizes = [], []
+    real = False
+    if group is not None:
+        import torch.distributed as dist
+        real = dist.get_world_size(group) >= 2
     for nbytes in sizes_bytes:
         n = max(1, nbytes // itemsize)
         x = torch.ones((n,), dtype=dtype, device=dev)
-        dt = _time_fn(lambda a: a + 1.0, x)
+        if real:
+            dt = _time_fn(lambda a: dist.all_reduce(a, group=group), x)
+        else:
+            dt = _time_fn(lambda a: a + 1.0, x)
         times.append(dt)
         sizes.append(nbytes)
     # Least-squares fit of t = alpha + N/beta.
@@ -127,6 +141,18 @@ def calibrate_allreduce(sizes_bytes: Sequence[int] = (1 << 16, 1 << 20),
     alpha = max(float(coef[0]), 1e-7)
     inv_beta = max(float(coef[1]), 1e-15)
     return {"alpha_s": alpha, "beta_bps": 1.0 / inv_beta}
+
+
+# a decode step's all_reduce (tens of KB) up to a prefill's (tens of MB)
+MESH_ALLREDUCE_SIZES = (1 << 16, 1 << 20, 1 << 24, 1 << 26)
+
+
+def calibrate_model_allreduce(mesh, device: DeviceLike) -> Dict[str, float]:
+    """``calibrate_allreduce`` over the process group of ``mesh``'s
+    ``model`` axis that holds this rank, at ``MESH_ALLREDUCE_SIZES``: a
+    rank function for ``launch.mesh.run_ranks`` (every rank calls it)."""
+    return calibrate_allreduce(MESH_ALLREDUCE_SIZES, device=device,
+                               group=mesh.group(("model",)))
 
 
 def calibrate(device_name: str = "local",

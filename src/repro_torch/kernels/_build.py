@@ -9,13 +9,18 @@ in its own ``nvcc`` process, all started together, then one link step.
 The library lands in ``<repo>/build/kernels/<hash>/`` (git-ignored),
 keyed by a hash of the sources and flags, so an edited kernel rebuilds and
 an unchanged one loads from disk. ``REPRO_TORCH_BUILD_DIR`` overrides the
-location. Nothing here runs at import time: the CPU tests import every
-module and have no ``nvcc``.
+location. A first build is single across threads (a lock) and across
+processes (an exclusive ``flock`` on ``<hash>.lock`` beside the build
+directory): ranks started together wait for one build and load it.
+Nothing here runs at import time: the CPU tests import every module and
+have no ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -126,6 +131,18 @@ def _compile(out: Path) -> str:
     return "\n".join(log)
 
 
+@contextlib.contextmanager
+def _file_lock(path: Path):
+    """An exclusive lock on ``path`` held across processes."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
@@ -137,12 +154,15 @@ def load() -> ctypes.CDLL:
         d = build_dir()
         lib_path = d / LIB_NAME
         t0 = time.perf_counter()
-        built = not lib_path.exists()
-        if built:
+        built = False
+        if not lib_path.exists():
             _nvcc()                     # fail before touching the disk
-            d.mkdir(parents=True, exist_ok=True)
-            log = _compile(lib_path)
-            (d / "build.log").write_text(log)
+            with _file_lock(d.parent / f"{d.name}.lock"):
+                if not lib_path.exists():   # another process may have won
+                    built = True
+                    d.mkdir(parents=True, exist_ok=True)
+                    log = _compile(lib_path)
+                    (d / "build.log").write_text(log)
         lib = ctypes.CDLL(str(lib_path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)

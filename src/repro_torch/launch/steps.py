@@ -1,0 +1,309 @@
+"""Step builders over a mesh of ranks (port of ``repro/launch/steps.py``).
+
+``build_step(cfg, shape, mesh)`` gives THIS rank its part of a serving
+cell:
+
+  * ``prefill_step(params, inputs)``   -> (greedy tokens (B,), cache)
+  * ``serve_step(params, cache, tokens)`` -> (greedy tokens (B, 1), cache)
+
+``params`` and the cache are the rank's local shards (``BuiltStep``'s
+``init_params`` / ``shard_params`` / ``shard_cache`` make them, or the
+prefill step the cache); ``inputs``
+and ``tokens`` are the whole batch, of which each rank serves the rows
+the ``batch`` rule gives it (split over ``data``), and the full tokens
+come back on every rank (the rows gathered by one all_reduce of a
+zero-filled buffer). The model runs Megatron-style tensor parallelism over
+``model`` (``models/transformer.py``), decided by the reference's rule
+tables through ``build_rules``, a copy of the reference's.
+
+Where the reference's rules ask for a sequence-parallel layout (the
+``cache_seq`` rule: KV heads that do not divide ``model``, and every
+prefill; the ``seq`` rule of big prefills) the port keeps the sequence
+whole and lays the KV out by heads, each rank holding the KV heads its
+query heads read: the same function in another memory layout.
+
+Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
+``train_step`` (A9.4), ``serve_pp`` on a mesh with ``pod`` (A9.2),
+``kv_cache_dtype`` (A9.3), and the SSM, hybrid and encoder-decoder
+families under a model axis larger than 1 (A9.1b). ``lower_step`` belongs
+to the compile plane (A10) and has no counterpart.
+
+``serve_generate`` is a rank-side runner for ``launch.mesh.run_ranks``: a
+prefill and greedy serve steps, their tokens, logits and cache
+(``serving_steps`` builds a rank's steps and params for callers that
+drive the steps themselves).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.api import build_model, input_specs
+from repro_torch.models.transformer import LM
+from repro_torch.sharding import rules as R
+
+
+def build_rules(cfg: ArchConfig, mesh: Any, train: bool,
+                step: str = "", shape: Optional[ShapeSpec] = None) -> Dict:
+    multipod = "pod" in mesh.shape
+    if train:
+        rules = dict(R.TRAIN_RULES_MULTIPOD if multipod else R.TRAIN_RULES)
+    else:
+        rules = dict(R.INFER_RULES_MULTIPOD if multipod else R.INFER_RULES)
+    model_size = mesh.shape["model"]
+    # Sequence-parallel KV cache: (a) mandatory fallback when KV heads do
+    # not divide the model axis; (b) always for prefill — the cache is
+    # write-only there, so sequence sharding halves peak memory without
+    # introducing softmax-side collectives.
+    if not train and cfg.n_kv_heads and (
+            cfg.n_kv_heads % model_size != 0 or step == "prefill_step"):
+        rules["cache_seq"] = ("model",)
+    # Sequence-sharded activations for big prefills: when the per-chip
+    # residual stream exceeds ~1GB, shard the seq axis over model too.
+    if step == "prefill_step" and shape is not None:
+        data_size = mesh.shape.get("data", 1)
+        act_gb = (shape.global_batch * shape.seq_len * cfg.d_model * 2
+                  / max(1, data_size) / 1e9)
+        if act_gb > 1.0 and shape.seq_len % model_size == 0:
+            rules["seq"] = ("model",)
+    return rules
+
+
+def n_chips(mesh: Any) -> int:
+    n = 1
+    for v in mesh.shape.values():
+        n *= v
+    return n
+
+
+F8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+
+
+@dataclasses.dataclass
+class BuiltStep:
+    fn: Callable                   # the step (positional args)
+    args_shapes: Tuple[Any, ...]   # global TensorSpec trees per argument
+    in_shardings: Tuple[Any, ...]  # this rank's local shapes per argument
+    meta: Dict[str, Any]           # rules, model, sharder, rows
+    last_logits: Optional[torch.Tensor] = None  # behind the last tokens
+
+    @property
+    def model(self):
+        return self.meta["model"]
+
+    def _store(self, params: Dict) -> Dict:
+        """Weights in the storage dtype ``weight_dtype`` asks for."""
+        qdt = self.meta.get("weight_dtype")
+        if qdt is None:
+            return params
+
+        def walk(node):
+            if isinstance(node, dict):
+                return {k: walk(v) for k, v in node.items()}
+            if node.ndim >= 2 and node.dtype == self.model.dtype:
+                return node.to(qdt)
+            return node
+        return walk(params)
+
+    def shard_cache(self, full: Dict) -> Dict:
+        """This rank's part of a full contiguous cache (its rows, its KV
+        heads)."""
+        return self.model.shard_cache(full, self.meta["rows"])
+
+    def init_params(self, seed: int = 0) -> Dict:
+        """This rank's local params, the unsplit ``init(seed)``'s numbers."""
+        return self._store(self.model.init(seed=seed))
+
+    def shard_params(self, full: Dict) -> Dict:
+        """This rank's local params from the full tree (on its device)."""
+        if isinstance(self.model, LM):
+            full = self.model.shard_params(full)
+        return self._store(full)
+
+
+def _row_inputs(inputs: Dict, rows: slice) -> Dict:
+    """This rank's rows of a batch of inputs (M-RoPE positions carry the
+    batch on their second axis)."""
+    out = {}
+    for k, v in inputs.items():
+        if k == "positions" and v.ndim == 3:
+            out[k] = v[:, rows]
+        else:
+            out[k] = v[rows]
+    return out
+
+
+def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
+               serve_pp: bool = False, kv_cache_dtype: Optional[str] = None,
+               weight_dtype: Optional[str] = None,
+               device: DeviceLike = None) -> BuiltStep:
+    """This rank's prefill or serve step of ``(cfg, shape)`` on ``mesh``
+    (the reference's ``build_step`` for its serving cells). ``device``:
+    the rank's device (default: the card). ``weight_dtype``
+    (``"float8_e4m3fn"`` / ``"float8_e5m2"``) stores the matrices in fp8,
+    upcast each serve step."""
+    if shape.step == "train_step":
+        raise NotImplementedError("train_step over a mesh is not ported "
+                                  "(ROADMAP A9.4)")
+    if kv_cache_dtype:
+        raise NotImplementedError("a quantized KV cache (kv_cache_dtype) is "
+                                  "not ported (ROADMAP A9.3)")
+    if serve_pp and "pod" in mesh.shape:
+        raise NotImplementedError("serve_pp on a mesh with a pod axis "
+                                  "(multi-process PP) is not ported "
+                                  "(ROADMAP A9.2)")
+    rules = build_rules(cfg, mesh, False, step=shape.step, shape=shape)
+    # the port's layout: whole sequences, KV by heads (module docstring)
+    port_rules = dict(rules, cache_seq=None, seq=None)
+    sharder = R.Sharder(mesh=mesh, rules=port_rules)
+    b = shape.global_batch
+    lo, hi = sharder.local_range(("batch",), (b,), 0)
+    rows = slice(lo, hi)
+    bspec = sharder.spec(("batch",), (b,))[0]
+    batch_axes = bspec if sharder.size(bspec) > 1 else None
+    dev = resolve_device(device)
+    model = build_model(cfg, device=dev, sharder=sharder,
+                        batch_axes=batch_axes)
+    specs = input_specs(cfg, shape)
+    lm = isinstance(model, LM)
+    pshapes = model.local_param_shapes() if lm else model.param_shapes()
+    qdt = F8[weight_dtype] if weight_dtype else None
+    meta = {"rules": rules, "model": model, "sharder": sharder,
+            "rows": rows, "batch_axes": batch_axes, "weight_dtype": qdt}
+
+    def gather_rows(tok: torch.Tensor) -> torch.Tensor:
+        """The full batch's tokens from this rank's rows."""
+        if batch_axes is None:
+            return tok
+        full = tok.new_zeros((b,) + tuple(tok.shape[1:]))
+        full[rows] = tok
+        return sharder.reduce(full, batch_axes)
+
+    if shape.step == "prefill_step":
+        ring = {"ring": True} if lm else {}
+
+        def prefill_step(params, inputs):
+            logits, cache = model.prefill(params, _row_inputs(inputs, rows),
+                                          max_len=shape.seq_len, **ring)
+            built.last_logits = logits
+            tok = model.sample_greedy(logits).to(torch.int32)
+            return gather_rows(tok), cache
+
+        built = BuiltStep(
+            fn=prefill_step, args_shapes=(model.param_shapes(), specs),
+            in_shardings=(pshapes, {k: v.shape for k, v in specs.items()}),
+            meta=meta)
+        return built
+
+    # serve_step
+    def serve_step(params, cache, tokens):
+        if qdt is not None:
+            params = _upcast(params, qdt, model.dtype)
+        logits, cache = model.decode_step(params, cache, tokens[rows])
+        built.last_logits = logits
+        nxt = model.sample_greedy(logits).to(torch.int32)
+        return gather_rows(nxt), cache
+
+    # this rank's cache layout, read from the meta device
+    meta_model = build_model(cfg, device="meta", sharder=sharder,
+                             batch_axes=batch_axes)
+    kw = {"s_enc": shape.seq_len} if cfg.is_encdec else {"ring": True}
+    local_cache = meta_model.init_cache(hi - lo, shape.seq_len, **kw)
+    built = BuiltStep(
+        fn=serve_step, args_shapes=(model.param_shapes(), specs["cache"],
+                                    specs["tokens"]),
+        in_shardings=(pshapes, {k: tuple(v.shape)
+                                for k, v in local_cache.items()},
+                      specs["tokens"].shape),
+        meta=meta)
+    return built
+
+
+def _upcast(params: Dict, qdt: torch.dtype, dtype: torch.dtype) -> Dict:
+    if isinstance(params, dict):
+        return {k: _upcast(v, qdt, dtype) for k, v in params.items()}
+    return params.to(dtype) if params.dtype == qdt else params
+
+
+# ---------------------------------------------------------------------------
+# rank-side runner
+# ---------------------------------------------------------------------------
+def serving_steps(mesh: Any, device: torch.device, cfg: ArchConfig,
+                  batch: int, max_len: int, params: Optional[Dict] = None,
+                  seed: int = 0) -> Tuple[BuiltStep, BuiltStep, Dict]:
+    """This rank's prefill and serve steps for ``batch`` rows and a cache
+    of ``max_len`` positions, and its local params: the full numpy tree
+    ``params`` sharded here, else the seeded init."""
+    from repro_torch.models.convert import _to_tensor
+    pre = build_step(cfg, ShapeSpec("prefill", max_len, batch,
+                                    "prefill_step"), mesh, device=device)
+    srv = build_step(cfg, ShapeSpec("serve", max_len, batch, "serve_step"),
+                     mesh, device=device)
+    if params is not None:
+        local = pre.shard_params(_tree(params,
+                                       lambda a: _to_tensor(a, device)))
+    else:
+        local = pre.init_params(seed)
+    return pre, srv, local
+
+
+def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
+                   inputs: Dict[str, np.ndarray], steps: int, max_len: int,
+                   params: Optional[Dict] = None, seed: int = 0
+                   ) -> Dict[str, Any]:
+    """One rank's prefill of ``inputs`` (numpy, the whole batch) and
+    ``steps`` greedy serve steps through ``serving_steps``. Returns numpy
+    arrays: the greedy ``tokens`` (B, 1 + steps), this rank's ``rows``
+    (lo, hi), its ``prefill_logits`` (rows, Vpad), ``logits`` (rows,
+    steps, Vpad) and ``cache`` after the last step, its local head counts,
+    the kernel ``launches`` (counts zeroed just before the prefill, read
+    after the last step) and the ``allreduce`` calls and bytes of the
+    serve steps."""
+    from repro_torch.kernels import ops
+    b = (inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
+         ).shape[0]
+    pre, srv, local = serving_steps(mesh, device, cfg, b, max_len, params,
+                                    seed)
+    x = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+         for k, v in inputs.items()}
+    rows = pre.meta["rows"]
+    sharder = srv.meta["sharder"]
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        tok, cache = pre.fn(local, x)
+        prefill_logits = pre.last_logits.float().cpu().numpy()
+        sharder.stats.update(calls=0, bytes=0)
+        cur = tok.reshape(b, 1)
+        toks, logits = [cur], []
+        for _ in range(steps):
+            cur, cache = srv.fn(local, cache, cur)
+            toks.append(cur)
+            logits.append(srv.last_logits.float())
+    return {"rows": (rows.start, rows.stop),
+            "prefill_logits": prefill_logits,
+            "logits": torch.cat(logits, 1).cpu().numpy(),
+            "tokens": torch.cat(toks, 1).cpu().numpy(),
+            "cache": {k: v.cpu().numpy() for k, v in cache.items()},
+            "n_heads_local": getattr(pre.model, "n_heads_local", None),
+            "n_kv_local": getattr(pre.model, "n_kv_local", None),
+            "launches": ops.launch_counts(),
+            "allreduce": dict(sharder.stats)}
+
+
+def serve_cases(mesh: Any, device: torch.device, cases: list) -> list:
+    """``serve_generate`` for each keyword dict of ``cases`` in one world
+    (one world start for many checks)."""
+    return [serve_generate(mesh, device, **case) for case in cases]
+
+
+def _tree(node, fn):
+    if isinstance(node, dict):
+        return {k: _tree(v, fn) for k, v in node.items()}
+    return fn(node)

@@ -68,13 +68,28 @@ def _init_tensor(d: ParamDef, gen: torch.Generator, dtype: torch.dtype,
 
 
 def init_params(schema: Dict, gen: torch.Generator, dtype: torch.dtype,
-                device: torch.device) -> Dict:
-    """Nested param dict drawn leaf by leaf (sorted key order) from ``gen``."""
+                device: torch.device,
+                local: Optional[Callable[[ParamDef, torch.Tensor],
+                                         torch.Tensor]] = None) -> Dict:
+    """Nested param dict drawn leaf by leaf (sorted key order) from
+    ``gen``. ``local(def, full)``, when given, maps each full leaf to the
+    tensor kept (a rank's shard) before the next leaf is drawn, so the
+    numbers equal the unsplit init's and only one full leaf is alive."""
     def build(node):
         if isinstance(node, ParamDef):
-            return _init_tensor(node, gen, dtype, device)
+            t = _init_tensor(node, gen, dtype, device)
+            return t if local is None else local(node, t)
         return {k: build(node[k]) for k in sorted(node)}
     return build(schema)
+
+
+def schema_specs(schema: Dict) -> Dict:
+    """Logical-name tree (leaves are tuples of names)."""
+    def walk(node):
+        if isinstance(node, ParamDef):
+            return node.names
+        return {k: walk(v) for k, v in node.items()}
+    return walk(schema)
 
 
 def schema_shapes(schema: Dict) -> Dict:
@@ -223,6 +238,26 @@ def lm_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
         return nll.mean()
     mask = mask.to(nll.dtype)
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` accumulated and returned in fp32 without rounding to the
+    inputs' dtype: cuBLAS's fp32 output (``out_dtype``) on the card, an
+    fp32 product of the upcast inputs on the CPU; fp32 inputs multiply as
+    they are. ``w`` 2-D (``x`` (..., K)), or batched: ``x`` (E, M, K) and
+    ``w`` (E, K, N)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if w.ndim == 3:
+        if x.is_cuda:
+            return torch.bmm(x, w, out_dtype=torch.float32)
+        return torch.bmm(x.float(), w.float())
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        out = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w.float()
+    return out.reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
 
 
 def remat(enabled: bool, fn: Callable, *args):

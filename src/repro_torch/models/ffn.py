@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -22,8 +22,14 @@ def ffn_schema(d_model: int, d_ff: int, gated: bool, bias: bool) -> Dict:
     return s
 
 
-def ffn_apply(p: Dict, x: torch.Tensor, act: str, gated: bool
+def ffn_apply(p: Dict, x: torch.Tensor, act: str, gated: bool,
+              row_parallel: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                              torch.Tensor]] = None
               ) -> torch.Tensor:
+    """The FFN of ``x``. Under tensor parallelism ``w_up`` / ``w_gate`` /
+    ``b_up`` hold this rank's ffn columns and ``w_down`` its rows:
+    ``row_parallel(h, w_down)`` is the product summed over the ranks,
+    before ``b_down`` is added once."""
     h = x @ p["w_up"]
     if "b_up" in p:
         h = h + p["b_up"]
@@ -32,7 +38,10 @@ def ffn_apply(p: Dict, x: torch.Tensor, act: str, gated: bool
         h = a(x @ p["w_gate"]) * h
     else:
         h = a(h)
-    y = h @ p["w_down"]
+    if row_parallel is None:
+        y = h @ p["w_down"]
+    else:
+        y = row_parallel(h, p["w_down"])
     if "b_down" in p:
         y = y + p["b_down"]
     return y

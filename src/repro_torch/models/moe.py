@@ -22,11 +22,11 @@ Three details carry the reference's exact token choices over:
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import ParamDef, activation
+from repro_torch.models.common import ParamDef, activation, matmul_fp32
 
 
 def moe_schema(d_model: int, d_ff: int, n_experts: int, gated: bool) -> Dict:
@@ -63,23 +63,41 @@ def route(p: Dict, xt: torch.Tensor, top_k: int
 
 
 def moe_apply(p: Dict, x: torch.Tensor, top_k: int, act: str, gated: bool,
-              capacity_factor: float = 1.25
+              capacity_factor: float = 1.25,
+              reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+              queue_share: Optional[Callable[[torch.Tensor], Tuple[
+                  torch.Tensor, int]]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, H) -> ((B, S, H), router probs (T, E), expert indices
     (T, k)). The reference also returns the load-balancing aux loss; here
     ``moe_aux`` computes it from the router outputs, so serving, which
-    drops it, does not pay for it."""
+    drops it, does not pay for it.
+
+    Under tensor parallelism the router is whole on every rank (every rank
+    routes and drops the same pairs) and the experts' FFNs hold this
+    rank's ``expert_ffn`` slice: their ``w_down`` products stay fp32
+    through the combine, ``reduce`` sums the combined output over the
+    ranks, and it is rounded once to the activation dtype (as the dense
+    row-parallel products). When the batch is split over ranks,
+    ``queue_share(counts)`` takes this rank's pairs per expert (E,) and
+    returns (the pairs per expert of the ranks whose rows come first, the
+    number of such row shards): capacity and queue positions are then
+    those of the whole batch, as in the unsplit layer."""
     b, s, h = x.shape
     e = p["router"].shape[-1]
     t = b * s
     xt = x.reshape(t, h)
     probs, gates, idx = route(p, xt, top_k)
 
-    cap = _capacity(t, e, top_k, capacity_factor)
     # position of each (token, k) pair in its expert's queue, flat order
     flat_expert = idx.reshape(-1)                                # (T*k,)
     onehot = torch.nn.functional.one_hot(flat_expert, e)         # (T*k, E)
     before = torch.cumsum(onehot, dim=0) - onehot                # exclusive
+    shards = 1
+    if queue_share is not None:
+        earlier, shards = queue_share(onehot.sum(dim=0))
+        before = before + earlier
+    cap = _capacity(t * shards, e, top_k, capacity_factor)
     pos = torch.gather(before, 1, flat_expert[:, None])[:, 0]
     keep = pos < cap
     slot = flat_expert * cap + torch.where(keep, pos, torch.zeros_like(pos))
@@ -98,12 +116,20 @@ def moe_apply(p: Dict, x: torch.Tensor, top_k: int, act: str, gated: bool,
         hmid = a(torch.bmm(buf, p["w_gate"])) * hmid
     else:
         hmid = a(hmid)
-    out_buf = torch.bmm(hmid, p["w_down"]).reshape(e * cap, h)
+    if reduce is None:
+        out_buf = torch.bmm(hmid, p["w_down"])
+    else:
+        # row-parallel w_down: fp32 partials, combined and summed over the
+        # ranks in fp32 and rounded once, as the dense layers' products
+        out_buf = matmul_fp32(hmid, p["w_down"])
+    out_buf = out_buf.reshape(e * cap, h)
 
     # combine: each pair's slot output, weighted by its gate, summed over k
-    weight = (gates.reshape(-1) * keep).to(out_buf.dtype)
+    weight = (gates.reshape(-1) * keep).to(x.dtype).to(out_buf.dtype)
     per_pair = out_buf[slot] * weight[:, None]
     out = per_pair.reshape(t, top_k, h).sum(dim=1)
+    if reduce is not None:
+        out = reduce(out).to(x.dtype)
     return out.reshape(b, s, h), probs, idx
 
 

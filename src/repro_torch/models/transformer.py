@@ -44,6 +44,25 @@ hands the caller their maximum once per dispatch. The QKV / O / FFN / SSM
 in-out / LM-head projections stay ``@`` (the JAX package leaves them to
 XLA outside any Pallas kernel).
 
+Tensor parallelism (``sharder`` with a mesh; ``launch/steps.py`` builds
+it): each rank holds the slices the reference's rule tables give it, heads
+decided in whole heads, and runs the layers on them with an explicit
+``Sharder.reduce`` (all_reduce SUM over ``model``) where the reference's
+GSPMD inserts one: after the row-parallel ``wo`` and ``w_down`` (their
+partial products summed in fp32 and rounded once, as the unsplit product
+rounds; the biases added once, after the sum), after the MoE combine,
+after the vocab-parallel embedding lookup (each rank looks up its own
+vocab rows and writes zeros elsewhere) and after the vocab-parallel
+logits (each rank's columns written into a zero buffer of the padded
+vocab): sums with zeros, so the last two are exact. Where ``resolve``
+replicates ``kv_heads`` but splits ``heads``, a rank projects and caches
+only the KV heads its query heads read (global query head i reads KV
+head i // g), all of them in query order when they do not form equal
+groups. With the batch split over ``data`` (``batch_axes``), the MoE's
+capacity queues count the rows of the ranks before this one, so capacity
+and drops are the whole batch's. The SSM and hybrid families refuse a
+model axis larger than 1.
+
 The VLM's vision tower is a stub, as in the reference: ``prefill`` takes
 patch embeddings ``inputs["embeds"]`` (B, S, d_model) and M-RoPE position
 streams ``inputs["positions"]`` (3, B, S), ``decode_step`` (B, 1, d_model)
@@ -66,9 +85,12 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamDef, apply_m_rope, apply_rope,
                                        init_params, lm_cross_entropy,
-                                       make_norm, norm_schema, param_count,
-                                       remat, schema_shapes, stack_schema,
+                                       make_norm, matmul_fp32, norm_schema,
+                                       param_count, remat, schema_shapes,
+                                       schema_specs, stack_schema,
                                        unbind_layers)
+from repro_torch.sharding.rules import (Axes, Sharder, shard_leaf,
+                                        tree_shard)
 
 IntLike = Union[int, torch.Tensor]
 
@@ -80,7 +102,8 @@ STATE_KEYS = ("conv", "ssd")        # per-row recurrent state, no seq axis
 class LM:
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
                  ssd_chunk: int = 128, kv_probe: bool = False,
-                 remat: bool = True):
+                 remat: bool = True, sharder: Optional[Sharder] = None,
+                 batch_axes: Axes = None):
         if cfg.family not in ("dense", "moe", "vlm") + RECURRENT \
                 or cfg.is_encdec:
             raise ValueError(f"LM serves decoder-only families, not "
@@ -101,6 +124,134 @@ class LM:
         self.dtype = dtype_of(cfg.dtype)
         self.norm = make_norm(cfg.norm)
         self._schema = self._build_schema()
+        self.sharder = sharder or Sharder()
+        # mesh axes the caller split the batch rows over (the steps set it)
+        self.batch_axes = batch_axes
+        self._tp_layout()
+
+    # ------------------------------------------------------------------ #
+    # tensor-parallel layout
+    # ------------------------------------------------------------------ #
+    def _tp_layout(self) -> None:
+        """This rank's heads, KV heads and vocab rows, and the mesh axes
+        each row-parallel product sums over (None: nothing to sum)."""
+        c, sh = self.cfg, self.sharder
+        if sh.mesh is not None and sh.size("model") > 1 \
+                and c.family in RECURRENT:
+            raise NotImplementedError(
+                f"{c.name}: the {c.family} family under a model axis of "
+                f"{sh.size('model')} is not ported (ROADMAP A9.1b: Mamba2's "
+                f"fused w_in has no head-aligned split)")
+        nh, nkv = c.n_heads, c.n_kv_heads
+        self._heads_ax = self._axes_of(("embed", "heads"), (c.d_model, nh))
+        self.n_heads_local = nh // sh.size(self._heads_ax)
+        h_lo = sh.index(self._heads_ax) * self.n_heads_local \
+            if self._heads_ax else 0
+        kv_ax = self._kv_axes()
+        self._kv_sel: Optional[List[int]] = None
+        self.n_kv_local = nkv // sh.size(kv_ax)
+        if kv_ax is None and self._heads_ax is not None:
+            g = nh // nkv
+            need = [(h_lo + j) // g for j in range(self.n_heads_local)]
+            uniq = sorted(set(need))
+            gl = self.n_heads_local // len(uniq)
+            grouped = gl * len(uniq) == len(need) and all(
+                need[j] == uniq[j // gl] for j in range(len(need)))
+            self._kv_sel = uniq if grouped else need
+            self.n_kv_local = len(self._kv_sel)
+        self._ffn_ax = None
+        if c.d_ff and c.family not in RECURRENT:
+            names = ("embed", "expert_ffn" if c.n_experts else "ffn")
+            self._ffn_ax = self._axes_of(names, (c.d_model, c.d_ff))
+        self._vocab_ax = self._axes_of(("vocab", "embed"),
+                                       (c.padded_vocab, c.d_model), dim=0)
+        self._vocab_lo = (sh.index(self._vocab_ax) * c.padded_vocab
+                          // sh.size(self._vocab_ax)
+                          if self._vocab_ax else 0)
+
+    def _reduce(self, axes: Axes):
+        """The partial-sum reduction over ``axes`` (None when unsplit)."""
+        if axes is None:
+            return None
+        return lambda x: self.sharder.reduce(x, axes)
+
+    def _row_parallel(self, axes: Axes):
+        """``(x, w) -> x @ w`` for a weight whose rows are split over
+        ``axes``: each rank's partial product in fp32, summed over the
+        ranks in fp32 and rounded once to the activation dtype, as the
+        unsplit product rounds its fp32 accumulation once (a bf16 partial
+        per rank would round twice and drift from the unsplit model over
+        the layers). None when unsplit."""
+        if axes is None:
+            return None
+
+        def product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+            return self.sharder.reduce(matmul_fp32(x, w), axes).to(x.dtype)
+        return product
+
+    def _queue_share(self, counts: torch.Tensor):
+        """For the MoE under a batch split over ``batch_axes``: (the pairs
+        per expert of the row shards before this rank's, the number of row
+        shards), from one all_reduce of a zero-filled (shards, E) table."""
+        ax = self.batch_axes
+        n, i = self.sharder.size(ax), self.sharder.index(ax)
+        table = counts.new_zeros((n, counts.shape[0]))
+        table[i] = counts
+        table = self.sharder.reduce(table, ax)
+        return table[:i].sum(dim=0), n
+
+    def _local_leaf(self, d: ParamDef, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of one full parameter (``shard_leaf``: heads in
+        whole heads, the KV heads its query heads read where ``kv_heads``
+        is replicated and ``heads`` split)."""
+        return shard_leaf(full, d.names, self.sharder, self.cfg.hd,
+                          self._kv_sel)
+
+    def shard_params(self, full: Dict) -> Dict:
+        """This rank's local params from the full (unsplit) tree."""
+        return tree_shard(full, self.param_specs(), self.sharder,
+                          self.cfg.hd, self._kv_sel)
+
+    def local_param_shapes(self) -> Dict:
+        """The shapes of this rank's local params (sliced on the meta
+        device by the same ``shard_leaf``)."""
+        def walk(ref):
+            if not isinstance(ref, ParamDef):
+                return {k: walk(v) for k, v in ref.items()}
+            meta = torch.empty(ref.shape, device="meta")
+            return tuple(self._local_leaf(ref, meta).shape)
+        return walk(self._schema)
+
+    def shard_cache(self, full: Dict, rows: slice = slice(None)) -> Dict:
+        """This rank's part of a full contiguous (or ring) cache: the
+        ``rows`` it serves and the KV heads its layout holds."""
+        if "block_tbl" in full or self.cfg.family in RECURRENT:
+            raise ValueError("shard_cache takes a contiguous attention "
+                             "cache")
+        out = {"pos": full["pos"][rows].clone()}
+        if "slot_pos" in full:
+            out["slot_pos"] = full["slot_pos"].clone()
+        for key in ("k", "v"):
+            kv = full[key][:, rows]
+            if self._kv_sel is not None:
+                sel = torch.tensor(self._kv_sel, device=kv.device)
+                kv = kv.index_select(3, sel)
+            else:
+                lo = self.sharder.index(self._kv_axes()) * self.n_kv_local
+                kv = kv[:, :, :, lo:lo + self.n_kv_local]
+            out[key] = kv.contiguous()
+        return out
+
+    def _kv_axes(self) -> Axes:
+        c = self.cfg
+        return self._axes_of(("embed", "kv_heads"), (c.d_model, c.n_kv_heads))
+
+    def _axes_of(self, names, shape, dim: int = 1) -> Axes:
+        """The mesh axes ``resolve`` splits dimension ``dim`` over (heads
+        given as head counts); None when it is whole on every rank."""
+        spec = self.sharder.spec(names, shape)
+        ax = spec[dim] if spec else None
+        return ax if self.sharder.size(ax) > 1 else None
 
     # ------------------------------------------------------------------ #
     # schema / params
@@ -178,11 +329,18 @@ class LM:
 
     def init(self, seed: int = 0,
              generator: Optional[torch.Generator] = None) -> Dict:
-        """Random params on the model's device from a seeded generator."""
+        """Random params on the model's device from a seeded generator;
+        under a mesh, this rank's local params, drawn leaf by leaf with
+        the unsplit init's numbers."""
         gen = generator
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-        return init_params(self._schema, gen, self.dtype, self.device)
+        local = self._local_leaf if self.sharder.mesh is not None else None
+        return init_params(self._schema, gen, self.dtype, self.device,
+                           local=local)
+
+    def param_specs(self) -> Dict:
+        return schema_specs(self._schema)
 
     def param_shapes(self) -> Dict:
         return schema_shapes(self._schema)
@@ -194,12 +352,28 @@ class LM:
     # embedding / logits
     # ------------------------------------------------------------------ #
     def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"]["tok"][tokens.long()]
+        tok = params["embed"]["tok"]
+        if self._vocab_ax is None:
+            return tok[tokens.long()]
+        # vocab-parallel: this rank's rows, zeros elsewhere, then the sum
+        t = tokens.long() - self._vocab_lo
+        inside = (t >= 0) & (t < tok.shape[0])
+        x = tok[t.clamp(0, tok.shape[0] - 1)]
+        x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+        return self.sharder.reduce(x, self._vocab_ax)
 
     def logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.tie_embeddings:
-            return x @ params["embed"]["tok"].T
-        return x @ params["lm_head"]
+            out = x @ params["embed"]["tok"].T
+        else:
+            out = x @ params["lm_head"]
+        if self._vocab_ax is None:
+            return out
+        # vocab-parallel: this rank's columns of a zero padded-vocab buffer
+        full = out.new_zeros(out.shape[:-1] + (self.cfg.padded_vocab,))
+        full[..., self._vocab_lo:self._vocab_lo + out.shape[-1]] = out
+        return self.sharder.reduce(full, self._vocab_ax)
 
     def sample_greedy(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy next token over the un-padded vocab."""
@@ -219,9 +393,9 @@ class LM:
         if "bq" in p:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
         b, s = x.shape[0], x.shape[1]
-        q = q.reshape(b, s, c.n_heads, c.hd)
-        k = k.reshape(b, s, c.n_kv_heads, c.hd)
-        v = v.reshape(b, s, c.n_kv_heads, c.hd)
+        q = q.reshape(b, s, self.n_heads_local, c.hd)
+        k = k.reshape(b, s, self.n_kv_local, c.hd)
+        v = v.reshape(b, s, self.n_kv_local, c.hd)
         if c.m_rope:
             q = apply_m_rope(q, positions, c.rope_theta, c.mrope_sections)
             k = apply_m_rope(k, positions, c.rope_theta, c.mrope_sections)
@@ -239,8 +413,11 @@ class LM:
         return q_pos
 
     def _out_proj(self, p: Dict, o: torch.Tensor) -> torch.Tensor:
-        c = self.cfg
-        o = o.reshape(o.shape[0], o.shape[1], c.n_heads * c.hd) @ p["wo"]
+        o = o.reshape(o.shape[0], o.shape[1], -1)
+        if self._heads_ax is None:
+            o = o @ p["wo"]
+        else:                                   # row-parallel: sum, then bo
+            o = self._row_parallel(self._heads_ax)(o, p["wo"])
         if "bo" in p:
             o = o + p["bo"]
         return o
@@ -306,10 +483,14 @@ class LM:
         c = self.cfg
         h = self.norm(x, p["ln_mlp"])
         if c.n_experts > 0:
-            out, _, _ = moe_mod.moe_apply(p["moe"], h, c.moe_top_k, c.act,
-                                          c.gated_ffn)
+            share = (self._queue_share
+                     if self.sharder.size(self.batch_axes) > 1 else None)
+            out, _, _ = moe_mod.moe_apply(
+                p["moe"], h, c.moe_top_k, c.act, c.gated_ffn,
+                reduce=self._reduce(self._ffn_ax), queue_share=share)
             return out
-        return ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn)
+        return ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn,
+                                 self._row_parallel(self._ffn_ax))
 
     def _mlp_or_moe_aux(self, p: Dict, x: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -397,14 +578,16 @@ class LM:
         a, k, v = self._attn_full(p["attn"], h, positions)
         x = x + a
         h = self.norm(x, p["ln_mlp"])
-        return x + ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn), k, v
+        return x + ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn,
+                                     self._row_parallel(self._ffn_ax)), k, v
 
     def _shared_block_decode(self, p: Dict, x, x0, pos, ck, cv):
         c = self.cfg
         h = self.norm(torch.cat([x, x0], dim=-1), p["ln_attn"])
         x = x + self._attn_decode(p["attn"], h, pos, ck, cv)
         h = self.norm(x, p["ln_mlp"])
-        return x + ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn)
+        return x + ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn,
+                                     self._row_parallel(self._ffn_ax))
 
     def _run_trunk_full(self, params: Dict, x: torch.Tensor, positions,
                         collect_kv: bool = True) -> Tuple[torch.Tensor, Dict]:
@@ -547,14 +730,14 @@ class LM:
                  c.ssm_state), dtype=torch.float32, device=dev)
             if c.family == "hybrid":
                 shape = (len(c.shared_attn_positions()), batch, max_len,
-                         c.n_kv_heads, c.hd)
+                         self.n_kv_local, c.hd)
                 cache["ak"] = torch.zeros(shape, dtype=self.dtype, device=dev)
                 cache["av"] = torch.zeros(shape, dtype=self.dtype, device=dev)
             return cache
         if kv_layout == "contig":
             ring = bool(ring and c.swa_window)
             s_alloc = min(max_len, c.swa_window) if ring else max_len
-            shape = (c.n_layers, batch, s_alloc, c.n_kv_heads, c.hd)
+            shape = (c.n_layers, batch, s_alloc, self.n_kv_local, c.hd)
             if ring:
                 cache["slot_pos"] = torch.full((s_alloc,), -1,
                                                dtype=torch.int32, device=dev)
@@ -562,12 +745,35 @@ class LM:
             max_blocks = -(-max_len // block_size)
             if n_blocks <= 0:
                 n_blocks = batch * max_blocks + 1       # capacity == contig
-            shape = (c.n_layers, n_blocks, block_size, c.n_kv_heads, c.hd)
+            shape = (c.n_layers, n_blocks, block_size, self.n_kv_local,
+                     c.hd)
             cache["block_tbl"] = torch.zeros((batch, max_blocks),
                                              dtype=torch.int32, device=dev)
         cache["k"] = torch.zeros(shape, dtype=self.dtype, device=dev)
         cache["v"] = torch.zeros(shape, dtype=self.dtype, device=dev)
         return cache
+
+    def cache_specs(self) -> Dict:
+        """Logical sharding names for cache entries (the reference's tree;
+        ``pos`` is per row here). Under a mesh the port lays the K/V out by
+        ``kv_heads`` alone (see the module docstring), never by
+        ``cache_seq``."""
+        c = self.cfg
+        specs: Dict = {"pos": ()}
+        if c.family in RECURRENT:
+            specs["conv"] = ("layers", "batch", None, "ssm_inner")
+            specs["ssd"] = ("layers", "batch", "ssm_heads", None, None)
+            if c.family == "hybrid":
+                specs["ak"] = ("stack", "batch", "cache_seq",
+                               "kv_heads", "head_dim")
+                specs["av"] = specs["ak"]
+        else:
+            specs["k"] = ("layers", "batch", "cache_seq", "kv_heads",
+                          "head_dim")
+            specs["v"] = specs["k"]
+            if c.swa_window:
+                specs["slot_pos"] = (None,)
+        return specs
 
     def prefill_kv(self, params: Dict, inputs: Dict,
                    last_pos: Optional[torch.Tensor] = None

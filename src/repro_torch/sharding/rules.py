@@ -1,0 +1,250 @@
+"""Divisibility-aware logical-axis sharding (port of
+``repro/sharding/rules.py``).
+
+Model code names each tensor dimension with a *logical* axis; a rule table
+maps logical names to mesh axes per execution mode. ``resolve`` drops a
+mesh axis whenever the dimension is not divisible by the mesh-axis size
+(14 query heads on a 4-way model axis, 2 KV heads, odd vocabularies), so
+such a dimension is replicated instead of refused. The tables and
+``resolve`` are the reference's, and ``resolve`` returns a plain tuple
+equal element by element to the reference's ``PartitionSpec``.
+
+Where the reference hands the spec to GSPMD, which inserts the collectives,
+here a ``Sharder`` on a ``launch.mesh.Mesh`` gives each rank its slice of
+a full tensor (``shard``, ``tree_shard``: the counterpart of
+``in_shardings`` plus ``device_put``) and sums partial results over the
+ranks of a set of mesh axes (``reduce``: ``all_reduce`` SUM). The model
+code calls ``reduce`` where the reference's GSPMD would insert an
+all-reduce; there is no counterpart of ``constrain``. ``Sharder()`` with no
+mesh is the identity, as in the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+Axes = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Axes, ...]
+
+# Rule tables. Keys are logical axis names used throughout the models.
+INFER_RULES: Dict[str, Axes] = {
+    "batch": ("data",),
+    "seq": None,
+    "cache_seq": None,         # launch code may set ("model",) when KV heads
+    #                            do not divide the model axis (seq-parallel KV)
+    "embed": None,             # replicated over data in inference
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "head_dim": None,
+    "qkv_flat": ("model",),    # fused q/kv projection output dim
+    "ffn": ("model",),
+    "vocab": ("model",),
+    "experts": None,
+    "moe_cap": None,           # expert capacity dim (hillclimb lever)
+    "expert_ffn": ("model",),
+    "ssm_inner": ("model",),
+    "ssm_heads": ("model",),
+    "ssm_state": None,
+    "conv": None,
+    "layers": None,
+    "stack": None,
+}
+
+# Training: FSDP — shard the replicated-embed dims over data too.
+TRAIN_RULES: Dict[str, Axes] = dict(
+    INFER_RULES,
+    embed=("data",),
+    experts=None,
+)
+
+# Multi-pod training: gradients all-reduce over ("pod","data"); batch spans
+# both. (Serving multi-pod uses the pod axis for PP instead.)
+TRAIN_RULES_MULTIPOD: Dict[str, Axes] = dict(
+    TRAIN_RULES,
+    batch=("pod", "data"),
+)
+
+INFER_RULES_MULTIPOD: Dict[str, Axes] = dict(
+    INFER_RULES,
+    batch=("pod", "data"),
+)
+
+
+def _axis_size(mesh: Any, axes: Axes) -> int:
+    n = 1
+    for a in as_axes(axes):
+        n *= mesh.shape[a]
+    return n
+
+
+def as_axes(entry: Axes) -> Tuple[str, ...]:
+    """A spec entry (None, one axis name or a tuple of them) as a tuple."""
+    if entry is None:
+        return ()
+    if isinstance(entry, str):
+        return (entry,)
+    return tuple(entry)
+
+
+def resolve(names: Sequence[Optional[str]], shape: Sequence[int],
+            rules: Dict[str, Axes], mesh: Any) -> Spec:
+    """Logical names -> spec (one entry per dimension: None, an axis name
+    or a tuple of them), dropping non-divisible axes and never using a
+    mesh axis twice. ``mesh`` needs only ``.shape`` (axis -> size)."""
+    assert len(names) == len(shape), (names, shape)
+    out = []
+    used: set = set()
+    for name, dim in zip(names, shape):
+        axes = rules.get(name) if name else None
+        if axes is None:
+            out.append(None)
+            continue
+        if isinstance(axes, str):
+            axes = (axes,)
+        kept = []
+        denom = 1
+        for a in axes:
+            if a in used:
+                continue
+            sz = mesh.shape[a]
+            if dim % (denom * sz) == 0:
+                kept.append(a)
+                denom *= sz
+        for a in kept:
+            used.add(a)
+        if not kept:
+            out.append(None)
+        elif len(kept) == 1:
+            out.append(kept[0])
+        else:
+            out.append(tuple(kept))
+    return tuple(out)
+
+
+@dataclasses.dataclass
+class Sharder:
+    """Sharding helper threaded through the model code.
+
+    ``mesh=None`` (unit tests, one device) makes every call the identity.
+    With a mesh, ``reduce`` counts its calls and bytes in ``stats``."""
+
+    mesh: Optional[Any] = None
+    rules: Dict[str, Axes] = dataclasses.field(
+        default_factory=lambda: dict(INFER_RULES))
+    stats: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {"calls": 0, "bytes": 0})
+
+    def spec(self, names: Sequence[Optional[str]], shape: Sequence[int]
+             ) -> Spec:
+        if self.mesh is None:
+            return ()
+        return resolve(names, shape, self.rules, self.mesh)
+
+    def size(self, axes: Axes) -> int:
+        """Ranks along ``axes`` (1 without a mesh)."""
+        return 1 if self.mesh is None else _axis_size(self.mesh, axes)
+
+    def index(self, axes: Axes) -> int:
+        """This rank's index along ``axes``, major-first over the tuple (as
+        ``NamedSharding`` lays devices out)."""
+        i = 0
+        for a in as_axes(axes):
+            i = i * self.mesh.shape[a] + self.mesh.coords[a]
+        return i
+
+    def _specs(self, names, shape, unit):
+        unit = unit or (1,) * len(shape)
+        spec = self.spec(names, [d // u for d, u in zip(shape, unit)])
+        return spec or (None,) * len(shape)
+
+    def local_shape(self, names: Sequence[Optional[str]],
+                    shape: Sequence[int], unit: Sequence[int] = None
+                    ) -> Tuple[int, ...]:
+        """The shape of this rank's slice. ``unit`` (per dimension) makes
+        the split decision and the slices in whole units (head dim blocks
+        for a flat heads x head_dim dimension)."""
+        spec = self._specs(names, shape, unit)
+        return tuple(d // self.size(e) for d, e in zip(shape, spec))
+
+    def local_range(self, names: Sequence[Optional[str]],
+                    shape: Sequence[int], dim: int,
+                    unit: Sequence[int] = None) -> Tuple[int, int]:
+        """[lo, hi) of dimension ``dim`` that this rank holds."""
+        e = self._specs(names, shape, unit)[dim]
+        n = shape[dim] // self.size(e)
+        lo = self.index(e) * n if e is not None else 0
+        return lo, lo + n
+
+    def shard(self, full: torch.Tensor, names: Sequence[Optional[str]],
+              unit: Sequence[int] = None) -> torch.Tensor:
+        """This rank's slice of ``full`` (a copy, so that the full tensor
+        can be freed; ``full`` itself where nothing is split)."""
+        if self.mesh is None:
+            return full
+        idx, cut = [], False
+        for i in range(full.ndim):
+            lo, hi = self.local_range(names, full.shape, i, unit)
+            idx.append(slice(lo, hi))
+            cut |= hi - lo != full.shape[i]
+        return full[tuple(idx)].clone() if cut else full
+
+    def reduce(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """``x`` summed over the ranks along ``axes``, in place
+        (``all_reduce`` SUM over that axis group); the identity without a
+        mesh or on a single rank."""
+        if self.mesh is None or self.size(axes) == 1:
+            return x
+        import torch.distributed as dist
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.mesh.group(as_axes(axes)))
+        self.stats["calls"] += 1
+        self.stats["bytes"] += x.numel() * x.element_size()
+        return x
+
+
+def _is_names(x) -> bool:
+    return isinstance(x, tuple) and all(
+        isinstance(e, (str, type(None))) for e in x)
+
+
+def head_units(names: Sequence[Optional[str]], head_dim: Optional[int]
+               ) -> Optional[Tuple[int, ...]]:
+    """Split units per dimension: ``head_dim`` for a flat heads x head_dim
+    dimension (``"heads"``, ``"kv_heads"``), so that it is decided and cut
+    in whole heads; None (units of 1) without a head size."""
+    if head_dim is None:
+        return None
+    return tuple(head_dim if n in ("heads", "kv_heads") else 1
+                 for n in names)
+
+
+def shard_leaf(full: torch.Tensor, names: Sequence[Optional[str]],
+               sharder: Sharder, head_dim: Optional[int] = None,
+               kv_sel: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """This rank's part of one full tensor: ``sharder.shard`` with heads in
+    whole heads of ``head_dim``; where ``kv_sel`` is given (``kv_heads``
+    replicated, ``heads`` split), the ``kv_heads`` dimension keeps the KV
+    heads it lists, in that order: those the rank's query heads read."""
+    if kv_sel is not None and "kv_heads" in names:
+        ax = list(names).index("kv_heads")
+        sel = torch.tensor(list(kv_sel), device=full.device)
+        return full.unflatten(ax, (-1, head_dim)).index_select(
+            ax, sel).flatten(ax, ax + 1).contiguous()
+    return sharder.shard(full, names, head_units(names, head_dim))
+
+
+def tree_shard(tree: Any, specs: Any, sharder: Sharder,
+               head_dim: Optional[int] = None,
+               kv_sel: Optional[Sequence[int]] = None) -> Any:
+    """Map a tree of full tensors and a same-structure tree of logical-name
+    tuples to this rank's local tensors (the counterpart of
+    ``tree_shardings`` plus ``device_put``), each leaf by ``shard_leaf``.
+    ``LM.shard_params`` and ``LM.init`` slice the model's params with it,
+    passing the model's head size and KV-head selection."""
+    if _is_names(specs):
+        return shard_leaf(tree, specs, sharder, head_dim, kv_sel)
+    return {k: tree_shard(tree[k], specs[k], sharder, head_dim, kv_sel)
+            for k in tree}

@@ -42,7 +42,9 @@ def test_importing_the_engine_loads_no_jax():
             "repro_torch.launch.serve, repro_torch.kernels.ssd_scan, "
             "repro_torch.launch.pipeline, repro_torch.configs.shapes, "
             "repro_torch.cluster, repro_torch.cluster.simulator, "
-            "repro_torch.cluster.frontier; "
+            "repro_torch.cluster.frontier, repro_torch.sharding, "
+            "repro_torch.sharding.rules, repro_torch.launch.mesh, "
+            "repro_torch.launch.steps; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
