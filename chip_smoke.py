@@ -393,6 +393,10 @@ PATHS = {
     # main's widths and depth through build_step's prefill and serve steps
     # on tensor-parallel meshes of ranks on this card (launch/steps.py)
     "tp": ("qwen3-32b", "contig", ("decode_attention", "flash_attention")),
+    # the same for mamba2-1.3b, zamba2-2.7b and whisper-tiny whole
+    # (TPF_FAMILIES; the first names the path)
+    "tp_families": ("mamba2-1.3b", "contig",
+                    ("ssd_scan", "flash_attention", "decode_attention")),
     # main's model with prefix sharing, on shared-system-prompt traffic
     "prefix": ("qwen3-32b", "auto",
                ("decode_attention_paged", "chunk_attention_paged",
@@ -729,19 +733,26 @@ def fmt_ms(ms, dev_ms) -> str:
                              f" (device {dev_ms:.4f})")
 
 
-def time_shape(name, run, args, library, work, shape, kw=None) -> dict:
+def time_shape(name, run, args, library, work, shape, kw=None,
+               plain=None) -> dict:
     """Time the kernel and its library yardstick at one more shape a
-    serving path gives it; the bound comes from ``work``."""
+    serving path gives it, and its plain version where ``plain`` is given;
+    the bound comes from ``work``."""
     kw = kw or {}
     ms, dev_ms = time_both(lambda: run(*args, **kw))
     lib_ms, lib_dev_ms = (None, None) if library is None else \
         time_both(library)
+    plain_ms = None if plain is None else time_ms(
+        lambda: plain(*args, **kw), iters=3, warmup=1)
     b_ms, b_by = bound(*work, torch.bfloat16)
     log(f"[kernels] {name:24s} kernel {ms:.4f} ms (device {dev_ms:.4f})  "
-        f"library {fmt_ms(lib_ms, lib_dev_ms)}  bound {b_ms:.4f} ms "
-        f"({b_by})  {shape}")
-    return dict(shape=shape, ms=ms, device_ms=dev_ms, library_ms=lib_ms,
-                library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+        f"library {fmt_ms(lib_ms, lib_dev_ms)}  plain "
+        f"{fmt_ms(plain_ms, None)}  bound {b_ms:.4f} ms ({b_by})  {shape}")
+    out = dict(shape=shape, ms=ms, device_ms=dev_ms, library_ms=lib_ms,
+               library_device_ms=lib_dev_ms, bound_ms=b_ms, bound_by=b_by)
+    if plain is not None:
+        out["plain_ms"] = plain_ms
+    return out
 
 
 def measure(name, module, run, plain, args, err, library, work, shape,
@@ -836,11 +847,18 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
               for m in (4, 2)}
     tp_label = {m: f"tp model {m} shard GQA {g['nh']}/{g['nkv']} one pos "
                    f"bf16" for m, g in tp_geo.items()}
+    # a tp_families path step of zamba2's shared block on a rank of model
+    # 4 (row 4g): 8 of its 32 MHA heads of 80, 8 rows at one position
+    tpf_geo = dict(nh=ZAMBA["nh"] // 4, nkv=ZAMBA["nkv"] // 4, d=ZAMBA["d"])
+    tpf_pos = 1040
+    tpf_label = "tp_families zamba2 model 4 shard MHA 8/8 d80 one pos bf16"
     if not paged and not rehearsal:
         specs.append((bf, (*_geometry(QWEN, rehearsal), 2, S, BS), None,
                       [pp_pos] * 2, pp_label))
         specs += [(bf, (*_geometry(g, rehearsal), B, S, BS), None,
                    [tp_pos] * B, tp_label[m]) for m, g in tp_geo.items()]
+        specs.append((bf, (*_geometry(tpf_geo, rehearsal), B, S, BS), None,
+                      [tpf_pos] * B, tpf_label))
     if paged and not rehearsal:
         # the bf16 body through the block table (kernel 1 runs the contig
         # body's split walk with a paged key policy): positions at 0, at a
@@ -930,6 +948,9 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
          (pp_label, QWEN, None, f"pos {pp_pos} in both rows")] + [
             (tp_label[m], g, None, f"pos {tp_pos} in every row")
             for m, g in tp_geo.items()])
+    if not paged and not rehearsal:
+        timed.append((tpf_label, tpf_geo, None,
+                      f"pos {tpf_pos} in every row (row 4g)"))
     args, err, kept = compare(name, run, plain, cases(),
                               keep=[t[0] for t in timed])
     row = measure(name, da, run, plain, args, err,
@@ -939,7 +960,8 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
                    *decode_yardstick(kept[label], kept[label][0].shape[0],
                                      dev, *_geometry(geo, rehearsal), paged,
                                      window=win, note=note),
-                   kw=dict(window=win))
+                   kw=dict(window=win),
+                   plain=plain if label == tpf_label else None)
         for label, geo, win, note in timed]
     if not paged and not rehearsal:
         for m, g in tp_geo.items():
@@ -1307,13 +1329,18 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
     # the tp path's prefill on one rank of a model axis of 4 (16/2 heads
     # of 128, 1024 tokens): 4 rows, and the 8 of the (1, 4) mesh
     tp = {b: f"tp model 4 shard 16/2 S=1024 {b} rows bf16" for b in (4, 8)}
+    # the tp_families path's zamba2 shared-block prompt on a rank of model
+    # 4 (row 3k: 8 of 32 heads of 80, 8 rows of 1024 tokens)
+    tpf = "tp_families zamba2 model 4 shard 8/8 d80 S=1024 8 rows bf16"
     if not rehearsal:
         specs += [(bf, (16, 2, 128, b, 1024), True, None, tp[b])
                   for b in (4, 8)]
+        specs.append((bf, (8, 8, 80, 8, TP_PROMPT), True, None, tpf))
     moe, zamba, legacy = specs[1][4], specs[3][4], specs[11][4]
     args, err, kept = compare("flash_attention", run, plain, cases(),
                               keep=(moe, zamba, legacy, cmdr, enc, cross)
-                              + (() if rehearsal else tuple(tp.values())))
+                              + (() if rehearsal else tuple(tp.values())
+                                 + (tpf,)))
     row = measure("flash_attention", fa, run, plain, args, err,
                   *flash_yardstick(args))
     # the MoE path's batch-1 prompt, the hybrid path's d=80 group, the
@@ -1330,6 +1357,11 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
                            + (() if rehearsal else tuple(
                                (t, True) for t in tp.values()))]
     if not rehearsal:
+        row["timed_shapes"].append(time_shape(
+            "flash_attention", run, kept[tpf], *flash_yardstick(kept[tpf]),
+            kw=dict(causal=True), plain=plain))
+        row["timed_shapes"][-1]["shape"] = \
+            "row 3k: " + row["timed_shapes"][-1]["shape"]
         big = tuple(cs.randn(2, 6000, h, 120, dtype=bf) for h in (32, 8, 8))
         row["timed_shapes"].append(time_shape(
             "flash_attention", run, big,
@@ -1559,6 +1591,15 @@ def kernel_ssd(cs, dev, rehearsal) -> dict:
         (bf, (3, 100, 4, 32, 32, 64), True, "S=100 Q=64 h0 bf16"),
         (f32, (3, 100, 4, 32, 32, 64), True, "S=100 Q=64 h0 fp32"),
         (f32, (2, 100, 8, 64, 128, 64), False, "N=128 S=100 Q=64 fp32")]
+    # the tp_families path's prefill shards (rows 6b, 6c): mamba2 at model
+    # 2 (32 of 64 heads: x a view in 2304 conv channels) and zamba2 at
+    # model 4 (20 of 80 heads: 1408 channels), 8 rows of 1024 tokens
+    tpf = {} if rehearsal else {
+        "6b": (bf, (8, TP_PROMPT, 32, 64, 128, 128), False,
+               "tp_families mamba2 model 2 shard S=1024 bf16"),
+        "6c": (bf, (8, TP_PROMPT, 20, 64, 64, 128), False,
+               "tp_families zamba2 model 4 shard S=1024 bf16")}
+    specs += list(tpf.values())
     if not rehearsal:
         # the bf16 tensor-core body's edges: S < Q, S not a multiple of Q,
         # Q 8 / 64 / 128, N 16 / 64 / 128 / 256 (one shared-memory buffer
@@ -1576,14 +1617,20 @@ def kernel_ssd(cs, dev, rehearsal) -> dict:
             (bf, (1, 40, 2, 16, 20, 16), False,
              "N=20 (FP32-pipe body) bf16")]
     main = kept = None
+    shards = {}
     for dtype, (b, s, nh, hd, n, q), init, label in specs:
         args, h0 = ssd_inputs(cs, b, s, nh, hd, n, dtype, init)
         kw = dict(chunk=q, h0=h0)
         ref = [t.float() for t in in_fp32(plain)(*args, **kw)]
         plain_out = plain(*args, **kw)
+        ssd.reset_bodies()
+        outs = run(*args, **kw)
+        if label in [t[3] for t in tpf.values()]:
+            # the body the launch reported taking
+            body = [k for k, v in ssd.body_counts.items() if v]
+            shards[label] = (args, kw, (b, s, nh, hd, n, q), body)
         errs = []
-        for out, r, p_out, part in zip(run(*args, **kw), ref, plain_out,
-                                       ("y", "h")):
+        for out, r, p_out, part in zip(outs, ref, plain_out, ("y", "h")):
             p_err = (p_out.float() - r).abs().max().item()
             errs.append(check(name, out, r, dtype, f"{label} {part}", p_err))
         main = main or (args, kw, max(errs), (b, s, nh, hd, n, q))
@@ -1598,6 +1645,17 @@ def kernel_ssd(cs, dev, rehearsal) -> dict:
     row["timed_shapes"] = [time_shape(name, run, args, None,
                                       ssd_work(*shp, 2), ssd_shape(*shp),
                                       kw=kw)]
+    for key, (_, _, _, label) in tpf.items():
+        args, kw, shp, body = shards[label]
+        log(f"[kernels] ssd_scan row {key} ({label}): the {body} body, as "
+            f"the launch reported it (x row stride {args[0].stride(1)} "
+            f"elements)")
+        if body != ["tensor-core"]:
+            raise SystemExit(f"chip_smoke: the SSD scan left its tensor-core "
+                             f"body at the shard shape {label}")
+        row["timed_shapes"].append(time_shape(
+            name, run, args, None, ssd_work(*shp, 2),
+            f"row {key}: {ssd_shape(*shp)}", kw=kw, plain=plain))
     return row
 
 
@@ -3537,17 +3595,29 @@ def _free(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def tp_unsplit(cfg, dev, prompt: np.ndarray, steps: int, seed: int,
+def _prefill_kw(cfg) -> dict:
+    """``prefill``'s keywords as ``build_step``'s prefill step passes
+    them: the ring cache for a decoder-only model."""
+    return {} if cfg.is_encdec else {"ring": True}
+
+
+def _on(inputs: dict, dev, rows=slice(None)) -> dict:
+    """Numpy model inputs (their ``rows``) as tensors on ``dev``."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(dev)
+            for k, v in inputs.items()}
+
+
+def tp_unsplit(cfg, dev, inputs: dict, steps: int, seed: int,
                max_len: int) -> dict:
-    """The unsplit ``LM`` on this card, the ranks' weights (``init(seed)``):
-    prefill logits and the greedy tokens (B, 1 + steps), on the host; its
-    memory freed before the ranks start."""
+    """The unsplit model on this card, the ranks' weights
+    (``init(seed)``), on the prompt ``inputs`` (numpy): prefill logits and
+    the greedy tokens (B, 1 + steps), on the host; its memory freed before
+    the ranks start."""
     model = build_model(cfg, device=dev)
     params = model.init(seed=seed)
     with torch.no_grad():
-        logits, cache = model.prefill(
-            params, {"tokens": torch.from_numpy(prompt).to(dev)},
-            max_len=max_len, ring=True)
+        logits, cache = model.prefill(params, _on(inputs, dev),
+                                      max_len=max_len, **_prefill_kw(cfg))
         cur = model.sample_greedy(logits).reshape(-1, 1).to(torch.int32)
         toks = [cur]
         for _ in range(steps):
@@ -3561,7 +3631,7 @@ def tp_unsplit(cfg, dev, prompt: np.ndarray, steps: int, seed: int,
     return out
 
 
-def tp_fp32_reference(cfg, dev, prompt: np.ndarray, seed: int,
+def tp_fp32_reference(cfg, dev, inputs: dict, seed: int,
                       max_len: int) -> dict:
     """The yardstick of the bf16 gate, as phase 3 holds a bf16 kernel to
     its plain version evaluated in fp32 on the same input values: the
@@ -3570,17 +3640,19 @@ def tp_fp32_reference(cfg, dev, prompt: np.ndarray, seed: int,
     the bf16 cache stores it (k / v rounded to bf16) and its greedy
     tokens; that step's logits in fp32 on those values, and in bf16 by the
     unsplit bf16 ``LM`` (the unsplit model's own error, printed beside the
-    ranks'). All on the host; the card's memory freed after."""
+    ranks'). All on the host; the card's memory freed after. Any family:
+    the recurrent ``ssd`` state stays fp32, as the bf16 model keeps it."""
     m16 = build_model(cfg, device=dev)
     p16 = m16.init(seed=seed)
     m32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
     p32 = _tree_map(p16, lambda t: t.float())
+    kw = _prefill_kw(cfg)
     with torch.no_grad():
-        logits, cache = m32.prefill(
-            p32, {"tokens": torch.from_numpy(prompt).to(dev)},
-            max_len=max_len, ring=True)
+        logits, cache = m32.prefill(p32, _on(inputs, dev), max_len=max_len,
+                                    **kw)
         tok = m32.sample_greedy(logits).reshape(-1, 1).to(torch.int32)
-        cache_in = {k: v.to(m16.dtype) if v.is_floating_point() else v
+        cache_in = {k: v.to(m16.dtype)
+                    if v.is_floating_point() and k != "ssd" else v
                     for k, v in cache.items()}
         del cache
         first32, _ = m32.decode_step(
@@ -3590,14 +3662,13 @@ def tp_fp32_reference(cfg, dev, prompt: np.ndarray, seed: int,
             p16, {k: v.clone() for k, v in cache_in.items()}, tok)
         # the same unsplit bf16 LM on the rows in two halves: the same
         # function, other GEMM shapes (its own run-to-run floor)
-        h = prompt.shape[0] // 2
+        h = tok.shape[0] // 2
         halves, steps = [], []
         for rows in (slice(0, h), slice(h, None)):
-            lg, _ = m16.prefill(
-                p16, {"tokens": torch.from_numpy(prompt[rows]).to(dev)},
-                max_len=max_len, ring=True)
+            lg, _ = m16.prefill(p16, _on(inputs, dev, rows),
+                                max_len=max_len, **kw)
             halves.append(lg.float().cpu())
-            part = {k: v[:, rows].clone() if v.ndim == 5 else v[rows].clone()
+            part = {k: v[rows].clone() if k == "pos" else v[:, rows].clone()
                     for k, v in cache_in.items()}
             st, _ = m16.decode_step(p16, part, tok[rows])
             steps.append(st.float().cpu())
@@ -3702,7 +3773,7 @@ def tp_rank(mesh, dev, cfg32, cfg16, prompt: np.ndarray, steps: int,
         sharder = srv.meta["sharder"]
         cache = {k: v.clone() for k, v in keep.items()}
         ops.reset_launch_counts()
-        sharder.stats.update(calls=0, bytes=0)
+        sharder.reset_stats()
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         _sync(dev)
@@ -3776,9 +3847,9 @@ def phase_tp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
     prompt = np.random.RandomState(seed).randint(
         0, cfg16.vocab, (rows, prompt_len)).astype(np.int32)
     t0 = time.perf_counter()
-    ref32 = tp_unsplit(cfg32, dev, prompt, steps, seed, s_max)
-    ref16 = tp_unsplit(cfg16, dev, prompt, steps, seed, s_max)
-    exact = tp_fp32_reference(cfg16, dev, prompt, seed, s_max)
+    ref32 = tp_unsplit(cfg32, dev, {"tokens": prompt}, steps, seed, s_max)
+    ref16 = tp_unsplit(cfg16, dev, {"tokens": prompt}, steps, seed, s_max)
+    exact = tp_fp32_reference(cfg16, dev, {"tokens": prompt}, seed, s_max)
     log(f"{tag} {base.name} widths; fp32 at {cfg32.n_layers} layers, "
         f"{cfg16.dtype} at {cfg16.n_layers} of {base.n_layers}; {rows} rows "
         f"of a {prompt_len}-token prompt, cache S={s_max}, {steps} steps; "
@@ -3897,6 +3968,337 @@ def phase_tp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
     return dict(counts=counts, tokens=ref32["tokens"].tolist())
 
 
+# -- tensor parallelism for the SSM, hybrid and encoder-decoder families -------
+# (path ``tp_families``): mamba2-1.3b, zamba2-2.7b and whisper-tiny whole on
+# meshes (1, 2) and (1, 4) of rank processes on this card over gloo, as path
+# ``tp`` runs them, every family in each world; the fp32 gate at a reduced
+# depth (mamba2 2 layers, zamba2 one hybrid_period of 6, whisper whole)
+TPF_FAMILIES = (("mamba2-1.3b", 2), ("zamba2-2.7b", 6), ("whisper-tiny", None))
+TPF_MESHES = ((1, 2), (1, 4))
+TPF_STEPS = 16
+TPF_BUSY_STEPS = 4            # steps of the device-only profiled pass
+
+
+def tpf_launches(cfg, steps: int) -> dict:
+    """The kernel launches of one rank's prefill and ``steps`` serve steps
+    of ``cfg``, from the model code (every other kernel: none). Mamba2: one
+    SSD scan a layer in the prefill; the hybrid's shared block: one flash a
+    application in the prefill, one decode a application a step; the
+    encoder-decoder: flash over each encoder layer and the decoder's self
+    and cross attention in the prefill, its cross attention each step, and
+    its self-attention decode each step."""
+    if cfg.is_encdec:
+        return {"flash_attention": cfg.n_encoder_layers
+                + (2 + steps) * cfg.n_layers,
+                "decode_attention": steps * cfg.n_layers}
+    apps = len(cfg.shared_attn_positions())
+    out = {"ssd_scan": cfg.n_layers}
+    if apps:
+        out.update(flash_attention=apps, decode_attention=apps * steps)
+    return out
+
+
+def tpf_reduces(cfg, model_n: int) -> int:
+    """The all_reduce calls of one serve step on a (1, ``model_n``) mesh,
+    from the model code: two a Mamba2 layer whose SSD heads split (the
+    gated norm's sums of squares, ``w_out``), one an attention block whose
+    heads split (``wo``) and one an FFN whose columns split (``w_down``),
+    and the vocab-parallel embedding and logits; a dimension splits where
+    its count divides the model axis."""
+    def split(n: int) -> int:
+        return int(n % model_n == 0)
+    n = 2 * split(cfg.padded_vocab)
+    blocks = 2 * split(cfg.n_heads) + split(cfg.d_ff)   # encoder-decoder
+    if cfg.is_encdec:
+        return n + cfg.n_layers * blocks
+    n += 2 * cfg.n_layers * split(cfg.ssm_heads)
+    return n + len(cfg.shared_attn_positions()) * (split(cfg.n_heads)
+                                                   + split(cfg.d_ff))
+
+
+def tpf_inputs(cfg, rows: int, prompt_len: int, seed: int) -> dict:
+    """The prompt (numpy): tokens, and for the encoder-decoder its stubbed
+    frontend's frames, one a prompt token as ``input_specs`` gives them,
+    at values bf16 holds (the fp32 yardstick reads the same values)."""
+    rng = np.random.RandomState(seed)
+    out = {"tokens": rng.randint(0, cfg.vocab, (rows, prompt_len)).astype(
+        np.int32)}
+    if cfg.is_encdec:
+        frames = torch.from_numpy(rng.randn(rows, prompt_len, cfg.d_model)
+                                  .astype(np.float32))
+        out["embeds"] = frames.bfloat16().float().numpy()
+    return out
+
+
+def tpf_rank(mesh, dev, cases: list, steps: int, max_len: int,
+             seed: int) -> list:
+    """One rank of path ``tp_families`` (``run_ranks`` calls it in every
+    rank): ``_tpf_family`` for each family of ``cases`` in turn."""
+    return [_tpf_family(mesh, dev, steps=steps, max_len=max_len, seed=seed,
+                        **case) for case in cases]
+
+
+def _tpf_family(mesh, dev, cfg32, cfg16, cfg16r, inputs: dict,
+                forced: np.ndarray, first_step: tuple, steps: int,
+                max_len: int, seed: int) -> dict:
+    """One family on one rank. fp32 (``cfg32``): the greedy tokens. bf16
+    at ``cfg32``'s depth (``cfg16r``, None where that is ``cfg16``'s): the
+    prefill's last-position logits. bf16 (``cfg16``): the prefill's
+    last-position logits, its local head counts
+    and the SSD scan's launches by body; ``steps`` serve steps, step i fed
+    ``forced[:, i]`` (the unsplit model's tokens), each timed (wall and
+    host queue seconds), with the kernel launches of the prefill and those
+    steps, the steps' all_reduce calls and bytes and the peak memory; the
+    logits of one serve step from this rank's shard of ``first_step`` =
+    (a full cache, tokens (B, 1)); the device's busy seconds over
+    ``TPF_BUSY_STEPS`` steps from the prefill's cache in a profiled pass."""
+    b = inputs["tokens"].shape[0]
+    x = _on(inputs, dev)
+    cuda = dev.type == "cuda"
+    with torch.no_grad():
+        out = {"tokens32": _tp_tokens32(mesh, dev, cfg32, x, steps,
+                                        max_len, seed)}
+        _free(dev)
+        if cfg16r is not None:
+            pre, _, params = serving_steps(mesh, dev, cfg16r, b, max_len,
+                                           seed=seed)
+            pre.fn(params, x)
+            out["prefill_logits_r"] = pre.last_logits.float().cpu().numpy()
+            del pre, params
+            _free(dev)
+        pre, srv, params = serving_steps(mesh, dev, cfg16, b, max_len,
+                                         seed=seed)
+        rows, sharder, model = pre.meta["rows"], srv.meta["sharder"], \
+            pre.model
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        ssd.reset_bodies()
+        tok, cache = pre.fn(params, x)
+        keep = {k: v.clone() for k, v in cache.items()}
+        first = tok.reshape(b, 1)
+        out.update(rows=(rows.start, rows.stop),
+                   prefill_logits=pre.last_logits.float().cpu().numpy(),
+                   heads=(model.n_heads_local, model.n_kv_local,
+                          model.ssm_heads_local),
+                   ssd_bodies=dict(ssd.body_counts))
+        sharder.reset_stats()
+        feed = torch.from_numpy(forced).to(device=dev, dtype=torch.int32)
+        toks, walls, queued = [first], [], []
+        _sync(dev)
+        for i in range(steps):
+            t0 = time.perf_counter()
+            cur, cache = srv.fn(params, cache, feed[:, i:i + 1])
+            queued.append(time.perf_counter() - t0)
+            _sync(dev)
+            walls.append(time.perf_counter() - t0)
+            toks.append(cur)
+        out.update(tokens=torch.cat(toks, 1).cpu().numpy(),
+                   launches=ops.launch_counts(),
+                   allreduce=dict(sharder.stats), step_wall_s=walls,
+                   host_queue_s=queued,
+                   peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                            if cuda else None))
+        full, tokens = first_step
+        shard = {k: v.to(dev) for k, v in srv.shard_cache(full).items()}
+        srv.fn(params, shard, torch.from_numpy(tokens).to(
+            device=dev, dtype=torch.int32))
+        out["first_logits"] = srv.last_logits.float().cpu().numpy()
+        del shard, cache, toks
+        if cuda:
+            def run():
+                cur, c = first, keep
+                for _ in range(TPF_BUSY_STEPS):
+                    cur, c = srv.fn(params, c, cur)
+            out["busy_s"], out["busy_wall_s"] = _tp_busy(run, dev)
+        del pre, srv, params, keep, model
+    _free(dev)
+    return out
+
+
+def phase_tp_families(dev, path: str, depth: int, seed: int,
+                      rehearsal: bool, repeats: int,
+                      profile_dir: Path | None = None) -> dict:
+    """Tensor parallelism for the SSM, hybrid and encoder-decoder families
+    (``build_step`` over a ``launch/mesh.py`` mesh): mamba2-1.3b (48
+    layers, 64 SSD heads), zamba2-2.7b (54 layers, 80 SSD heads, a shared
+    block of 32 heads of 80) and whisper-tiny (6 heads: whole at model 4)
+    whole, 8 rows of a 1024-token prompt (whisper: as many encoder frames)
+    through ``prefill_step`` (cache of ``MAX_LEN``), then ``TPF_STEPS``
+    serve steps, on meshes (1, 2) and (1, 4), every rank a process on this
+    card (gloo), each world running every family in turn (``tpf_rank``).
+    The unsplit models run first on the same card and weights. Gates, per
+    family and rank: fp32 at a reduced depth (``TPF_FAMILIES``) the greedy
+    tokens equal the unsplit model's; bf16 at that depth (whisper: whole)
+    the prefill logits within path ``tp``'s ``TP_REL`` of the unsplit bf16
+    model's (at 48 and 54 layers the bf16 recurrent models move by more
+    than that under the row-parallel products' summation order alone, so
+    full depth is not held to it: PERF.md, §6); bf16 at full depth the
+    prefill logits and the first serve step on the unsplit fp32 prefill's
+    cache (as bf16 stores it) each at most ``TP_STEP_RATIO`` times as far
+    from the unsplit model evaluated in fp32 on the same weights as the
+    unsplit bf16 model's (the form of path ``tp``'s step gate); the
+    local head counts; the kernel launches of the prefill and the steps
+    exactly ``tpf_launches``; the all_reduce calls of a step exactly
+    ``tpf_reduces``, all in fp32 but the embedding's and the logits'; every
+    SSD scan on its tensor-core body. Per family,
+    mesh and rank: step wall and host queue time, device busy, all_reduce
+    calls and bytes a step, peak GB."""
+    tag = f"[{path}]"
+    if rehearsal:
+        rows, prompt_len, steps, s_max = 4, 6, 4, 16
+        meshes = ((1, 2),)
+    else:
+        rows, prompt_len, steps, s_max = TP_ROWS, TP_PROMPT, TPF_STEPS, \
+            MAX_LEN
+        meshes = TPF_MESHES
+    fams, cases = [], []
+    for arch, fp32_layers in TPF_FAMILIES:
+        base = get_config(arch)
+        if rehearsal:
+            cfg32 = base.reduced()
+            cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+        else:
+            cfg16 = base
+            cfg32 = dataclasses.replace(base, dtype="float32", n_layers=(
+                fp32_layers or base.n_layers))
+        # bf16 at the fp32 gate's depth, where rounding is not amplified
+        cfg16r = dataclasses.replace(cfg32, dtype=cfg16.dtype)
+        if cfg16r.n_layers == cfg16.n_layers:
+            cfg16r = None
+        inputs = tpf_inputs(cfg16, rows, prompt_len, seed)
+        t0 = time.perf_counter()
+        ref32 = tp_unsplit(cfg32, dev, inputs, steps, seed, s_max)
+        ref16 = tp_unsplit(cfg16, dev, inputs, steps, seed, s_max)
+        ref16r = ref16 if cfg16r is None else tp_unsplit(
+            cfg16r, dev, inputs, 1, seed, s_max)
+        exact = tp_fp32_reference(cfg16, dev, inputs, seed, s_max)
+        log(f"{tag} {cfg16.name}: fp32 at {cfg32.n_layers} layers, "
+            f"{cfg16.dtype} at {cfg16.n_layers}; {rows} rows of a "
+            f"{prompt_len}-token prompt, cache S={s_max}, {steps} steps; "
+            f"unsplit model on this card {time.perf_counter() - t0:.1f} s")
+        log(f"{tag} {cfg16.name}: the unsplit {cfg16.dtype} model against "
+            f"itself (the same function): on its rows in two halves, "
+            f"prefill logits rel "
+            f"{_rel(exact['halves'], ref16['prefill_logits']):.3e}, first "
+            f"step rel {_rel(exact['first16_halves'], exact['first16']):.3e};"
+            f" its own prefill against the model in fp32 "
+            f"{_rel(ref16['prefill_logits'], exact['prefill_logits']):.3e}")
+        fams.append((cfg32, cfg16, ref32, ref16, ref16r, exact))
+        cases.append(dict(cfg32=cfg32, cfg16=cfg16, cfg16r=cfg16r,
+                          inputs=inputs,
+                          forced=ref16["tokens"][:, :steps].copy(),
+                          first_step=(exact.pop("cache"), exact["tokens"])))
+    where = "cuda" if dev.type == "cuda" else "cpu"
+    counts: dict = {}
+    failed = []
+    for mesh in meshes:
+        t1 = time.perf_counter()
+        outs = run_ranks(tpf_rank, mesh, TP_AXES, backend="gloo",
+                         device=where, args=(cases, steps, s_max, seed))
+        name = f"mesh (data {mesh[0]}, model {mesh[1]}) gloo"
+        log(f"{tag} {name}: {len(outs)} ranks, "
+            f"{time.perf_counter() - t1:.1f} s with the ranks' start")
+        model_n = mesh[1]
+        for rank, per_family in enumerate(outs):
+            for (cfg32, cfg16, ref32, ref16, ref16r, exact), o in zip(
+                    fams, per_family):
+                fail = tpf_check(tag, f"{name} rank {rank}", dev, cfg32,
+                                 cfg16, model_n, steps, o, ref32, ref16,
+                                 ref16r, exact)
+                if fail:
+                    failed.append(f"{cfg16.name} {name} rank {rank}: "
+                                  f"{fail}")
+                for k, v in o["launches"].items():
+                    counts[k] = counts.get(k, 0) + v
+    if failed:
+        raise SystemExit(f"chip_smoke: tensor parallelism of the SSM, hybrid "
+                         f"or encoder-decoder family failed a gate: {failed}")
+    if dev.type == "cuda":
+        log(f"{tag} nvidia-smi: {smi_line()}")
+    return dict(counts=counts, tokens=[f[2]["tokens"].tolist()
+                                       for f in fams])
+
+
+def tpf_check(tag: str, where: str, dev, cfg32, cfg, model_n: int,
+              steps: int, o: dict, ref32: dict, ref16: dict, ref16r: dict,
+              exact: dict) -> str:
+    """Log one family's readings on one rank of ``phase_tp_families`` and
+    return the gates it fails (an empty string when it passes them)."""
+    lo, hi = o["rows"]
+    cuda = dev.type == "cuda"
+    same32 = bool(np.array_equal(o["tokens32"], ref32["tokens"]))
+    vs16 = _rel(o["prefill_logits"], ref16["prefill_logits"][lo:hi])
+    vs16r = _rel(o.get("prefill_logits_r", o["prefill_logits"]),
+                 ref16r["prefill_logits"][lo:hi])
+    pre = _rel(o["prefill_logits"], exact["prefill_logits"][lo:hi])
+    pre16 = _rel(ref16["prefill_logits"][lo:hi],
+                 exact["prefill_logits"][lo:hi])
+    first = _rel(o["first_logits"][:, 0], exact["first"][lo:hi, 0])
+    first16 = _rel(exact["first16"][lo:hi, 0], exact["first"][lo:hi, 0])
+    eq = o["tokens"][:, 1:] == ref16["tokens"][:, 1:]
+
+    def local(n):
+        return n // model_n if n % model_n == 0 else n
+    want_heads = (local(cfg.n_heads), local(cfg.n_kv_heads),
+                  local(cfg.ssm_heads) if cfg.ssm_state else 0)
+    want_launch = tpf_launches(cfg, steps)
+    launched = o["launches"]
+    launch_ok = not cuda or all(v == want_launch.get(k, 0)
+                                for k, v in launched.items())
+    want_calls = steps * tpf_reduces(cfg, model_n)
+    # every sum in fp32 but the vocab-parallel embedding's and logits'
+    # (model dtype): the row-parallel partials and the gated norm's sums
+    want_fp32 = want_calls - steps * 2 * int(cfg.padded_vocab % model_n == 0)
+    ar = o["allreduce"]
+    bodies = o["ssd_bodies"]
+    ssd_ok = (not cuda or not cfg.ssm_state
+              or bodies == {"cuda-core": 0, "tensor-core": cfg.n_layers})
+    gates = {"fp32 tokens": same32,
+             f"prefill at {cfg32.n_layers} layers": vs16r <= TP_REL,
+             "prefill": pre <= TP_STEP_RATIO * pre16,
+             "first step": first <= TP_STEP_RATIO * first16,
+             "heads": tuple(o["heads"]) == want_heads,
+             "launches": launch_ok, "all_reduce calls":
+             ar["calls"] == want_calls,
+             "fp32 all_reduce calls": ar["fp32_calls"] == want_fp32,
+             "SSD body": ssd_ok}
+    fail = ", ".join(k for k, v in gates.items() if not v)
+    log(f"{tag} {cfg.name} {where}: rows [{lo}, {hi}) heads "
+        f"{o['heads']} (attention, KV, SSD; want {want_heads}); fp32 "
+        f"tokens == unsplit {same32}; {cfg.dtype} prefill logits at "
+        f"{cfg32.n_layers} layers against the unsplit {cfg.dtype} model's "
+        f"rel {vs16r:.3e} (limit {TP_REL}); at {cfg.n_layers} layers "
+        f"against the unsplit model in fp32 on the same weights rel "
+        f"{pre:.3e} (limit {TP_STEP_RATIO} x the unsplit {cfg.dtype} "
+        f"model's own {pre16:.3e} = {TP_STEP_RATIO * pre16:.3e}; against "
+        f"the unsplit {cfg.dtype} model's {vs16:.3e}, not gated); first "
+        f"step "
+        f"against the fp32 model's rel {first:.3e} (limit {TP_STEP_RATIO} "
+        f"x the unsplit {cfg.dtype} model's own {first16:.3e} = "
+        f"{TP_STEP_RATIO * first16:.3e}); argmax == unsplit {cfg.dtype} "
+        f"{int(eq.sum())}/{eq.size} fed the unsplit tokens; launches "
+        f"prefill + {steps} steps {launched} (want {want_launch}); SSD "
+        f"bodies {bodies}; all_reduce {ar['calls']} calls (want "
+        f"{want_calls}), {ar['fp32_calls']} of them fp32 (want {want_fp32}) "
+        f"{'ok' if not fail else 'FAIL: ' + fail}")
+    walls = sorted(o["step_wall_s"])
+    per_step = float(np.median(walls))
+    busy = "not measured (CPU)"
+    if "busy_s" in o:
+        busy = (f"{o['busy_s'] / o['busy_wall_s']:.4f} ({o['busy_s']:.4f} "
+                f"s of device time in a profiled pass of {TPF_BUSY_STEPS} "
+                f"steps, {o['busy_wall_s']:.3f} s wall)")
+    peak = o["peak_gb"]
+    log(f"{tag} {cfg.name} {where}: step_wall_s median={per_step:.5f} "
+        f"min={walls[0]:.5f} max={walls[-1]:.5f}; host_queue_s median="
+        f"{float(np.median(o['host_queue_s'])):.5f}; device_busy_share="
+        f"{busy}; all_reduce per step {ar['calls'] / steps:g} calls, "
+        f"{ar['bytes'] / steps:.0f} bytes; peak_mem_GB (prefill and steps)="
+        f"{'not measured (CPU)' if peak is None else round(peak, 3)}")
+    return fail
+
+
 # -- the cluster simulator (phase ``cluster``, host only) -----------------------
 CLUSTER_WINDOW_MIN, CLUSTER_RATE = 50, 3.0
 
@@ -3948,7 +4350,7 @@ def phase_cluster(seed: int) -> None:
 
 # serving paths with a driver of their own (the rest run ``phase_path``)
 PATH_PHASE = {"server": phase_server_path, "pp": phase_pp_path,
-              "tp": phase_tp_path}
+              "tp": phase_tp_path, "tp_families": phase_tp_families}
 
 
 def check_paths(res: dict) -> None:

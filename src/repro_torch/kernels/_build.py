@@ -58,7 +58,7 @@ SIGNATURES: Dict[str, List] = {
     "rt_flash_attention_bwd":
         [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     "rt_ssd_scan":
-        [_P] * 10 + [_I] * 6 + [_L] * 9 + [_I, _P],
+        [_P] * 10 + [_I] * 6 + [_L] * 9 + [_I, _P, _P],
     "rt_ssd_scan_bwd":
         [_P] * 15 + [_I] * 6 + [_L] * 9 + [_I, _P],
     "rt_kv_probe":

@@ -327,7 +327,7 @@ extern "C" int rt_ssd_scan(
     int B, int S, int nh, int hd, int N, int Q, long long x_sb,
     long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
     long long b_sb, long long b_ss, long long c_sb, long long c_ss,
-    int is_bf16, void* stream) {
+    int is_bf16, int* body, void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   if (Q < 1 || Q > kMaxQ || N < 1 || N > kMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -346,6 +346,7 @@ extern "C" int rt_ssd_scan(
                     && al16(b) && al16(c) && x_sb % 8 == 0 && x_ss % 8 == 0
                     && x_sh % 8 == 0 && b_sb % 8 == 0 && b_ss % 8 == 0
                     && c_sb % 8 == 0 && c_ss % 8 == 0;
+  if (body) *body = sm90;  // the body this launch takes: 1 tensor-core
   cudaError_t e;
   if (sm90) {
     const rt::ssd::Args sa{

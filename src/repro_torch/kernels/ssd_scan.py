@@ -53,6 +53,10 @@ REPLACES = {"ssd_scan": "src/repro/kernels/ssd_scan.py:69",
 # kernel launches (plain-version calls excluded); the backward counts one
 # per backward pass, whatever the number of launches inside it
 launch_counts = {"ssd_scan": 0, "ssd_scan_bwd": 0}
+# the forward's bodies, as rt_ssd_scan reports the one each launch took,
+# and its launches by body (``reset_bodies`` zeroes them)
+FWD_BODIES = ("cuda-core", "tensor-core")
+body_counts = dict.fromkeys(FWD_BODIES, 0)
 MAX_CHUNK = 128           # chunk length Q the kernel takes (shared memory)
 MAX_STATE = 256           # state width N the kernel takes
 MAX_BWD_HEAD_DIM = 64     # head dim the backward kernel takes (shared memory)
@@ -286,6 +290,11 @@ def _check_state(name: str, t: Optional[torch.Tensor], what: str,
                       f"{name}: {what} must be a contiguous fp32 {shape}")
 
 
+def reset_bodies() -> None:
+    for k in body_counts:
+        body_counts[k] = 0
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, chunk: int = 128,
              h0: Optional[torch.Tensor] = None,
@@ -314,15 +323,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cb = torch.empty((bsz, nc, chunk, chunk), dtype=torch.float32,
                      device=dev)
     lib = _build.load()
+    body = ctypes.c_int(0)
     rc = lib.rt_ssd_scan(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
         c.data_ptr(), h0.data_ptr() if h0 is not None else None,
         y.data_ptr(), h.data_ptr(), cb.data_ptr(),
         states.data_ptr() if states is not None else None, bsz, s, nh, hd,
         n, chunk, *strides, int(x.dtype == torch.bfloat16),
-        _build.stream_ptr(dev))
+        ctypes.byref(body), _build.stream_ptr(dev))
     _build.check(rc, name)
     launch_counts[name] += 1
+    body_counts[FWD_BODIES[body.value]] += 1
     return y, h
 
 

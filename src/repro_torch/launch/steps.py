@@ -22,11 +22,13 @@ prefill; the ``seq`` rule of big prefills) the port keeps the sequence
 whole and lays the KV out by heads, each rank holding the KV heads its
 query heads read: the same function in another memory layout.
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-``train_step`` (A9.4), ``serve_pp`` on a mesh with ``pod`` (A9.2),
-``kv_cache_dtype`` (A9.3), and the SSM, hybrid and encoder-decoder
-families under a model axis larger than 1 (A9.1b). ``lower_step`` belongs
-to the compile plane (A10) and has no counterpart.
+Every family runs: dense, VLM, MoE, the SSM and hybrid (the Mamba2 mixer
+split by whole SSD heads) and the encoder-decoder. Not ported, each
+raising ``NotImplementedError`` with its ROADMAP item: ``train_step``
+(A9.4), ``serve_pp`` on a mesh with ``pod`` (A9.2) and ``kv_cache_dtype``
+(A9.3). ``lower_step`` belongs to the compile plane (A10) and has no
+counterpart. ``weight_dtype`` reaches the serve step only, as in the
+reference: a prefill step's params stay in the model's dtype.
 
 ``serve_generate`` is a rank-side runner for ``launch.mesh.run_ranks``: a
 prefill and greedy serve steps, their tokens, logits and cache
@@ -123,9 +125,7 @@ class BuiltStep:
 
     def shard_params(self, full: Dict) -> Dict:
         """This rank's local params from the full tree (on its device)."""
-        if isinstance(self.model, LM):
-            full = self.model.shard_params(full)
-        return self._store(full)
+        return self._store(self.model.shard_params(full))
 
 
 def _row_inputs(inputs: Dict, rows: slice) -> Dict:
@@ -147,8 +147,9 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     """This rank's prefill or serve step of ``(cfg, shape)`` on ``mesh``
     (the reference's ``build_step`` for its serving cells). ``device``:
     the rank's device (default: the card). ``weight_dtype``
-    (``"float8_e4m3fn"`` / ``"float8_e5m2"``) stores the matrices in fp8,
-    upcast each serve step."""
+    (``"float8_e4m3fn"`` / ``"float8_e5m2"``) stores a serve step's
+    matrices in fp8, upcast each step; the prefill step ignores it, as
+    the reference's does."""
     if shape.step == "train_step":
         raise NotImplementedError("train_step over a mesh is not ported "
                                   "(ROADMAP A9.4)")
@@ -173,10 +174,9 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
                         batch_axes=batch_axes)
     specs = input_specs(cfg, shape)
     lm = isinstance(model, LM)
-    pshapes = model.local_param_shapes() if lm else model.param_shapes()
-    qdt = F8[weight_dtype] if weight_dtype else None
+    pshapes = model.local_param_shapes()
     meta = {"rules": rules, "model": model, "sharder": sharder,
-            "rows": rows, "batch_axes": batch_axes, "weight_dtype": qdt}
+            "rows": rows, "batch_axes": batch_axes}
 
     def gather_rows(tok: torch.Tensor) -> torch.Tensor:
         """The full batch's tokens from this rank's rows."""
@@ -203,6 +203,9 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
         return built
 
     # serve_step
+    qdt = F8[weight_dtype] if weight_dtype else None
+    meta["weight_dtype"] = qdt
+
     def serve_step(params, cache, tokens):
         if qdt is not None:
             params = _upcast(params, qdt, model.dtype)
@@ -240,15 +243,16 @@ def serving_steps(mesh: Any, device: torch.device, cfg: ArchConfig,
                   seed: int = 0) -> Tuple[BuiltStep, BuiltStep, Dict]:
     """This rank's prefill and serve steps for ``batch`` rows and a cache
     of ``max_len`` positions, and its local params: the full numpy tree
-    ``params`` sharded here, else the seeded init."""
+    ``params`` sharded here, in the model's dtype, else the seeded init."""
     from repro_torch.models.convert import _to_tensor
     pre = build_step(cfg, ShapeSpec("prefill", max_len, batch,
                                     "prefill_step"), mesh, device=device)
     srv = build_step(cfg, ShapeSpec("serve", max_len, batch, "serve_step"),
                      mesh, device=device)
     if params is not None:
-        local = pre.shard_params(_tree(params,
-                                       lambda a: _to_tensor(a, device)))
+        dt = pre.model.dtype
+        local = pre.shard_params(_tree(
+            params, lambda a: _to_tensor(a, device).to(dt)))
     else:
         local = pre.init_params(seed)
     return pre, srv, local
@@ -256,15 +260,17 @@ def serving_steps(mesh: Any, device: torch.device, cfg: ArchConfig,
 
 def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
                    inputs: Dict[str, np.ndarray], steps: int, max_len: int,
-                   params: Optional[Dict] = None, seed: int = 0
-                   ) -> Dict[str, Any]:
+                   params: Optional[Dict] = None, seed: int = 0,
+                   feed: Optional[np.ndarray] = None) -> Dict[str, Any]:
     """One rank's prefill of ``inputs`` (numpy, the whole batch) and
-    ``steps`` greedy serve steps through ``serving_steps``. Returns numpy
-    arrays: the greedy ``tokens`` (B, 1 + steps), this rank's ``rows``
-    (lo, hi), its ``prefill_logits`` (rows, Vpad), ``logits`` (rows,
-    steps, Vpad) and ``cache`` after the last step, its local head counts,
-    the kernel ``launches`` (counts zeroed just before the prefill, read
-    after the last step) and the ``allreduce`` calls and bytes of the
+    ``steps`` greedy serve steps through ``serving_steps``; with ``feed``
+    (B, steps) step i is fed ``feed[:, i]`` instead of the last greedy
+    token. Returns numpy arrays: the greedy ``tokens`` (B, 1 + steps),
+    this rank's ``rows`` (lo, hi), its ``prefill_logits`` (rows, Vpad),
+    ``logits`` (rows, steps, Vpad) and ``cache`` after the last step (every
+    key the family's cache holds), its local head counts (attention and
+    SSD), the kernel ``launches`` (counts zeroed just before the prefill,
+    read after the last step) and the ``allreduce`` calls and bytes of the
     serve steps."""
     from repro_torch.kernels import ops
     b = (inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
@@ -279,10 +285,13 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
         ops.reset_launch_counts()
         tok, cache = pre.fn(local, x)
         prefill_logits = pre.last_logits.float().cpu().numpy()
-        sharder.stats.update(calls=0, bytes=0)
+        sharder.reset_stats()
         cur = tok.reshape(b, 1)
         toks, logits = [cur], []
-        for _ in range(steps):
+        for i in range(steps):
+            if feed is not None:
+                cur = torch.from_numpy(np.ascontiguousarray(
+                    feed[:, i:i + 1])).to(device=device, dtype=torch.int32)
             cur, cache = srv.fn(local, cache, cur)
             toks.append(cur)
             logits.append(srv.last_logits.float())
@@ -290,9 +299,11 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
             "prefill_logits": prefill_logits,
             "logits": torch.cat(logits, 1).cpu().numpy(),
             "tokens": torch.cat(toks, 1).cpu().numpy(),
-            "cache": {k: v.cpu().numpy() for k, v in cache.items()},
-            "n_heads_local": getattr(pre.model, "n_heads_local", None),
-            "n_kv_local": getattr(pre.model, "n_kv_local", None),
+            "cache": {k: (v.float() if v.dtype == torch.bfloat16 else v)
+                      .cpu().numpy() for k, v in cache.items()},
+            "n_heads_local": pre.model.n_heads_local,
+            "n_kv_local": pre.model.n_kv_local,
+            "ssm_heads_local": pre.model.ssm_heads_local,
             "launches": ops.launch_counts(),
             "allreduce": dict(sharder.stats)}
 

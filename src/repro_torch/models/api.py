@@ -27,18 +27,15 @@ def build_model(cfg: ArchConfig, device: DeviceLike = None,
     sanitizer's probe on the paged attention calls (see ``LM``; the
     encoder-decoder has no paged cache and refuses it); ``remat``
     recomputes each layer's activations in ``loss``'s backward pass (the
-    reference's default). ``sharder`` (with a mesh) makes an ``LM`` run
-    this rank's tensor-parallel shards, ``batch_axes`` naming the mesh
-    axes its caller split the batch over; the encoder-decoder takes a
-    mesh only with a model axis of 1 (it then runs whole)."""
+    reference's default). ``sharder`` (with a mesh) makes the model run
+    this rank's tensor-parallel shards, every family included,
+    ``batch_axes`` naming the mesh axes its caller split the batch
+    over."""
     if cfg.is_encdec:
         if kv_probe:
             raise ValueError(f"{cfg.name}: the KV probe needs a paged cache")
-        if sharder is not None and sharder.size("model") > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the encoder-decoder under a model axis of "
-                f"{sharder.size('model')} is not ported (ROADMAP A9.1b)")
-        return EncDecLM(cfg, device=device, remat=remat)
+        return EncDecLM(cfg, device=device, remat=remat, sharder=sharder,
+                        batch_axes=batch_axes)
     return LM(cfg, device=device, ssd_chunk=ssd_chunk, kv_probe=kv_probe,
               remat=remat, sharder=sharder, batch_axes=batch_axes)
 

@@ -26,6 +26,14 @@ The cache is contiguous only: ``k``/``v`` (L, B, max_len, nkv, d) for the
 decoder's self-attention, ``ck``/``cv`` (L, B, S_enc, nkv, d) for its
 cross-attention, ``pos`` (B,). Writes update the cache tensors IN PLACE,
 as the decoder-only ``LM`` does.
+
+Tensor parallelism (``sharder`` with a mesh) runs on the decoder-only
+model's pieces (``transformer.TensorParallel``): encoder self-, decoder
+self- and cross-attention split by whole heads (``bq`` / ``bk`` / ``bv``
+with them, ``wo`` row-parallel and ``bo`` added after the sum), the FFN
+column- then row-parallel (``b_up`` split, ``b_down`` after the sum), the
+tied embedding and logits vocab-parallel, the sinusoidal positions
+replicated, and the self and cross caches by heads.
 """
 
 from __future__ import annotations
@@ -39,16 +47,18 @@ from repro_torch.device import DeviceLike, dtype_of, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
-from repro_torch.models.common import (ParamDef, init_params,
-                                       lm_cross_entropy, make_norm,
-                                       norm_schema, param_count, remat,
-                                       schema_shapes, sinusoidal_positions,
-                                       stack_schema, unbind_layers)
+from repro_torch.models.common import (ParamDef, lm_cross_entropy,
+                                       make_norm, norm_schema, remat,
+                                       sinusoidal_positions, stack_schema,
+                                       unbind_layers)
+from repro_torch.models.transformer import TensorParallel
+from repro_torch.sharding.rules import Axes, Sharder
 
 
-class EncDecLM:
+class EncDecLM(TensorParallel):
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
-                 remat: bool = True):
+                 remat: bool = True, sharder: Optional[Sharder] = None,
+                 batch_axes: Axes = None):
         if not cfg.is_encdec:
             raise ValueError(f"{cfg.name} has no encoder layers")
         self.cfg = cfg
@@ -59,6 +69,10 @@ class EncDecLM:
         self.dtype = dtype_of(cfg.dtype)
         self.norm = make_norm(cfg.norm)
         self._schema = self._build_schema()
+        self.sharder = sharder or Sharder()
+        # mesh axes the caller split the batch rows over (the steps set it)
+        self.batch_axes = batch_axes
+        self._tp_layout()
 
     # -- schema ------------------------------------------------------------
     def _attn_schema(self) -> Dict:
@@ -110,20 +124,6 @@ class EncDecLM:
             "final_norm": norm_schema(c.norm, c.d_model),
         }
 
-    def init(self, seed: int = 0,
-             generator: Optional[torch.Generator] = None) -> Dict:
-        """Random params on the model's device from a seeded generator."""
-        gen = generator
-        if gen is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-        return init_params(self._schema, gen, self.dtype, self.device)
-
-    def param_shapes(self) -> Dict:
-        return schema_shapes(self._schema)
-
-    def param_count(self) -> int:
-        return param_count(self._schema)
-
     # -- helpers -------------------------------------------------------------
     @staticmethod
     def _layer(stack: Dict, i: int) -> Dict:
@@ -138,18 +138,18 @@ class EncDecLM:
         return x.reshape(x.shape[0], x.shape[1], n, self.cfg.hd).contiguous()
 
     def _proj_q(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
-        return self._heads(x @ p["wq"] + p["bq"], self.cfg.n_heads)
+        return self._heads(x @ p["wq"] + p["bq"], self.n_heads_local)
 
     def _proj_kv(self, p: Dict, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        n = self.cfg.n_kv_heads
+        n = self.n_kv_local
         return (self._heads(x @ p["wk"] + p["bk"], n),
                 self._heads(x @ p["wv"] + p["bv"], n))
 
-    def _attn_out(self, p: Dict, o: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
-        return o.reshape(o.shape[0], o.shape[1], c.n_heads * c.hd) @ p["wo"] \
-            + p["bo"]
+        return ffn_mod.ffn_apply(p, x, c.act, c.gated_ffn,
+                                 self._row_parallel(self._ffn_ax))
 
     def _pe(self, n: int, device) -> torch.Tensor:
         return sinusoidal_positions(n, self.cfg.d_model, device).to(
@@ -160,24 +160,20 @@ class EncDecLM:
         """Cross-attention sub-block: the decoder rows (ln2 applied by the
         caller) against the encoder's K/V, unmasked."""
         o = kops.flash_attention(self._proj_q(p, h), ck, cv, causal=False)
-        return self._attn_out(p, o)
+        return self._out_proj(p, o)
 
     def _tail(self, p: Dict, h: torch.Tensor) -> torch.Tensor:
         """The decoder layer's MLP sub-block (residual included)."""
-        c = self.cfg
-        m = self.norm(h, p["ln3"])
-        return h + ffn_mod.ffn_apply(p["mlp"], m, c.act, c.gated_ffn)
+        return h + self._ffn(p["mlp"], self.norm(h, p["ln3"]))
 
     # -- encoder -------------------------------------------------------------
     def _enc_layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
-        c = self.cfg
         a = self.norm(x, p["ln1"])
         k, v = self._proj_kv(p["attn"], a)
         o = kops.flash_attention(self._proj_q(p["attn"], a), k, v,
                                  causal=False)
-        x = x + self._attn_out(p["attn"], o)
-        m = self.norm(x, p["ln2"])
-        return x + ffn_mod.ffn_apply(p["mlp"], m, c.act, c.gated_ffn)
+        x = x + self._out_proj(p["attn"], o)
+        return x + self._ffn(p["mlp"], self.norm(x, p["ln2"]))
 
     def encode(self, params: Dict, frames: torch.Tensor,
                train: bool = False) -> torch.Tensor:
@@ -210,7 +206,7 @@ class EncDecLM:
         k, v = self._proj_kv(p["self_attn"], a)
         o = kops.flash_attention(self._proj_q(p["self_attn"], a), k, v,
                                  causal=True)
-        x = x + self._attn_out(p["self_attn"], o)
+        x = x + self._out_proj(p["self_attn"], o)
         ck, cv = self._proj_kv(p["cross_attn"], enc_out)
         x = x + self._cross(p["cross_attn"], self.norm(x, p["ln2"]), ck, cv)
         return self._tail(p, x), k, v, ck, cv
@@ -243,16 +239,6 @@ class EncDecLM:
             return x, {}
         return x, {key: torch.stack(ts) for key, ts in kv.items()}
 
-    def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"]["tok"][tokens.long()]
-
-    def logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        return x @ params["embed"]["tok"].T
-
-    def sample_greedy(self, logits: torch.Tensor) -> torch.Tensor:
-        """Greedy next token over the un-padded vocab."""
-        return torch.argmax(logits[..., :self.cfg.vocab], dim=-1)
-
     def _last(self, params: Dict, x: torch.Tensor,
               last_pos: Optional[torch.Tensor]) -> torch.Tensor:
         if last_pos is None:
@@ -278,11 +264,11 @@ class EncDecLM:
     def init_cache(self, batch: int, max_len: int, s_enc: int) -> Dict:
         """Zero cache: self-attention ``k``/``v`` (L, batch, max_len, nkv,
         d), cross-attention ``ck``/``cv`` (L, batch, s_enc, nkv, d) and
-        per-row positions ``pos`` (batch,)."""
+        per-row positions ``pos`` (batch,); nkv is this rank's KV heads."""
         c = self.cfg
         dev = self.device
-        self_shape = (c.n_layers, batch, max_len, c.n_kv_heads, c.hd)
-        cross_shape = (c.n_layers, batch, s_enc, c.n_kv_heads, c.hd)
+        self_shape = (c.n_layers, batch, max_len, self.n_kv_local, c.hd)
+        cross_shape = (c.n_layers, batch, s_enc, self.n_kv_local, c.hd)
         return {
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "k": torch.zeros(self_shape, dtype=self.dtype, device=dev),
@@ -290,6 +276,14 @@ class EncDecLM:
             "ck": torch.zeros(cross_shape, dtype=self.dtype, device=dev),
             "cv": torch.zeros(cross_shape, dtype=self.dtype, device=dev),
         }
+
+    def cache_specs(self) -> Dict:
+        """Logical sharding names for cache entries (the reference's tree;
+        ``pos`` is per row here). Under a mesh the port lays the K/V out by
+        ``kv_heads`` alone, never by ``cache_seq`` (``models/transformer.py``
+        module docstring)."""
+        kv = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+        return {"pos": (), "k": kv, "v": kv, "ck": kv, "cv": kv}
 
     def prefill_kv(self, params: Dict, inputs: Dict,
                    last_pos: Optional[torch.Tensor] = None
@@ -341,7 +335,7 @@ class EncDecLM:
             attn.cache_write_chunk(ck, cv, k, v, base)
             o = kops.chunk_attention(self._proj_q(p["self_attn"], a), ck, cv,
                                      bases)
-            x = x + self._attn_out(p["self_attn"], o)
+            x = x + self._out_proj(p["self_attn"], o)
             x = x + self._cross(p["cross_attn"], self.norm(x, p["ln2"]),
                                 cache["ck"][i], cache["cv"][i])
             x = self._tail(p, x)
@@ -369,7 +363,7 @@ class EncDecLM:
             attn.cache_write_token(ck, cv, k, v, pos)
             o = kops.decode_attention(self._proj_q(p["self_attn"], a), ck,
                                       cv, pos)
-            x = x + self._attn_out(p["self_attn"], o)
+            x = x + self._out_proj(p["self_attn"], o)
             x = x + self._cross(p["cross_attn"], self.norm(x, p["ln2"]),
                                 cache["ck"][i], cache["cv"][i])
             x = self._tail(p, x)

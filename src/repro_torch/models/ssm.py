@@ -12,17 +12,25 @@ Layout (n_groups=1, as mamba2-1.3b / zamba2):
   conv1d  : causal depthwise width-4 over [x, B, C]
   SSD     : h_t = h_{t-1} * exp(dt_t A) + dt_t * B_t (x) x_t ; y_t = C_t . h_t
   gate    : y = RMSNorm(y) * silu(z) ; out_proj : d_inner -> H
+
+Under tensor parallelism a rank holds its SSD heads' slice of the mixer
+(``sharding.rules.MixerSplit``: its z, x and dt columns of ``w_in``, B and
+C whole) and runs the block at its local widths, read off the params. Two
+callables carry the cross-rank sums: ``reduce`` sums the gated RMSNorm's
+fp32 sums of squares over the ranks, so the norm still divides by the
+whole ``d_inner``, and ``row_parallel`` is the summed ``w_out`` product.
+Both None (one rank, or a mixer kept whole) is the unsplit block.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import ParamDef, rms_norm
+from repro_torch.models.common import ParamDef
 
 
 class SSMState(NamedTuple):
@@ -88,12 +96,45 @@ def _dt_a(p: Dict, dt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             -torch.exp(p["a_log"].float()))
 
 
+Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
+RowParallel = Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]]
+
+
+def _local(p: Dict, head_dim: int) -> Tuple[int, int]:
+    """(d_inner, heads) of the mixer slice ``p`` holds."""
+    nh = p["a_log"].shape[-1]
+    return nh * head_dim, nh
+
+
+def _gate_out(p: Dict, y: torch.Tensor, z: torch.Tensor, d_inner: int,
+              reduce: Reduce, row_parallel: RowParallel) -> torch.Tensor:
+    """``RMSNorm(y) * silu(z) @ w_out``, the norm's fp32 sum of squares
+    divided by the whole ``d_inner`` (the reference's mean over the last
+    axis). Split over ranks, ``y`` holds the rank's heads: ``reduce`` sums
+    the sums of squares over the ranks, and ``row_parallel`` sums the
+    ``w_out`` partial products."""
+    yf = y.float()
+    ss = (yf * yf).sum(dim=-1, keepdim=True)
+    if reduce is not None:
+        ss = reduce(ss)
+    yf = yf * torch.rsqrt(ss / d_inner + 1e-5)
+    y = (yf * p["gate_norm"].float()).to(y.dtype) * F.silu(z)
+    if row_parallel is None:
+        return y @ p["w_out"]
+    return row_parallel(y, p["w_out"])
+
+
 def mamba2_prefill(p: Dict, x: torch.Tensor, d_inner: int, n_state: int,
-                   n_heads: int, head_dim: int, chunk: int = 128
+                   n_heads: int, head_dim: int, chunk: int = 128,
+                   reduce: Reduce = None, row_parallel: RowParallel = None
                    ) -> Tuple[torch.Tensor, SSMState]:
-    """Full-prompt Mamba2 block. x: (B,S,H) -> (y (B,S,H), final state)."""
+    """Full-prompt Mamba2 block. x: (B,S,H) -> (y (B,S,H), final state).
+    ``d_inner`` and ``n_heads`` are the whole mixer's; ``p`` may hold a
+    rank's heads (module docstring)."""
     bsz, s, _ = x.shape
     k = p["conv_w"].shape[0]
+    d_full = d_inner
+    d_inner, n_heads = _local(p, head_dim)
     proj = x @ p["w_in"]
     z, xbc, dt = _split_proj(proj, d_inner, n_state, n_heads)
     # pre-activation; a copy, since a view would keep the layer's whole
@@ -108,8 +149,7 @@ def mamba2_prefill(p: Dict, x: torch.Tensor, d_inner: int, n_state: int,
     y, h = kops.ssd_scan(xs, dt, a, bmat, cmat, chunk=chunk)
     y = y + xs * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, s, d_inner)
-    y = rms_norm(y, p["gate_norm"]) * F.silu(z)
-    out = y @ p["w_out"]
+    out = _gate_out(p, y, z, d_full, reduce, row_parallel)
     # conv state for subsequent decode: last K-1 *pre-conv* channel values
     pad = k - 1 - conv_tail.shape[1]
     if pad > 0:
@@ -118,10 +158,14 @@ def mamba2_prefill(p: Dict, x: torch.Tensor, d_inner: int, n_state: int,
 
 
 def mamba2_step(p: Dict, x: torch.Tensor, state: SSMState, d_inner: int,
-                n_state: int, n_heads: int, head_dim: int
+                n_state: int, n_heads: int, head_dim: int,
+                reduce: Reduce = None, row_parallel: RowParallel = None
                 ) -> Tuple[torch.Tensor, SSMState]:
-    """One-token Mamba2 step. x: (B,1,H)."""
+    """One-token Mamba2 step. x: (B,1,H); widths as ``mamba2_prefill``
+    takes them, ``state`` at the local widths."""
     bsz = x.shape[0]
+    d_full = d_inner
+    d_inner, n_heads = _local(p, head_dim)
     proj = x @ p["w_in"]                                      # (B,1,P)
     z, xbc, dt = _split_proj(proj, d_inner, n_state, n_heads)
     # conv over [state ; current]
@@ -136,6 +180,5 @@ def mamba2_step(p: Dict, x: torch.Tensor, state: SSMState, d_inner: int,
     y, h_new = ssd_step(xs, dt1, a, bmat, cmat, state.ssd)
     y = y + xs * p["d_skip"][None, :, None]
     y = y.reshape(bsz, 1, d_inner)
-    y = rms_norm(y, p["gate_norm"]) * F.silu(z)
-    out = y @ p["w_out"]
+    out = _gate_out(p, y, z, d_full, reduce, row_parallel)
     return out, SSMState(new_conv, h_new)

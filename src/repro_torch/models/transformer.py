@@ -60,8 +60,13 @@ only the KV heads its query heads read (global query head i reads KV
 head i // g), all of them in query order when they do not form equal
 groups. With the batch split over ``data`` (``batch_axes``), the MoE's
 capacity queues count the rows of the ranks before this one, so capacity
-and drops are the whole batch's. The SSM and hybrid families refuse a
-model axis larger than 1.
+and drops are the whole batch's. The Mamba2 mixer splits by whole SSD
+heads (``sharding.rules.MixerSplit``, decided by ``resolve`` over the
+``ssm_heads`` count, whole where it does not divide): two all_reduces a
+layer, the gated RMSNorm's sums of squares and the row-parallel
+``w_out`` (``models/ssm.py``); the hybrid's shared block splits as a dense
+layer does. The layout and these pieces live in ``TensorParallel``, which
+the encoder-decoder shares.
 
 The VLM's vision tower is a stub, as in the reference: ``prefill`` takes
 patch embeddings ``inputs["embeds"]`` (B, S, d_model) and M-RoPE position
@@ -89,8 +94,8 @@ from repro_torch.models.common import (ParamDef, apply_m_rope, apply_rope,
                                        param_count, remat, schema_shapes,
                                        schema_specs, stack_schema,
                                        unbind_layers)
-from repro_torch.sharding.rules import (Axes, Sharder, shard_leaf,
-                                        tree_shard)
+from repro_torch.sharding.rules import (Axes, MixerSplit, Sharder,
+                                        shard_leaf, tree_shard)
 
 IntLike = Union[int, torch.Tensor]
 
@@ -99,7 +104,212 @@ RECURRENT = ("ssm", "hybrid")       # families whose cache is SSM state
 STATE_KEYS = ("conv", "ssd")        # per-row recurrent state, no seq axis
 
 
-class LM:
+class TensorParallel:
+    """The tensor-parallel layout and the pieces that run on it, shared by
+    ``LM`` and ``encdec.EncDecLM``. The model sets ``cfg``, ``device``,
+    ``dtype``, ``_schema``, ``sharder`` and ``batch_axes``, then calls
+    ``_tp_layout``; without a mesh every piece is the unsplit model's."""
+
+    # ------------------------------------------------------------------ #
+    # tensor-parallel layout
+    # ------------------------------------------------------------------ #
+    def _tp_layout(self) -> None:
+        """This rank's heads, KV heads, SSD heads and vocab rows, and the
+        mesh axes each row-parallel product sums over (None: nothing to
+        sum)."""
+        c, sh = self.cfg, self.sharder
+        nh, nkv = c.n_heads, c.n_kv_heads
+        self._heads_ax = (self._axes_of(("embed", "heads"), (c.d_model, nh))
+                          if nh else None)
+        self.n_heads_local = nh // sh.size(self._heads_ax)
+        h_lo = sh.index(self._heads_ax) * self.n_heads_local \
+            if self._heads_ax else 0
+        kv_ax = self._kv_axes()
+        self._kv_sel: Optional[List[int]] = None
+        self.n_kv_local = nkv // sh.size(kv_ax)
+        if kv_ax is None and self._heads_ax is not None:
+            g = nh // nkv
+            need = [(h_lo + j) // g for j in range(self.n_heads_local)]
+            uniq = sorted(set(need))
+            gl = self.n_heads_local // len(uniq)
+            grouped = gl * len(uniq) == len(need) and all(
+                need[j] == uniq[j // gl] for j in range(len(need)))
+            self._kv_sel = uniq if grouped else need
+            self.n_kv_local = len(self._kv_sel)
+        self._ffn_ax = None
+        if c.d_ff:
+            names = ("embed", "expert_ffn" if c.n_experts else "ffn")
+            self._ffn_ax = self._axes_of(names, (c.d_model, c.d_ff))
+        self._vocab_ax = self._axes_of(("vocab", "embed"),
+                                       (c.padded_vocab, c.d_model), dim=0)
+        self._vocab_lo = (sh.index(self._vocab_ax) * c.padded_vocab
+                          // sh.size(self._vocab_ax)
+                          if self._vocab_ax else 0)
+        # the Mamba2 mixer: whole SSD heads, decided by ``resolve`` over
+        # the head count as attention heads are
+        self._ssm_ax, self._mixer = None, None
+        if c.ssm_state:
+            self._ssm_ax = self._axes_of(("ssm_heads",), (c.ssm_heads,),
+                                         dim=0)
+            n = c.ssm_heads // sh.size(self._ssm_ax)
+            lo = sh.index(self._ssm_ax) * n if self._ssm_ax else 0
+            self._mixer = MixerSplit(c.ssm_heads, c.ssm_head_dim,
+                                     c.ssm_state, lo, lo + n)
+        self.ssm_heads_local = self._mixer.hi - self._mixer.lo \
+            if self._mixer else 0
+
+    def _reduce(self, axes: Axes):
+        """The partial-sum reduction over ``axes`` (None when unsplit)."""
+        if axes is None:
+            return None
+        return lambda x: self.sharder.reduce(x, axes)
+
+    def _row_parallel(self, axes: Axes):
+        """``(x, w) -> x @ w`` for a weight whose rows are split over
+        ``axes``: each rank's partial product in fp32, summed over the
+        ranks in fp32 and rounded once to the activation dtype, as the
+        unsplit product rounds its fp32 accumulation once (a bf16 partial
+        per rank would round twice and drift from the unsplit model over
+        the layers). None when unsplit."""
+        if axes is None:
+            return None
+
+        def product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+            return self.sharder.reduce(matmul_fp32(x, w), axes).to(x.dtype)
+        return product
+
+    def _local_leaf(self, d: ParamDef, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of one full parameter (``shard_leaf``: heads in
+        whole heads, the KV heads its query heads read where ``kv_heads``
+        is replicated and ``heads`` split, the mixer by SSD head)."""
+        return shard_leaf(full, d.names, self.sharder, self._head_dim,
+                          self._kv_sel, self._mixer)
+
+    def shard_params(self, full: Dict) -> Dict:
+        """This rank's local params from the full (unsplit) tree."""
+        return tree_shard(full, self.param_specs(), self.sharder,
+                          self._head_dim, self._kv_sel, self._mixer)
+
+    @property
+    def _head_dim(self) -> Optional[int]:
+        """The attention head size (None without attention heads)."""
+        return self.cfg.hd if self.cfg.n_heads else None
+
+    def local_param_shapes(self) -> Dict:
+        """The shapes of this rank's local params (sliced on the meta
+        device by the same ``shard_leaf``)."""
+        def walk(ref):
+            if not isinstance(ref, ParamDef):
+                return {k: walk(v) for k, v in ref.items()}
+            meta = torch.empty(ref.shape, device="meta")
+            return tuple(self._local_leaf(ref, meta).shape)
+        return walk(self._schema)
+
+    def shard_cache(self, full: Dict, rows: slice = slice(None)) -> Dict:
+        """This rank's part of a full contiguous (or ring) cache: the
+        ``rows`` it serves, the KV heads its layout holds and, for the
+        recurrent state, its SSD heads' ``conv`` channels (B and C whole)
+        and ``ssd`` state."""
+        if "block_tbl" in full:
+            raise ValueError("shard_cache takes a contiguous cache")
+        out = {"pos": full["pos"][rows].clone()}
+        if "slot_pos" in full:
+            out["slot_pos"] = full["slot_pos"].clone()
+        specs = self.cache_specs()
+        for key, t in full.items():
+            if key in out:
+                continue
+            t = t[:, rows]
+            if key in STATE_KEYS:
+                names = tuple(None if n == "batch" else n
+                              for n in specs[key])
+                t = shard_leaf(t, names, self.sharder, mixer=self._mixer)
+            elif self._kv_sel is not None:
+                sel = torch.tensor(self._kv_sel, device=t.device)
+                t = t.index_select(3, sel)
+            else:
+                lo = self.sharder.index(self._kv_axes()) * self.n_kv_local
+                t = t[:, :, :, lo:lo + self.n_kv_local]
+            out[key] = t.contiguous()
+        return out
+
+    def _kv_axes(self) -> Axes:
+        c = self.cfg
+        if not c.n_kv_heads:
+            return None
+        return self._axes_of(("embed", "kv_heads"), (c.d_model, c.n_kv_heads))
+
+    def _axes_of(self, names, shape, dim: int = 1) -> Axes:
+        """The mesh axes ``resolve`` splits dimension ``dim`` over (heads
+        given as head counts); None when it is whole on every rank."""
+        spec = self.sharder.spec(names, shape)
+        ax = spec[dim] if spec else None
+        return ax if self.sharder.size(ax) > 1 else None
+
+    def init(self, seed: int = 0,
+             generator: Optional[torch.Generator] = None) -> Dict:
+        """Random params on the model's device from a seeded generator;
+        under a mesh, this rank's local params, drawn leaf by leaf with
+        the unsplit init's numbers."""
+        gen = generator
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+        local = self._local_leaf if self.sharder.mesh is not None else None
+        return init_params(self._schema, gen, self.dtype, self.device,
+                           local=local)
+
+    def param_specs(self) -> Dict:
+        return schema_specs(self._schema)
+
+    def param_shapes(self) -> Dict:
+        return schema_shapes(self._schema)
+
+    def param_count(self) -> int:
+        return param_count(self._schema)
+
+    # ------------------------------------------------------------------ #
+    # embedding / logits
+    # ------------------------------------------------------------------ #
+    def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+        tok = params["embed"]["tok"]
+        if self._vocab_ax is None:
+            return tok[tokens.long()]
+        # vocab-parallel: this rank's rows, zeros elsewhere, then the sum
+        t = tokens.long() - self._vocab_lo
+        inside = (t >= 0) & (t < tok.shape[0])
+        x = tok[t.clamp(0, tok.shape[0] - 1)]
+        x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+        return self.sharder.reduce(x, self._vocab_ax)
+
+    def logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            out = x @ params["embed"]["tok"].T
+        else:
+            out = x @ params["lm_head"]
+        if self._vocab_ax is None:
+            return out
+        # vocab-parallel: this rank's columns of a zero padded-vocab buffer
+        full = out.new_zeros(out.shape[:-1] + (self.cfg.padded_vocab,))
+        full[..., self._vocab_lo:self._vocab_lo + out.shape[-1]] = out
+        return self.sharder.reduce(full, self._vocab_ax)
+
+    def sample_greedy(self, logits: torch.Tensor) -> torch.Tensor:
+        """Greedy next token over the un-padded vocab."""
+        return torch.argmax(logits[..., :self.cfg.vocab], dim=-1)
+
+    def _out_proj(self, p: Dict, o: torch.Tensor) -> torch.Tensor:
+        o = o.reshape(o.shape[0], o.shape[1], -1)
+        if self._heads_ax is None:
+            o = o @ p["wo"]
+        else:                                   # row-parallel: sum, then bo
+            o = self._row_parallel(self._heads_ax)(o, p["wo"])
+        if "bo" in p:
+            o = o + p["bo"]
+        return o
+
+
+class LM(TensorParallel):
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
                  ssd_chunk: int = 128, kv_probe: bool = False,
                  remat: bool = True, sharder: Optional[Sharder] = None,
@@ -129,66 +339,6 @@ class LM:
         self.batch_axes = batch_axes
         self._tp_layout()
 
-    # ------------------------------------------------------------------ #
-    # tensor-parallel layout
-    # ------------------------------------------------------------------ #
-    def _tp_layout(self) -> None:
-        """This rank's heads, KV heads and vocab rows, and the mesh axes
-        each row-parallel product sums over (None: nothing to sum)."""
-        c, sh = self.cfg, self.sharder
-        if sh.mesh is not None and sh.size("model") > 1 \
-                and c.family in RECURRENT:
-            raise NotImplementedError(
-                f"{c.name}: the {c.family} family under a model axis of "
-                f"{sh.size('model')} is not ported (ROADMAP A9.1b: Mamba2's "
-                f"fused w_in has no head-aligned split)")
-        nh, nkv = c.n_heads, c.n_kv_heads
-        self._heads_ax = self._axes_of(("embed", "heads"), (c.d_model, nh))
-        self.n_heads_local = nh // sh.size(self._heads_ax)
-        h_lo = sh.index(self._heads_ax) * self.n_heads_local \
-            if self._heads_ax else 0
-        kv_ax = self._kv_axes()
-        self._kv_sel: Optional[List[int]] = None
-        self.n_kv_local = nkv // sh.size(kv_ax)
-        if kv_ax is None and self._heads_ax is not None:
-            g = nh // nkv
-            need = [(h_lo + j) // g for j in range(self.n_heads_local)]
-            uniq = sorted(set(need))
-            gl = self.n_heads_local // len(uniq)
-            grouped = gl * len(uniq) == len(need) and all(
-                need[j] == uniq[j // gl] for j in range(len(need)))
-            self._kv_sel = uniq if grouped else need
-            self.n_kv_local = len(self._kv_sel)
-        self._ffn_ax = None
-        if c.d_ff and c.family not in RECURRENT:
-            names = ("embed", "expert_ffn" if c.n_experts else "ffn")
-            self._ffn_ax = self._axes_of(names, (c.d_model, c.d_ff))
-        self._vocab_ax = self._axes_of(("vocab", "embed"),
-                                       (c.padded_vocab, c.d_model), dim=0)
-        self._vocab_lo = (sh.index(self._vocab_ax) * c.padded_vocab
-                          // sh.size(self._vocab_ax)
-                          if self._vocab_ax else 0)
-
-    def _reduce(self, axes: Axes):
-        """The partial-sum reduction over ``axes`` (None when unsplit)."""
-        if axes is None:
-            return None
-        return lambda x: self.sharder.reduce(x, axes)
-
-    def _row_parallel(self, axes: Axes):
-        """``(x, w) -> x @ w`` for a weight whose rows are split over
-        ``axes``: each rank's partial product in fp32, summed over the
-        ranks in fp32 and rounded once to the activation dtype, as the
-        unsplit product rounds its fp32 accumulation once (a bf16 partial
-        per rank would round twice and drift from the unsplit model over
-        the layers). None when unsplit."""
-        if axes is None:
-            return None
-
-        def product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-            return self.sharder.reduce(matmul_fp32(x, w), axes).to(x.dtype)
-        return product
-
     def _queue_share(self, counts: torch.Tensor):
         """For the MoE under a batch split over ``batch_axes``: (the pairs
         per expert of the row shards before this rank's, the number of row
@@ -199,59 +349,6 @@ class LM:
         table[i] = counts
         table = self.sharder.reduce(table, ax)
         return table[:i].sum(dim=0), n
-
-    def _local_leaf(self, d: ParamDef, full: torch.Tensor) -> torch.Tensor:
-        """This rank's part of one full parameter (``shard_leaf``: heads in
-        whole heads, the KV heads its query heads read where ``kv_heads``
-        is replicated and ``heads`` split)."""
-        return shard_leaf(full, d.names, self.sharder, self.cfg.hd,
-                          self._kv_sel)
-
-    def shard_params(self, full: Dict) -> Dict:
-        """This rank's local params from the full (unsplit) tree."""
-        return tree_shard(full, self.param_specs(), self.sharder,
-                          self.cfg.hd, self._kv_sel)
-
-    def local_param_shapes(self) -> Dict:
-        """The shapes of this rank's local params (sliced on the meta
-        device by the same ``shard_leaf``)."""
-        def walk(ref):
-            if not isinstance(ref, ParamDef):
-                return {k: walk(v) for k, v in ref.items()}
-            meta = torch.empty(ref.shape, device="meta")
-            return tuple(self._local_leaf(ref, meta).shape)
-        return walk(self._schema)
-
-    def shard_cache(self, full: Dict, rows: slice = slice(None)) -> Dict:
-        """This rank's part of a full contiguous (or ring) cache: the
-        ``rows`` it serves and the KV heads its layout holds."""
-        if "block_tbl" in full or self.cfg.family in RECURRENT:
-            raise ValueError("shard_cache takes a contiguous attention "
-                             "cache")
-        out = {"pos": full["pos"][rows].clone()}
-        if "slot_pos" in full:
-            out["slot_pos"] = full["slot_pos"].clone()
-        for key in ("k", "v"):
-            kv = full[key][:, rows]
-            if self._kv_sel is not None:
-                sel = torch.tensor(self._kv_sel, device=kv.device)
-                kv = kv.index_select(3, sel)
-            else:
-                lo = self.sharder.index(self._kv_axes()) * self.n_kv_local
-                kv = kv[:, :, :, lo:lo + self.n_kv_local]
-            out[key] = kv.contiguous()
-        return out
-
-    def _kv_axes(self) -> Axes:
-        c = self.cfg
-        return self._axes_of(("embed", "kv_heads"), (c.d_model, c.n_kv_heads))
-
-    def _axes_of(self, names, shape, dim: int = 1) -> Axes:
-        """The mesh axes ``resolve`` splits dimension ``dim`` over (heads
-        given as head counts); None when it is whole on every rank."""
-        spec = self.sharder.spec(names, shape)
-        ax = spec[dim] if spec else None
-        return ax if self.sharder.size(ax) > 1 else None
 
     # ------------------------------------------------------------------ #
     # schema / params
@@ -327,58 +424,6 @@ class LM:
                                     ("embed", "vocab"))
         return s
 
-    def init(self, seed: int = 0,
-             generator: Optional[torch.Generator] = None) -> Dict:
-        """Random params on the model's device from a seeded generator;
-        under a mesh, this rank's local params, drawn leaf by leaf with
-        the unsplit init's numbers."""
-        gen = generator
-        if gen is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-        local = self._local_leaf if self.sharder.mesh is not None else None
-        return init_params(self._schema, gen, self.dtype, self.device,
-                           local=local)
-
-    def param_specs(self) -> Dict:
-        return schema_specs(self._schema)
-
-    def param_shapes(self) -> Dict:
-        return schema_shapes(self._schema)
-
-    def param_count(self) -> int:
-        return param_count(self._schema)
-
-    # ------------------------------------------------------------------ #
-    # embedding / logits
-    # ------------------------------------------------------------------ #
-    def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-        tok = params["embed"]["tok"]
-        if self._vocab_ax is None:
-            return tok[tokens.long()]
-        # vocab-parallel: this rank's rows, zeros elsewhere, then the sum
-        t = tokens.long() - self._vocab_lo
-        inside = (t >= 0) & (t < tok.shape[0])
-        x = tok[t.clamp(0, tok.shape[0] - 1)]
-        x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
-                                                          device=x.device))
-        return self.sharder.reduce(x, self._vocab_ax)
-
-    def logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.tie_embeddings:
-            out = x @ params["embed"]["tok"].T
-        else:
-            out = x @ params["lm_head"]
-        if self._vocab_ax is None:
-            return out
-        # vocab-parallel: this rank's columns of a zero padded-vocab buffer
-        full = out.new_zeros(out.shape[:-1] + (self.cfg.padded_vocab,))
-        full[..., self._vocab_lo:self._vocab_lo + out.shape[-1]] = out
-        return self.sharder.reduce(full, self._vocab_ax)
-
-    def sample_greedy(self, logits: torch.Tensor) -> torch.Tensor:
-        """Greedy next token over the un-padded vocab."""
-        return torch.argmax(logits[..., :self.cfg.vocab], dim=-1)
-
     # ------------------------------------------------------------------ #
     # attention layer bodies
     # ------------------------------------------------------------------ #
@@ -411,16 +456,6 @@ class LM:
         if self.cfg.m_rope:
             return q_pos[None].expand((3,) + tuple(q_pos.shape))
         return q_pos
-
-    def _out_proj(self, p: Dict, o: torch.Tensor) -> torch.Tensor:
-        o = o.reshape(o.shape[0], o.shape[1], -1)
-        if self._heads_ax is None:
-            o = o @ p["wo"]
-        else:                                   # row-parallel: sum, then bo
-            o = self._row_parallel(self._heads_ax)(o, p["wo"])
-        if "bo" in p:
-            o = o + p["bo"]
-        return o
 
     def _attn_full(self, p: Dict, x: torch.Tensor, positions):
         """Full-sequence causal attention; returns (out, k, v)."""
@@ -555,8 +590,15 @@ class LM:
         h = self.norm(x, p["ln"])
         y, st = ssm_mod.mamba2_prefill(
             p["mixer"], h, c.d_inner, c.ssm_state, c.ssm_heads,
-            c.ssm_head_dim, chunk=self.ssd_chunk)
+            c.ssm_head_dim, chunk=self.ssd_chunk, **self._mixer_tp())
         return x + y, st
+
+    def _mixer_tp(self) -> Dict:
+        """The Mamba2 block's cross-rank sums (none when the mixer is
+        whole on every rank): the gated norm's sums of squares and the
+        row-parallel ``w_out``."""
+        return dict(reduce=self._reduce(self._ssm_ax),
+                    row_parallel=self._row_parallel(self._ssm_ax))
 
     def _mamba_layer_step(self, p: Dict, x: torch.Tensor, conv: torch.Tensor,
                           ssd: torch.Tensor) -> torch.Tensor:
@@ -566,7 +608,7 @@ class LM:
         h = self.norm(x, p["ln"])
         y, st = ssm_mod.mamba2_step(
             p["mixer"], h, ssm_mod.SSMState(conv, ssd), c.d_inner,
-            c.ssm_state, c.ssm_heads, c.ssm_head_dim)
+            c.ssm_state, c.ssm_heads, c.ssm_head_dim, **self._mixer_tp())
         conv.copy_(st.conv)
         ssd.copy_(st.ssd)
         return x + y
@@ -713,7 +755,9 @@ class LM:
         (L, batch, K-1, d_inner+2N) in the model dtype, ``ssd`` (L, batch,
         nheads, head_dim, N) fp32, and for the hybrid ``ak``/``av``
         (n_apps, batch, max_len, nkv, d), one per shared-block
-        application."""
+        application. Under tensor parallelism every shape is this rank's:
+        its KV heads, its SSD heads (``d_inner`` and ``nheads`` local, N
+        whole)."""
         c = self.cfg
         dev = self.device
         if kv_layout not in ("contig", "paged"):
@@ -722,12 +766,14 @@ class LM:
             raise ValueError("paged KV requires attention caches")
         cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
         if c.family in RECURRENT:
+            nh = self.ssm_heads_local
             cache["conv"] = torch.zeros(
                 (c.n_layers, batch, c.conv_width - 1,
-                 c.d_inner + 2 * c.ssm_state), dtype=self.dtype, device=dev)
+                 nh * c.ssm_head_dim + 2 * c.ssm_state), dtype=self.dtype,
+                device=dev)
             cache["ssd"] = torch.zeros(
-                (c.n_layers, batch, c.ssm_heads, c.ssm_head_dim,
-                 c.ssm_state), dtype=torch.float32, device=dev)
+                (c.n_layers, batch, nh, c.ssm_head_dim, c.ssm_state),
+                dtype=torch.float32, device=dev)
             if c.family == "hybrid":
                 shape = (len(c.shared_attn_positions()), batch, max_len,
                          self.n_kv_local, c.hd)

@@ -17,12 +17,17 @@ ranks of a set of mesh axes (``reduce``: ``all_reduce`` SUM). The model
 code calls ``reduce`` where the reference's GSPMD would insert an
 all-reduce; there is no counterpart of ``constrain``. ``Sharder()`` with no
 mesh is the identity, as in the reference.
+
+The Mamba2 mixer's fused leaves are split by SSD head (``MixerSplit``):
+a rank keeps its heads' columns of each segment of ``w_in`` and of the
+conv channels, B and C whole, where the reference's ``resolve`` cuts the
+flat ``ssm_inner`` dimension across the segments and GSPMD reshards.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -129,13 +134,17 @@ class Sharder:
     """Sharding helper threaded through the model code.
 
     ``mesh=None`` (unit tests, one device) makes every call the identity.
-    With a mesh, ``reduce`` counts its calls and bytes in ``stats``."""
+    With a mesh, ``reduce`` counts its calls, their bytes and the calls
+    on fp32 tensors in ``stats`` (``reset_stats`` zeroes them)."""
 
     mesh: Optional[Any] = None
     rules: Dict[str, Axes] = dataclasses.field(
         default_factory=lambda: dict(INFER_RULES))
     stats: Dict[str, int] = dataclasses.field(
-        default_factory=lambda: {"calls": 0, "bytes": 0})
+        default_factory=lambda: {"calls": 0, "bytes": 0, "fp32_calls": 0})
+
+    def reset_stats(self) -> None:
+        self.stats.update(dict.fromkeys(self.stats, 0))
 
     def spec(self, names: Sequence[Optional[str]], shape: Sequence[int]
              ) -> Spec:
@@ -202,6 +211,7 @@ class Sharder:
         dist.all_reduce(x, group=self.mesh.group(as_axes(axes)))
         self.stats["calls"] += 1
         self.stats["bytes"] += x.numel() * x.element_size()
+        self.stats["fp32_calls"] += int(x.dtype == torch.float32)
         return x
 
 
@@ -221,13 +231,69 @@ def head_units(names: Sequence[Optional[str]], head_dim: Optional[int]
                  for n in names)
 
 
+@dataclasses.dataclass(frozen=True)
+class MixerSplit:
+    """A rank's SSD heads ``[lo, hi)`` of a Mamba2 mixer of ``n_heads``
+    heads of ``head_dim`` with state width ``n_state`` (one group): the
+    head-aligned split of its fused leaves. ``lo, hi = 0, n_heads`` keeps
+    the mixer whole (the head count does not divide the model axis)."""
+
+    n_heads: int
+    head_dim: int
+    n_state: int
+    lo: int
+    hi: int
+
+    @property
+    def whole(self) -> bool:
+        return (self.lo, self.hi) == (0, self.n_heads)
+
+    def ranges(self, name: str, width: int) -> List[Tuple[int, int]]:
+        """The ``[lo, hi)`` pieces of a dimension named ``name``
+        (``ssm_heads`` or ``ssm_inner``) and ``width`` wide that the rank
+        keeps, in order. ``ssm_inner`` is told apart by its width: the
+        gated output ``d_inner`` (``gate_norm``, ``w_out``'s rows), the conv
+        channels ``[x | B | C]`` (``d_inner + 2N``) or ``w_in``'s fused
+        ``[z | x | B | C | dt]`` (``2 d_inner + 2N + n_heads``); the rank
+        keeps its heads' z, x and dt, and B and C whole."""
+        hd, n, nh = self.head_dim, self.n_state, self.n_heads
+        d_inner = nh * hd
+        x = (self.lo * hd, self.hi * hd)
+        if name == "ssm_heads" and width == nh:
+            return [(self.lo, self.hi)]
+        if name == "ssm_inner" and width == d_inner:
+            return [x]
+        if name == "ssm_inner" and width == d_inner + 2 * n:
+            return [x, (d_inner, d_inner + 2 * n)]
+        if name == "ssm_inner" and width == 2 * d_inner + 2 * n + nh:
+            bc = 2 * d_inner
+            return [x, (d_inner + x[0], d_inner + x[1]), (bc, bc + 2 * n),
+                    (bc + 2 * n + self.lo, bc + 2 * n + self.hi)]
+        raise ValueError(f"no Mamba2 mixer dimension {name!r} of width "
+                         f"{width} ({nh} heads of {hd}, state {n})")
+
+
 def shard_leaf(full: torch.Tensor, names: Sequence[Optional[str]],
                sharder: Sharder, head_dim: Optional[int] = None,
-               kv_sel: Optional[Sequence[int]] = None) -> torch.Tensor:
+               kv_sel: Optional[Sequence[int]] = None,
+               mixer: Optional[MixerSplit] = None) -> torch.Tensor:
     """This rank's part of one full tensor: ``sharder.shard`` with heads in
     whole heads of ``head_dim``; where ``kv_sel`` is given (``kv_heads``
     replicated, ``heads`` split), the ``kv_heads`` dimension keeps the KV
-    heads it lists, in that order: those the rank's query heads read."""
+    heads it lists, in that order: those the rank's query heads read.
+    With ``mixer``, an ``ssm_inner`` or ``ssm_heads`` dimension keeps the
+    rank's SSD heads' pieces (``MixerSplit.ranges``), never ``resolve``'s
+    cut of the flat dimension."""
+    if mixer is not None:
+        ax = next((i for i, n in enumerate(names)
+                   if n in ("ssm_inner", "ssm_heads")), None)
+        if ax is not None:
+            if not mixer.whole:
+                full = torch.cat([full.narrow(ax, lo, hi - lo) for lo, hi
+                                  in mixer.ranges(names[ax],
+                                                  full.shape[ax])], ax)
+            names = tuple(None if i == ax else n
+                          for i, n in enumerate(names))
     if kv_sel is not None and "kv_heads" in names:
         ax = list(names).index("kv_heads")
         sel = torch.tensor(list(kv_sel), device=full.device)
@@ -238,13 +304,16 @@ def shard_leaf(full: torch.Tensor, names: Sequence[Optional[str]],
 
 def tree_shard(tree: Any, specs: Any, sharder: Sharder,
                head_dim: Optional[int] = None,
-               kv_sel: Optional[Sequence[int]] = None) -> Any:
+               kv_sel: Optional[Sequence[int]] = None,
+               mixer: Optional[MixerSplit] = None) -> Any:
     """Map a tree of full tensors and a same-structure tree of logical-name
     tuples to this rank's local tensors (the counterpart of
     ``tree_shardings`` plus ``device_put``), each leaf by ``shard_leaf``.
-    ``LM.shard_params`` and ``LM.init`` slice the model's params with it,
-    passing the model's head size and KV-head selection."""
+    The models' ``shard_params`` and ``init`` slice their params with it,
+    passing the head size, the KV-head selection and the Mamba2 mixer's
+    head split."""
     if _is_names(specs):
-        return shard_leaf(tree, specs, sharder, head_dim, kv_sel)
-    return {k: tree_shard(tree[k], specs[k], sharder, head_dim, kv_sel)
+        return shard_leaf(tree, specs, sharder, head_dim, kv_sel, mixer)
+    return {k: tree_shard(tree[k], specs[k], sharder, head_dim, kv_sel,
+                          mixer)
             for k in tree}

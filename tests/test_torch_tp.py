@@ -6,25 +6,33 @@ Without ranks: the port's rule tables, ``resolve`` and ``build_rules``
 equal the reference's on every ``REGISTRY`` config, rule table and mesh
 (the reference side on ``tests/test_sharding_hlo.py``'s fake meshes of one
 host device, the port's on a stand-in with ``.shape``); ``tree_shard``'s
-slices put back together give every full tensor; the MoE's queue share
+slices put back together give every full tensor, the Mamba2 mixer's
+fused leaves by SSD head; the mixer split over two ranks (threads)
+equals the unsplit block and a per-rank gated norm does not; the local
+conv widths keep the SSD scan's tensor-core route; the MoE's queue share
 reproduces the unsplit layer's capacity drops; the refusals name their
-ROADMAP items; a one-rank mesh and fp8-stored weights.
+ROADMAP items; a one-rank mesh and fp8-stored weights, in the serve step
+and (ignored) in the prefill step.
 
 With ranks: one spawned gloo world per mesh shape, (1,2), (2,2) and (1,4),
 each running ``build_step``'s prefill and four greedy serve steps for a
 dense config, the VLM (qkv bias, tied embeddings, a prefill from
-embeddings under distinct M-RoPE streams), an MoE config and a config
-whose 6 heads / 3 KV heads divide no model axis evenly in groups, all
-``.reduced()`` fp32, from the reference's params (numpy, carried across as
-``models/convert.py`` does): prefill and step logits within 2e-5 of the
-reference's unsharded ``prefill`` / ``decode_step``, greedy tokens
-identical, each rank's cache after the last step equal to its
-``shard_cache`` of the reference's. A (1,2) world of its own runs
-``calibrate_allreduce`` over the model group as a real all_reduce.
+embeddings under distinct M-RoPE streams), an MoE config, a config
+whose 6 heads / 3 KV heads divide no model axis evenly in groups, Mamba2
+(8 SSD heads, and a 6-head variant whose mixer stays whole at model 4),
+Zamba2 (8 SSD heads, 4 attention heads in the shared block) and whisper
+(4 heads, and a 6-head variant whose attention stays whole at model 4),
+all ``.reduced()`` fp32, from the reference's params (numpy, carried
+across as ``models/convert.py`` does): prefill and step logits within
+2e-5 of the reference's unsharded ``prefill`` / ``decode_step``, greedy
+tokens identical, each rank's cache after the last step equal to its
+``shard_cache`` of the reference's, every key. A (1,2) world of its own
+runs ``calibrate_allreduce`` over the model group as a real all_reduce.
 """
 
 import collections
 import dataclasses
+import threading
 import types
 
 import jax
@@ -48,6 +56,8 @@ from repro_torch.launch import steps as S
 from repro_torch.launch.mesh import mesh_for_rank, run_ranks
 from repro_torch.models import build_model
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import matmul_fp32
 from repro_torch.sharding import rules as R
 
 ATOL = RTOL = 2e-5
@@ -110,10 +120,9 @@ def test_resolve_equals_reference_on_param_and_cache_specs(arch):
     cache = jax_input_specs(jcfg, ShapeSpec("d", 1024, 8, "serve_step"))
     pairs += [p for p in _pairs(jmodel.cache_specs(), cache["cache"])
               if p[0]]
-    if not jcfg.is_encdec:
-        model = build_model(get_config(arch), device="meta")
-        assert model.param_specs() == jmodel.param_specs()
-        assert model.cache_specs() == jmodel.cache_specs()
+    model = build_model(get_config(arch), device="meta")
+    assert model.param_specs() == jmodel.param_specs()
+    assert model.cache_specs() == jmodel.cache_specs()
     for mesh_shape, axes in MESHES:
         for table in TABLES:
             for names, shape in pairs:
@@ -138,14 +147,19 @@ def test_build_rules_equal_reference(arch):
 @pytest.mark.parametrize("mesh_shape,axes", MESHES[:3] + [
     ((2, 2, 2), ("pod", "data", "model"))])
 @pytest.mark.parametrize("arch", ["qwen3-32b", "granite-moe-3b-a800m",
-                                  "qwen2-0.5b"])
+                                  "qwen2-0.5b", "mamba2-1.3b", "zamba2-2.7b",
+                                  "whisper-tiny", "mamba2-6-heads"])
 def test_tree_shard_round_trip(arch, mesh_shape, axes):
-    """``tree_shard`` is the one parameter slicer (``LM.shard_params`` and
-    ``LM.init`` call it): every rank's slices, put back where
-    ``local_range`` says in whole heads (the selected KV heads at their
-    head index where the model replicates ``kv_heads``), give each full
-    tensor back: every element covered, replicas equal, no head cut."""
-    cfg = get_config(arch).reduced()
+    """``tree_shard`` is the one parameter slicer (the models'
+    ``shard_params`` and ``init`` call it): every rank's slices, put back
+    where ``local_range`` says in whole heads (the selected KV heads at
+    their head index where the model replicates ``kv_heads``; the Mamba2
+    mixer's pieces where ``MixerSplit.ranges`` says: each rank's z, x and
+    dt columns of ``w_in``, its x channels of ``conv_w`` / ``conv_b`` with
+    B and C whole, its heads of ``dt_bias`` / ``a_log`` / ``d_skip``, its
+    slice of ``gate_norm`` and rows of ``w_out``), give each full tensor
+    back: every element covered, replicas equal, no head cut."""
+    cfg = _variant(arch)
     full = build_model(cfg, device="cpu").init(seed=0)
     rules = R.INFER_RULES_MULTIPOD if "pod" in axes else R.INFER_RULES
     world = int(np.prod(mesh_shape))
@@ -155,12 +169,27 @@ def test_tree_shard_round_trip(arch, mesh_shape, axes):
         sh = R.Sharder(mesh_for_rank(mesh_shape, axes, r), dict(rules))
         model = build_model(cfg, device="cpu", sharder=sh)
         specs = model.param_specs()
-        local = _flat(R.tree_shard(full, specs, sh, cfg.hd, model._kv_sel))
+        local = _flat(R.tree_shard(full, specs, sh, cfg.hd, model._kv_sel,
+                                   model._mixer))
         assert _flat(model.shard_params(full)).keys() == local.keys()
         shapes = _flat(model.local_param_shapes())
         names = _flat(specs)
         for key, t in local.items():
             assert tuple(t.shape) == shapes[key], key
+            mixed = [i for i, n in enumerate(names[key])
+                     if n in ("ssm_inner", "ssm_heads")]
+            if mixed:
+                ax = mixed[0]
+                off = 0
+                for lo, hi in model._mixer.ranges(names[key][ax],
+                                                  rebuilt[key].shape[ax]):
+                    prev = rebuilt[key].narrow(ax, lo, hi - lo)
+                    got = t.narrow(ax, off, hi - lo)
+                    assert torch.isnan(prev).all() or torch.equal(prev, got)
+                    prev.copy_(got)
+                    off += hi - lo
+                assert off == t.shape[ax], key
+                continue
             unit = R.head_units(names[key], cfg.hd)
             for i, n in enumerate(names[key]):
                 if n in ("heads", "kv_heads"):
@@ -194,6 +223,115 @@ def _flat(tree, prefix=""):
             out.update(_flat(v, f"{prefix}/{k}"))
         return out
     return {prefix: tree}
+
+
+def _variant(arch):
+    """A reduced config by name; ``mamba2-6-heads``: reduced mamba2 at
+    d_model 48, 6 SSD heads of 16 (3 a rank at model 2, whole at 4)."""
+    if arch == "mamba2-6-heads":
+        return dataclasses.replace(get_config("mamba2-1.3b").reduced(),
+                                   d_model=48)
+    return get_config(arch).reduced()
+
+
+def test_mixer_split_over_two_ranks_norms_over_the_whole_inner_dim():
+    """Reduced mamba2's mixer (8 SSD heads of 16) split over two ranks,
+    run as two threads whose ``reduce`` sums the ranks' tensors: each
+    rank's prefill and step output and its state equal the unsplit
+    block's (2e-5), the gated RMSNorm dividing the ranks' summed squares
+    by the whole ``d_inner``; a norm over the rank's own 4 heads only
+    (``reduce`` dropped, ``w_out`` still summed) misses by far more."""
+    cfg = get_config("mamba2-1.3b").reduced()
+    model = build_model(cfg, device="cpu")
+    p = model._layer(model.init(seed=0), 0)["mixer"]
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 9, cfg.d_model).astype(np.float32))
+    x1 = torch.from_numpy(rng.randn(2, 1, cfg.d_model).astype(np.float32))
+    dims = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim)
+    want_y, want_st = ssm_mod.mamba2_prefill(p, x, *dims, chunk=4)
+    want1, want_st1 = ssm_mod.mamba2_step(p, x1, want_st, *dims)
+    half = cfg.ssm_heads // 2
+    splits = [R.MixerSplit(cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                           lo, lo + half) for lo in (0, half)]
+    # each leaf's logical names, the layer axis dropped
+    names = {k: d[1:] for k, d in
+             model.param_specs()["layers"]["mixer"].items()}
+    barrier = threading.Barrier(2)
+    buf = [None, None]
+
+    def reduce(r):
+        def fn(t):
+            buf[r] = t.clone()
+            barrier.wait()
+            out = buf[0] + buf[1]
+            barrier.wait()
+            return out
+        return fn
+
+    def run(r, norm_reduce, out):
+        pl = {k: R.shard_leaf(v, names[k], R.Sharder(), mixer=splits[r])
+              for k, v in p.items()}
+        red = reduce(r)
+        kw = dict(reduce=red if norm_reduce else None,
+                  row_parallel=lambda a, w: red(matmul_fp32(a, w)))
+        y, st = ssm_mod.mamba2_prefill(pl, x, *dims, chunk=4, **kw)
+        y1, st1 = ssm_mod.mamba2_step(pl, x1, st, *dims, **kw)
+        out[r] = (y, st, y1, st1)
+
+    def world(norm_reduce):
+        out = [None, None]
+        threads = [threading.Thread(target=run, args=(r, norm_reduce, out))
+                   for r in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return out
+    for r, (y, st, y1, st1) in enumerate(world(True)):
+        torch.testing.assert_close(y, want_y, atol=ATOL, rtol=RTOL)
+        torch.testing.assert_close(y1, want1, atol=ATOL, rtol=RTOL)
+        for got, full in ((st, want_st), (st1, want_st1)):
+            names_c = (None, None, "ssm_inner")
+            torch.testing.assert_close(got.conv, R.shard_leaf(
+                full.conv, names_c, R.Sharder(), mixer=splits[r]))
+            torch.testing.assert_close(got.ssd, R.shard_leaf(
+                full.ssd, (None, "ssm_heads", None, None), R.Sharder(),
+                mixer=splits[r]), atol=ATOL, rtol=RTOL)
+    y, _, y1, _ = world(False)[0]
+    assert (y - want_y).abs().max() > 1e-3
+    assert (y1 - want1).abs().max() > 1e-3
+
+
+@pytest.mark.parametrize("arch,model_n", [("mamba2-1.3b", 2),
+                                          ("mamba2-1.3b", 4),
+                                          ("zamba2-2.7b", 2),
+                                          ("zamba2-2.7b", 4)])
+def test_local_conv_widths_keep_the_tensor_core_ssd_route(arch, model_n):
+    """At full width a rank's conv output ``[x | B | C]`` (mamba2 at model
+    2: 32 heads of 64 + 2 x 128 = 2304 channels; zamba2 at model 4: 20 of
+    64 + 2 x 64 = 1408) keeps what the SSD forward's tensor-core route
+    asks of bf16 x, B and C (``csrc/ssd_scan.cu``, ``rt_ssd_scan``): head
+    dim and state width multiples of 8, row strides multiples of 8
+    elements, and B and C starting 16 bytes into the row's 16-byte pieces
+    (a multiple of 8 bf16 elements past x). The kernel reports the body it
+    took; the chip smoke counts that report."""
+    cfg = get_config(arch)
+    sh = R.Sharder(mesh_for_rank((1, model_n), ("data", "model"), 0),
+                   dict(R.INFER_RULES))
+    model = build_model(cfg, device="meta", sharder=sh)
+    nh = cfg.ssm_heads // model_n
+    assert model.ssm_heads_local == nh
+    width = model.local_param_shapes()["layers"]["mixer"]["conv_w"][-1]
+    assert width == nh * cfg.ssm_head_dim + 2 * cfg.ssm_state
+    xbc = torch.zeros(1, 4, width, dtype=torch.bfloat16)
+    d = nh * cfg.ssm_head_dim
+    x = xbc[..., :d].reshape(1, 4, nh, cfg.ssm_head_dim)
+    b, c = xbc[..., d:d + cfg.ssm_state], xbc[..., d + cfg.ssm_state:]
+    assert cfg.ssm_head_dim % 8 == 0 and cfg.ssm_state % 8 == 0
+    for t in (x, b, c):
+        assert t.storage_offset() % 8 == 0
+    strides = (*x.stride()[:3], *b.stride()[:2], *c.stride()[:2])
+    assert all(st % 8 == 0 for st in strides), strides
 
 
 def test_moe_queue_share_reproduces_the_unsplit_drops():
@@ -264,10 +402,6 @@ def test_unsupported_steps_name_their_roadmap_item():
          mesh_for_rank((2, 1, 2), ("pod", "data", "model"), 0),
          {"serve_pp": True}, "A9.2"),
     ]
-    for arch in ("mamba2-1.3b", "zamba2-2.7b", "whisper-tiny"):
-        cases.append((get_config(arch).reduced(),
-                      ShapeSpec("d", 16, 4, "serve_step"), mesh, {},
-                      "A9.1b"))
     for c, shape, m, kw, item in cases:
         with pytest.raises(NotImplementedError, match=item.replace(
                 ".", r"\.")):
@@ -340,6 +474,31 @@ def test_fp8_stored_weights_upcast_each_serve_step():
     assert torch.equal(got, model.sample_greedy(want).to(torch.int32))
 
 
+def test_fp8_weight_dtype_leaves_the_prefill_step_in_the_model_dtype():
+    """A prefill step built with ``weight_dtype`` stores nothing in fp8
+    (the reference applies ``weight_dtype`` to the serve step only), so it
+    runs its own ``init_params`` and equals the prefill built without
+    it."""
+    cfg = get_config("qwen3-32b").reduced()
+    mesh = mesh_for_rank((1, 1), ("data", "model"), 0)
+    shape = ShapeSpec("p", 12, 2, "prefill_step")
+    pre8 = S.build_step(cfg, shape, mesh, weight_dtype="float8_e4m3fn",
+                        device="cpu")
+    pre = S.build_step(cfg, shape, mesh, device="cpu")
+    params8, params = pre8.init_params(seed=0), pre.init_params(seed=0)
+    assert params8["layers"]["attn"]["wq"].dtype == torch.float32
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 5)))
+    with torch.no_grad():
+        tok8, cache8 = pre8.fn(params8, {"tokens": tokens})
+        tok, cache = pre.fn(params, {"tokens": tokens})
+    torch.testing.assert_close(pre8.last_logits, pre.last_logits, atol=0,
+                               rtol=0)
+    assert torch.equal(tok8, tok)
+    for key in ("k", "v"):
+        assert torch.equal(cache8[key], cache[key])
+
+
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
@@ -357,7 +516,18 @@ WORLD_CASES = {
     # 6 heads / 3 KV heads: on 2 ranks each rank's 3 query heads read KV
     # heads in unequal groups (0, 0, 1 / 1, 2, 2); on 4 nothing divides
     "odd_heads": ("qwen3-32b", {"n_heads": 6, "n_kv_heads": 3}),
+    # 8 SSD heads of 16: 4 / 2 a rank at model 2 / 4
+    "ssm": ("mamba2-1.3b", {}),
+    # 6 SSD heads (d_model 48): 3 a rank at model 2, whole at 4
+    "ssm_6": ("mamba2-1.3b", {"d_model": 48}),
+    # 8 SSD heads and a shared block of 4 MHA heads (its MLP split too)
+    "hybrid": ("zamba2-2.7b", {}),
+    "encdec": ("whisper-tiny", {}),
+    # 6 heads: 3 a rank at model 2, attention whole at 4 (FFN and vocab
+    # split)
+    "encdec_6": ("whisper-tiny", {"n_heads": 6, "n_kv_heads": 6}),
 }
+ENC_FRAMES = 8
 
 
 def _flat_np(tree):
@@ -383,6 +553,9 @@ def _reference(name):
     else:
         inputs = {"tokens": rng.randint(0, cfg.vocab, (B, PROMPT))
                   .astype(np.int32)}
+    if cfg.is_encdec:
+        inputs["embeds"] = rng.randn(B, ENC_FRAMES, cfg.d_model).astype(
+            np.float32)
     prefill = jax.jit(lambda p, i: model.prefill(p, i, max_len=MAX_LEN))
     decode = jax.jit(model.decode_step)
     logits, cache = prefill(params, {k: jnp.asarray(v)
@@ -394,9 +567,8 @@ def _reference(name):
         cur = model.sample_greedy(lg).reshape(B, 1).astype(jnp.int32)
         toks.append(cur)
         step_logits.append(lg)
-    cache = {"k": torch.from_numpy(np.array(cache["k"])),
-             "v": torch.from_numpy(np.array(cache["v"])),
-             "pos": torch.full((B,), int(cache["pos"]), dtype=torch.int32)}
+    cache = {k: torch.full((B,), int(v), dtype=torch.int32) if k == "pos"
+             else torch.from_numpy(np.array(v)) for k, v in cache.items()}
     return dict(cfg=cfg, params=_flat_np(params), inputs=inputs,
                 cache=cache,
                 logits=np.asarray(logits),
@@ -439,21 +611,29 @@ def test_world_steps_equal_the_unsharded_reference(references, mesh_shape):
                                mesh_for_rank(mesh_shape, ("data", "model"),
                                              rank), device="cpu")
             want = srv.shard_cache(ref["cache"])
-            for key in ("k", "v"):
+            assert got["cache"].keys() == want.keys(), name
+            for key in want:
+                if key == "pos":
+                    continue
+                assert got["cache"][key].shape == tuple(want[key].shape)
                 np.testing.assert_allclose(got["cache"][key],
                                            want[key].numpy(), atol=ATOL,
                                            rtol=RTOL, err_msg=f"{name} {key}")
             np.testing.assert_array_equal(got["cache"]["pos"],
                                           want["pos"].numpy())
-            split = cfg.n_heads % model_size == 0
-            assert got["n_heads_local"] == (cfg.n_heads // model_size
-                                            if split else cfg.n_heads)
-            if name == "dense" and mesh_shape[0] == 1:
-                # per step and layer: the attention and FFN sums, plus the
+            for n, key in ((cfg.n_heads, "n_heads_local"),
+                           (cfg.ssm_heads if cfg.ssm_state else 0,
+                            "ssm_heads_local")):
+                split = n % model_size == 0
+                assert got[key] == (n // model_size if split else n), \
+                    (name, key)
+            if name in ("dense", "ssm") and mesh_shape[0] == 1:
+                # per step and layer: the attention and FFN sums (Mamba2:
+                # the gated norm's sums of squares and w_out's), plus the
                 # embedding's and the logits' (the batch is not split)
                 want_calls = STEPS * (2 * cfg.n_layers + 2)
                 assert got["allreduce"]["calls"] == want_calls, \
-                    got["allreduce"]
+                    (name, got["allreduce"])
 
 
 def test_calibrate_allreduce_over_a_model_group_is_real():
