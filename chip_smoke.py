@@ -50,7 +50,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    cross attention) and whisper's encoder; command-r-plus's 96/8 heads;
    the ring cache's decode route (``ops.decode_attention_ring``) against
    the reference's ``slot_pos`` mask on a ring not yet full, exactly full
-   and wrapped. At each kernel's main shape it
+   and wrapped; the contiguous decode kernel on fp8 caches
+   (``kv_cache_dtype``, float8_e4m3fn and float8_e5m2, values with
+   subnormals and +-448) at rows 4, 4a, 4c and 4d's shapes and small fp32
+   ragged and SWA cases, each held to its plain version (over max |V|)
+   and bit for bit to the kernel on the cache upcast to q's dtype, the
+   four rows timed with a bound of 1 byte a K/V element and SDPA on the
+   upcast cache (upcast included) as the yardstick, and ``astype`` on
+   the card over every bf16 value against the CPU's bytes. At each
+   kernel's main shape it
    times the kernel, the plain version and, as a yardstick the port never
    calls, ``F.scaled_dot_product_attention`` on the gathered /
    head-repeated K/V (none for the SSD scan and the probe: no single
@@ -153,7 +161,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    idle (each pipeline a store link of its own; no transfer may wait) the
    DES must equal the closed form to 1e-6 in rps, downtime and cost;
    prints rps, cost and downtime;
-5. fifteen serving paths at full width, bf16, random weights from a
+5. sixteen serving paths at full width, bf16, random weights from a
    seeded generator on the card, the same traffic but for ``prefix`` and
    ``danube`` (16 requests of 64-2048 prompt tokens, some past
    ``prefill_chunk=512``, 32 new tokens each, ``max_len`` 2080, 8 slots);
@@ -202,7 +210,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           ``decode_attention`` must launch m x sum(split) times a step;
           prints per layout the split, m, ticks per step, the median wall
           per step over ``--repeats`` runs, tok/s, the device-busy share,
-          the launches per step and the peak GB: contig decode;
+          the launches per step and the peak GB; then split [5, 3] at m 4
+          on a float8_e4m3fn cache (the prefill's K/V cast by
+          ``astype``), whose tokens must equal the unsplit decode's on the
+          same fp8 cache, every decode launch on it: contig decode;
    tp     tensor parallelism (``launch/steps.py``'s ``build_step`` over a
           ``launch/mesh.py`` mesh of ranks, ``run_ranks``): main's widths,
           8 rows of a 1024-token prompt through ``prefill_step`` (cache
@@ -227,6 +238,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           model group (gloo through the host on one card: not a link);
           with four cards, (1, 4) over nccl, one rank per card: contig
           decode, flash;
+   kv_fp8 fp8 KV caches: main's widths and depth through
+          ``build_step``'s prefill step and serve steps on a (1, 1) mesh,
+          8 rows of a 1024-token prompt, cache S 2080, the prefill's cache
+          stored by ``BuiltStep.store_cache``, then 32 greedy serve steps
+          on a bf16, a float8_e4m3fn and a float8_e5m2 cache in turns;
+          gates: ``decode_attention`` launches layers x steps times a run,
+          every one on the run's cache dtype; the first step's logits on
+          an fp8 cache within the format's unit roundoff (2^-4, 2^-3) of
+          max |logit| of the bf16 step on the fp8 values upcast; the fp8
+          K/V bytes exactly half the bf16 ones; prints per format the step
+          wall, tok/s, device busy, peak GB, the first step whose tokens
+          leave the bf16 run's and the largest logit distance from it:
+          flash (the prefill), contig decode;
    prefix main with ``prefix_share=True`` on its own traffic: four
           four-turn conversations over system prompts of 300, 1000, 1024
           and 1500 tokens, each request extending its predecessor's
@@ -271,9 +295,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``train_mamba2``: mamba2-1.3b whole (48 layers, d_model 2048, 64 SSD
    heads of 64, N 128, vocab 50280) the same way, four timed steps, the
    SSD scan and its backward launched;
-7. a JSON line of per-kernel numbers, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``. A ``[time]`` line follows each
-   phase.
+7. a JSON line of per-kernel numbers (``decode_attention``'s row also
+   carries its fp8 shapes and its launches by cache dtype in paths
+   ``kv_fp8`` and ``pp``), the nvidia-smi line, and last ``{"ok": true,
+   "device": {...}}``. A ``[time]`` line follows each phase.
 """
 
 from __future__ import annotations
@@ -315,13 +340,14 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kv_probe as kvp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
-from repro_torch.launch.mesh import run_ranks  # noqa: E402
+from repro_torch.launch.mesh import mesh_for_rank, run_ranks  # noqa: E402
 from repro_torch.launch.pipeline import (build_pp_serve_step,  # noqa: E402
                                          pack_pp_params)
-from repro_torch.launch.steps import serving_steps  # noqa: E402
+from repro_torch.launch.steps import build_step, serving_steps  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.common import FP8_DTYPES, astype  # noqa: E402
 from repro_torch.serving import (Engine, GlobalServer,  # noqa: E402
                                  ServeRequest, TensorStore)
 from repro_torch.serving.kv_blocks import (KV_POISON,  # noqa: E402
@@ -393,6 +419,11 @@ PATHS = {
     # main's widths and depth through build_step's prefill and serve steps
     # on tensor-parallel meshes of ranks on this card (launch/steps.py)
     "tp": ("qwen3-32b", "contig", ("decode_attention", "flash_attention")),
+    # main's widths and depth through build_step's prefill and serve steps
+    # on a (1, 1) mesh, the serve step on a bf16 cache and on fp8 caches
+    # (kv_cache_dtype) in turns
+    "kv_fp8": ("qwen3-32b", "contig", ("decode_attention",
+                                       "flash_attention")),
     # the same for mamba2-1.3b, zamba2-2.7b and whisper-tiny whole
     # (TPF_FAMILIES; the first names the path)
     "tp_families": ("mamba2-1.3b", "contig",
@@ -638,15 +669,18 @@ def _kv_bytes(lo, hi, nkv, d, esz, tbl=None, bs=0) -> int:
     return distinct * bs * nkv * d * 2 * esz + 4 * sum(map(len, ids))
 
 
-def decode_work(pos, s, nh, nkv, d, window, esz, tbl=None, bs=0):
+def decode_work(pos, s, nh, nkv, d, window, esz, tbl=None, bs=0,
+                kv_esz=None):
     """Bytes and operations of one decode call over ``s`` (virtual) keys
-    per row; a pool's when ``tbl`` is given, else a contiguous cache's."""
+    per row; a pool's when ``tbl`` is given, else a contiguous cache's.
+    ``kv_esz``: bytes of a K/V element where they differ from q's (an fp8
+    cache: 1)."""
     pos = np.asarray(pos).astype(np.int64)
     b = pos.shape[0]
     vis, lo = _visible(pos, s, window)
     hi = np.minimum(pos, s - 1)
-    nbytes = (2 * b * nh * d * esz + _kv_bytes(lo, hi, nkv, d, esz, tbl, bs)
-              + 4 * b)
+    nbytes = (2 * b * nh * d * esz
+              + _kv_bytes(lo, hi, nkv, d, kv_esz or esz, tbl, bs) + 4 * b)
     return nbytes, 4.0 * nh * d * vis.sum()
 
 
@@ -960,8 +994,7 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
                    *decode_yardstick(kept[label], kept[label][0].shape[0],
                                      dev, *_geometry(geo, rehearsal), paged,
                                      window=win, note=note),
-                   kw=dict(window=win),
-                   plain=plain if label == tpf_label else None)
+                   kw=dict(window=win), plain=plain)
         for label, geo, win, note in timed]
     if not paged and not rehearsal:
         for m, g in tp_geo.items():
@@ -973,6 +1006,7 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
                 f"{da._sm_count(dev.index or 0)} SMs")
     if not paged:
         row["timed_shapes"] += kernel_ring(cs, dev, rehearsal)
+        row["fp8_shapes"] = kernel_decode_fp8(cs, dev, rehearsal)
     return row
 
 
@@ -1044,7 +1078,143 @@ def kernel_ring(cs, dev, rehearsal) -> list:
                                     b, dev, nh, nkv, d, False)
     return [time_shape(name, run, cases[2][2], lib, work,
                        f"ring q=({b},1,{nh},{d}) cache=({b},{ring},{nkv},{d}) "
-                       f"pos={int(pos[0])} (pos_eff {ring - 1}) bf16")]
+                       f"pos={int(pos[0])} (pos_eff {ring - 1}) bf16",
+                       plain=plain)]
+
+
+def fp8_cache(cs, shape, fp8) -> torch.Tensor:
+    """A K or V cache cast by ``astype`` from values of scale 2 with 2% of
+    them at +-448 (float8_e4m3fn's largest) and 2% in the two formats'
+    subnormal ranges (below 2^-6 and 2^-14)."""
+    x = cs.randn(*shape, dtype=torch.float32) * 2
+    flat = x.view(-1)
+    idx = torch.randperm(flat.numel(), generator=cs.gen,
+                         device=cs.dev)[: flat.numel() // 25]
+    half = idx.numel() // 2
+    u = torch.rand(idx.numel(), generator=cs.gen, device=cs.dev)
+    flat[idx[:half]] = torch.where(u[:half] < 0.5, -448.0, 448.0)
+    tiny = torch.where(u[half:] < 0.5, 2.0 ** -7, 2.0 ** -15)
+    flat[idx[half:]] = (2 * torch.rand(idx.numel() - half, generator=cs.gen,
+                                       device=cs.dev) - 1) * tiny
+    return astype(x, fp8)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def kernel_decode_fp8(cs, dev, rehearsal) -> list:
+    """Kernel 4 on fp8 caches (the reference's ``kv_cache_dtype``), each
+    case in float8_e4m3fn and float8_e5m2, the cache with subnormals and
+    +-448: rows 4 (Phi-3.5-MoE's 32/8 heads, ragged positions, a dead
+    row), 4a (zamba2's 32/32 of 80), 4c (a ``pp`` step's microbatch at one
+    position), 4d (danube's d-120 ring route, through
+    ``ops.decode_attention_ring``) and small fp32-q ragged and SWA cases.
+    Each is held to its plain version evaluated in fp32 (the phase's
+    tolerance on the output over max |V|: the cache spans +-448), and bit
+    for bit to the same kernel on the cache upcast to q's dtype (the same
+    body and splits). Rows 4, 4a, 4c and 4d are timed; their bound counts
+    1 byte a K/V element; the library yardstick is SDPA on the upcast
+    cache, the upcast included. Then ``astype`` on the card over all
+    65,536 bf16 values must give the CPU's bytes."""
+    name = "decode_attention"
+    plain = da.decode_attention_plain
+    ring_route = (lambda q, k, v, pos, window=None:  # noqa: E731
+                  ops.decode_attention_ring(q, k, v, pos))
+    kern = in_fp32(plain) if rehearsal else da.decode_attention
+    bf, f32 = torch.bfloat16, torch.float32
+    S = 64 if rehearsal else MAX_LEN
+    pp_pos = PP_PROMPT + PP_STEPS // 2
+    ring = 32 if rehearsal else DANUBE_WINDOW
+    ring_pos = ring + ring // 2
+    # (label, q dtype, geometry, rows, keys, window, positions, timed)
+    specs = [
+        ("row 4 GQA 32/8 ragged + dead row", bf, PHI, 8, S, None, True, True),
+        ("row 4a MHA 32/32 d80 ragged + dead row", bf, ZAMBA, 8, S, None,
+         True, True),
+        ("row 4c pp mb=2 GQA 64/8 one pos", bf, QWEN, 2, S, None,
+         [min(pp_pos, S - 1)] * 2, True),
+        (f"row 4d ring route d120 S_alloc={ring} pos={ring_pos}", bf,
+         DANUBE, 2, ring, None, [ring_pos] * 2, True),
+        ("GQA 4/2 d16 S=37 ragged fp32", f32, dict(nh=4, nkv=2, d=16), 3,
+         37, None, True, False),
+        ("MHA d32 SWA=8 fp32", f32, dict(nh=4, nkv=4, d=32), 3, 40, 8, True,
+         False),
+        ("g=4 d120 SWA=40 fp32", f32, dict(nh=32, nkv=8, d=120), 3, 300, 40,
+         True, False),
+        ("g=4 d128 SWA=300 bf16", bf, dict(nh=32, nkv=8, d=128), 4, 1000,
+         300, True, False)]
+    out = []
+    for fp8 in FP8_DTYPES.values():
+        fmt = str(fp8)[6:]
+        for label, dtype, geo, b, s, win, vec, timed in specs:
+            nh, nkv, d = _geometry(geo, rehearsal)
+            ring_case = label.startswith("row 4d")
+            run = ((in_fp32(ring_route) if rehearsal else ring_route)
+                   if ring_case else kern)
+            q = cs.randn(b, 1, nh, d, dtype=dtype)
+            k, v = (fp8_cache(cs, (b, s, nkv, d), fp8) for _ in range(2))
+            if isinstance(vec, list):
+                pos = torch.tensor(vec, dtype=torch.int32, device=dev)
+            else:
+                pos = cs.randint(0, s, (b,))
+                pos[-1] = s                 # a dead row past its row's end
+            kw = {} if ring_case else dict(window=win)
+            ref_fn = plain
+            if ring_case:               # the reference's slot_pos mask
+                def ref_fn(q, k, v, pos, slots=ring_slots(ring_pos, ring,
+                                                          dev)):
+                    return attn.decode_attention_ring(q, k, v, pos, slots)
+            got = run(q, k, v, pos, **kw)
+            up = run(q, k.to(dtype), v.to(dtype), pos, **kw)
+            same = torch.equal(_bits(got), _bits(up))
+            ref = in_fp32(ref_fn)(q, k, v, pos, **kw).float()
+            vmax = max(v.float().abs().max().item(), 1.0)
+            plain_err = (ref_fn(q, k, v, pos, **kw).float()
+                         - ref).abs().max().item()
+            err = check(name, got.float() / vmax, ref / vmax, dtype,
+                        f"{fmt} {label} /max|V|", plain_err / vmax)
+            log(f"[kernels] {name:24s} {fmt} {label}: == the kernel on the "
+                f"cache upcast to {str(dtype)[6:]} bit for bit: {same}")
+            if not same:
+                raise SystemExit(f"chip_smoke: {name} on a {fmt} cache "
+                                 f"differs from the upcast cache ({label})")
+            if not timed or rehearsal:
+                continue
+            pos_eff = torch.clamp(pos, max=s - 1) if ring_case else pos
+            tr = lambda x: x.transpose(1, 2).contiguous()  # noqa: E731
+            g = nh // nkv
+            k8, v8 = (tr(x.view(torch.uint8).repeat_interleave(g, dim=2))
+                      .view(fp8) for x in (k, v))
+            t = torch.arange(s, device=dev)[None, :]
+            mask = (t <= pos_eff.long()[:, None])[:, None, None, :]
+            sq = tr(q)
+
+            def library(k8=k8, v8=v8, sq=sq, mask=mask, dtype=dtype):
+                return F.scaled_dot_product_attention(
+                    sq, k8.to(dtype), v8.to(dtype), attn_mask=mask)
+            work = decode_work(pos_eff.cpu().numpy(), s, nh, nkv, d, win, 2,
+                               kv_esz=1)
+            row = time_shape(
+                name, run, (q, k, v, pos), library, work,
+                f"{fmt} {label}: q=({b},1,{nh},{d}) cache=({b},{s},{nkv},"
+                f"{d}) {fmt} bf16 q", kw=kw, plain=ref_fn)
+            row.update(max_abs_err=err, kv_dtype=fmt,
+                       equal_to_upcast=same)
+            out.append(row)
+    # the cast helper on the card: every bf16 bit pattern
+    x = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(bf)
+    for fp8 in FP8_DTYPES.values():
+        cpu = astype(x, fp8).view(torch.uint8)
+        card = astype(x.to(dev), fp8).view(torch.uint8).cpu()
+        same = torch.equal(card, cpu)
+        log(f"[kernels] common.astype to {str(fp8)[6:]} over all 65,536 "
+            f"bf16 values on {dev.type} == on the CPU, byte for byte: "
+            f"{same}")
+        if not same:
+            raise SystemExit(f"chip_smoke: astype to {fp8} differs on the "
+                             f"card")
+    return out
 
 
 # per-row bases of the prefix path's suffix dispatch: unaligned with the
@@ -1173,15 +1343,15 @@ def kernel_chunk(cs, dev, rehearsal, paged: bool) -> dict:
         if paged else [(whisper, "", WHISPER, None)])
     row["timed_shapes"] = [
         chunk_timed(name, run, kept[label], dev, *_geometry(geo, rehearsal),
-                    win, paged, tag)
+                    win, paged, tag, plain=plain)
         for label, tag, geo, win in timed]
     return row
 
 
 def chunk_timed(name, run, args, dev, nh, nkv, d, window, paged,
-                tag="") -> dict:
+                tag="", plain=None) -> dict:
     """Time one more chunk shape beside SDPA on the gathered K/V under
-    the per-row bases' (and window's) mask."""
+    the per-row bases' (and window's) mask, and its plain version."""
     b, c = args[0].shape[:2]
     bases = args[-1]
     k, v = dense_kv(args[1:-1], b)
@@ -1201,7 +1371,7 @@ def chunk_timed(name, run, args, dev, nh, nkv, d, window, paged,
         chunk_work(bases.cpu().numpy(), b, c, k.shape[1], nh, nkv, d,
                    window, 2, tbl, BS),
         f"{tag}q=({b},{c},{nh},{d}) bases={tuple(bases.tolist())} "
-        f"{kv_shape}{win} bf16", kw=dict(window=window))
+        f"{kv_shape}{win} bf16", kw=dict(window=window), plain=plain)
 
 
 def chunk_probe_case(cs, dev, rehearsal) -> None:
@@ -1350,7 +1520,7 @@ def kernel_flash(cs, dev, rehearsal) -> dict:
     # tens of GB)
     row["timed_shapes"] = [time_shape("flash_attention", run, kept[k],
                                       *flash_yardstick(kept[k], causal=c),
-                                      kw=dict(causal=c))
+                                      kw=dict(causal=c), plain=plain)
                            for k, c in ((moe, True), (zamba, True),
                                         (legacy, True), (cmdr, True),
                                         (enc, False), (cross, False))
@@ -1644,7 +1814,7 @@ def kernel_ssd(cs, dev, rehearsal) -> dict:
     args, kw, shp = kept
     row["timed_shapes"] = [time_shape(name, run, args, None,
                                       ssd_work(*shp, 2), ssd_shape(*shp),
-                                      kw=kw)]
+                                      kw=kw, plain=plain)]
     for key, (_, _, _, label) in tpf.items():
         args, kw, shp, body = shards[label]
         log(f"[kernels] ssd_scan row {key} ({label}): the {body} body, as "
@@ -1775,9 +1945,9 @@ def kernel_ssd_bwd(cs, dev, rehearsal) -> dict:
                        library_ms=None, library_device_ms=None,
                        bound_ms=b_ms, bound_by=b_by,
                        share_of_bound=b_ms / dev_ms)
+            row["plain_ms"] = time_ms(lambda: ssd.ssd_scan_bwd_plain(
+                *args, q, h0, dy, dh), iters=3, warmup=1)
             if not rows:
-                row["plain_ms"] = time_ms(lambda: ssd.ssd_scan_bwd_plain(
-                    *args, q, h0, dy, dh), iters=3, warmup=1)
                 row["fwd_states"] = ssd_fwd_states_ms(args, q, h0, rehearsal)
             log(f"[kernels] {name:24s} backward {ms:.4f} ms (device "
                 f"{dev_ms:.4f}, {100 * b_ms / dev_ms:.2f}% of bound)  bound "
@@ -1979,6 +2149,8 @@ def kernel_flash_bwd(cs, dev, rehearsal) -> dict:
                 q, k, v, lse=lse, **kw)
         ms, dev_ms = time_both(run)
         lib_ms = time_ms(sdpa_backward(q, k, v, dout, **kw))
+        plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, dout, **kw), iters=3, warmup=1)
         f_ms, f_dev_ms = time_both(fwd)
         f_lib = flash_yardstick((q, k, v), **kw)
         f_lib_ms = time_ms(f_lib[0])
@@ -1987,7 +2159,7 @@ def kernel_flash_bwd(cs, dev, rehearsal) -> dict:
         share = b_ms / dev_ms
         row = dict(shape=label, ms=ms, device_ms=dev_ms, library_ms=lib_ms,
                    library_device_ms=None, bound_ms=b_ms, bound_by=b_by,
-                   share_of_bound=share,
+                   share_of_bound=share, plain_ms=plain_ms,
                    fwd_lse=dict(ms=f_ms, device_ms=f_dev_ms,
                                 library_ms=f_lib_ms, bound_ms=fb_ms,
                                 bound_by=fb_by))
@@ -1997,14 +2169,11 @@ def kernel_flash_bwd(cs, dev, rehearsal) -> dict:
             f"lse {f_ms:.4f} ms (device {f_dev_ms:.4f})  SDPA "
             f"{f_lib_ms:.4f} ms  bound {fb_ms:.4f} ms ({fb_by})  {label}")
         rows.append(row)
-    q, k, v, out, dout, lse, kw, geo = timed[BWD_TIMED[0]]
-    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
-        q, k, v, dout, **kw), iters=3, warmup=1)
     first = rows[0]
     return dict(name=name, route="cuda", source=fa.BWD_SOURCE,
                 replaces=fa.REPLACES[name], max_abs_err=main,
                 ms=first["ms"], device_ms=first["device_ms"],
-                plain_ms=plain_ms, bound_ms=first["bound_ms"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
                 bound_by=first["bound_by"], library_ms=first["library_ms"],
                 library_device_ms=None, shape=first["shape"],
                 share_of_bound=first["share_of_bound"],
@@ -3311,6 +3480,9 @@ def phase_server_path(dev, path: str, depth: int, seed: int,
 # split comes out [5, 3] (m 4) and [4, 3, 1] (a one-layer stage)
 PP_LAYOUTS = (("2 stages", [1.0, 0.5], None),
               ("3 stages", [1.0, 0.6, 0.35], 4))
+# the pp path's fp8 run: the first layout on a float8_e4m3fn cache
+PP_FP8 = ("2 stages, float8_e4m3fn cache", [1.0, 0.5], None,
+          "float8_e4m3fn")
 PP_ROWS, PP_PROMPT, PP_STEPS = 8, 1024, 32
 
 
@@ -3318,7 +3490,10 @@ def pp_layout_kv(full: torch.Tensor, split, m: int) -> torch.Tensor:
     """The unsplit prefill's contiguous K or V (L, b, S, nkv, d) laid into
     the PP step's layout (n_stages, lmax, m, b // m, S, nkv, d): stage s
     slot j holds layer sum(split[:s]) + j, microbatch i rows i*mb.. of it;
-    padded slots are zero."""
+    padded slots are zero (an fp8 cache is laid out as its bytes)."""
+    if full.dtype in FP8_DTYPES.values():
+        return pp_layout_kv(full.view(torch.uint8), split, m).view(
+            full.dtype)
     L, b = full.shape[:2]
     out = full.new_zeros((len(split), max(split), m, b // m)
                          + tuple(full.shape[2:]))
@@ -3384,10 +3559,13 @@ def phase_pp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
     one 1024-token prompt length prefilled by the unsplit ``LM.prefill``
     (contiguous cache of ``MAX_LEN``), their K/V laid into the PP layout,
     then ``PP_STEPS`` greedy PP steps for each of ``PP_LAYOUTS``, every
-    stage on this card. Gate: the tokens equal the unsplit
-    ``LM.decode_step`` run one microbatch at a time on the same card (the
-    same GEMM shapes), every logit finite; each step launches
-    ``decode_attention`` m x sum(split) times. The layouts' ``repeats``
+    stage on this card, and for ``PP_FP8`` (the first split with
+    ``kv_cache_dtype="float8_e4m3fn"``: the prefill's K/V cast by
+    ``astype``). Gate: the tokens equal the unsplit ``LM.decode_step``
+    run one microbatch at a time on the same card (the same GEMM shapes;
+    on the same fp8 cache for ``PP_FP8``), every logit finite; each step
+    launches ``decode_attention`` m x sum(split) times (``PP_FP8``: every
+    one on the fp8 cache). The layouts' ``repeats``
     timed runs alternate (a b, b a, a b, ...), each on freshly packed
     params and a fresh cache. Prints per layout the split, m, ticks per
     step, the median wall per step, tok/s, the device-busy share
@@ -3414,30 +3592,37 @@ def phase_pp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
         f" B params {cfg.dtype}; {rows} rows of a {prompt_len}-token prompt "
         f"prefilled by the unsplit LM.prefill, cache S={s_max}; "
         f"{steps} PP steps per run")
-    refs: dict = {}         # m -> the unsplit decode's (tokens, logits)
+    # the unsplit decode's (tokens, logits) by (m, cache dtype)
+    refs: dict = {}
+    fulls = {None: full}
     layouts = []
-    for name, flops, n_micro in PP_LAYOUTS:
+    for name, flops, n_micro, *kv in PP_LAYOUTS + (PP_FP8,):
+        kv = kv[0] if kv else None
+        if kv not in fulls:
+            fulls[kv] = {k: astype(v, FP8_DTYPES[kv]) if k in ("k", "v")
+                         else v for k, v in full.items()}
         step, meta = build_pp_serve_step(
             cfg, ShapeSpec("pp", s_max, rows, "serve_step"), len(flops),
             devices=[dev] * len(flops), n_microbatches=n_micro,
-            pod_flops=flops)
+            pod_flops=flops, kv_cache_dtype=kv)
         m = meta["n_microbatches"]
-        if m not in refs:
-            refs[m] = pp_unsplit_reference(model, params, full, first, m,
-                                           steps)
+        if (m, kv) not in refs:
+            refs[m, kv] = pp_unsplit_reference(model, params, fulls[kv],
+                                               first, m, steps)
         seen: list = []
         head = meta["model"].logits
         meta["model"].logits = lambda p, x, head=head, seen=seen: (
             seen.append(head(p, x)) or seen[-1])
-        layouts.append(dict(name=name, flops=flops, step=step, m=m,
+        layouts.append(dict(name=name, flops=flops, step=step, m=m, kv=kv,
                             split=meta["pp_split"], seen=seen, runs=[],
                             queued=[], peak=0.0))
 
     def run(lay: dict) -> tuple:
         split, m = lay["split"], lay["m"]
         packed = pack_pp_params(params, split)
-        cache = {"k": pp_layout_kv(full["k"], split, m),
-                 "v": pp_layout_kv(full["v"], split, m),
+        kvs = fulls[lay["kv"]]
+        cache = {"k": pp_layout_kv(kvs["k"], split, m),
+                 "v": pp_layout_kv(kvs["v"], split, m),
                  "pos": torch.tensor(prompt_len, dtype=torch.int32,
                                      device=dev)}
         cur, out = first, []
@@ -3457,12 +3642,13 @@ def phase_pp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
             lay["peak"] = max(lay["peak"],
                               torch.cuda.max_memory_allocated() / 1e9)
         lay["queued"].append(queued)
+        lay["by_cache_dtype"] = ops.decode_launches_by_cache_dtype()
         return wall, ops.launch_counts(), torch.cat(out, 1)
 
     # the gate run doubles as each layout's warm-up
     for lay in layouts:
         _, _, got = run(lay)
-        ref_toks, ref_logits = refs[lay["m"]]
+        ref_toks, ref_logits = refs[lay["m"], lay["kv"]]
         seen, m = lay["seen"], lay["m"]
         finite = bool(torch.stack([torch.isfinite(x).all()
                                    for x in seen]).all())
@@ -3484,15 +3670,22 @@ def phase_pp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
         for lay in (layouts if r % 2 == 0 else layouts[::-1]):
             lay["runs"].append(run(lay))
     counts: dict = {}
+    by_dtype: dict = {}
     for lay in layouts:
         m, split, runs = lay["m"], lay["split"], lay["runs"]
         want = steps * m * sum(split)
         launched = runs[0][1]["decode_attention"]
+        kv_name = lay["kv"] or "bfloat16"
         if dev.type == "cuda" and (launched != want or any(
-                not runs[0][1][k] for k in required)):
+                not runs[0][1][k] for k in required)
+                or lay["by_cache_dtype"] != {kv_name: want}):
             raise SystemExit(f"chip_smoke: the PP step launched "
                              f"decode_attention {launched} times in "
-                             f"{steps} steps, not {want}: {runs[0][1]}")
+                             f"{steps} steps, not {want}, or not all on "
+                             f"its {kv_name} cache: {runs[0][1]}, "
+                             f"{lay['by_cache_dtype']}")
+        for k, v in lay["by_cache_dtype"].items():
+            by_dtype[k] = by_dtype.get(k, 0) + v
         walls = sorted(w / steps for w, _, _ in runs)
         per_step = float(np.median(walls))
         # the host's seconds to queue a step (each run starts drained)
@@ -3510,18 +3703,19 @@ def phase_pp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
             f"median={queued:.5f}; out_tok_per_s={rows / per_step:.2f}; "
             f"device_busy_share={busy}; "
             f"decode_attention launches per step {launched / steps:g} (m x "
-            f"sum(split) = {m * sum(split)}); launches per run {runs[0][1]}; "
+            f"sum(split) = {m * sum(split)}), by cache dtype a run "
+            f"{lay['by_cache_dtype']}; launches per run {runs[0][1]}; "
             f"peak_mem_GB={peak}")
         for k, v in runs[0][1].items():
             counts[k] = counts.get(k, 0) + v
     if dev.type == "cuda":
         log(f"{tag} nvidia-smi: {smi_line()}")
     tokens = [lay["tokens"] for lay in layouts]
-    del params, model, full, layouts, refs
+    del params, model, full, fulls, layouts, refs
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return dict(counts=counts, tokens=tokens)
+    return dict(counts=counts, tokens=tokens, by_cache_dtype=by_dtype)
 
 
 def phase_pp_parity(dev) -> None:
@@ -4349,8 +4543,186 @@ def phase_cluster(seed: int) -> None:
 
 
 # serving paths with a driver of their own (the rest run ``phase_path``)
+# -- fp8 KV caches in build_step's serve step (path ``kv_fp8``) --------------------
+KV_FP8_ROWS, KV_FP8_PROMPT, KV_FP8_STEPS = 8, 1024, 32
+KV_FP8_FORMATS = (None, "float8_e4m3fn", "float8_e5m2")   # None: bf16
+# the first step on an fp8 cache against the bf16 serve step on a bf16
+# cache holding the fp8 cache's values upcast: the two differ only where
+# each layer's new K/V, which the token then attends, is rounded to fp8.
+# Limit: the format's unit roundoff, 2^-(mantissa bits + 1), of max
+# |logit| (2e-2 does not hold at this random-weight depth: float8_e4m3fn
+# reads 2.262e-2 on an H100 80GB HBM3, PERF.md section 6)
+KV_FP8_REL = {"float8_e4m3fn": 2.0 ** -4, "float8_e5m2": 2.0 ** -3}
+
+
+def _kv_bytes_of(cache: dict) -> int:
+    return sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v"))
+
+
+def phase_kv_fp8_path(dev, path: str, depth: int, seed: int,
+                      rehearsal: bool, repeats: int,
+                      profile_dir: Path | None = None) -> dict:
+    """fp8 KV caches (``kv_cache_dtype``) in ``build_step``'s serve step:
+    main's widths at ``depth`` layers, bf16, random weights, on a (1, 1)
+    mesh in this process; 8 rows of one 1024-token prompt through the
+    prefill step (cache S ``MAX_LEN``), stored by each serve step's
+    ``store_cache``, then ``KV_FP8_STEPS`` greedy serve steps on a bf16,
+    a float8_e4m3fn and a float8_e5m2 cache, in turns (``repeats`` timed
+    runs after an untimed gate run, each from a fresh copy of the
+    prefill's cache). Gates: each run launches ``decode_attention``
+    exactly layers x steps times, every one on the run's cache dtype; the
+    first step's logits on an fp8 cache lie within ``KV_FP8_REL`` (the
+    format's unit roundoff) of max |logit| of the bf16 serve step on a
+    bf16 cache holding the fp8 values upcast; the fp8 cache's K/V bytes
+    are exactly half the bf16 one's. Printed, not gated: step wall median,
+    tok/s, device busy, peak GB, the first step whose greedy tokens leave
+    the bf16 run's and the largest logit distance over the steps."""
+    arch, _, required = PATHS[path]
+    tag = f"[{path}]"
+    if rehearsal:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="bfloat16")
+        rows, prompt_len, steps, s_max = KV_FP8_ROWS, 6, 4, 16
+    else:
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+        rows, prompt_len, steps, s_max = (KV_FP8_ROWS, KV_FP8_PROMPT,
+                                          KV_FP8_STEPS, MAX_LEN)
+    mesh = mesh_for_rank((1, 1), ("data", "model"), 0)
+    pre = build_step(cfg, ShapeSpec(path, s_max, rows, "prefill_step"), mesh,
+                     device=dev)
+    srv = {fmt: build_step(cfg, ShapeSpec(path, s_max, rows, "serve_step"),
+                           mesh, kv_cache_dtype=fmt, device=dev)
+           for fmt in KV_FP8_FORMATS}
+    params = pre.init_params(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, (rows, prompt_len), generator=gen,
+                           device=dev)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        tok, full = pre.fn(params, {"tokens": prompt})
+    first = tok.reshape(rows, 1)
+    _sync(dev)
+    counts = ops.launch_counts()
+    if dev.type == "cuda" and counts["flash_attention"] != cfg.n_layers:
+        raise SystemExit(f"chip_smoke: {path}'s prefill step launched "
+                         f"{counts} (flash_attention: one a layer)")
+    log(f"{tag} {cfg.name} widths, {cfg.n_layers} of "
+        f"{get_config(arch).n_layers} layers, {cfg.dtype}; build_step on a "
+        f"(1, 1) mesh; {rows} rows of a {prompt_len}-token prompt through "
+        f"the prefill step, cache S={s_max}; {steps} serve steps a run on "
+        f"{[f or 'bfloat16' for f in KV_FP8_FORMATS]} caches in turns; "
+        f"the prefill step's launches {counts}")
+
+    def fresh(fmt) -> dict:
+        return srv[fmt].store_cache({k: v.clone() for k, v in full.items()})
+
+    # gate: the first step on an fp8 cache against the bf16 step on its
+    # values upcast
+    nbytes = {None: _kv_bytes_of(fresh(None))}
+    with torch.no_grad():
+        for fmt in KV_FP8_FORMATS[1:]:
+            c8 = fresh(fmt)
+            nbytes[fmt] = _kv_bytes_of(c8)
+            c16 = {k: v.to(pre.model.dtype) if k in ("k", "v") else v.clone()
+                   for k, v in c8.items()}
+            srv[fmt].fn(params, c8, first)
+            srv[None].fn(params, c16, first)
+            l8 = srv[fmt].last_logits.float()
+            l16 = srv[None].last_logits.float()
+            rel = ((l8 - l16).abs().max() / l16.abs().max()).item()
+            half = nbytes[fmt] * 2 == nbytes[None]
+            log(f"{tag} {fmt}: first step's logits from the bf16 step on "
+                f"the fp8 values upcast {rel:.3e} of max |logit| (limit "
+                f"{KV_FP8_REL[fmt]:g}); K/V bytes {nbytes[fmt]:,} vs bf16 "
+                f"{nbytes[None]:,}, exactly half: {half}")
+            if not (rel <= KV_FP8_REL[fmt] and half):
+                raise SystemExit(f"chip_smoke: the {fmt} serve step fails "
+                                 f"its first-step or bytes gate")
+            del c8, c16
+
+    def run(fmt, keep: bool = False) -> dict:
+        cache = fresh(fmt)
+        cur, toks, logits = first, [], []
+        ops.reset_launch_counts()
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(steps):
+                cur, cache = srv[fmt].fn(params, cache, cur)
+                toks.append(cur)
+                if keep:
+                    logits.append(srv[fmt].last_logits.float())
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else None)
+        return dict(wall=wall, counts=ops.launch_counts(),
+                    by_dtype=ops.decode_launches_by_cache_dtype(),
+                    tokens=torch.cat(toks, 1), logits=logits, peak=peak)
+
+    want = cfg.n_layers * steps
+    gate = {fmt: run(fmt, keep=True) for fmt in KV_FP8_FORMATS}
+    runs = {fmt: [] for fmt in KV_FP8_FORMATS}
+    for r in range(repeats):
+        for fmt in (KV_FP8_FORMATS if r % 2 == 0 else KV_FP8_FORMATS[::-1]):
+            runs[fmt].append(run(fmt))
+    base = gate[None]
+    by_dtype: dict = {}
+    for fmt in KV_FP8_FORMATS:
+        name = fmt or "bfloat16"
+        r0 = runs[fmt][0] if runs[fmt] else gate[fmt]
+        ok = (r0["counts"]["decode_attention"] == want
+              and r0["by_dtype"] == {name: want})
+        if dev.type == "cuda" and not ok:
+            raise SystemExit(f"chip_smoke: {path} {name}: decode_attention "
+                             f"launched {r0['by_dtype']}, not {want} on "
+                             f"{name}")
+        for k, v in r0["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+        for k, v in r0["by_dtype"].items():
+            by_dtype[k] = by_dtype.get(k, 0) + v
+        walls = sorted(r["wall"] / steps for r in runs[fmt]) or [
+            gate[fmt]["wall"] / steps]
+        per_step = float(np.median(walls))
+        g = gate[fmt]
+        same = (g["tokens"] == base["tokens"]).all(dim=0)
+        leave = (int((~same).nonzero()[0, 0]) if not bool(same.all())
+                 else None)
+        dist = [((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(g["logits"], base["logits"])]
+        busy = peak = "not measured (CPU)"
+        if dev.type == "cuda":
+            peak = f"{max(r['peak'] for r in runs[fmt] or [g]):.3f}"
+            busy_s, wall_s = _busy_s(lambda fmt=fmt: run(fmt), dev)
+            busy = (f"{busy_s / (per_step * steps):.3f} ({busy_s:.4f} s of "
+                    f"device time in a run; profiled run's wall "
+                    f"{wall_s:.3f} s)")
+        log(f"{tag} {name}: step_wall_s median={per_step:.5f} min="
+            f"{walls[0]:.5f} max={walls[-1]:.5f} over {len(walls)} runs of "
+            f"{steps} steps (formats in turns); out_tok_per_s="
+            f"{rows / per_step:.2f}; device_busy_share={busy}; peak_mem_GB="
+            f"{peak}; K/V bytes {nbytes[fmt]:,}; decode_attention by cache "
+            f"dtype a run {r0['by_dtype']}; launches a run {r0['counts']}")
+        if fmt is not None:
+            log(f"{tag} {name}: greedy tokens leave the bf16 run's at step "
+                f"{leave} of {steps}; largest logit distance from the bf16 "
+                f"run over the steps {max(dist):.3e} of max |logit| (before "
+                f"the tokens leave: "
+                f"{max(dist[:leave + 1] if leave is not None else dist):.3e})")
+    if dev.type == "cuda":
+        log(f"{tag} nvidia-smi: {smi_line()}")
+    tokens = {f or "bfloat16": gate[f]["tokens"].tolist()
+              for f in KV_FP8_FORMATS}
+    del params, full, gate, runs, pre, srv
+    _free(dev)
+    return dict(counts=counts, tokens=tokens, by_cache_dtype=by_dtype)
+
+
 PATH_PHASE = {"server": phase_server_path, "pp": phase_pp_path,
-              "tp": phase_tp_path, "tp_families": phase_tp_families}
+              "tp": phase_tp_path, "tp_families": phase_tp_families,
+              "kv_fp8": phase_kv_fp8_path}
 
 
 def check_paths(res: dict) -> None:
@@ -4771,11 +5143,14 @@ def main(argv=None) -> int:
         phase_cluster(args.seed)
         done("cluster")
     res = {}
+    by_dtype = {}
     for p in paths:
         res[p] = PATH_PHASE.get(p, phase_path)(
             dev, p, depth[p], args.seed, rehearsal=False,
             repeats=args.repeats, profile_dir=args.profile)
         counts[p] = res[p]["counts"]
+        if res[p].get("by_cache_dtype"):
+            by_dtype[p] = res[p]["by_cache_dtype"]
         done(p)
     check_paths(res)
     for case in TRAIN_CASES:
@@ -4791,10 +5166,15 @@ def main(argv=None) -> int:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()
                                  if c[r["name"]]}
         r["launches"] = sum(r["launches_by_path"].values())
+        if r["name"] == "decode_attention":
+            # the paths that count the contiguous kernel's launches by the
+            # cache's dtype (kv_fp8, pp): the fp8 reads of the main path
+            r["launches_by_cache_dtype"] = by_dtype
     keys = ["name", "route", "source", "replaces", "launches",
-            "launches_by_path", "max_abs_err", "ms", "device_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "library_device_ms",
-            "shape", "timed_shapes", "host_us", "fwd_lse", "fwd_states"]
+            "launches_by_path", "launches_by_cache_dtype", "max_abs_err",
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_device_ms", "shape", "timed_shapes",
+            "fp8_shapes", "host_us", "fwd_lse", "fwd_states"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows]}))
     print(smi_line())

@@ -48,7 +48,7 @@ SIGNATURES: Dict[str, List] = {
     "rt_decode_attention_paged":
         [_P] * 8 + [_I] * 9 + [_F, _I, _P],
     "rt_decode_attention":
-        [_P] * 7 + [_I] * 8 + [_F, _I, _P],
+        [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
     "rt_chunk_attention_paged":
         [_P, _P, _P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P],
     "rt_chunk_attention":
@@ -193,6 +193,9 @@ def check(rc: int, name: str) -> None:
 # the attention kernels' head dims (80: zamba2; 120: h2o-danube-3-4b)
 HEAD_DIMS = (16, 32, 64, 80, 120, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+# fp8 K/V caches (the reference's kv_cache_dtype) and their code in
+# rt_decode_attention's kv_fmt (0: the cache has q's dtype)
+KV_FORMATS = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
 
 
 def expect(cond: bool, what: str) -> None:
@@ -202,14 +205,24 @@ def expect(cond: bool, what: str) -> None:
 
 
 def expect_attention(name: str, q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> None:
+                     v: torch.Tensor, fp8_kv: bool = False) -> None:
     """q (B, Sq, nh, d) against K/V (rows, ..., nkv, d) the kernels take:
-    one dtype of fp32 / bf16, a supported head dim, nh a multiple of nkv."""
+    one dtype of fp32 / bf16, a supported head dim, nh a multiple of nkv;
+    with ``fp8_kv`` (the contiguous decode kernel) also K/V of one fp8
+    dtype under fp32 or bf16 queries."""
     ok = (q.ndim == 4 and k.ndim == 4 and v.shape == k.shape
           and k.shape[3] == q.shape[3] and q.shape[3] in HEAD_DIMS
           and q.shape[2] % k.shape[2] == 0)
     expect(ok, f"{name}: unsupported shapes q={tuple(q.shape)} "
                f"k/v={tuple(k.shape)}")
+    if k.dtype in KV_FORMATS:
+        expect(fp8_kv, f"{name}: an fp8 K/V cache ({k.dtype}) is read by "
+                       f"the contiguous decode kernel (decode_attention) "
+                       f"only")
+        expect(q.dtype in DTYPES and v.dtype == k.dtype,
+               f"{name}: q must be fp32 or bf16 and k, v share one fp8 "
+               f"dtype")
+        return
     expect(q.dtype in DTYPES and k.dtype == q.dtype and v.dtype == q.dtype,
            f"{name}: q, k and v must share fp32 or bf16")
 

@@ -13,10 +13,10 @@
 // grid steps.
 //
 // Numerics match the Pallas kernels and the plain PyTorch oracles: scores
-// in fp32 (bf16 inputs upcast on load), finite masking with -1e30, masked
-// probabilities exactly 0, and the final divide guarded by max(l, 1e-30) so
-// a row that sees nothing (a dead decode row pointing at the trash block)
-// stays finite.
+// in fp32 (bf16 and fp8 inputs upcast on load), finite masking with
+// -1e30, masked probabilities exactly 0, and the final divide guarded by
+// max(l, 1e-30) so a row that sees nothing (a dead decode row pointing at
+// the trash block) stays finite.
 //
 // The policy type P says where row r's query lives, its absolute position,
 // which pool row backs key position t, and the mask rule. It provides:
@@ -56,11 +56,13 @@ __device__ __forceinline__ bool visible(int qp, int t, int causal,
 // combined by a second kernel). kLse: also store each row's log-sum-exp
 // through p.lse_row(r) when it is not null (the flash forward of a
 // training step), in base-2 units, (m + ln l) * log2(e), as the bf16
-// Hopper body stores it; a row that saw no key stores -1e30.
+// Hopper body stores it; a row that saw no key stores -1e30. T is the
+// output's type; the K/V element type KV may differ from it (an fp8 cache
+// under fp32 or bf16 queries, upcast exactly on load).
 template <typename T, int D, bool kPartial = false, bool kLse = false,
-          class P>
-__device__ void attend(const P& p, const T* __restrict__ K,
-                       const T* __restrict__ V) {
+          class P, typename KV>
+__device__ void attend(const P& p, const KV* __restrict__ K,
+                       const KV* __restrict__ V) {
   extern __shared__ float smem[];
   const int rows = p.rows;
   float* sQ = smem;

@@ -16,9 +16,10 @@
 //    most that many splits of whole 64-key tiles, at least `min_keys` keys
 //    each. CTAs past the last split return at once and the combine reads
 //    only the splits used.
-//  * K/V ring: stages<D>() tiles of 64 keys (3 at d = 120, 128, 4 below),
-//    filled by all 128 threads with 16-byte cp.async (zero fill past the
-//    split's end), one commit group per tile, so stages - 1 tiles (68-90 KB
+//  * K/V ring (bf16): stages() tiles of 64 keys (3 at d = 120, 128, 4
+//    below), filled by all 128 threads with 16-byte cp.async (zero fill
+//    past the split's end), one commit group per tile, so stages - 1 tiles
+//    (68-90 KB
 //    per CTA, two CTAs per SM) are in flight while a tile computes. Rows
 //    are padded by 16 bytes, so ldmatrix's eight rows fall in eight bank
 //    groups at every head dim (16...128).
@@ -40,6 +41,16 @@
 // + 1 entries of one 4-byte table row, so the lookups hit L1 after the
 // first, and staging them in shared memory would need a second barrier
 // per tile, between the lookups and the copies.
+//
+// fp8 caches (contiguous only; float8_e4m3fn or float8_e5m2, no scales,
+// the reference's plain cast): the ring holds fp8 rows, half the bytes a
+// tile, 16-byte cp.async (8-byte at d = 120, whose 120-byte rows are
+// 8-byte aligned only). Once a tile has landed, the CTA converts its K and
+// V to bf16 (exact: every fp8 code is a bf16) into one more K/V tile laid
+// out as the bf16 ring's, and the unchanged tensor-core math reads that.
+// So a launch on an fp8 cache computes bit for bit what a launch on the
+// cache upcast to bf16 computes, over the same splits. Q is never rounded
+// to fp8, and the MMA stays bf16.
 //
 // Numerics as the fp32 body and the plain version: fp32 scores and
 // softmax, masked probabilities exactly 0 (a warp that has seen no key
@@ -67,21 +78,27 @@ template <int D>
 __host__ __device__ constexpr int padded() { return (D + 15) / 16 * 16; }
 template <int D>
 __host__ __device__ constexpr int row_bytes() { return padded<D>() * 2 + 16; }
-template <int D>
+// K/V ring stages: bf16 rows, or fp8 rows (half the bytes, beside one
+// bf16 conversion tile), two CTAs an SM either way
+template <int D, class KV>
 __host__ __device__ constexpr int stages() {
-  return padded<D>() >= 128 ? 3 : 4;
+  return sizeof(KV) == 1 ? (padded<D>() >= 128 ? 4 : 6)
+                         : (padded<D>() >= 128 ? 3 : 4);
 }
-template <int D>
+template <int D, class KV>
 __host__ __device__ constexpr size_t smem_bytes() {
-  const size_t ring = (size_t)stages<D>() * 2 * kKT * row_bytes<D>();
+  const size_t tile = (size_t)2 * kKT * row_bytes<D>();   // bf16 K and V
+  const size_t ring = sizeof(KV) == 1
+      ? (size_t)stages<D, KV>() * 2 * kKT * D + tile
+      : (size_t)stages<D, KV>() * tile;
   const size_t merge = (size_t)kWarps * kMaxG * (D + 2) * sizeof(float);
   return ring > merge ? ring : merge;
 }
 
 struct Args {
   const __nv_bfloat16* q;   // (B, 1, nh, D)
-  const __nv_bfloat16* k;   // contiguous (B, S, nkv, D) or pool (n_blocks,
-  const __nv_bfloat16* v;   // bs, nkv, D)
+  const void* k;            // contiguous (B, S, nkv, D) or pool (n_blocks,
+  const void* v;            // bs, nkv, D); bf16, or fp8 (contiguous)
   const int* pos;           // (B,)
   __nv_bfloat16* out;       // (B, 1, nh, D)
   float* part_acc;          // (B, nh, nsplit, D) unnormalised partials
@@ -131,14 +148,24 @@ struct PagedKeys {
   }
 };
 
-template <int D, class Keys>
+// KV: the cache's element type, __nv_bfloat16 or (contiguous) an fp8 type
+template <int D, class Keys, class KV = __nv_bfloat16>
 __device__ __forceinline__ void split_body(const Args& a) {
-  constexpr int NS = stages<D>(), RB = row_bytes<D>(), NP = D / 8;
+  constexpr bool kF8 = sizeof(KV) == 1;
+  constexpr int NS = stages<D, KV>(), RB = row_bytes<D>(), NP = D / 8;
   constexpr int KS = padded<D>() / 16;        // k16 steps of Q K^T
   constexpr bool kHalf = D % 16 != 0;         // the last step is half real
-  constexpr uint32_t kTileB = kKT * RB;       // one K or V tile, bytes
+  constexpr uint32_t kTileB = kKT * RB;       // one bf16 K or V tile, bytes
+  // fp8: ring tiles of kKT unpadded D-byte rows, copied in pieces of PB
+  constexpr int PB = D % 16 == 0 ? 16 : 8;
+  constexpr uint32_t kTile8 = kKT * D;
   extern __shared__ __align__(16) uint8_t dec_smem[];
   const uint32_t sbase = smem_u32(dec_smem);
+  // the tile the math reads: the bf16 ring's stage, or the fp8 path's
+  // conversion tile after the fp8 ring
+  const uint32_t conv = sbase + NS * 2 * kTile8;
+  const KV* kp = static_cast<const KV*>(a.k);
+  const KV* vp = static_cast<const KV*>(a.v);
   const int sp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid % 32, w = tid / 32, g = a.g;
   int lo, hi, len, used;
@@ -150,15 +177,57 @@ __device__ __forceinline__ void split_body(const Args& a) {
 
   auto load = [&](int i) {
     const int t0 = kv_lo + i * kKT;
-    const uint32_t sk = sbase + (i % NS) * 2 * kTileB, sv = sk + kTileB;
+    if constexpr (kF8) {
+      const uint32_t sk = sbase + (i % NS) * 2 * kTile8, sv = sk + kTile8;
 #pragma unroll 4
-    for (int idx = tid; idx < kKT * NP; idx += kThreads) {
-      const int kl = idx / NP, piece = idx % NP;
-      const bool ok = t0 + kl < kv_hi;
-      const long long off = ok ? keys.offset(t0 + kl) + piece * 8 : 0;
-      const uint32_t o = kl * RB + piece * 16;
-      cp_async16(sk + o, a.k + off, ok ? 16 : 0);
-      cp_async16(sv + o, a.v + off, ok ? 16 : 0);
+      for (int idx = tid; idx < kKT * (D / PB); idx += kThreads) {
+        const int kl = idx / (D / PB), piece = idx % (D / PB);
+        const bool ok = t0 + kl < kv_hi;
+        const long long off = ok ? keys.offset(t0 + kl) + piece * PB : 0;
+        const uint32_t o = kl * D + piece * PB;
+        if constexpr (PB == 16) {
+          cp_async16(sk + o, kp + off, ok ? 16 : 0);
+          cp_async16(sv + o, vp + off, ok ? 16 : 0);
+        } else {
+          cp_async8(sk + o, kp + off, ok ? 8 : 0);
+          cp_async8(sv + o, vp + off, ok ? 8 : 0);
+        }
+      }
+    } else {
+      const uint32_t sk = sbase + (i % NS) * 2 * kTileB, sv = sk + kTileB;
+#pragma unroll 4
+      for (int idx = tid; idx < kKT * NP; idx += kThreads) {
+        const int kl = idx / NP, piece = idx % NP;
+        const bool ok = t0 + kl < kv_hi;
+        const long long off = ok ? keys.offset(t0 + kl) + piece * 8 : 0;
+        const uint32_t o = kl * RB + piece * 16;
+        cp_async16(sk + o, kp + off, ok ? 16 : 0);
+        cp_async16(sv + o, vp + off, ok ? 16 : 0);
+      }
+    }
+  };
+  // fp8: stage i % NS's K and V tiles to bf16 in the conversion tile, 8
+  // codes a thread an iteration (rows past the split's end were zero
+  // filled, so they convert to zeros, as the bf16 ring holds them)
+  auto convert = [&](int i) {
+    if constexpr (kF8) {
+      const uint8_t* src = dec_smem + (i % NS) * 2 * kTile8;
+      uint8_t* dst = dec_smem + NS * 2 * kTile8;
+      constexpr int kPieces = kKT * D / 8;     // 8-code pieces a tile
+#pragma unroll 4
+      for (int idx = tid; idx < 2 * kPieces; idx += kThreads) {
+        const int which = idx / kPieces, rem = idx % kPieces;
+        const int row = rem / (D / 8), piece = rem % (D / 8);
+        const uint2 c = *reinterpret_cast<const uint2*>(
+            src + which * kTile8 + row * D + piece * 8);
+        uint4 out;
+        out.x = f8x2_to_bf16x2<KV>(c.x);
+        out.y = f8x2_to_bf16x2<KV>(c.x >> 16);
+        out.z = f8x2_to_bf16x2<KV>(c.y);
+        out.w = f8x2_to_bf16x2<KV>(c.y >> 16);
+        *reinterpret_cast<uint4*>(dst + which * kTileB + row * RB
+                                  + piece * 16) = out;
+      }
     }
   };
 #pragma unroll
@@ -203,9 +272,14 @@ __device__ __forceinline__ void split_body(const Args& a) {
     __syncthreads();                // tile i landed; stage (i - 1) % NS free
     if (i + NS - 1 < n_tiles) load(i + NS - 1);
     cp_async_commit();
+    if constexpr (kF8) {
+      convert(i);                   // the previous tile's readers are done
+      __syncthreads();
+    }
     const int t0 = kv_lo + i * kKT + 16 * w;  // this warp's first key
     if (t0 >= kv_hi) continue;
-    const uint32_t sk = sbase + (i % NS) * 2 * kTileB, sv = sk + kTileB;
+    const uint32_t sk = kF8 ? conv : sbase + (i % NS) * 2 * kTileB;
+    const uint32_t sv = sk + kTileB;
 
     // S = Q K^T: 16 rows x 16 keys
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};

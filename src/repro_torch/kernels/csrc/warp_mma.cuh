@@ -1,5 +1,5 @@
 // Warp-level building blocks shared by the port's tensor-core kernels:
-// 16- and 4-byte cp.async copies, a swizzled row layout, ldmatrix,
+// 16-, 8- and 4-byte cp.async copies, a swizzled row layout, ldmatrix,
 // mma.sync m16n8k16 (bf16 in) and m16n8k8 (tf32 in), both with fp32
 // accumulators, bf16 packing and exp2. The bf16 decode body
 // (decode_sm90.cuh), the SSD scan (ssd_sm90.cuh) and its backward
@@ -32,6 +32,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// 8-byte cp.async (an fp8 K/V row of 120 bytes is 8-byte aligned only);
+// src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 

@@ -8,10 +8,14 @@ contiguous ``(B, S, nkv, d)`` cache. Both kernels live in
 ``csrc/decode_attention.cu``, whose header note says what bounds them on the
 card and what the design does about that; bf16 decode of either layout with
 up to 16 query heads per KV head runs the tensor-core body of
-``csrc/decode_sm90.cuh``. ``kernels/ops.py`` routes a CUDA tensor here and a
-CPU tensor to the plain versions. With ``probe=True`` the paged wrapper
-and its plain version also return the KV sanitizer's (B, nh) probe
-(``kernels/kv_probe.py``), as the Pallas kernel does.
+``csrc/decode_sm90.cuh``. The contiguous kernel also reads an fp8 cache
+(``float8_e4m3fn`` / ``float8_e5m2``, the reference's ``kv_cache_dtype``)
+as it is stored, upcast exactly on load, and counts its launches by the
+cache's dtype (``launches_by_cache_dtype``). ``kernels/ops.py`` routes a
+CUDA tensor here and a CPU tensor to the plain versions. With
+``probe=True`` the paged wrapper and its plain version also return the KV
+sanitizer's (B, nh) probe (``kernels/kv_probe.py``), as the Pallas kernel
+does.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -34,6 +38,9 @@ REPLACES = {
 
 # kernel launches per kernel (plain-version calls excluded)
 launch_counts = {name: 0 for name in REPLACES}
+# decode_attention's launches by the cache's dtype ("bfloat16",
+# "float8_e4m3fn", ...)
+launches_by_cache_dtype: Dict[str, int] = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,10 +61,10 @@ def _plan(b: int, nh: int, nkv: int, keys: int, window: int, bf16: bool,
 
 
 def _check_q(name: str, q: torch.Tensor, cache_k: torch.Tensor,
-             cache_v: torch.Tensor) -> None:
+             cache_v: torch.Tensor, fp8_kv: bool = False) -> None:
     _build.expect(q.ndim == 4 and q.shape[1] == 1, f"{name}: q must be "
                   f"(B,1,nh,d), got {tuple(q.shape)}")
-    _build.expect_attention(name, q, cache_k, cache_v)
+    _build.expect_attention(name, q, cache_k, cache_v, fp8_kv=fp8_kv)
 
 
 def _partials(q: torch.Tensor, nkv: int, keys: int,
@@ -143,18 +150,23 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: Union[int, torch.Tensor],
                      window: Optional[int] = None) -> torch.Tensor:
     """Kernel launch. q: (B,1,nh,d); cache_k/v: (B, S, nkv, d) contiguous,
-    any S; pos scalar or (B,), position of the current (already written)
-    token; a row whose pos is past the cache end reads the whole cache.
-    CUDA tensors only."""
+    any S, in q's dtype or one fp8 dtype (read as stored, upcast exactly
+    on load); pos scalar or (B,), position of the current (already
+    written) token; a row whose pos is past the cache end reads the whole
+    cache. CUDA tensors only."""
     name = "decode_attention"
     _build.refuse_grad(name, q, cache_k, cache_v, missing=_build.SERVING)
     _build.require_cuda(name, q, cache_k, cache_v)
-    _check_q(name, q, cache_k, cache_v)
+    _check_q(name, q, cache_k, cache_v, fp8_kv=True)
     b, _, nh, d = q.shape
     _, s, nkv, _ = cache_k.shape
     _build.expect(cache_k.shape[0] == b and b * s < 2 ** 31,
                   f"{name}: cache {tuple(cache_k.shape)} for q batch {b} "
                   f"(batch must match; B * S rows must fit an int32)")
+    # the kernel copies K/V rows in 16-byte pieces (8 at an fp8 d of 120)
+    _build.expect(cache_k.data_ptr() % 16 == 0
+                  and cache_v.data_ptr() % 16 == 0,
+                  f"{name}: K/V must start 16-byte aligned")
     pos = _build.row_vector(pos, b, q.device)
     out = torch.empty_like(q)
     if b == 0:
@@ -165,7 +177,10 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(),
         out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, nh, nkv,
         d, s, window or 0, split, nsplit, 1.0 / math.sqrt(d),
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+        int(q.dtype == torch.bfloat16),
+        _build.KV_FORMATS.get(cache_k.dtype, 0), _build.stream_ptr(q.device))
     _build.check(rc, name)
     launch_counts[name] += 1
+    key = str(cache_k.dtype).removeprefix("torch.")
+    launches_by_cache_dtype[key] = launches_by_cache_dtype.get(key, 0) + 1
     return out

@@ -130,6 +130,13 @@ def launch_counts() -> Dict[str, int]:
     return {n: m.launch_counts[n] for n, m in KERNEL_MODULES.items()}
 
 
+def decode_launches_by_cache_dtype() -> Dict[str, int]:
+    """``decode_attention``'s launches by the cache's dtype since the last
+    reset (an fp8 serve step's reads of its fp8 cache)."""
+    return dict(_da.launches_by_cache_dtype)
+
+
 def reset_launch_counts() -> None:
     for n, m in KERNEL_MODULES.items():
         m.launch_counts[n] = 0
+    _da.launches_by_cache_dtype.clear()

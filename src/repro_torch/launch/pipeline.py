@@ -25,7 +25,11 @@ is ``.to(devices[s + 1], non_blocking=True)`` (a no-op on one card). With
 stages on separate cards (``place_pp``), CUDA's asynchrony overlaps them.
 
 Supported families: dense / moe / vlm decode on full-attention caches (no
-sliding window, no encoder-decoder), as in the reference.
+sliding window, no encoder-decoder), as in the reference. With
+``kv_cache_dtype`` the K/V cache is fp8 (``float8_e4m3fn`` /
+``float8_e5m2``), as the reference's PP step keeps it: each layer writes
+its token through ``common.astype`` and the contiguous decode kernel
+reads the fp8 cache as stored.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.common import FP8_DTYPES
 from repro_torch.models.transformer import LM
 
 
@@ -170,15 +175,12 @@ def build_pp_serve_step(cfg: ArchConfig, shape: ShapeSpec, n_stages: int, *,
     next greedy tokens (b, 1) int32, ``cache``) for the ``pack_pp_params``
     tree and the PP cache; it writes each stage's K/V in place and
     advances ``cache["pos"]`` (the reference's scalar) by one. ``meta``
-    holds ``pp_split``, ``n_microbatches``, ``devices`` and ``model``, the
-    ``LM`` whose ``logits`` the last stage calls. ``devices`` defaults to
-    the card, once per stage; without a card the build raises unless the
+    holds ``pp_split``, ``n_microbatches``, ``devices``, ``model``, the
+    ``LM`` whose ``logits`` the last stage calls, and ``kv_dtype``, the K/V
+    cache's dtype (``kv_cache_dtype``'s fp8 dtype, else the model's); the
+    step raises on a cache of another dtype. ``devices`` defaults to the
+    card, once per stage; without a card the build raises unless the
     caller passes CPU devices."""
-    if kv_cache_dtype is not None:
-        raise NotImplementedError(
-            f"kv_cache_dtype={kv_cache_dtype!r}: fp8 KV caches on the PP "
-            f"step are not ported (ROADMAP A9); the contiguous decode "
-            f"kernel takes bf16 / fp32 caches")
     if not pp_supported(cfg):
         raise ValueError(f"PP serve unsupported for {cfg.name}")
     split = pp_layer_split(cfg, n_stages, pod_flops=pod_flops,
@@ -192,11 +194,16 @@ def build_pp_serve_step(cfg: ArchConfig, shape: ShapeSpec, n_stages: int, *,
     if len(devs) != n_stages:
         raise ValueError(f"{len(devs)} devices for {n_stages} stages")
     model = LM(cfg, device=devs[-1])
+    kv_dt = FP8_DTYPES[kv_cache_dtype] if kv_cache_dtype else model.dtype
     last = n_stages - 1
 
     def serve_step(params: Dict, cache: Dict, tokens: torch.Tensor
                    ) -> Tuple[torch.Tensor, Dict]:
         ck, cv = cache["k"], cache["v"]
+        for got in {t.dtype for t in (*ck, *cv)}:
+            if got != kv_dt:
+                raise ValueError(f"PP serve_step: a {got} K/V cache, the "
+                                 f"step was built for {kv_dt}")
         # each stage's own layers, padded ones left out
         stage_p = [[_tree_map(params["layers"], lambda a: a[s][j])
                     for j in range(split[s])] for s in range(n_stages)]
@@ -228,5 +235,5 @@ def build_pp_serve_step(cfg: ArchConfig, shape: ShapeSpec, n_stages: int, *,
         return nxt.reshape(b, 1), cache
 
     meta = {"pp_split": split, "n_microbatches": m, "devices": devs,
-            "model": model}
+            "model": model, "kv_dtype": kv_dt}
     return serve_step, meta

@@ -25,10 +25,20 @@ query heads read: the same function in another memory layout.
 Every family runs: dense, VLM, MoE, the SSM and hybrid (the Mamba2 mixer
 split by whole SSD heads) and the encoder-decoder. Not ported, each
 raising ``NotImplementedError`` with its ROADMAP item: ``train_step``
-(A9.4), ``serve_pp`` on a mesh with ``pod`` (A9.2) and ``kv_cache_dtype``
-(A9.3). ``lower_step`` belongs to the compile plane (A10) and has no
-counterpart. ``weight_dtype`` reaches the serve step only, as in the
-reference: a prefill step's params stay in the model's dtype.
+(A9.4) and ``serve_pp`` on a mesh with ``pod`` (A9.2). ``lower_step``
+belongs to the compile plane (A10) and has no counterpart.
+``weight_dtype`` and ``kv_cache_dtype`` reach the serve step only, as in
+the reference: a prefill step's params and cache stay in the model's
+dtype.
+
+``kv_cache_dtype`` (``"float8_e4m3fn"`` / ``"float8_e5m2"``) stores the
+serve step's cache in fp8 by the reference's rule (every leaf of the
+model's dtype with five or more dimensions, its ``maybe_q``), written by
+``common.astype`` and read by the contiguous decode kernel as stored.
+``BuiltStep.store_cache`` stores a prefilled cache so. Where the
+reference's serve step cannot run on such a cache, the build refuses,
+naming the reference's failing line: the encoder-decoder, and a model
+whose recurrent state the rule would quantize (fp32 Mamba2 / Zamba2).
 
 ``serve_generate`` is a rank-side runner for ``launch.mesh.run_ranks``: a
 prefill and greedy serve steps, their tokens, logits and cache
@@ -47,7 +57,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.api import build_model, input_specs
+from repro_torch.models.api import TensorSpec, build_model, input_specs
+from repro_torch.models.common import FP8_DTYPES, astype
 from repro_torch.models.transformer import LM
 from repro_torch.sharding import rules as R
 
@@ -85,7 +96,11 @@ def n_chips(mesh: Any) -> int:
     return n
 
 
-F8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+def _quantized(dtype: torch.dtype, ndim: int, model_dtype: torch.dtype
+               ) -> bool:
+    """The reference's ``maybe_q``: a cache leaf ``kv_cache_dtype`` stores
+    in fp8."""
+    return dtype == model_dtype and ndim >= 5
 
 
 @dataclasses.dataclass
@@ -110,9 +125,22 @@ class BuiltStep:
             if isinstance(node, dict):
                 return {k: walk(v) for k, v in node.items()}
             if node.ndim >= 2 and node.dtype == self.model.dtype:
-                return node.to(qdt)
+                return astype(node, qdt)
             return node
         return walk(params)
+
+    def store_cache(self, cache: Dict) -> Dict:
+        """A cache in the model's dtype (a prefill's, or this rank's
+        ``shard_cache``) as the serve step takes it: with
+        ``kv_cache_dtype``, every leaf the reference's rule names cast to
+        it by ``astype`` (its ``maybe_q`` applied to the values), the
+        rest as they are."""
+        kdt = self.meta.get("kv_cache_dtype")
+        if kdt is None:
+            return cache
+        return {k: astype(v, kdt)
+                if _quantized(v.dtype, v.ndim, self.model.dtype) else v
+                for k, v in cache.items()}
 
     def shard_cache(self, full: Dict) -> Dict:
         """This rank's part of a full contiguous cache (its rows, its KV
@@ -148,14 +176,12 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     (the reference's ``build_step`` for its serving cells). ``device``:
     the rank's device (default: the card). ``weight_dtype``
     (``"float8_e4m3fn"`` / ``"float8_e5m2"``) stores a serve step's
-    matrices in fp8, upcast each step; the prefill step ignores it, as
-    the reference's does."""
+    matrices in fp8, upcast each step; ``kv_cache_dtype`` stores its
+    cache in fp8 (module docstring). The prefill step ignores both, as the
+    reference's does."""
     if shape.step == "train_step":
         raise NotImplementedError("train_step over a mesh is not ported "
                                   "(ROADMAP A9.4)")
-    if kv_cache_dtype:
-        raise NotImplementedError("a quantized KV cache (kv_cache_dtype) is "
-                                  "not ported (ROADMAP A9.3)")
     if serve_pp and "pod" in mesh.shape:
         raise NotImplementedError("serve_pp on a mesh with a pod axis "
                                   "(multi-process PP) is not ported "
@@ -203,30 +229,65 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
         return built
 
     # serve_step
-    qdt = F8[weight_dtype] if weight_dtype else None
+    qdt = FP8_DTYPES[weight_dtype] if weight_dtype else None
     meta["weight_dtype"] = qdt
-
-    def serve_step(params, cache, tokens):
-        if qdt is not None:
-            params = _upcast(params, qdt, model.dtype)
-        logits, cache = model.decode_step(params, cache, tokens[rows])
-        built.last_logits = logits
-        nxt = model.sample_greedy(logits).to(torch.int32)
-        return gather_rows(nxt), cache
-
     # this rank's cache layout, read from the meta device
     meta_model = build_model(cfg, device="meta", sharder=sharder,
                              batch_axes=batch_axes)
     kw = {"s_enc": shape.seq_len} if cfg.is_encdec else {"ring": True}
     local_cache = meta_model.init_cache(hi - lo, shape.seq_len, **kw)
+    kdt = _kv_cache_dtype(cfg, kv_cache_dtype, local_cache, model.dtype)
+    meta["kv_cache_dtype"] = kdt
+    cache_dtypes = {k: kdt if kdt is not None and _quantized(
+        v.dtype, v.ndim, model.dtype) else v.dtype
+        for k, v in local_cache.items()}
+
+    def serve_step(params, cache, tokens):
+        if qdt is not None:
+            params = _upcast(params, qdt, model.dtype)
+        for k, v in cache.items():
+            if v.dtype != cache_dtypes.get(k, v.dtype):
+                raise ValueError(f"serve_step: cache[{k!r}] is {v.dtype}, "
+                                 f"the step was built for "
+                                 f"{cache_dtypes[k]} (BuiltStep."
+                                 f"store_cache stores a prefilled cache)")
+        logits, cache = model.decode_step(params, cache, tokens[rows])
+        built.last_logits = logits
+        nxt = model.sample_greedy(logits).to(torch.int32)
+        return gather_rows(nxt), cache
+
+    cache_specs = {k: TensorSpec(v.shape, cache_dtypes[k])
+                   for k, v in specs["cache"].items()}
     built = BuiltStep(
-        fn=serve_step, args_shapes=(model.param_shapes(), specs["cache"],
+        fn=serve_step, args_shapes=(model.param_shapes(), cache_specs,
                                     specs["tokens"]),
         in_shardings=(pshapes, {k: tuple(v.shape)
                                 for k, v in local_cache.items()},
                       specs["tokens"].shape),
         meta=meta)
     return built
+
+
+def _kv_cache_dtype(cfg: ArchConfig, name: Optional[str], cache: Dict,
+                    model_dtype: torch.dtype) -> Optional[torch.dtype]:
+    """The fp8 dtype ``kv_cache_dtype`` names, or None; refuses where the
+    reference's serve step cannot run on the cache its rule quantizes."""
+    if not name:
+        return None
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"kv_cache_dtype={name!r} on the encoder-decoder {cfg.name}: "
+            f"the reference's serve step fails there (its cross-attention "
+            f"runs sdpa on the fp8 ck / cv, src/repro/models/encdec.py:333, "
+            f"TypePromotionError)")
+    if "ssd" in cache and _quantized(cache["ssd"].dtype, cache["ssd"].ndim,
+                                     model_dtype):
+        raise NotImplementedError(
+            f"kv_cache_dtype={name!r} on {cfg.name} in {cfg.dtype}: the "
+            f"reference's rule quantizes the fp32 SSD state, and its serve "
+            f"step fails on it (src/repro/models/ssm.py:143, "
+            f"TypePromotionError)")
+    return FP8_DTYPES[name]
 
 
 def _upcast(params: Dict, qdt: torch.dtype, dtype: torch.dtype) -> Dict:
@@ -240,15 +301,17 @@ def _upcast(params: Dict, qdt: torch.dtype, dtype: torch.dtype) -> Dict:
 # ---------------------------------------------------------------------------
 def serving_steps(mesh: Any, device: torch.device, cfg: ArchConfig,
                   batch: int, max_len: int, params: Optional[Dict] = None,
-                  seed: int = 0) -> Tuple[BuiltStep, BuiltStep, Dict]:
+                  seed: int = 0, kv_cache_dtype: Optional[str] = None
+                  ) -> Tuple[BuiltStep, BuiltStep, Dict]:
     """This rank's prefill and serve steps for ``batch`` rows and a cache
-    of ``max_len`` positions, and its local params: the full numpy tree
-    ``params`` sharded here, in the model's dtype, else the seeded init."""
+    of ``max_len`` positions (the serve step's in ``kv_cache_dtype``), and
+    its local params: the full numpy tree ``params`` sharded here, in the
+    model's dtype, else the seeded init."""
     from repro_torch.models.convert import _to_tensor
     pre = build_step(cfg, ShapeSpec("prefill", max_len, batch,
                                     "prefill_step"), mesh, device=device)
     srv = build_step(cfg, ShapeSpec("serve", max_len, batch, "serve_step"),
-                     mesh, device=device)
+                     mesh, kv_cache_dtype=kv_cache_dtype, device=device)
     if params is not None:
         dt = pre.model.dtype
         local = pre.shard_params(_tree(
@@ -261,22 +324,27 @@ def serving_steps(mesh: Any, device: torch.device, cfg: ArchConfig,
 def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
                    inputs: Dict[str, np.ndarray], steps: int, max_len: int,
                    params: Optional[Dict] = None, seed: int = 0,
-                   feed: Optional[np.ndarray] = None) -> Dict[str, Any]:
+                   feed: Optional[np.ndarray] = None,
+                   kv_cache_dtype: Optional[str] = None) -> Dict[str, Any]:
     """One rank's prefill of ``inputs`` (numpy, the whole batch) and
     ``steps`` greedy serve steps through ``serving_steps``; with ``feed``
     (B, steps) step i is fed ``feed[:, i]`` instead of the last greedy
-    token. Returns numpy arrays: the greedy ``tokens`` (B, 1 + steps),
-    this rank's ``rows`` (lo, hi), its ``prefill_logits`` (rows, Vpad),
-    ``logits`` (rows, steps, Vpad) and ``cache`` after the last step (every
-    key the family's cache holds), its local head counts (attention and
-    SSD), the kernel ``launches`` (counts zeroed just before the prefill,
-    read after the last step) and the ``allreduce`` calls and bytes of the
+    token; with ``kv_cache_dtype`` the prefilled cache is stored in fp8
+    (``BuiltStep.store_cache``) before the first step. Returns numpy
+    arrays: the greedy ``tokens`` (B, 1 + steps), this rank's ``rows``
+    (lo, hi), its ``prefill_logits`` (rows, Vpad), ``logits`` (rows, steps,
+    Vpad) and ``cache`` after the last step (every key the family's cache
+    holds; bf16 and fp8 leaves as their exact fp32 values), the fp8
+    leaves' raw bytes (``cache_bytes``, uint8), its local head counts
+    (attention and SSD), the kernel ``launches`` (counts zeroed just
+    before the prefill, read after the last step) and ``decode_attention``'s
+    by the cache's dtype, and the ``allreduce`` calls and bytes of the
     serve steps."""
     from repro_torch.kernels import ops
     b = (inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
          ).shape[0]
     pre, srv, local = serving_steps(mesh, device, cfg, b, max_len, params,
-                                    seed)
+                                    seed, kv_cache_dtype)
     x = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
          for k, v in inputs.items()}
     rows = pre.meta["rows"]
@@ -284,6 +352,7 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
     with torch.no_grad():
         ops.reset_launch_counts()
         tok, cache = pre.fn(local, x)
+        cache = srv.store_cache(cache)
         prefill_logits = pre.last_logits.float().cpu().numpy()
         sharder.reset_stats()
         cur = tok.reshape(b, 1)
@@ -299,12 +368,16 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
             "prefill_logits": prefill_logits,
             "logits": torch.cat(logits, 1).cpu().numpy(),
             "tokens": torch.cat(toks, 1).cpu().numpy(),
-            "cache": {k: (v.float() if v.dtype == torch.bfloat16 else v)
+            "cache": {k: (v.float() if v.is_floating_point() else v)
                       .cpu().numpy() for k, v in cache.items()},
+            "cache_bytes": {k: v.view(torch.uint8).cpu().numpy()
+                            for k, v in cache.items()
+                            if v.dtype in FP8_DTYPES.values()},
             "n_heads_local": pre.model.n_heads_local,
             "n_kv_local": pre.model.n_kv_local,
             "ssm_heads_local": pre.model.ssm_heads_local,
             "launches": ops.launch_counts(),
+            "decode_by_cache_dtype": ops.decode_launches_by_cache_dtype(),
             "allreduce": dict(sharder.stats)}
 
 

@@ -17,7 +17,10 @@ the JAX reference carry over exactly:
 
 Cache writes update the pool tensors IN PLACE (the JAX versions return new
 arrays that the engine's donated jit aliases); they return the same
-tensors for symmetry with the reference signatures.
+tensors for symmetry with the reference signatures. A write casts with
+``common.astype``, so an fp8 cache (the reference's ``kv_cache_dtype``)
+holds the bytes the reference's ``astype`` writes; every read upcasts to
+the query's dtype, exactly.
 """
 
 from __future__ import annotations
@@ -27,9 +30,22 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.models.common import FP8_DTYPES, astype
+
 NEG_INF = -1e30
 
 IntLike = Union[int, torch.Tensor]
+_FP8 = tuple(FP8_DTYPES.values())
+
+
+def _put(cache: torch.Tensor, index, val: torch.Tensor) -> None:
+    """``cache[index] = val`` in place, cast by ``astype``; an fp8 cache is
+    written as its bytes (uint8 views), so the indexing kernels need no
+    fp8 dtype."""
+    val = astype(val, cache.dtype)
+    if cache.dtype in _FP8:
+        cache, val = cache.view(torch.uint8), val.view(torch.uint8)
+    cache[index] = val
 
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -151,8 +167,8 @@ def cache_write_token(cache_k: torch.Tensor, cache_v: torch.Tensor,
     rows = torch.arange(k.shape[0], device=k.device)
     slot = torch.clamp(_row_vector(pos, k.shape[0], k.device),
                        max=cache_k.shape[1] - 1)
-    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+    _put(cache_k, (rows, slot), k[:, 0])
+    _put(cache_v, (rows, slot), v[:, 0])
     return cache_k, cache_v
 
 
@@ -165,8 +181,8 @@ def cache_write_token_ring(cache_k: torch.Tensor, cache_v: torch.Tensor,
     pos = _row_vector(pos, k.shape[0], k.device)
     slot = pos % cache_k.shape[1]
     rows = torch.arange(k.shape[0], device=k.device)
-    cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+    _put(cache_k, (rows, slot), k[:, 0])
+    _put(cache_v, (rows, slot), v[:, 0])
     slot_pos[slot] = pos.to(slot_pos.dtype)
 
 
@@ -201,8 +217,8 @@ def cache_write_chunk(cache_k: torch.Tensor, cache_v: torch.Tensor,
     if not 0 <= base <= s - c:
         raise ValueError(f"chunk [{base}, {base + c}) outside a cache of "
                          f"{s} positions")
-    cache_k[:, base:base + c] = k.to(cache_k.dtype)
-    cache_v[:, base:base + c] = v.to(cache_v.dtype)
+    _put(cache_k, (slice(None), slice(base, base + c)), k)
+    _put(cache_v, (slice(None), slice(base, base + c)), v)
     return cache_k, cache_v
 
 
@@ -279,8 +295,8 @@ def cache_write_token_paged(cache_k: torch.Tensor, cache_v: torch.Tensor,
     col = torch.clamp(pos // blk, max=block_tbl.shape[1] - 1)
     dest = torch.gather(block_tbl.long(), 1, col[:, None])[:, 0]   # (B,)
     off = pos % blk
-    cache_k[dest, off] = k[:, 0].to(cache_k.dtype)
-    cache_v[dest, off] = v[:, 0].to(cache_v.dtype)
+    _put(cache_k, (dest, off), k[:, 0])
+    _put(cache_v, (dest, off), v[:, 0])
     return cache_k, cache_v
 
 
@@ -305,8 +321,8 @@ def cache_write_chunk_paged(cache_k: torch.Tensor, cache_v: torch.Tensor,
     if lens is not None:
         dest = torch.where(ar[None, :] < lens.long()[:, None], dest,
                            torch.zeros_like(dest))
-    cache_k[dest, off] = k.to(cache_k.dtype)
-    cache_v[dest, off] = v.to(cache_v.dtype)
+    _put(cache_k, (dest, off), k)
+    _put(cache_v, (dest, off), v)
     return cache_k, cache_v
 
 
@@ -325,5 +341,5 @@ def cache_write_prefill_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
         dest = torch.where(t[None, :] < lens.long()[:, None], dest,
                            torch.zeros_like(dest))
     off = t % blk
-    pool_k[:, dest, off] = k.to(pool_k.dtype)
-    pool_v[:, dest, off] = v.to(pool_v.dtype)
+    _put(pool_k, (slice(None), dest, off), k)
+    _put(pool_v, (slice(None), dest, off), v)

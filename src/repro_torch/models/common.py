@@ -1,6 +1,7 @@
 """Shared model building blocks (port of ``repro/models/common.py``):
-norms, activations, RoPE and M-RoPE, sinusoidal positions, and
-schema-driven parameter initialization.
+norms, activations, RoPE and M-RoPE, sinusoidal positions,
+schema-driven parameter initialization, and ``astype``, the port's one
+cast into an fp8 dtype.
 
 Parameters are nested dicts of tensors with the same names and the same
 ``(d_in, d_out)`` layouts as the JAX package, so ``models/convert.py`` can
@@ -19,6 +20,32 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+
+
+# the fp8 storage dtypes the reference's ``weight_dtype`` and
+# ``kv_cache_dtype`` name
+FP8_DTYPES = {"float8_e4m3fn": torch.float8_e4m3fn,
+              "float8_e5m2": torch.float8_e5m2}
+# float8_e4m3fn has no infinity: 464 is the midpoint between its largest
+# finite value, 448, and the code above it, its NaN, so JAX's cast (round
+# to nearest even) turns anything past +-464 into NaN; torch's saturates
+# to +-448
+E4M3_NAN_PAST = 464.0
+
+
+def astype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to ``dtype`` with the bytes of JAX's ``astype``: torch's
+    cast (the same rounding), except that a ``float8_e4m3fn`` value past
+    +-464, or +-inf, becomes NaN (its sign kept), as the reference stores
+    it, where torch's cast saturates to +-448. Every write of the port into
+    an fp8 tensor (weights, KV caches) goes through it; for any other
+    target it is ``x.to(dtype)``."""
+    y = x.to(dtype)
+    if dtype != torch.float8_e4m3fn or x.dtype == dtype:
+        return y
+    code = y.view(torch.uint8)
+    nan = (code & 0x80) | 0x7F
+    return torch.where(x.abs() > E4M3_NAN_PAST, nan, code).view(dtype)
 
 
 @dataclasses.dataclass(frozen=True)

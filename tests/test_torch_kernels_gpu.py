@@ -1,6 +1,7 @@
 """The port's nine CUDA kernels against their plain PyTorch versions, on
 the card, and the engine and the global server on the card against the
-same on the CPU.
+same on the CPU. The contiguous decode kernel on an fp8 cache is also
+held, bit for bit, to itself on the cache upcast to q's dtype.
 
 Marked ``gpu``: each test asks for the ``cuda`` fixture, which skips when
 there is no card (the check runs inside the fixture, never at import, so
@@ -39,6 +40,7 @@ from repro_torch.kernels import kv_probe as kvp
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import attention as attn
+from repro_torch.models.common import astype
 from repro_torch.serving.kv_blocks import KV_POISON
 
 pytestmark = pytest.mark.gpu
@@ -1086,3 +1088,138 @@ def test_kernel_wrappers_refuse_gradients_on_card(cuda, name):
         call()
     with torch.no_grad():
         call()
+
+
+# -- fp8 KV caches: the contiguous decode kernel --------------------------------
+FP8 = [torch.float8_e4m3fn, torch.float8_e5m2]
+
+
+def _fp8_cache(rng, shape, fp8, dev):
+    """A cache cast by ``astype`` from values of scale 2 with 2% of them
+    at +-448 (float8_e4m3fn's largest) and 2% in both formats' subnormal
+    ranges."""
+    x = rng.randn(*shape).astype(np.float32) * 2
+    flat = x.reshape(-1)
+    idx = rng.permutation(flat.size)[: flat.size // 25]
+    half = len(idx) // 2
+    flat[idx[:half]] = rng.choice([-448.0, 448.0], half)
+    flat[idx[half:]] = rng.uniform(-1, 1, len(idx) - half) * rng.choice(
+        [2.0 ** -7, 2.0 ** -15], len(idx) - half)
+    return astype(torch.from_numpy(x).to(dev), fp8)
+
+
+@pytest.mark.parametrize("fp8", FP8)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 120, 128])
+@pytest.mark.parametrize("nh,nkv,window", [(8, 2, None), (16, 1, 40),
+                                           (32, 1, None)])
+def test_fp8_decode_equals_the_kernel_on_the_upcast_cache(cuda, fp8, dtype,
+                                                          d, nh, nkv,
+                                                          window):
+    """On an fp8 cache the kernel reads the codes as stored and computes,
+    bit for bit, what it computes on the cache upcast to q's dtype (the
+    same body and splits: g = 4 and 16 the bf16 tensor-core body, g = 32
+    the FP32-pipe body); and it lies within tolerance of its plain version
+    (atol scaled by the largest |V|: the cache spans +-448)."""
+    rng = np.random.RandomState(d + nh)
+    b, s = 4, 300
+    q = _rand(rng, (b, 1, nh, d), dtype, cuda)
+    k, v = (_fp8_cache(rng, (b, s, nkv, d), fp8, cuda) for _ in range(2))
+    pos = torch.tensor([0, 131, 257, s], dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    out = da.decode_attention(q, k, v, pos, window=window)
+    up = da.decode_attention(q, k.to(dtype), v.to(dtype), pos, window=window)
+    torch.cuda.synchronize()
+    assert ops.decode_launches_by_cache_dtype() == {
+        str(fp8).removeprefix("torch."): 1,
+        str(dtype).removeprefix("torch."): 1}
+    assert torch.equal(out.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32),
+                       up.view(torch.int16 if dtype == torch.bfloat16
+                               else torch.int32))
+    ref = _ref(da.decode_attention_plain, q, k, v, pos, window=window)
+    tol = _tol(dtype)
+    vmax = v.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol["rtol"],
+                               atol=tol["atol"] * vmax)
+
+
+@pytest.mark.parametrize("fp8", FP8)
+def test_fp8_decode_refuses_other_kernels_and_mixed_dtypes(cuda, fp8):
+    rng = np.random.RandomState(0)
+    q = _rand(rng, (2, 1, 8, 64), torch.bfloat16, cuda)
+    k = _fp8_cache(rng, (2, 64, 2, 64), fp8, cuda)
+    with pytest.raises(ValueError, match="one fp8 dtype"):
+        da.decode_attention(q, k, k.to(torch.bfloat16), 3)
+    pk = k.reshape(8, 16, 2, 64)
+    tbl = torch.arange(1, 5, dtype=torch.int32, device=cuda).reshape(2, 2)
+    with pytest.raises(ValueError, match="contiguous decode kernel"):
+        da.decode_attention_paged(q, pk, pk, tbl, 3)
+
+
+@pytest.mark.parametrize("fp8", FP8)
+def test_fp8_cast_on_the_card_equals_the_cpu(cuda, fp8):
+    """``common.astype`` on CUDA tensors gives the CPU's bytes on every
+    bf16 bit pattern and around the formats' edges in fp32."""
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    x16 = bits.view(torch.bfloat16)
+    edges = torch.tensor([448.0, 464.0, 466.0, 480.0, 57344.0, 61440.0,
+                          2.0 ** -9, 2.0 ** -10, 2.0 ** -16, 2.0 ** -17,
+                          float("inf"), float("nan"), 0.0])
+    x32 = (edges * (1 + torch.linspace(-0.2, 0.2, 4001)[:, None])
+           ).reshape(-1)
+    x32 = torch.cat([x32, -x32])
+    for x in (x16, x32):
+        cpu = astype(x, fp8).view(torch.uint8)
+        card = astype(x.to(cuda), fp8).view(torch.uint8).cpu()
+        assert torch.equal(card, cpu), str(x.dtype)
+
+
+@pytest.mark.parametrize("fmt", ["float8_e4m3fn", "float8_e5m2"])
+def test_fp8_serve_step_on_the_card_equals_the_cpu(cuda, fmt):
+    """``build_step``'s serve step on an fp8 cache, reduced qwen3-32b in
+    fp32, prefill + 4 steps: tokens card == CPU, every decode launch on
+    the fp8 cache, the written fp8 codes at most one apart (the card's K
+    rounds in another summation order and may land across a midpoint)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import mesh_for_rank
+    cfg = get_config("qwen3-32b").reduced()
+    rng = np.random.RandomState(0)
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 9)))
+    mesh = mesh_for_rank((1, 1), ("data", "model"), 0)
+    shapes = (ShapeSpec("p", 24, 4, "prefill_step"),
+              ShapeSpec("d", 24, 4, "serve_step"))
+    base = S.build_step(cfg, shapes[0], mesh, device="cpu").init_params(0)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        pre = S.build_step(cfg, shapes[0], mesh, device=dev)
+        srv = S.build_step(cfg, shapes[1], mesh, kv_cache_dtype=fmt,
+                           device=dev)
+        params = _tree_to(base, dev)
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            tok, cache = pre.fn(params, {"tokens": prompt.to(dev)})
+            cache = srv.store_cache(cache)
+            cur, toks = tok.reshape(4, 1), []
+            for _ in range(4):
+                cur, cache = srv.fn(params, cache, cur)
+                toks.append(cur.cpu())
+        out[dev.type] = (torch.cat(toks, 1), cache["k"].cpu(),
+                         ops.decode_launches_by_cache_dtype())
+    card, host = out["cuda"], out["cpu"]
+    assert torch.equal(card[0], host[0])
+    assert card[2] == {fmt: 4 * cfg.n_layers}
+    assert card[1].dtype == getattr(torch, fmt)
+    a = card[1].view(torch.uint8).numpy().astype(np.int32)
+    b = host[1].view(torch.uint8).numpy().astype(np.int32)
+    order = lambda x: np.where(x & 0x80, -(x & 0x7F), x & 0x7F)  # noqa: E731
+    apart = np.abs(order(a) - order(b))
+    assert apart.max() <= 1 and (apart > 0).mean() < 1e-3
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

@@ -10,8 +10,11 @@ and tokens back through an ``.npz`` per case: dense internlm2-1.8b and the
 vlm qwen2-vl-2b, ``.reduced()``, at 2 stages (even and the uneven split of
 ``pod_flops=[1.0, 0.5]``), at 4 stages, and with fewer rows than two per
 stage (one microbatch). Three ticks from a random cache: tokens identical,
-caches within fp32 2e-5. The reference's PP step does not build for the
-MoE family under this JAX, so granite-moe runs against the reference's
+caches within fp32 2e-5. The fp8 cases (``kv_cache_dtype``) start from
+the random cache cast by the reference's ``astype`` and hand their bytes
+across as ``uint8``: tokens identical, the caches' bytes equal. The
+reference's PP step does not build for the MoE family under this JAX, so
+granite-moe runs against the reference's
 unsplit ``decode_step``, one microbatch at a time (its capacity depends on
 the rows of a call): a PP step only reorganises the same layers.
 """
@@ -50,6 +53,13 @@ CASES = {
     "vlm_2_uneven": ("qwen2-vl-2b", 2, [1.0, 0.5], 8),
     "vlm_4": ("qwen2-vl-2b", 4, None, 8),
 }
+# fp8 K/V caches: case -> (arch, stages, pod_flops, rows, kv_cache_dtype)
+FP8_CASES = {
+    "dense_2_uneven_e4m3": ("internlm2-1.8b", 2, [1.0, 0.5], 8,
+                            "float8_e4m3fn"),
+    "dense_4_e5m2": ("internlm2-1.8b", 4, None, 8, "float8_e5m2"),
+    "vlm_2_uneven_e5m2": ("qwen2-vl-2b", 2, [1.0, 0.5], 8, "float8_e5m2"),
+}
 
 SCRIPT = textwrap.dedent("""
     import os
@@ -75,14 +85,15 @@ SCRIPT = textwrap.dedent("""
             return out
         return {{prefix: np.asarray(tree)}}
 
-    for name, (arch, n, pod_flops, b) in cases.items():
+    for name, (arch, n, pod_flops, b, *kvd) in cases.items():
+        kvd = kvd[0] if kvd else None
         cfg = get_config(arch).reduced()
         shape = ShapeSpec("d", S, b, "serve_step")
         mesh = Mesh(np.array(jax.devices()[:n]).reshape(n, 1, 1),
                     ("pod", "data", "model"))
         rules = build_rules(cfg, mesh, False, "serve_step", shape)
         built = build_pp_serve_step(cfg, shape, mesh, rules,
-                                    pod_flops=pod_flops)
+                                    pod_flops=pod_flops, kv_cache_dtype=kvd)
         params = build_model(cfg, remat=False).init(jax.random.PRNGKey(0))
         packed = pack_pp_params(params, built.meta["pp_split"])
         rng = np.random.RandomState(0)
@@ -92,6 +103,15 @@ SCRIPT = textwrap.dedent("""
         tok0 = rng.randint(0, cfg.vocab, (b, 1)).astype(np.int32)
         cache = {{"k": jnp.asarray(k0), "v": jnp.asarray(v0),
                   "pos": jnp.int32(POS)}}
+        if kvd:                  # fp8: the cast cache, carried as bytes
+            cache["k"] = cache["k"].astype(kvd)
+            cache["v"] = cache["v"].astype(kvd)
+            k0 = np.asarray(cache["k"]).view(np.uint8)
+            v0 = np.asarray(cache["v"]).view(np.uint8)
+
+        def host(x):
+            x = np.asarray(x)
+            return x.view(np.uint8) if kvd else x
         toks, outs = jnp.asarray(tok0), []
         fn = jax.jit(built.fn, in_shardings=built.in_shardings)
         with mesh:
@@ -99,8 +119,8 @@ SCRIPT = textwrap.dedent("""
                 toks, cache = fn(packed, cache, toks)
                 outs.append(np.asarray(toks))
         np.savez(os.path.join(out_dir, name + ".npz"), k0=k0, v0=v0,
-                 tok0=tok0, toks=np.stack(outs), k=np.asarray(cache["k"]),
-                 v=np.asarray(cache["v"]), pos=np.asarray(cache["pos"]),
+                 tok0=tok0, toks=np.stack(outs), k=host(cache["k"]),
+                 v=host(cache["v"]), pos=np.asarray(cache["pos"]),
                  split=np.asarray(built.meta["pp_split"]),
                  m=np.asarray(built.meta["n_microbatches"]),
                  **flat(params, "p"))
@@ -126,16 +146,19 @@ def ref_runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("ref_pp")
     env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
     res = subprocess.run([sys.executable, "-c", SCRIPT, str(out),
-                          json.dumps(CASES)], env=env, capture_output=True,
+                          json.dumps({**CASES, **FP8_CASES})], env=env,
+                         capture_output=True,
                          text=True, timeout=900)
     assert res.returncode == 0, res.stderr[-4000:]
     return out
 
 
-def _build(cfg, b, n, pod_flops=None, n_microbatches=None):
+def _build(cfg, b, n, pod_flops=None, n_microbatches=None,
+           kv_cache_dtype=None):
     return pp.build_pp_serve_step(cfg, ShapeSpec("d", S, b, "serve_step"), n,
                                   devices=["cpu"] * n, pod_flops=pod_flops,
-                                  n_microbatches=n_microbatches)
+                                  n_microbatches=n_microbatches,
+                                  kv_cache_dtype=kv_cache_dtype)
 
 
 # -- planning and layout --------------------------------------------------------
@@ -180,12 +203,25 @@ def test_pack_pp_params_equals_the_reference(split):
         np.testing.assert_array_equal(a, r, err_msg=str(path))
 
 
-def test_fp8_kv_cache_is_refused():
-    cfg = get_config("qwen3-32b").reduced()
-    with pytest.raises(NotImplementedError, match="A9"):
-        pp.build_pp_serve_step(cfg, ShapeSpec("d", S, 8, "serve_step"), 2,
-                               devices=["cpu", "cpu"],
-                               kv_cache_dtype="float8_e4m3fn")
+def test_fp8_kv_cache_is_refused(ref_runs):
+    """A PP step built with ``kv_cache_dtype`` refuses a cache of another
+    dtype, and on its fp8 cache matches the reference's fp8 PP step (the
+    uneven two-stage split in ``float8_e4m3fn``; the other fp8 cases in
+    ``test_fp8_pp_step_matches_the_references_fp8_pp_step``)."""
+    cfg = get_config("internlm2-1.8b").reduced()
+    step, meta = _build(cfg, 8, 2, [1.0, 0.5],
+                        kv_cache_dtype="float8_e4m3fn")
+    assert meta["kv_dtype"] == torch.float8_e4m3fn
+    kv = (2, max(meta["pp_split"]), meta["n_microbatches"], 8 // meta[
+        "n_microbatches"], S, cfg.n_kv_heads, cfg.hd)
+    cache = {"k": torch.zeros(kv), "v": torch.zeros(kv),
+             "pos": torch.tensor(POS, dtype=torch.int32)}
+    params = pp.pack_pp_params(build_model(cfg, device="cpu").init(0),
+                               meta["pp_split"])
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        step(params, cache, torch.zeros((8, 1), dtype=torch.int32))
+    _check_against_ref(ref_runs, "dense_2_uneven_e4m3",
+                       FP8_CASES["dense_2_uneven_e4m3"])
 
 
 @pytest.mark.parametrize("arch,b,m", [("mamba2-1.3b", 8, None),
@@ -209,10 +245,28 @@ def test_step_needs_a_card_unless_given_cpu_devices():
 # -- the step against the reference's PP step -----------------------------------
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_pp_step_matches_the_references_pp_step(ref_runs, case):
-    arch, n, pod_flops, b = CASES[case]
+    _check_against_ref(ref_runs, case, CASES[case])
+
+
+@pytest.mark.parametrize("case", sorted(set(FP8_CASES)
+                                        - {"dense_2_uneven_e4m3"}))
+def test_fp8_pp_step_matches_the_references_fp8_pp_step(ref_runs, case):
+    _check_against_ref(ref_runs, case, FP8_CASES[case])
+
+
+def _from_bytes(a: np.ndarray, kv: str) -> torch.Tensor:
+    return torch.from_numpy(a.copy()).view(getattr(torch, kv))
+
+
+def _check_against_ref(ref_runs, case, spec):
+    """The port's PP step from the reference's params, cache and tokens:
+    three ticks' tokens identical, the caches within fp32 2e-5 (fp8: the
+    same bytes)."""
+    arch, n, pod_flops, b, *kv = spec
+    kv = kv[0] if kv else None
     ref = np.load(ref_runs / f"{case}.npz")
     cfg = get_config(arch).reduced()
-    step, meta = _build(cfg, b, n, pod_flops)
+    step, meta = _build(cfg, b, n, pod_flops, kv_cache_dtype=kv)
     assert meta["pp_split"] == ref["split"].tolist()
     assert meta["n_microbatches"] == int(ref["m"])
     if case == "dense_m1":
@@ -221,8 +275,9 @@ def test_pp_step_matches_the_references_pp_step(ref_runs, case):
         assert len(set(meta["pp_split"])) > 1
     params = pp.pack_pp_params(
         params_from_jax(_unflat(ref), cfg, device="cpu"), meta["pp_split"])
-    cache = {"k": torch.from_numpy(ref["k0"].copy()),
-             "v": torch.from_numpy(ref["v0"].copy()),
+    load = (lambda a: _from_bytes(a, kv)) if kv else (
+        lambda a: torch.from_numpy(a.copy()))
+    cache = {"k": load(ref["k0"]), "v": load(ref["v0"]),
              "pos": torch.tensor(POS, dtype=torch.int32)}
     toks = torch.from_numpy(ref["tok0"].copy())
     for t in range(TICKS):
@@ -232,6 +287,11 @@ def test_pp_step_matches_the_references_pp_step(ref_runs, case):
                                       err_msg=f"tick {t}")
     assert int(cache["pos"]) == int(ref["pos"]) == POS + TICKS
     for key in ("k", "v"):
+        if kv:
+            assert cache[key].dtype == getattr(torch, kv)
+            np.testing.assert_array_equal(
+                cache[key].view(torch.uint8).numpy(), ref[key], err_msg=key)
+            continue
         np.testing.assert_allclose(cache[key].numpy(), ref[key], atol=ATOL,
                                    rtol=RTOL, err_msg=key)
 

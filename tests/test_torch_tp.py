@@ -396,8 +396,6 @@ def test_unsupported_steps_name_their_roadmap_item():
     mesh = mesh_for_rank((1, 2), ("data", "model"), 0)
     cases = [
         (cfg, ShapeSpec("t", 16, 4, "train_step"), mesh, {}, "A9.4"),
-        (cfg, ShapeSpec("d", 16, 4, "serve_step"), mesh,
-         {"kv_cache_dtype": "float8_e4m3fn"}, "A9.3"),
         (cfg, ShapeSpec("d", 16, 4, "serve_step"),
          mesh_for_rank((2, 1, 2), ("pod", "data", "model"), 0),
          {"serve_pp": True}, "A9.2"),
