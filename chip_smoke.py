@@ -214,6 +214,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           on a float8_e4m3fn cache (the prefill's K/V cast by
           ``astype``), whose tokens must equal the unsplit decode's on the
           same fp8 cache, every decode launch on it: contig decode;
+   pp_ranks the same step as rank processes, one a stage
+          (``build_step(serve_pp=True)`` on a (pod, data, model) mesh,
+          ``run_ranks``, gloo, every rank on this card): the unsplit
+          prefill's cache (8 rows of a 1024-token prompt, S 2080) goes to
+          every rank, which keeps its layers, rows and KV heads; 16 steps
+          at (2, 1, 1), split [5, 3], on a bf16 and a float8_e4m3fn cache
+          (tokens and the last stage's logits bit-equal to the in-process
+          step; fp32 at 2 layers: tokens equal to the unsplit decode) and
+          at (2, 1, 2), split [4, 4] (the first step within path ``tp``'s
+          ratio gate); ``decode_attention`` m x split[stage] times a step
+          a rank, m hops a step; per world and rank: step wall, host
+          queue, device busy, launches, hops and bytes, peak GB and the
+          rank's seconds by part; with two cards, (2, 1, 1) over nccl,
+          one rank a card: contig decode;
    tp     tensor parallelism (``launch/steps.py``'s ``build_step`` over a
           ``launch/mesh.py`` mesh of ranks, ``run_ranks``): main's widths,
           8 rows of a 1024-token prompt through ``prefill_step`` (cache
@@ -297,7 +311,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    SSD scan and its backward launched;
 7. a JSON line of per-kernel numbers (``decode_attention``'s row also
    carries its fp8 shapes and its launches by cache dtype in paths
-   ``kv_fp8`` and ``pp``), the nvidia-smi line, and last ``{"ok": true,
+   ``kv_fp8``, ``pp`` and ``pp_ranks``), the nvidia-smi line, and last ``{"ok": true,
    "device": {...}}``. A ``[time]`` line follows each phase.
 """
 
@@ -416,6 +430,9 @@ PATHS = {
     # main's widths and depth through the pipeline-parallel serve step
     # (launch/pipeline.py): two uneven stage layouts on this card
     "pp": ("qwen3-32b", "contig", ("decode_attention",)),
+    # the same step as rank processes, one a stage (build_step(serve_pp=
+    # True) on a mesh with pod; launch/pipeline.py), TP inside a stage
+    "pp_ranks": ("qwen3-32b", "contig", ("decode_attention",)),
     # main's widths and depth through build_step's prefill and serve steps
     # on tensor-parallel meshes of ranks on this card (launch/steps.py)
     "tp": ("qwen3-32b", "contig", ("decode_attention", "flash_attention")),
@@ -4493,6 +4510,411 @@ def tpf_check(tag: str, where: str, dev, cfg32, cfg, model_n: int,
     return fail
 
 
+# -- the multi-process pipeline-parallel serve step (path ``pp_ranks``) -----------
+# worlds of rank processes, one rank per stage (the mesh's pod coordinate),
+# tensor parallel inside a stage over model; every rank on this card over
+# gloo (each hop staged through the host). (2, 1, 1) at PP_LAYOUTS[0]'s
+# pod_flops (split [5, 3], m 4), on a bf16 and a float8_e4m3fn cache, plus
+# fp32 at PPR_FP32_LAYERS; (2, 1, 2) through build_step(serve_pp=True) (the
+# even split). With two cards, (2, 1, 1) once more over nccl, one rank a
+# card.
+PPR_AXES = ("pod", "data", "model")
+PPR_WORLDS = ((2, 1, 1), (2, 1, 2))
+PPR_STEPS = 16
+PPR_BUSY_STEPS = 4            # steps of the device-only profiled pass
+PPR_FP32_LAYERS = 2
+PPR_LOGIT_REL = 2e-2          # the logits gate if they are not bit-equal
+
+
+def ppr_rank(mesh, dev, cases: list) -> list:
+    """One rank of path ``pp_ranks`` (``run_ranks`` calls it in every rank):
+    ``ppr_case`` for each case of its world."""
+    return [ppr_case(mesh, dev, **case) for case in cases]
+
+
+def ppr_shard(srv, cache: dict, s_max: int) -> dict:
+    """``srv``'s shard of an unsplit cache that holds only the prompt's
+    positions, on its device, zero-padded to ``s_max`` positions (the
+    cache the parent's run has) and stored by ``store_cache``."""
+    part = srv.shard_cache(cache)
+    for key in ("k", "v"):
+        t = part[key]
+        full = t.new_zeros(t.shape[:3] + (s_max,) + t.shape[4:])
+        full[:, :, :, :t.shape[3]] = t
+        part[key] = full
+    return srv.store_cache(part)
+
+
+def ppr_case(mesh, dev, cfg, cache: dict, first: np.ndarray, steps: int,
+             s_max: int, seed: int, pod_flops, kv_runs: tuple, repeats: int,
+             first_step=None) -> dict:
+    """This rank's PP stage of ``cfg`` (``init(seed)``'s numbers, the stage
+    slice only), built by ``build_pp_serve_step`` with ``pod_flops`` or,
+    without, by ``build_step(serve_pp=True)``; for each cache dtype of
+    ``kv_runs`` (None: the model's) ``steps`` greedy steps from its shard
+    of the unsplit ``cache`` (the prompt's positions, padded to
+    ``s_max``: ``ppr_shard``) fed ``first`` (B, 1) first. The gate run
+    returns the tokens, the last step's logits (last stage), the launches,
+    the decode launches by cache dtype and the hops; with ``repeats``,
+    that many timed runs (per step wall and host queue seconds), the peak
+    GB and the device busy seconds of a profiled run of
+    ``PPR_BUSY_STEPS``. ``first_step`` = (an unsplit cache, tokens (B,
+    1)): the logits of one step from its shard. ``seconds``: the rank's
+    time in each part."""
+    rows = first.shape[0]
+    shape = ShapeSpec("pp_ranks", s_max, rows, "serve_step")
+    out = {}
+    params = None
+    with torch.no_grad():
+        for kv in kv_runs:
+            secs = {}
+            t_part = time.perf_counter()
+
+            def lap(name: str) -> None:
+                nonlocal t_part
+                _sync(dev)
+                now = time.perf_counter()
+                secs[name] = round(now - t_part, 3)
+                t_part = now
+            if pod_flops is None:
+                srv = build_step(cfg, shape, mesh, serve_pp=True,
+                                 kv_cache_dtype=kv, device=dev)
+            else:
+                srv = build_pp_serve_step(
+                    cfg, shape, mesh, None, pod_flops=pod_flops,
+                    kv_cache_dtype=kv, device=dev)
+            if params is None:
+                params = srv.init_params(seed)
+            lap("build_init")
+            start = ppr_shard(srv, cache, s_max)
+            lap("shard")
+            first_t = torch.from_numpy(first).to(dev)
+            hops = srv.meta["hops"]
+
+            def run(timed: bool = False, n: int = steps) -> tuple:
+                c = {k: v.clone() for k, v in start.items()}
+                cur, toks, walls, queued = first_t, [], [], []
+                _sync(dev)
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    cur, c = srv.fn(params, c, cur)
+                    if timed:
+                        queued.append(time.perf_counter() - t0)
+                        _sync(dev)
+                        walls.append(time.perf_counter() - t0)
+                    toks.append(cur)
+                _sync(dev)
+                return torch.cat(toks, 1).cpu().numpy(), walls, queued
+
+            ops.reset_launch_counts()
+            hops.update(dict.fromkeys(hops, 0))
+            toks, _, _ = run()
+            lap("gate_run")
+            last = srv.last_logits
+            res = dict(tokens=toks, stage=srv.meta["stage"],
+                       split=srv.meta["pp_split"],
+                       m=srv.meta["n_microbatches"],
+                       rows=(srv.meta["rows"].start, srv.meta["rows"].stop),
+                       heads=(srv.model.n_heads_local,
+                              srv.model.n_kv_local),
+                       logits=None if last is None
+                       else last.float().cpu().numpy(),
+                       launches=ops.launch_counts(),
+                       by_cache_dtype=ops.decode_launches_by_cache_dtype(),
+                       hops=dict(hops))
+            if repeats:
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(dev)
+                timed = [run(timed=True) for _ in range(repeats)]
+                lap("timed_runs")
+                res.update(step_wall_s=[w for _, ws, _ in timed for w in ws],
+                           host_queue_s=[q for _, _, qs in timed
+                                         for q in qs],
+                           peak_gb=(torch.cuda.max_memory_allocated(dev)
+                                    / 1e9 if dev.type == "cuda" else None))
+                if dev.type == "cuda":
+                    res["busy_s"], res["busy_wall_s"] = _tp_busy(
+                        lambda: run(n=PPR_BUSY_STEPS), dev)
+                    lap("profiled_run")
+            if first_step is not None:
+                full, tokens = first_step
+                srv.fn(params, ppr_shard(srv, full, s_max),
+                       torch.from_numpy(tokens).to(dev))
+                res["first_logits"] = (None if srv.last_logits is None else
+                                       srv.last_logits.float().cpu().numpy())
+                lap("first_step")
+            res["seconds"] = secs
+            out[kv or cfg.dtype] = res
+            del start
+            _free(dev)
+    return out
+
+
+def ppr_prompt_part(cache: dict, prompt_len: int) -> dict:
+    """An unsplit contiguous cache's K/V at the prompt's positions only,
+    and its ``pos``, on the host: what the parent sends its ranks (the
+    rest of the cache is zeros, which ``ppr_shard`` restores)."""
+    out = {k: cache[k][:, :, :prompt_len].cpu() for k in ("k", "v")}
+    out["pos"] = cache["pos"].cpu()
+    return out
+
+
+def ppr_in_process(model, params, full: dict, first, pod_flops, kv,
+                   steps: int, prompt_len: int, dev) -> dict:
+    """The in-process ``build_pp_serve_step`` of the same split, m and
+    cache on this card (every stage here): its tokens (B, steps) and the
+    last step's logits (B, 1, Vpad), microbatch order."""
+    cfg = model.cfg
+    rows, s_max = first.shape[0], full["k"].shape[2]
+    step, meta = build_pp_serve_step(
+        cfg, ShapeSpec("pp_ranks", s_max, rows, "serve_step"),
+        len(pod_flops), devices=[dev] * len(pod_flops),
+        pod_flops=pod_flops, kv_cache_dtype=kv)
+    split, m = meta["pp_split"], meta["n_microbatches"]
+    seen: list = []
+    head = meta["model"].logits
+    meta["model"].logits = lambda p, x: seen.append(head(p, x)) or seen[-1]
+    kvs = {k: astype(full[k], FP8_DTYPES[kv]) if kv else full[k]
+           for k in ("k", "v")}
+    cache = {k: pp_layout_kv(kvs[k], split, m) for k in ("k", "v")}
+    cache["pos"] = torch.tensor(prompt_len, dtype=torch.int32, device=dev)
+    packed = pack_pp_params(params, split)
+    cur, toks = first.to(dev), []
+    with torch.no_grad():
+        for _ in range(steps):
+            seen.clear()
+            cur, cache = step(packed, cache, cur)
+            toks.append(cur)
+    out = dict(tokens=torch.cat(toks, 1).cpu().numpy(), split=split, m=m,
+               logits=torch.cat(seen).float().cpu().numpy())
+    del cache, packed, kvs
+    _free(dev)
+    return out
+
+
+def phase_pp_ranks_path(dev, path: str, depth: int, seed: int,
+                        rehearsal: bool, repeats: int,
+                        profile_dir: Path | None = None) -> dict:
+    """The multi-process pipeline-parallel serve step (``launch/steps.py``'s
+    ``build_step(serve_pp=True)`` and ``launch/pipeline.py``'s
+    ``build_pp_serve_step`` on a mesh with a ``pod`` axis): Qwen3-32B
+    widths at ``depth`` layers, bf16, random weights (``init(seed)``), 8
+    rows of one 1024-token prompt prefilled by the unsplit ``LM.prefill``
+    on this card (cache ``MAX_LEN``); its cache and first tokens go to
+    every rank, which keeps its stage's layers of it, its rows and KV
+    heads. World (2, 1, 1) at ``PP_LAYOUTS[0]``'s pod_flops runs
+    ``PPR_STEPS`` steps on the bf16 cache and on the cache stored in
+    float8_e4m3fn, plus the fp32 model at ``PPR_FP32_LAYERS``; world (2,
+    1, 2) runs the bf16 steps and one step from the unsplit fp32
+    prefill's cache as bf16 stores it. Gates: (2, 1, 1) tokens equal to
+    the in-process PP step of the same split, m and cache on this card
+    (bf16 and e4m3fn), the last stage's last-step logits bit-equal to it
+    (else within ``PPR_LOGIT_REL`` of max |logit|, reported); fp32 tokens
+    equal to the unsplit decode run one microbatch at a time; (2, 1, 2):
+    the first step's logits at most ``TP_STEP_RATIO`` times as far from
+    the unsplit fp32 LM as the unsplit bf16 LM's (path ``tp``'s gate);
+    every stage rank launches ``decode_attention`` m x split[stage] times
+    a step, every launch on the run's cache dtype, and sends / receives m
+    hops a step. Prints per world, run and rank the step wall, host queue
+    time, device busy, launches, hops and bytes a step and peak GB. With
+    two cards, (2, 1, 1) once more over nccl, one rank a card."""
+    arch = PATHS[path][0]
+    required = PATHS[path][2]
+    tag = f"[{path}]"
+    base = get_config(arch)
+    flops = PP_LAYOUTS[0][1]
+    if rehearsal:
+        cfg32 = base.reduced()
+        cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+        rows, prompt_len, steps, s_max = PP_ROWS, 6, 4, 16
+    else:
+        cfg16 = dataclasses.replace(base, n_layers=depth)
+        cfg32 = dataclasses.replace(base, n_layers=PPR_FP32_LAYERS,
+                                    dtype="float32")
+        rows, prompt_len, steps, s_max = (PP_ROWS, PP_PROMPT, PPR_STEPS,
+                                          MAX_LEN)
+    t_start = time.perf_counter()
+    prompt = np.random.RandomState(seed).randint(
+        0, cfg16.vocab, (rows, prompt_len)).astype(np.int32)
+    host = {}
+    for cfg in (cfg32, cfg16):
+        model = build_model(cfg, device=dev)
+        params = model.init(seed=seed)
+        with torch.no_grad():
+            logits, full = model.prefill(params, _on({"tokens": prompt},
+                                                     dev), max_len=s_max)
+            first = model.sample_greedy(logits).reshape(rows, 1).to(
+                torch.int32)
+            ref = {"cache": ppr_prompt_part(full, prompt_len),
+                   "first": first.cpu().numpy()}
+            if cfg is cfg32:
+                m = build_pp_serve_step(
+                    cfg, ShapeSpec("pp_ranks", s_max, rows, "serve_step"),
+                    2, devices=[dev] * 2,
+                    pod_flops=flops)[1]["n_microbatches"]
+                ref["tokens"] = pp_unsplit_reference(
+                    model, params, full, first, m, steps)[0].cpu().numpy()
+            else:
+                for kv in (None, "float8_e4m3fn"):
+                    ref[kv] = ppr_in_process(model, params, full, first,
+                                             flops, kv, steps, prompt_len,
+                                             dev)
+        host[cfg.dtype] = ref
+        del model, params, full, logits
+        _free(dev)
+    exact = tp_fp32_reference(cfg16, dev, {"tokens": prompt}, seed, s_max)
+    exact["cache"] = ppr_prompt_part(exact["cache"], prompt_len)
+    log(f"{tag} {base.name} widths; fp32 at {cfg32.n_layers} layers, "
+        f"{cfg16.dtype} at {cfg16.n_layers} of {base.n_layers}; {rows} rows "
+        f"of a {prompt_len}-token prompt, cache S={s_max}, {steps} steps; "
+        f"unsplit prefills, the in-process PP step and the fp32 yardstick "
+        f"on this card {time.perf_counter() - t_start:.1f} s")
+    h16, h32 = host[cfg16.dtype], host[cfg32.dtype]
+    kv_runs = (None, "float8_e4m3fn")
+
+    def world_cases(shape3) -> list:
+        bf16 = dict(cfg=cfg16, cache=h16["cache"], first=h16["first"],
+                    steps=steps, s_max=s_max, seed=seed, repeats=repeats)
+        if shape3[2] > 1:                    # TP inside a stage: even split
+            return [dict(bf16, pod_flops=None, kv_runs=(None,),
+                         first_step=(exact["cache"], exact["tokens"]))]
+        return [dict(cfg=cfg32, cache=h32["cache"], first=h32["first"],
+                     steps=steps, s_max=s_max, seed=seed, pod_flops=flops,
+                     kv_runs=(None,), repeats=0),
+                dict(bf16, pod_flops=flops, kv_runs=kv_runs)]
+
+    runs = [(w, "gloo", "cuda" if dev.type == "cuda" else "cpu")
+            for w in PPR_WORLDS]
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards >= 2:
+        runs.append(((2, 1, 1), "nccl", "cuda"))
+    counts: dict = {}
+    by_dtype: dict = {}
+    failed = []
+    for shape3, backend, where in runs:
+        t1 = time.perf_counter()
+        outs = run_ranks(ppr_rank, shape3, PPR_AXES, backend=backend,
+                         device=where, args=(world_cases(shape3),))
+        world = f"mesh (pod {shape3[0]}, data {shape3[1]}, model " \
+                f"{shape3[2]}) {backend}"
+        log(f"{tag} {world}: {len(outs)} ranks, "
+            f"{time.perf_counter() - t1:.1f} s with the ranks' start")
+        for rank, per_case in enumerate(outs):
+            for case in per_case:
+                for run_name, o in case.items():
+                    ok, what = ppr_gate(o, run_name, shape3, cfg16, h16,
+                                        h32, exact, required, steps, dev)
+                    if not ok:
+                        failed.append(f"{world} rank {rank} {run_name}")
+                    log(f"{tag} {world} rank {rank} stage {o['stage']} "
+                        f"{run_name}: split {o['split']} m {o['m']} rows "
+                        f"{o['rows']} heads {o['heads'][0]}/"
+                        f"{o['heads'][1]}; {what} "
+                        f"{'ok' if ok else 'FAIL'}")
+                    ppr_report(tag, f"{world} rank {rank} {run_name}", o,
+                               steps)
+                    if backend != "gloo":
+                        continue
+                    for k, v in o["launches"].items():
+                        counts[k] = counts.get(k, 0) + v
+                    for k, v in o["by_cache_dtype"].items():
+                        by_dtype[k] = by_dtype.get(k, 0) + v
+    if failed:
+        raise SystemExit(f"chip_smoke: the multi-process PP step disagrees "
+                         f"or missed a kernel on {failed}")
+    if n_cards < 2:
+        log(f"{tag} (2, 1, 1) over nccl did not run: it needs two cards, "
+            f"one rank each (NCCL refuses two ranks on one device); this "
+            f"machine has {n_cards}")
+    if dev.type == "cuda":
+        log(f"{tag} nvidia-smi: {smi_line()}")
+    log(f"{tag} {time.perf_counter() - t_start:.1f} s")
+    return dict(counts=counts, tokens=h16[None]["tokens"].tolist(),
+                by_cache_dtype=by_dtype)
+
+
+def ppr_gate(o: dict, run_name: str, shape3, cfg16, h16: dict, h32: dict,
+             exact: dict, required, steps: int, dev) -> tuple:
+    """(passed, what was read) for one rank's run of ``phase_pp_ranks_path``
+    (module docstring of the phase)."""
+    s, n, m = o["stage"], o["split"][o["stage"]], o["m"]
+    last = s == shape3[0] - 1
+    notes = []
+    ok = o["heads"] == (cfg16.n_heads // shape3[2],
+                        cfg16.n_kv_heads // shape3[2])
+    want_hops = dict(sends=steps * m if not last else 0,
+                     recvs=steps * m if s > 0 else 0)
+    ok &= all(o["hops"][k] == v for k, v in want_hops.items())
+    if run_name == "float32":
+        same = bool(np.array_equal(o["tokens"], h32["tokens"]))
+        ok &= same
+        notes.append(f"fp32 tokens == the unsplit decode (one microbatch at "
+                     f"a time) {same}")
+    elif shape3[2] == 1:
+        kv = None if run_name == "bfloat16" else run_name
+        ref = h16[kv]
+        same = bool(np.array_equal(o["tokens"], ref["tokens"]))
+        ok &= same and o["split"] == ref["split"] and m == ref["m"]
+        notes.append(f"tokens over {steps} steps == the in-process PP step's "
+                     f"{same}")
+        if last:
+            equal = bool(np.array_equal(o["logits"], ref["logits"]))
+            rel = _rel(o["logits"], ref["logits"])
+            ok &= equal or rel <= PPR_LOGIT_REL
+            notes.append(f"last step's logits bit-equal {equal} (rel "
+                         f"{rel:.3e}, limit if not {PPR_LOGIT_REL})")
+    else:
+        same = bool(np.array_equal(o["tokens"], h16[None]["tokens"]))
+        notes.append(f"tokens == the in-process [5, 3] step's {same} (not "
+                     f"gated: another split, TP sums)")
+        if last:
+            first = _rel(o["first_logits"][:, 0], exact["first"][:, 0])
+            own = _rel(exact["first16"][:, 0], exact["first"][:, 0])
+            ok &= first <= TP_STEP_RATIO * own
+            notes.append(f"first step on the fp32 prefill's cache as bf16 "
+                         f"stores it, against the fp32 LM rel {first:.3e} "
+                         f"(limit {TP_STEP_RATIO} x the unsplit bf16 LM's "
+                         f"own {own:.3e})")
+    if dev.type == "cuda":
+        want = steps * m * n
+        dec = o["launches"]["decode_attention"]
+        dtype = "bfloat16" if run_name == "bfloat16" else run_name
+        on = o["by_cache_dtype"]
+        ok &= (dec == want and all(o["launches"][k] for k in required)
+               and on == {dtype: want})
+        notes.append(f"decode_attention {dec} launches (m x split[stage] x "
+                     f"steps = {want}), by cache dtype {on}")
+    return ok, "; ".join(notes)
+
+
+def ppr_report(tag: str, name: str, o: dict, steps: int) -> None:
+    """Log one rank's timed readings of ``phase_pp_ranks_path``."""
+    hops = o["hops"]
+    line = (f"{tag} {name}: hops a step {hops['sends'] / steps:g} sends, "
+            f"{hops['recvs'] / steps:g} receives, "
+            f"{hops['bytes'] / steps:.0f} bytes sent; decode_attention a "
+            f"step {o['launches']['decode_attention'] / steps:g}")
+    if "step_wall_s" in o:
+        walls = sorted(o["step_wall_s"])
+        per_step = float(np.median(walls))
+        queue = float(np.median(o["host_queue_s"]))
+        busy = "not measured (CPU)"
+        if "busy_s" in o:
+            busy = (f"{o['busy_s'] / (per_step * PPR_BUSY_STEPS):.3f} "
+                    f"({o['busy_s']:.4f} s of device time in a profiled "
+                    f"run of {PPR_BUSY_STEPS} steps; against its "
+                    f"{o['busy_wall_s']:.3f} s wall "
+                    f"{o['busy_s'] / o['busy_wall_s']:.3f})")
+        peak = o["peak_gb"]
+        line += (f"; step_wall_s median={per_step:.5f} min={walls[0]:.5f} "
+                 f"max={walls[-1]:.5f} over {len(walls)} steps; "
+                 f"host_queue_s median={queue:.5f}; out_tok_per_s="
+                 f"{len(o['tokens']) / per_step:.2f}; device_busy_share="
+                 f"{busy}; peak_mem_GB="
+                 f"{'not measured (CPU)' if peak is None else round(peak, 3)}")
+    log(line + f"; rank seconds {o['seconds']}")
+
+
 # -- the cluster simulator (phase ``cluster``, host only) -----------------------
 CLUSTER_WINDOW_MIN, CLUSTER_RATE = 50, 3.0
 
@@ -4721,7 +5143,7 @@ def phase_kv_fp8_path(dev, path: str, depth: int, seed: int,
 
 
 PATH_PHASE = {"server": phase_server_path, "pp": phase_pp_path,
-              "tp": phase_tp_path, "tp_families": phase_tp_families,
+              "pp_ranks": phase_pp_ranks_path, "tp": phase_tp_path, "tp_families": phase_tp_families,
               "kv_fp8": phase_kv_fp8_path}
 
 
@@ -5168,7 +5590,8 @@ def main(argv=None) -> int:
         r["launches"] = sum(r["launches_by_path"].values())
         if r["name"] == "decode_attention":
             # the paths that count the contiguous kernel's launches by the
-            # cache's dtype (kv_fp8, pp): the fp8 reads of the main path
+            # cache's dtype (kv_fp8, pp, pp_ranks): the fp8 reads of the
+            # main path
             r["launches_by_cache_dtype"] = by_dtype
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_by_path", "launches_by_cache_dtype", "max_abs_err",

@@ -53,6 +53,19 @@ class Mesh:
                            f"{dict(self.shape)} (built without groups?)")
         return self.groups[tuple(axes)]
 
+    def rank_at(self, **coords: int) -> int:
+        """The global rank at this rank's coordinates with ``coords``
+        replacing some of them (``rank_at(pod=1)``: the rank of pod 1 that
+        shares this rank's data and model coordinates)."""
+        rank = 0
+        for a, n in self.shape.items():
+            c = coords.get(a, self.coords[a])
+            if not 0 <= c < n:
+                raise ValueError(f"coordinate {a}={c} outside a mesh "
+                                 f"{dict(self.shape)}")
+            rank = rank * n + c
+        return rank
+
 
 def mesh_coords(shape: Sequence[int], axes: Sequence[str], rank: int
                 ) -> Dict[str, int]:

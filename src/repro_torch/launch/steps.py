@@ -23,10 +23,21 @@ whole and lays the KV out by heads, each rank holding the KV heads its
 query heads read: the same function in another memory layout.
 
 Every family runs: dense, VLM, MoE, the SSM and hybrid (the Mamba2 mixer
-split by whole SSD heads) and the encoder-decoder. Not ported, each
-raising ``NotImplementedError`` with its ROADMAP item: ``train_step``
-(A9.4) and ``serve_pp`` on a mesh with ``pod`` (A9.2). ``lower_step``
-belongs to the compile plane (A10) and has no counterpart.
+split by whole SSD heads) and the encoder-decoder. ``train_step`` over a
+mesh is not ported and raises ``NotImplementedError`` naming ROADMAP
+A9.4. ``lower_step`` belongs to the compile plane (A10) and has no
+counterpart.
+
+``serve_pp=True`` on a mesh with a ``pod`` axis builds the serve step as
+the reference does, pipeline parallel over ``pod``: each rank is one
+stage (its ``pod`` coordinate) holding only its layers of the
+estimator's uneven split, tensor parallel over ``model`` inside the
+stage and serving its rows of each microbatch over ``data``
+(``launch/pipeline.py``, ``build_pp_serve_step`` with a mesh). The hidden
+state hops between the stages' ranks by ``isend`` / ``irecv``: over
+nccl device to device, over gloo through a host buffer (gloo sends CPU
+tensors only). The families the reference's PP step refuses (recurrent
+state, sliding windows, the encoder-decoder) raise ``ValueError``.
 ``weight_dtype`` and ``kv_cache_dtype`` reach the serve step only, as in
 the reference: a prefill step's params and cache stay in the model's
 dtype.
@@ -43,13 +54,15 @@ whose recurrent state the rule would quantize (fp32 Mamba2 / Zamba2).
 ``serve_generate`` is a rank-side runner for ``launch.mesh.run_ranks``: a
 prefill and greedy serve steps, their tokens, logits and cache
 (``serving_steps`` builds a rank's steps and params for callers that
-drive the steps themselves).
+drive the steps themselves). With ``serve_pp`` it drives the PP step
+from a given cache instead of a prefill (neither package has a PP
+prefill).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -178,15 +191,20 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     (``"float8_e4m3fn"`` / ``"float8_e5m2"``) stores a serve step's
     matrices in fp8, upcast each step; ``kv_cache_dtype`` stores its
     cache in fp8 (module docstring). The prefill step ignores both, as the
-    reference's does."""
+    reference's does. ``serve_pp`` on a mesh with a ``pod`` axis makes the
+    serve step this rank's stage of the pipeline-parallel step
+    (``launch/pipeline.py``'s ``build_pp_serve_step``, a
+    ``PPBuiltStep``), which takes ``kv_cache_dtype`` and, as the
+    reference's, no ``weight_dtype``."""
     if shape.step == "train_step":
         raise NotImplementedError("train_step over a mesh is not ported "
                                   "(ROADMAP A9.4)")
-    if serve_pp and "pod" in mesh.shape:
-        raise NotImplementedError("serve_pp on a mesh with a pod axis "
-                                  "(multi-process PP) is not ported "
-                                  "(ROADMAP A9.2)")
     rules = build_rules(cfg, mesh, False, step=shape.step, shape=shape)
+    if serve_pp and "pod" in mesh.shape and shape.step == "serve_step":
+        from repro_torch.launch.pipeline import build_pp_serve_step
+        return build_pp_serve_step(cfg, shape, mesh, rules,
+                                   kv_cache_dtype=kv_cache_dtype,
+                                   device=device)
     # the port's layout: whole sequences, KV by heads (module docstring)
     port_rules = dict(rules, cache_seq=None, seq=None)
     sharder = R.Sharder(mesh=mesh, rules=port_rules)
@@ -301,17 +319,39 @@ def _upcast(params: Dict, qdt: torch.dtype, dtype: torch.dtype) -> Dict:
 # ---------------------------------------------------------------------------
 def serving_steps(mesh: Any, device: torch.device, cfg: ArchConfig,
                   batch: int, max_len: int, params: Optional[Dict] = None,
-                  seed: int = 0, kv_cache_dtype: Optional[str] = None
-                  ) -> Tuple[BuiltStep, BuiltStep, Dict]:
+                  seed: int = 0, kv_cache_dtype: Optional[str] = None,
+                  serve_pp: bool = False,
+                  pod_flops: Optional[Sequence[float]] = None
+                  ) -> Tuple[Optional[BuiltStep], BuiltStep, Dict]:
     """This rank's prefill and serve steps for ``batch`` rows and a cache
     of ``max_len`` positions (the serve step's in ``kv_cache_dtype``), and
     its local params: the full numpy tree ``params`` sharded here, in the
-    model's dtype, else the seeded init."""
+    model's dtype, else the seeded init. With ``serve_pp`` (a mesh with a
+    ``pod`` axis) there is no prefill step (None) and the serve step is
+    the rank's PP stage: ``build_step(serve_pp=True)``'s, or, given
+    ``pod_flops``, ``build_pp_serve_step``'s with them; the params are
+    the stage's (``PPBuiltStep``; ``params`` may be
+    the unsplit or the packed tree)."""
     from repro_torch.models.convert import _to_tensor
+    srv_shape = ShapeSpec("serve", max_len, batch, "serve_step")
+    if serve_pp:
+        if pod_flops is None:
+            srv = build_step(cfg, srv_shape, mesh, serve_pp=True,
+                             kv_cache_dtype=kv_cache_dtype, device=device)
+        else:
+            from repro_torch.launch.pipeline import build_pp_serve_step
+            srv = build_pp_serve_step(
+                cfg, srv_shape, mesh, build_rules(
+                    cfg, mesh, False, step="serve_step", shape=srv_shape),
+                pod_flops=pod_flops, kv_cache_dtype=kv_cache_dtype,
+                device=device)
+        local = (srv.shard_params(params) if params is not None
+                 else srv.init_params(seed))
+        return None, srv, local
     pre = build_step(cfg, ShapeSpec("prefill", max_len, batch,
                                     "prefill_step"), mesh, device=device)
-    srv = build_step(cfg, ShapeSpec("serve", max_len, batch, "serve_step"),
-                     mesh, kv_cache_dtype=kv_cache_dtype, device=device)
+    srv = build_step(cfg, srv_shape, mesh, kv_cache_dtype=kv_cache_dtype,
+                     device=device)
     if params is not None:
         dt = pre.model.dtype
         local = pre.shard_params(_tree(
@@ -325,7 +365,10 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
                    inputs: Dict[str, np.ndarray], steps: int, max_len: int,
                    params: Optional[Dict] = None, seed: int = 0,
                    feed: Optional[np.ndarray] = None,
-                   kv_cache_dtype: Optional[str] = None) -> Dict[str, Any]:
+                   kv_cache_dtype: Optional[str] = None,
+                   serve_pp: bool = False, cache: Optional[Dict] = None,
+                   pod_flops: Optional[Sequence[float]] = None
+                   ) -> Dict[str, Any]:
     """One rank's prefill of ``inputs`` (numpy, the whole batch) and
     ``steps`` greedy serve steps through ``serving_steps``; with ``feed``
     (B, steps) step i is fed ``feed[:, i]`` instead of the last greedy
@@ -339,7 +382,22 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
     (attention and SSD), the kernel ``launches`` (counts zeroed just
     before the prefill, read after the last step) and ``decode_attention``'s
     by the cache's dtype, and the ``allreduce`` calls and bytes of the
-    serve steps."""
+    serve steps.
+
+    ``serve_pp``: the PP serve step (``serving_steps``) from ``cache``,
+    the whole start cache (the reference's PP layout or an unsplit
+    contiguous one, numpy or tensors; ``k`` / ``v`` as uint8 are the
+    bytes of ``kv_cache_dtype``, floats are cast to the model's dtype and
+    stored by ``store_cache``), fed ``inputs["tokens"]`` (B, 1) first. The
+    same keys but ``prefill_logits``, with ``rows`` the rank's rows of
+    each microbatch, ``logits`` the last stage's (m * rows, steps, Vpad;
+    None on the other stages) and besides ``stage``, ``pp_split``,
+    ``n_microbatches`` and the ``hops`` (sends, receives, bytes) of the
+    steps."""
+    if serve_pp:
+        return _pp_generate(mesh, device, cfg, inputs["tokens"], cache,
+                            steps, max_len, params, seed, feed,
+                            kv_cache_dtype, pod_flops)
     from repro_torch.kernels import ops
     b = (inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
          ).shape[0]
@@ -364,21 +422,79 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
             cur, cache = srv.fn(local, cache, cur)
             toks.append(cur)
             logits.append(srv.last_logits.float())
-    return {"rows": (rows.start, rows.stop),
-            "prefill_logits": prefill_logits,
-            "logits": torch.cat(logits, 1).cpu().numpy(),
-            "tokens": torch.cat(toks, 1).cpu().numpy(),
+    return dict(_rank_result(pre.model, srv, cache, toks, ops),
+                rows=(rows.start, rows.stop),
+                prefill_logits=prefill_logits,
+                logits=torch.cat(logits, 1).cpu().numpy())
+
+
+def _rank_result(model, srv: BuiltStep, cache: Dict, toks: list,
+                 ops) -> Dict[str, Any]:
+    """The keys every rank-side run returns (``serve_generate``)."""
+    return {"tokens": torch.cat(toks, 1).cpu().numpy(),
             "cache": {k: (v.float() if v.is_floating_point() else v)
                       .cpu().numpy() for k, v in cache.items()},
             "cache_bytes": {k: v.view(torch.uint8).cpu().numpy()
                             for k, v in cache.items()
                             if v.dtype in FP8_DTYPES.values()},
-            "n_heads_local": pre.model.n_heads_local,
-            "n_kv_local": pre.model.n_kv_local,
-            "ssm_heads_local": pre.model.ssm_heads_local,
+            "n_heads_local": model.n_heads_local,
+            "n_kv_local": model.n_kv_local,
+            "ssm_heads_local": model.ssm_heads_local,
             "launches": ops.launch_counts(),
             "decode_by_cache_dtype": ops.decode_launches_by_cache_dtype(),
-            "allreduce": dict(sharder.stats)}
+            "allreduce": dict(srv.meta["sharder"].stats)}
+
+
+def _pp_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
+                 tokens: np.ndarray, cache: Dict, steps: int, max_len: int,
+                 params: Optional[Dict], seed: int,
+                 feed: Optional[np.ndarray], kv_cache_dtype: Optional[str],
+                 pod_flops: Optional[Sequence[float]]) -> Dict[str, Any]:
+    """``serve_generate`` with ``serve_pp``."""
+    from repro_torch.kernels import ops
+    if cache is None:
+        raise ValueError("serve_generate(serve_pp=True) starts from a "
+                         "given cache")
+    b = tokens.shape[0]
+    _, srv, local = serving_steps(mesh, device, cfg, b, max_len, params,
+                                  seed, kv_cache_dtype, serve_pp=True,
+                                  pod_flops=pod_flops)
+    model = srv.model
+    full = {}
+    for k, v in cache.items():
+        t = v if torch.is_tensor(v) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        if k in ("k", "v") and t.dtype == torch.uint8 and kv_cache_dtype:
+            t = t.view(FP8_DTYPES[kv_cache_dtype])
+        elif t.is_floating_point() and t.dtype not in FP8_DTYPES.values():
+            t = t.to(model.dtype)
+        full[k] = t
+    hops = srv.meta["hops"]
+    with torch.no_grad():
+        state = srv.store_cache(srv.shard_cache(full))
+        del full
+        ops.reset_launch_counts()
+        srv.meta["sharder"].reset_stats()
+        hops.update(dict.fromkeys(hops, 0))
+        cur = torch.from_numpy(np.ascontiguousarray(tokens)).to(
+            device=device, dtype=torch.int32)
+        toks, logits = [cur], []
+        for i in range(steps):
+            if feed is not None:
+                cur = torch.from_numpy(np.ascontiguousarray(
+                    feed[:, i:i + 1])).to(device=device, dtype=torch.int32)
+            cur, state = srv.fn(local, state, cur)
+            toks.append(cur)
+            if srv.last_logits is not None:
+                logits.append(srv.last_logits.float())
+    rows = srv.meta["rows"]
+    return dict(_rank_result(model, srv, state, toks, ops),
+                rows=(rows.start, rows.stop), stage=srv.meta["stage"],
+                pp_split=srv.meta["pp_split"],
+                n_microbatches=srv.meta["n_microbatches"],
+                logits=(torch.cat(logits, 1).cpu().numpy() if logits
+                        else None),
+                hops=dict(hops))
 
 
 def serve_cases(mesh: Any, device: torch.device, cases: list) -> list:

@@ -224,14 +224,20 @@ class TensorParallel:
                 names = tuple(None if n == "batch" else n
                               for n in specs[key])
                 t = shard_leaf(t, names, self.sharder, mixer=self._mixer)
-            elif self._kv_sel is not None:
-                sel = torch.tensor(self._kv_sel, device=t.device)
-                t = t.index_select(3, sel)
             else:
-                lo = self.sharder.index(self._kv_axes()) * self.n_kv_local
-                t = t[:, :, :, lo:lo + self.n_kv_local]
+                t = self.shard_kv_heads(t, 3)
             out[key] = t.contiguous()
         return out
+
+    def shard_kv_heads(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        """The KV heads this rank's layout holds, along ``axis`` of a cache
+        tensor ``t`` that holds them all (the heads its query heads read
+        where ``kv_heads`` is replicated and ``heads`` split)."""
+        if self._kv_sel is not None:
+            sel = torch.tensor(self._kv_sel, device=t.device)
+            return t.index_select(axis, sel)
+        lo = self.sharder.index(self._kv_axes()) * self.n_kv_local
+        return t.narrow(axis, lo, self.n_kv_local)
 
     def _kv_axes(self) -> Axes:
         c = self.cfg

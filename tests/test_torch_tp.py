@@ -10,8 +10,8 @@ slices put back together give every full tensor, the Mamba2 mixer's
 fused leaves by SSD head; the mixer split over two ranks (threads)
 equals the unsplit block and a per-rank gated norm does not; the local
 conv widths keep the SSD scan's tensor-core route; the MoE's queue share
-reproduces the unsplit layer's capacity drops; the refusals name their
-ROADMAP items; a one-rank mesh and fp8-stored weights, in the serve step
+reproduces the unsplit layer's capacity drops; the refusal names its
+ROADMAP item; a one-rank mesh and fp8-stored weights, in the serve step
 and (ignored) in the prefill step.
 
 With ranks: one spawned gloo world per mesh shape, (1,2), (2,2) and (1,4),
@@ -396,9 +396,6 @@ def test_unsupported_steps_name_their_roadmap_item():
     mesh = mesh_for_rank((1, 2), ("data", "model"), 0)
     cases = [
         (cfg, ShapeSpec("t", 16, 4, "train_step"), mesh, {}, "A9.4"),
-        (cfg, ShapeSpec("d", 16, 4, "serve_step"),
-         mesh_for_rank((2, 1, 2), ("pod", "data", "model"), 0),
-         {"serve_pp": True}, "A9.2"),
     ]
     for c, shape, m, kw, item in cases:
         with pytest.raises(NotImplementedError, match=item.replace(

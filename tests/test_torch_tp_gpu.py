@@ -3,7 +3,9 @@ card 0. ``build_step``'s prefill and serve steps of the reduced qwen3-32b
 in fp32 through the CUDA kernels, against the unsplit model on the same
 card; and of reduced mamba2 and zamba2 in bf16 (the SSD scan's
 tensor-core body at the ranks' local heads), against the same ranks on
-the CPU through the plain versions. Marked ``gpu``; each test skips inside
+the CPU through the plain versions; and a (2, 1, 1) world of the
+rank-side PP step against the in-process PP step on the card. Marked
+``gpu``; each test skips inside
 its body when there is no card. Imports no JAX (run it with
 ``--noconftest``)."""
 
@@ -95,6 +97,62 @@ def test_tp_world_of_the_recurrent_families_on_the_card_equals_the_cpu():
                 own = err(plain16[key], plain32[key])
                 assert err(got[key], plain32[key]) <= 3 * own, \
                     (cfg.name, key, err(got[key], plain32[key]), own)
+
+
+@pytest.mark.gpu
+def test_pp_rank_world_on_the_card_equals_the_in_process_step():
+    """A (pod 2, data 1, model 1) gloo world of the rank-side PP step on
+    card 0 (the hop staged through the host), reduced qwen3-32b in fp32
+    at ``pod_flops=[1.0, 0.5]``, against the in-process PP step of the
+    same split and microbatches on the same card, from one random start
+    cache: equal tokens and caches over three steps; each stage launches
+    ``decode_attention`` m x split[stage] times a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the ranks launch CUDA kernels)")
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.pipeline import (build_pp_serve_step,
+                                             pack_pp_params)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-32b").reduced()
+    b, seq, pos, steps, flops = 8, 32, 7, 3, [1.0, 0.5]
+    params = build_model(cfg, device="cpu").init(seed=0)
+    step, meta = build_pp_serve_step(cfg, ShapeSpec("d", seq, b,
+                                                    "serve_step"), 2,
+                                     pod_flops=flops)
+    split, m = meta["pp_split"], meta["n_microbatches"]
+    rng = np.random.RandomState(0)
+    kv = (2, max(split), m, b // m, seq, cfg.n_kv_heads, cfg.hd)
+    k0, v0 = (rng.randn(*kv).astype(np.float32) for _ in range(2))
+    tok0 = rng.randint(0, cfg.vocab, (b, 1)).astype(np.int32)
+    cache = {"k": torch.from_numpy(k0).cuda(), "v": torch.from_numpy(
+        v0).cuda(), "pos": torch.tensor(pos, dtype=torch.int32).cuda()}
+    packed = _tree(pack_pp_params(params, split), lambda t: t.cuda())
+    cur, toks = torch.from_numpy(tok0).cuda(), []
+    with torch.no_grad():
+        for _ in range(steps):
+            cur, cache = step(packed, cache, cur)
+            toks.append(cur.cpu().numpy())
+    case = dict(cfg=cfg, inputs={"tokens": tok0}, steps=steps, max_len=seq,
+                params=_numpy(params), serve_pp=True,
+                cache={"k": k0, "v": v0, "pos": np.int32(pos)},
+                pod_flops=flops)
+    outs = run_ranks(serve_cases, (2, 1, 1), ("pod", "data", "model"),
+                     device="cuda", args=([case],))
+    for (got,) in outs:
+        s, n = got["stage"], split[got["stage"]]
+        np.testing.assert_array_equal(got["tokens"][:, 1:],
+                                      np.concatenate(toks, 1))
+        for key in ("k", "v"):
+            np.testing.assert_allclose(got["cache"][key],
+                                       cache[key][s, :n].cpu().numpy(),
+                                       atol=1e-5, rtol=1e-5)
+        assert got["launches"]["decode_attention"] == steps * m * n
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _numpy(tree):
