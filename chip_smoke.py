@@ -308,7 +308,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    busy / idle and time by category); no checkpoint at this width; then
    ``train_mamba2``: mamba2-1.3b whole (48 layers, d_model 2048, 64 SSD
    heads of 64, N 128, vocab 50280) the same way, four timed steps, the
-   SSD scan and its backward launched;
+   SSD scan and its backward launched; then ``train_mesh``: training over
+   a mesh (``build_step``'s train step, FSDP over data, TP over model,
+   ``launch/train_mesh.py``) on gloo worlds of rank processes on this
+   card: internlm2-1.8b and mamba2-1.3b widths, SyntheticLM(4, 1024); a
+   (data 2, model 2) world at 2 layers in fp32 (2 steps) held to the
+   one-process step each rank then runs on this card (loss, grad_norm,
+   every params and m leaf within 1e-4) and at 2 layers in bf16 (one
+   timed step under a device-only profiler: first loss within 2e-2 of
+   the one-process bf16 step's); a (pod 2, data 1, model 1) world of
+   internlm2 bf16 the same way; the elastic sequence
+   (the fp32 internlm2 run checkpointed from the mesh after step 2,
+   ``plan_resize`` to 2 devices, a (1, 2) world restoring through
+   ``state_shardings`` and taking step 3, equal to a one-process restore
+   within 1e-4); launches per rank and step as ``tm_launches`` reckons
+   them; per world and rank: step wall, host queue, device busy,
+   gradient collectives a step, peak GB, global tok/s;
 7. a JSON line of per-kernel numbers (``decode_attention``'s row also
    carries its fp8 shapes and its launches by cache dtype in paths
    ``kv_fp8``, ``pp`` and ``pp_ranks``), the nvidia-smi line, and last ``{"ok": true,
@@ -354,10 +369,13 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import kv_probe as kvp  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
-from repro_torch.launch.mesh import mesh_for_rank, run_ranks  # noqa: E402
+from repro_torch.launch.mesh import (make_mesh, mesh_for_rank,  # noqa: E402
+                                     run_ranks)
 from repro_torch.launch.pipeline import (build_pp_serve_step,  # noqa: E402
                                          pack_pp_params)
 from repro_torch.launch.steps import build_step, serving_steps  # noqa: E402
+from repro_torch.launch.train_mesh import (leaf_at, leaf_paths,  # noqa: E402
+                                           rank_start)
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -370,6 +388,7 @@ from repro_torch.train import (AdamWConfig, DataConfig,  # noqa: E402
                                SyntheticLM, choose_microbatches,
                                init_train_state, make_train_step)
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train import elastic as el  # noqa: E402
 from repro_torch.train.data import to_torch  # noqa: E402
 from repro_torch.train.optimizer import leaves  # noqa: E402
 
@@ -483,7 +502,7 @@ DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers",
               "command-r-plus-104b": "cmdr_layers"}
 DANUBE_RING = (2, 6000, 32)   # the ring generation: rows, prompt, new tokens
 ALL_PHASES = ("build", "calibrate", "kernels", "parity", "cluster") + tuple(
-    PATHS) + ("train", "train_mamba2")
+    PATHS) + ("train", "train_mamba2", "train_mesh")
 
 
 def log(msg: str = "") -> None:
@@ -1785,7 +1804,10 @@ def kernel_ssd(cs, dev, rehearsal) -> dict:
         "6b": (bf, (8, TP_PROMPT, 32, 64, 128, 128), False,
                "tp_families mamba2 model 2 shard S=1024 bf16"),
         "6c": (bf, (8, TP_PROMPT, 20, 64, 64, 128), False,
-               "tp_families zamba2 model 4 shard S=1024 bf16")}
+               "tp_families zamba2 model 4 shard S=1024 bf16"),
+        # a rank of phase train_mesh's (2, 2) world (row 6m)
+        "6m": (bf, (TM_ROWS // 2, TM_SEQ, 32, 64, 128, 128), False,
+               "train_mesh mamba2 model 2 rank S=1024 bf16")}
     specs += list(tpf.values())
     if not rehearsal:
         # the bf16 tensor-core body's edges: S < Q, S not a multiple of Q,
@@ -1863,6 +1885,10 @@ SSD_BWD_SPECS = [
      (1, 2048, 64, 64, 128, 128), False, False),
     ("row 9a zamba2 train x=(1,2048,80,64) N=64 bf16", torch.bfloat16,
      (1, 2048, 80, 64, 64, 128), False, False),
+    # a rank of phase train_mesh's (2, 2) world: mamba2's 64 SSD heads at
+    # model 2, its 2 rows of the one 4 x 1024 microbatch
+    ("row 9m train_mesh rank x=(2,1024,32,64) N=128 bf16", torch.bfloat16,
+     (2, 1024, 32, 64, 128, 128), False, False),
     ("S=300 Q=128 h0 dh_final bf16", torch.bfloat16,
      (2, 300, 4, 64, 128, 128), True, True),
     ("S=300 Q=128 h0 dh_final fp32", torch.float32,
@@ -2028,6 +2054,10 @@ BWD_SPECS = [
      (32, 32, 80, 1, 2048, 2048), True, None),
     ("d64 whisper cross Sq=448 Sk=1500 non-causal bf16", torch.bfloat16,
      (6, 6, 64, 2, 448, 1500), False, None),
+    # a rank of phase train_mesh's (2, 2) world: internlm2's 16/8 heads at
+    # model 2, one 1024-token row per microbatch
+    ("train_mesh rank q=(1,1024,8,128) k/v=(1,1024,4,128) causal bf16",
+     torch.bfloat16, (8, 4, 128, 1, 1024, 1024), True, None),
     ("train shape fp32 S=512", torch.float32,
      (16, 8, 128, 1, 512, 512), True, None),
     ("g=6 d120 S=37 SWA=9 fp32", torch.float32,
@@ -2049,7 +2079,7 @@ BWD_SPECS = [
     ("tile edges Sq=129 Sk=257 SWA=70 g=4 bf16", torch.bfloat16,
      (8, 2, 128, 2, 129, 257), True, 70),
 ]
-BWD_TIMED = [s[0] for s in BWD_SPECS[:6]]
+BWD_TIMED = [s[0] for s in BWD_SPECS[:7]]
 BWD_MULTIPLE = 3              # bf16: within 3x the plain version's own error
 
 
@@ -4186,6 +4216,8 @@ def phase_tp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
 # depth (mamba2 2 layers, zamba2 one hybrid_period of 6, whisper whole)
 TPF_FAMILIES = (("mamba2-1.3b", 2), ("zamba2-2.7b", 6), ("whisper-tiny", None))
 TPF_MESHES = ((1, 2), (1, 4))
+# serve steps per family and world: a (1, 4) step of mamba2 / zamba2 takes
+# ~0.8-0.9 s on gloo, and every phase shares the script's time limit
 TPF_STEPS = 16
 TPF_BUSY_STEPS = 4            # steps of the device-only profiled pass
 
@@ -5383,6 +5415,456 @@ def phase_train(dev, case: str, seed: int, rehearsal: bool,
     return dict(counts=counts[0], wall=wall, losses=losses)
 
 
+# -- phase 6b: training over a mesh ---------------------------------------------
+# (phase ``train_mesh``): build_step's train step (launch/train_mesh.py) on
+# gloo worlds of rank processes on this card, FSDP over data and TP over
+# model: internlm2-1.8b and mamba2-1.3b widths, SyntheticLM(4, 1024)
+TM_MODELS = ("internlm2-1.8b", "mamba2-1.3b")
+TM_AXES = ("data", "model")
+TM_POD_AXES = ("pod", "data", "model")
+TM_ROWS, TM_SEQ = 4, 1024
+# depth of both models in fp32 and bf16, cut to the script's time limit
+TM_LAYERS = 2
+# timed bf16 steps, the last under a device-only profiler (device busy);
+# a rank's fp32 case before them warms it (the kernels loaded, the gloo
+# pairs connected); a step on gloo takes seconds
+TM_STEPS = 1
+TM_FP32_STEPS = 2
+TM_REL = 1e-4                 # fp32: loss, grad_norm, params and m
+TM_BF16_REL = 2e-2            # bf16: the first step's loss
+
+
+def tm_launches(cfg, n_micro: int) -> dict:
+    """A rank's kernel launches per train step, reckoned from the code:
+    every attention (SSD) layer launches the flash forward (SSD scan)
+    twice a microbatch, in the forward and in its rematerialisation, and
+    the backward once."""
+    if cfg.family in ("ssm", "hybrid"):
+        fwd, bwd = SSD
+    else:
+        fwd, bwd = FLASH
+    return {fwd: 2 * cfg.n_layers * n_micro, bwd: cfg.n_layers * n_micro}
+
+
+def tm_rank(mesh, dev, cases: list) -> list:
+    """One rank of phase ``train_mesh``: ``tm_case`` for each case."""
+    return [tm_case(mesh, dev, **case) for case in cases]
+
+
+def _host_rss_gb() -> float | None:
+    """This process's resident host memory now, GB (``/proc/self/statm``);
+    None where the system does not give it."""
+    import os
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, ValueError, IndexError):
+        return None
+    return pages * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+def _rss_peak(fn) -> tuple:
+    """``fn()`` while a thread samples the resident host memory every 10
+    ms: (its result, GB before, the largest sample GB; None where the
+    system does not give it). ``getrusage``'s peak would carry the
+    parent's into a spawned rank."""
+    import threading
+    before = _host_rss_gb()
+    peak = [before]
+    done = threading.Event()
+
+    def watch():
+        while not done.wait(0.01):
+            now = _host_rss_gb()
+            if now is not None and (peak[0] is None or now > peak[0]):
+                peak[0] = now
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        watcher.join()
+    return out, before, peak[0]
+
+
+def tm_case(mesh, dev, cfg, rows: int, seq: int, steps: int, first: int,
+            opt, seed: int = 0, n_micro: int | None = None,
+            once: bool = False, timed: bool = False, ref: bool = False,
+            ckpt_dir: str | None = None, restore: tuple | None = None,
+            elastic: tuple | None = None, pod: bool = False) -> dict:
+    """``steps`` train steps of ``build_step``'s train step for ``cfg`` on
+    this rank (data: ``SyntheticLM(rows, seq)`` from batch ``first``;
+    ``n_micro`` and ``once`` its ``n_microbatches`` and
+    ``gather_weights_once``), from ``launch.train_mesh.rank_start``: the
+    seeded init, or the checkpoint ``restore = (dir, step)`` onto the
+    mesh ``resize_mesh(*elastic)`` builds; ``pod``: on a (pod, data 1,
+    model 1) mesh of the world's ranks instead of ``mesh``. Per step:
+    loss, grad_norm, wall and host queue seconds, kernel launches, the
+    step's own collectives (FSDP gathers, gradient sums) and the model's
+    all_reduces, calls and bytes. ``timed``: peak GB, and the last step
+    runs under a device-only profiler (device busy). ``ckpt_dir``: a
+    checkpoint from the mesh after the last step. ``ref``: then, in this
+    process, the one-process ``make_train_step`` on this card from the
+    same init (or a one-process restore of the same checkpoint), on the
+    same batches and microbatches: its losses and grad_norms, and
+    ``tm_held`` of the rank's params and m against it. The seconds of
+    each part (``secs``) and the resident host memory before the start
+    and its peak during it (``host_gb``, sampled)."""
+    t_case = time.perf_counter()
+    started = time.time()
+    if pod:
+        n = int(np.prod(list(mesh.shape.values())))
+        mesh = make_mesh((n, 1, 1), TM_POD_AXES)
+    (built, state), *host_gb = _rss_peak(lambda: rank_start(
+        mesh, dev, cfg, seq, rows, seed=seed, restore=restore,
+        elastic=elastic, step_kw=dict(n_microbatches=n_micro,
+                                      gather_weights_once=once,
+                                      opt_cfg=opt)))
+    secs = {"start": time.perf_counter() - t_case}
+    model, comm = built.model, built.meta["comm"]
+    stats = built.meta["sharder"].stats
+    nm = built.meta["n_microbatches"]
+    data = SyntheticLM(cfg, DataConfig(rows, seq, 0))
+    out = {k: [] for k in ("loss", "grad_norm", "wall_s", "queue_s",
+                           "launches", "comm", "allreduce")}
+    if timed and dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for s in range(first, first + steps):
+        batch = to_torch(data.batch_at(s), dev)
+        ops.reset_launch_counts()
+        comm.update(dict.fromkeys(comm, 0))
+        stats.update(dict.fromkeys(stats, 0))
+        if timed and dev.type == "cuda" and s == first + steps - 1:
+            box = {}
+
+            def one():
+                t1 = time.perf_counter()
+                box["out"] = built.fn(state, batch)
+                box["queue"] = time.perf_counter() - t1
+            out["busy_s"], wall = _tp_busy(one, dev)
+            state, m = box["out"]
+            out["queue_s"].append(box["queue"])
+            out["wall_s"].append(wall)
+        else:
+            _sync(dev)
+            t1 = time.perf_counter()
+            state, m = built.fn(state, batch)
+            out["queue_s"].append(time.perf_counter() - t1)
+            _sync(dev)
+            out["wall_s"].append(time.perf_counter() - t1)
+        out["launches"].append(ops.launch_counts())
+        out["comm"].append(dict(comm))
+        out["allreduce"].append(dict(stats))
+        out["loss"].append(m["loss"].item())
+        out["grad_norm"].append(m["grad_norm"].item())
+    secs["steps"] = time.perf_counter() - t0
+    out.update(n_micro=nm, heads=(model.n_heads_local, model.n_kv_local,
+                                  model.ssm_heads_local),
+               rows=(built.meta["rows"].start, built.meta["rows"].stop),
+               tokens=rows * seq)
+    if timed and dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    if ckpt_dir is not None:
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(ckpt_dir, state.opt.step, state,
+                             gather=lambda t: built.gather_state(t, dst=0))
+        secs["save"] = time.perf_counter() - t0
+    if ref:
+        t0 = time.perf_counter()
+        full = None
+        if restore is not None:
+            like = init_train_state(build_model(cfg, device=dev).init(
+                seed=seed))
+            # the rank's own restore has just checked every digest
+            full = ckpt.restore_checkpoint(restore[0], restore[1], like,
+                                           verify_digest=False)
+            del like
+        out["ref_loss"], out["ref_norm"], full = tm_one_process(
+            cfg, dev, rows, seq, steps, first, opt, nm, seed, state=full)
+        secs["reference"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["held"] = tm_held(built, state, full)
+        secs["held"] = time.perf_counter() - t0
+        del full
+    out.update(secs=secs, started=started, host_gb=host_gb)
+    del state, built
+    _free(dev)
+    return out
+
+
+def tm_one_process(cfg, dev, rows: int, seq: int, steps: int, first: int,
+                   opt, n_micro: int, seed: int = 0, state=None) -> tuple:
+    """The one-process ``make_train_step`` on this card from
+    ``init(seed)`` (or ``state``): (losses, grad_norms, the final state's
+    params and m)."""
+    model = build_model(cfg, device=dev, remat=True)
+    state = state or init_train_state(model.init(seed=seed))
+    step_fn = make_train_step(model, opt, n_micro)
+    data = SyntheticLM(cfg, DataConfig(rows, seq, 0))
+    losses, norms = [], []
+    for s in range(first, first + steps):
+        state, m = step_fn(state, to_torch(data.batch_at(s), dev))
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    kept = state.params, state.opt.m
+    del model, state, step_fn
+    _free(dev)
+    return losses, norms, kept
+
+
+def tm_held(built, local, ref: tuple) -> tuple:
+    """Over this rank's params and m against its shards of the
+    one-process ``ref`` (params, m), on the card: the largest
+    ``_max_rel`` (max |a - b| over the leaf's largest element, plus
+    1e-7 / 1e-4) of each, and its leaf."""
+    worst = {"params": (0.0, None), "m": (0.0, None)}
+    for key, mine, tree in (("params", local.params, ref[0]),
+                            ("m", local.opt.m, ref[1])):
+        for path in leaf_paths(mine):
+            full = leaf_at(tree, path)
+            want = built.layout.local(path, full)
+            err = ((leaf_at(mine, path).float() - want.float()).abs().max()
+                   .item() / (full.abs().max().item() + 1e-7 / 1e-4))
+            if err > worst[key][0]:
+                worst[key] = (err, "/".join(path))
+    return worst["params"], worst["m"]
+
+
+def _gb(values: list) -> str:
+    """The largest of ``values`` in GB, or "not measured" where any is
+    None."""
+    if any(v is None for v in values):
+        return "not measured"
+    return f"{max(values):.2f} GB"
+
+
+def tm_report(tag: str, name: str, outs: list) -> dict:
+    """Print a world's per-rank readings of a timed bf16 run; return the
+    launches summed over its ranks' timed steps."""
+    total: dict = {}
+    for rank, o in enumerate(outs):
+        walls = o["wall_s"]
+        per = float(np.median(walls))
+        queue = float(np.median(o["queue_s"]))
+        comm, ar = o["comm"][-1], o["allreduce"][-1]
+        busy = "not measured (CPU)"
+        if "busy_s" in o:
+            busy = (f"{o['busy_s'] / walls[-1]:.3f} ({o['busy_s']:.4f} s of "
+                    f"device time in the last step, profiled, of "
+                    f"{walls[-1]:.3f} s)")
+        peak = o.get("peak_gb")
+        log(f"{tag} {name} rank {rank}: rows [{o['rows'][0]}, "
+            f"{o['rows'][1]}) of each of {o['n_micro']} microbatches, heads "
+            f"{o['heads'][0]}/{o['heads'][1]} SSD heads {o['heads'][2]}; "
+            f"losses {[round(x, 5) for x in o['loss']]}; step_wall_s "
+            f"median={per:.4f} min={min(walls):.4f} max={max(walls):.4f}; "
+            f"host_queue_s median={queue:.4f}; device_busy_share={busy}; "
+            f"per step: FSDP gathers {comm['gather_calls']} calls "
+            f"{comm['gather_bytes']} bytes, gradient sums "
+            f"{comm['grad_calls']} calls {comm['grad_bytes']} bytes, model "
+            f"all_reduces (forward and backward) {ar['calls']} calls "
+            f"{ar['bytes']} bytes; peak_mem_GB="
+            f"{'not measured (CPU)' if peak is None else round(peak, 3)}; "
+            f"global tok/s {o['tokens'] / per:.1f}; seconds "
+            f"{ {k: round(v, 1) for k, v in o['secs'].items()} }")
+        for c in o["launches"]:
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def tm_bf16_gate(tag: str, name: str, ranks: list, cfg, ref_loss: float,
+                 model_n: int, dev, counts: dict) -> list:
+    """A timed bf16 world's readings and gates: the first loss within
+    ``TM_BF16_REL`` of the one-process bf16 step's, every loss finite on
+    every rank, each rank's local heads, and (on the card) its launches in
+    every step equal to ``tm_launches``. Adds the timed steps' launches to
+    ``counts``; returns the failures."""
+    for k, v in tm_report(tag, name, ranks).items():
+        counts[k] = counts.get(k, 0) + v
+    o = ranks[0]
+    rel = abs(o["loss"][0] - ref_loss) / abs(ref_loss)
+    finite = all(bool(np.isfinite(r["loss"]).all()) for r in ranks)
+    want = tm_launches(cfg, o["n_micro"])
+    got = [{k: c[k] for k in want} for r in ranks for c in r["launches"]]
+    launched = dev.type != "cuda" or all(g == want for g in got)
+    heads = (cfg.n_heads // model_n, cfg.n_kv_heads // model_n,
+             cfg.ssm_heads // model_n if cfg.ssm_state else 0)
+    same_heads = all(r["heads"] == heads for r in ranks)
+    ok = rel <= TM_BF16_REL and finite and launched and same_heads
+    log(f"{tag} {name} at {cfg.n_layers} layers: first loss {o['loss'][0]} "
+        f"vs the one-process bf16 step's {ref_loss} (rel {rel:.2e}, limit "
+        f"{TM_BF16_REL}); every loss finite {finite}; heads per rank "
+        f"{heads}: {same_heads}; launches per rank and step {got[0]} "
+        f"(reckoned {want}: 2 x layers x microbatches forward, remat "
+        f"included, layers x microbatches backward; every rank and step "
+        f"equal: {launched}) {'ok' if ok else 'FAIL'}")
+    return [] if ok else [name]
+
+
+def tm_fp32_gate(tag: str, name: str, ranks: list) -> list:
+    """An fp32 case held against the one-process step each rank ran
+    after it: loss and grad_norm within ``TM_REL`` relative, every params
+    and m leaf within ``_max_rel`` ``TM_REL`` on every rank, the metrics
+    equal on every rank. Returns the failures."""
+    got = ranks[0]
+    same = all(r["loss"] == got["loss"] and r["grad_norm"]
+               == got["grad_norm"] for r in ranks)
+    lerr = max(abs(a - b) / abs(b)
+               for a, b in zip(got["loss"], got["ref_loss"]))
+    nerr = max(abs(a - b) / abs(b)
+               for a, b in zip(got["grad_norm"], got["ref_norm"]))
+    perr, pat = max((r["held"][0] for r in ranks), key=lambda h: h[0])
+    merr, mat = max((r["held"][1] for r in ranks), key=lambda h: h[0])
+    ok = (same and lerr <= TM_REL and nerr <= TM_REL and perr <= TM_REL
+          and merr <= TM_REL)
+    log(f"{tag} {name}, {got['n_micro']} microbatches: losses "
+        f"{got['loss']} vs one process {got['ref_loss']} (max rel "
+        f"{lerr:.2e}), grad_norm {got['grad_norm']} vs {got['ref_norm']} "
+        f"(max rel {nerr:.2e}); over the ranks params max rel {perr:.2e} "
+        f"({pat}), m max rel {merr:.2e} ({mat}); metrics "
+        f"equal on every rank {same}; step walls "
+        f"{[round(w, 2) for w in got['wall_s']]} s; seconds "
+        f"{ {k: round(v, 1) for k, v in got['secs'].items()} } "
+        f"{'ok' if ok else 'FAIL'}")
+    return [] if ok else [name]
+
+
+def phase_train_mesh(dev, seed: int, rehearsal: bool) -> dict:
+    """Training over a mesh (``build_step``'s train step, FSDP over data
+    and TP over model, ``launch/train_mesh.py``), every rank a process on
+    this card over gloo (``run_ranks``). internlm2-1.8b widths (d_model
+    2048, 16/8 heads of 128, vocab 92544) and mamba2-1.3b widths (64 SSD
+    heads of 64, N 128), ``SyntheticLM(4, 1024, seed 0)``, the reference's
+    microbatch rule, remat on. World (data 2, model 2): fp32 at
+    ``TM_LAYERS`` layers, ``TM_FP32_STEPS`` steps (AdamW defaults but
+    for the bf16 compression, as phase 4b), each rank then running the
+    one-process ``make_train_step`` on the card from the same init,
+    batches and microbatches: loss and grad_norm within 1e-4 relative,
+    every params and m leaf within ``_max_rel`` 1e-4; then bf16 at
+    ``TM_LAYERS`` layers (the reference's AdamW defaults),
+    ``TM_STEPS`` timed steps after the fp32 cases warmed the ranks, the
+    last under a device-only profiler: the first loss within 2e-2
+    relative of the one-process bf16 step's, every loss finite. Elastic:
+    the (2, 2) fp32 internlm2 run (its FSDP shards gathered once a step)
+    checkpoints after step 2 from the mesh; ``plan_resize`` of 4 devices
+    and batch 4 to 2 devices at model 2 must give (1, 2) and batch 2; a
+    (1, 2) world restores through ``state_shardings`` onto
+    ``resize_mesh``'s mesh and takes step 3, whose loss and params must
+    equal a one-process run restored from the same checkpoint on the
+    same batch (each rank runs it after its step) within 1e-4; then those
+    2 ranks as (pod 2, data 1, model 1): internlm2 bf16 in the (2, 2)
+    world's 2 microbatches (a row a pod) the same way, DP over (pod,
+    data). Every rank's launches per step must equal ``tm_launches`` at
+    the local heads (8/4 attention heads, 32 SSD heads at model 2)."""
+    tag = "[train_mesh]"
+    t_start = time.perf_counter()
+    where = "cuda" if dev.type == "cuda" else "cpu"
+    fp32_opt, bf16_opt = PARITY_OPT, TRAIN_OPT
+    ck_dir = ROOT / "build" / "chip_smoke_ckpt_mesh"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    cfgs = {}
+    for arch in TM_MODELS:
+        base = get_config(arch)
+        if rehearsal:
+            c16 = dataclasses.replace(base.reduced(), dtype="bfloat16")
+            c32 = base.reduced()
+        else:
+            c16 = dataclasses.replace(base, n_layers=TM_LAYERS)
+            c32 = dataclasses.replace(base, n_layers=TM_LAYERS,
+                                      dtype="float32")
+        cfgs[arch] = (c32, c16)
+    rows, seq = TM_ROWS, (32 if rehearsal else TM_SEQ)
+    nm = {a: choose_microbatches(rows, seq, c16.padded_vocab, 4)
+          for a, (_, c16) in cfgs.items()}
+    # the one-process bf16 references on this card (the fp32 ones run in
+    # the ranks, after their own steps)
+    t0 = time.perf_counter()
+    ref16 = {arch: tm_one_process(c16, dev, rows, seq, 1, 0, bf16_opt,
+                                  nm[arch], seed)[0][0]
+             for arch, (_, c16) in cfgs.items()}
+    log(f"{tag} one-process bf16 references on this card "
+        f"{time.perf_counter() - t0:.1f} s: first losses {ref16}")
+    failed = []
+    counts: dict = {}
+    # world (2, 2): fp32 gates (internlm2 checkpoints; its FSDP shards
+    # gathered once a step), then bf16 timed
+    cases = []
+    for arch, (c32, c16) in cfgs.items():
+        first = arch == TM_MODELS[0]
+        cases.append(dict(cfg=c32, rows=rows, seq=seq, steps=TM_FP32_STEPS,
+                          first=0, opt=fp32_opt, seed=seed, ref=True,
+                          once=first, ckpt_dir=str(ck_dir) if first else None))
+    for arch, (c32, c16) in cfgs.items():
+        cases.append(dict(cfg=c16, rows=rows, seq=seq, steps=TM_STEPS,
+                          first=0, opt=bf16_opt, seed=seed, timed=True))
+    t0, w0 = time.perf_counter(), time.time()
+    outs = run_ranks(tm_rank, (2, 2), TM_AXES, device=where, args=(cases,))
+    log(f"{tag} world (data 2, model 2): 4 ranks, "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start "
+        f"({min(o[0]['started'] for o in outs) - w0:.1f} s to the first "
+        f"case)")
+    for i, (arch, (c32, c16)) in enumerate(cfgs.items()):
+        failed += tm_fp32_gate(tag, f"(2, 2) fp32 {arch} at {c32.n_layers} "
+                               f"layers", [o[i] for o in outs])
+    for i, (arch, (c32, c16)) in enumerate(cfgs.items()):
+        ranks = [o[len(cfgs) + i] for o in outs]
+        failed += tm_bf16_gate(tag, f"(2, 2) bf16 {arch}", ranks, c16,
+                               ref16[arch], 2, dev, counts)
+    saved_s = outs[0][0]["secs"]["save"]
+    del outs
+    # a world of the 2 survivors: the elastic restore, (2, 2) saved after
+    # step 2, onto resize_mesh's (1, 2); then, on the same ranks, a (pod 2,
+    # data 1, model 1) mesh: DP over (pod, data). The rule's 4
+    # microbatches at 2 chips leave one row a microbatch, which resolve
+    # cannot split over 2 pods (every rank would run the same rows): 2
+    # microbatches, a row a pod, as the (2, 2) world's
+    arch = TM_MODELS[0]
+    c32, c16 = cfgs[arch]
+    old = el.ElasticState(None, 4, rows)
+    shape, batch2 = el.plan_resize(old, 2, model_axis=2)
+    t0 = time.perf_counter()
+    outs = run_ranks(tm_rank, shape, TM_AXES, device=where, args=([dict(
+        cfg=c32, rows=batch2, seq=seq, steps=1, first=TM_FP32_STEPS,
+        opt=fp32_opt, seed=seed + 1, ref=True,
+        restore=(str(ck_dir), TM_FP32_STEPS), elastic=(old, 2, 2)), dict(
+        cfg=c16, rows=rows, seq=seq, steps=TM_STEPS, first=0, opt=bf16_opt,
+        seed=seed, n_micro=nm[arch], timed=True, pod=True)],))
+    log(f"{tag} world of 2 ranks: the elastic {shape} restore and step, "
+        f"then (pod 2, data 1, model 1), {time.perf_counter() - t0:.1f} s "
+        f"with the ranks' start")
+    ranks = [o[0] for o in outs]
+    planned = shape == (1, 2) and batch2 == 2
+    log(f"{tag} elastic: plan_resize(ElasticState(n_devices=4, "
+        f"global_batch=4), 2, model_axis=2) = {shape}, batch {batch2} "
+        f"{'ok' if planned else 'FAIL'}; the {shape} world restored step "
+        f"{TM_FP32_STEPS} through state_shardings (resident host memory a "
+        f"rank before it {_gb([r['host_gb'][0] for r in ranks])}, its "
+        f"peak during it {_gb([r['host_gb'][1] for r in ranks])}, sampled "
+        f"every 10 ms), each "
+        f"rank then a one-process restore of it")
+    failed += tm_fp32_gate(tag, f"elastic {shape} fp32 {arch} step "
+                           f"{TM_FP32_STEPS + 1}", ranks)
+    if not planned:
+        failed.append("plan_resize")
+    log(f"{tag} elastic seconds: the (2, 2) save from the mesh "
+        f"{saved_s:.1f}, the (1, 2) ranks' build and restore "
+        f"{max(r['secs']['start'] for r in ranks):.1f}, the one-process "
+        f"restore and step {max(r['secs']['reference'] for r in ranks):.1f}")
+    failed += tm_bf16_gate(tag, f"(2, 1, 1) bf16 {arch}",
+                           [o[1] for o in outs], c16, ref16[arch], 1, dev,
+                           counts)
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    log(f"{tag} phase seconds {time.perf_counter() - t_start:.1f}")
+    if dev.type == "cuda":
+        log(f"{tag} nvidia-smi: {smi_line()}")
+    if failed:
+        raise SystemExit(f"chip_smoke: training over a mesh failed on "
+                         f"{failed}")
+    return dict(counts=counts)
+
 # -- optional: profiler breakdown of each path -----------------------------------
 BWD_KERNEL_NAMES = ("bwd::prep_kernel", "bwd::main_kernel",
                     "bwd::post_kernel", "dkdv_fma", "dq_fma",
@@ -5530,6 +6012,8 @@ def main(argv=None) -> int:
         for case in TRAIN_CASES:
             if case in phases:
                 phase_train(dev, case, args.seed, rehearsal=True)
+        if "train_mesh" in phases:
+            phase_train_mesh(dev, args.seed, rehearsal=True)
         log("[rehearsal] done")
         return 0
     t0 = time.perf_counter()
@@ -5580,6 +6064,10 @@ def main(argv=None) -> int:
             counts[case] = phase_train(dev, case, args.seed, rehearsal=False,
                                        profile_dir=args.profile)["counts"]
             done(case)
+    if "train_mesh" in phases:
+        counts["train_mesh"] = phase_train_mesh(dev, args.seed,
+                                                rehearsal=False)["counts"]
+        done("train_mesh")
     if phases != set(ALL_PHASES):
         log("[partial] phases run: " + ",".join(sorted(phases)))
         return 0

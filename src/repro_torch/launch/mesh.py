@@ -80,7 +80,7 @@ def mesh_coords(shape: Sequence[int], axes: Sequence[str], rank: int
 def mesh_for_rank(shape: Sequence[int], axes: Sequence[str], rank: int
                   ) -> Mesh:
     """A mesh seen from ``rank`` with no process groups: enough to slice
-    tensors (``Sharder.shard``), not to reduce them."""
+    tensors (``sharding.rules.shard_leaf``), not to reduce them."""
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {tuple(shape)} vs axes {tuple(axes)}")
     return Mesh(collections.OrderedDict(zip(axes, shape)),

@@ -23,10 +23,22 @@ whole and lays the KV out by heads, each rank holding the KV heads its
 query heads read: the same function in another memory layout.
 
 Every family runs: dense, VLM, MoE, the SSM and hybrid (the Mamba2 mixer
-split by whole SSD heads) and the encoder-decoder. ``train_step`` over a
-mesh is not ported and raises ``NotImplementedError`` naming ROADMAP
-A9.4. ``lower_step`` belongs to the compile plane (A10) and has no
-counterpart.
+split by whole SSD heads) and the encoder-decoder. ``lower_step`` belongs
+to the compile plane (A10) and has no counterpart.
+
+A ``train_step`` shape gives THIS rank's train step
+(``launch/train_mesh.py``), ``fn(state, batch) -> (state, metrics)``: FSDP
+over ``data`` and tensor parallelism over ``model`` under
+``build_rules(train=True)``. The rank holds its FSDP shard of ``params``,
+``m`` and ``v`` (``TrainBuiltStep.init_state`` / ``shard_state`` /
+``gather_state``); each microbatch (or, with ``gather_weights_once``,
+each step) gathers the shards over ``data`` into the tensor-parallel
+layout the serving steps run (the reference's ``gathered_rules``), takes
+the rank's rows of the whole batch it is given, and sums the gradients
+over the batch axes in fp32 before they are cut back to the shard and
+rounded. A checkpoint saved from one mesh restores onto another through
+``train/checkpoint.restore_checkpoint(shardings=built.state_shardings())``
+(the elastic path, ``train/elastic.py``).
 
 ``serve_pp=True`` on a mesh with a ``pod`` axis builds the serve step as
 the reference does, pipeline parallel over ``pod``: each rank is one
@@ -184,6 +196,11 @@ def _row_inputs(inputs: Dict, rows: slice) -> Dict:
 def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
                serve_pp: bool = False, kv_cache_dtype: Optional[str] = None,
                weight_dtype: Optional[str] = None,
+               n_microbatches: Optional[int] = None,
+               extra_rules: Optional[Dict] = None,
+               gather_weights_once: bool = False,
+               remat_policy: Optional[str] = None,
+               opt_cfg: Any = None,
                device: DeviceLike = None) -> BuiltStep:
     """This rank's prefill or serve step of ``(cfg, shape)`` on ``mesh``
     (the reference's ``build_step`` for its serving cells). ``device``:
@@ -195,10 +212,27 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     serve step this rank's stage of the pipeline-parallel step
     (``launch/pipeline.py``'s ``build_pp_serve_step``, a
     ``PPBuiltStep``), which takes ``kv_cache_dtype`` and, as the
-    reference's, no ``weight_dtype``."""
+    reference's, no ``weight_dtype``.
+
+    A ``train_step`` shape gives this rank's train step
+    (``launch/train_mesh.py``'s ``TrainBuiltStep``): the rules of
+    ``build_rules(train=True)`` with ``extra_rules`` on top,
+    ``n_microbatches`` by default the reference's
+    ``choose_microbatches`` over the mesh's chips, ``gather_weights_once``
+    gathering the FSDP shards once a step instead of once a microbatch,
+    ``remat_policy`` None or ``"save_block_out"`` (ignored by the
+    encoder-decoder, as in the reference), ``opt_cfg`` the AdamW settings
+    (default the reference's ``AdamWConfig()``, which its ``build_step``
+    always uses). The serving steps take none of these five."""
     if shape.step == "train_step":
-        raise NotImplementedError("train_step over a mesh is not ported "
-                                  "(ROADMAP A9.4)")
+        from repro_torch.launch.train_mesh import build_train_step
+        rules = build_rules(cfg, mesh, True, step=shape.step, shape=shape)
+        rules.update(extra_rules or {})
+        return build_train_step(cfg, shape, mesh, rules,
+                                n_microbatches=n_microbatches,
+                                gather_weights_once=gather_weights_once,
+                                remat_policy=remat_policy, opt_cfg=opt_cfg,
+                                device=device)
     rules = build_rules(cfg, mesh, False, step=shape.step, shape=shape)
     if serve_pp and "pod" in mesh.shape and shape.step == "serve_step":
         from repro_torch.launch.pipeline import build_pp_serve_step

@@ -19,7 +19,8 @@ Model = Union[LM, EncDecLM]
 def build_model(cfg: ArchConfig, device: DeviceLike = None,
                 ssd_chunk: int = 128, kv_probe: bool = False,
                 remat: bool = True, sharder: Optional[Sharder] = None,
-                batch_axes: Axes = None) -> Model:
+                batch_axes: Axes = None,
+                remat_policy: Optional[str] = None) -> Model:
     """The executable model on ``device`` (default: the card; raises
     without one unless ``device="cpu"``): ``EncDecLM`` for an
     encoder-decoder config, else ``LM``. ``ssd_chunk`` is the SSD scan's
@@ -30,14 +31,17 @@ def build_model(cfg: ArchConfig, device: DeviceLike = None,
     reference's default). ``sharder`` (with a mesh) makes the model run
     this rank's tensor-parallel shards, every family included,
     ``batch_axes`` naming the mesh axes its caller split the batch
-    over."""
+    over. ``remat_policy`` (None or ``"save_block_out"``, the decoder-only
+    families' attention layers; the encoder-decoder ignores it, as the
+    reference's ``build_step`` does) chooses what ``remat`` keeps."""
     if cfg.is_encdec:
         if kv_probe:
             raise ValueError(f"{cfg.name}: the KV probe needs a paged cache")
         return EncDecLM(cfg, device=device, remat=remat, sharder=sharder,
                         batch_axes=batch_axes)
     return LM(cfg, device=device, ssd_chunk=ssd_chunk, kv_probe=kv_probe,
-              remat=remat, sharder=sharder, batch_axes=batch_axes)
+              remat=remat, sharder=sharder, batch_axes=batch_axes,
+              remat_policy=remat_policy)
 
 
 class TensorSpec(NamedTuple):

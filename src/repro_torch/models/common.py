@@ -254,17 +254,34 @@ def lm_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     fp32, the padded vocab columns at -1e30, ``log_softmax`` NLL of
     ``targets``, summed over ``mask`` and divided by max(sum(mask), 1), or
     the mean over every token without a mask."""
+    nll = _nll(logits, targets, vocab)
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def lm_nll_sum(logits: torch.Tensor, targets: torch.Tensor,
+               mask: Optional[torch.Tensor], vocab: int) -> torch.Tensor:
+    """``lm_cross_entropy``'s numerator: the NLL summed over ``mask`` (over
+    every token without one), fp32."""
+    nll = _nll(logits, targets, vocab)
+    if mask is None:
+        return nll.sum()
+    return (nll * mask.to(nll.dtype)).sum()
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor, vocab: int
+         ) -> torch.Tensor:
+    """Per-token NLL of ``targets`` under fp32 ``log_softmax``, the padded
+    vocab columns at -1e30."""
     logits = logits.float()
     if logits.shape[-1] != vocab:
         keep = torch.arange(logits.shape[-1], device=logits.device) < vocab
         logits = torch.where(keep, logits,
                              torch.full((), -1e30, device=logits.device))
     logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    if mask is None:
-        return nll.mean()
-    mask = mask.to(nll.dtype)
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
 
 
 def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -272,9 +289,20 @@ def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     inputs' dtype: cuBLAS's fp32 output (``out_dtype``) on the card, an
     fp32 product of the upcast inputs on the CPU; fp32 inputs multiply as
     they are. ``w`` 2-D (``x`` (..., K)), or batched: ``x`` (E, M, K) and
-    ``w`` (E, K, N)."""
+    ``w`` (E, K, N). Under autograd (``_MatmulFp32``) the backward's two
+    products take the fp32 gradient rounded to the inputs' dtype and
+    accumulate in fp32 the same way, rounding each result once to its
+    input's dtype: tensor-core products on the card, where an upcast
+    product would run in fp32."""
     if x.dtype == torch.float32:
         return x @ w
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MatmulFp32.apply(x, w)
+    return _mm_fp32(x, w)
+
+
+def _mm_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``matmul_fp32``'s product of two low-precision operands."""
     if w.ndim == 3:
         if x.is_cuda:
             return torch.bmm(x, w, out_dtype=torch.float32)
@@ -285,6 +313,33 @@ def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     else:
         out = x2.float() @ w.float()
     return out.reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
+
+
+class _MatmulFp32(torch.autograd.Function):
+    """``_mm_fp32`` with its derivative (the ``out_dtype`` product has
+    none): ``dx = g @ w^T`` and ``dw = x^T @ g`` with ``g`` rounded to the
+    operands' dtype, each through ``_mm_fp32``."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_fp32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_fp32(g, w.transpose(-1, -2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            if w.ndim == 3:
+                dw = _mm_fp32(x.transpose(1, 2), g)
+            else:
+                dw = _mm_fp32(x.reshape(-1, x.shape[-1]).t(),
+                              g.reshape(-1, g.shape[-1]))
+            dw = dw.to(w.dtype)
+        return dx, dw
 
 
 def remat(enabled: bool, fn: Callable, *args):

@@ -48,9 +48,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import (ParamDef, lm_cross_entropy,
-                                       make_norm, norm_schema, remat,
-                                       sinusoidal_positions, stack_schema,
-                                       unbind_layers)
+                                       lm_nll_sum, make_norm, norm_schema,
+                                       remat, sinusoidal_positions,
+                                       stack_schema, unbind_layers)
 from repro_torch.models.transformer import TensorParallel
 from repro_torch.sharding.rules import Axes, Sharder
 
@@ -148,6 +148,7 @@ class EncDecLM(TensorParallel):
 
     def _ffn(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
+        x = self._enter(x, self._ffn_ax)
         return ffn_mod.ffn_apply(p, x, c.act, c.gated_ffn,
                                  self._row_parallel(self._ffn_ax))
 
@@ -168,7 +169,7 @@ class EncDecLM(TensorParallel):
 
     # -- encoder -------------------------------------------------------------
     def _enc_layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
-        a = self.norm(x, p["ln1"])
+        a = self._enter(self.norm(x, p["ln1"]), self._heads_ax)
         k, v = self._proj_kv(p["attn"], a)
         o = kops.flash_attention(self._proj_q(p["attn"], a), k, v,
                                  causal=False)
@@ -202,13 +203,15 @@ class EncDecLM(TensorParallel):
     # -- decoder ---------------------------------------------------------------
     def _dec_layer(self, p: Dict, x: torch.Tensor, enc_out: torch.Tensor):
         """One decoder layer over whole prompts: (x, k, v, ck, cv)."""
-        a = self.norm(x, p["ln1"])
+        ax = self._heads_ax
+        a = self._enter(self.norm(x, p["ln1"]), ax)
         k, v = self._proj_kv(p["self_attn"], a)
         o = kops.flash_attention(self._proj_q(p["self_attn"], a), k, v,
                                  causal=True)
         x = x + self._out_proj(p["self_attn"], o)
-        ck, cv = self._proj_kv(p["cross_attn"], enc_out)
-        x = x + self._cross(p["cross_attn"], self.norm(x, p["ln2"]), ck, cv)
+        ck, cv = self._proj_kv(p["cross_attn"], self._enter(enc_out, ax))
+        x = x + self._cross(p["cross_attn"],
+                            self._enter(self.norm(x, p["ln2"]), ax), ck, cv)
         return self._tail(p, x), k, v, ck, cv
 
     def _decoder_full(self, params: Dict, tokens: torch.Tensor,
@@ -255,11 +258,24 @@ class EncDecLM(TensorParallel):
         frames ``embeds``. Encoder self-attention, decoder causal
         self-attention and cross attention all train through the flash
         kernels on the card (``FlashAttentionFn``)."""
+        return lm_cross_entropy(self._train_logits(params, batch),
+                                batch["targets"], batch.get("mask"),
+                                self.cfg.vocab)
+
+    def loss_shard(self, params: Dict, batch: Dict, count: float,
+                   tokens: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's share of a microbatch's ``loss`` in a mesh step, as
+        ``LM.loss_shard``: its rows' summed NLL over ``count``, as (the
+        objective, its value); ``tokens`` is unused (no MoE)."""
+        nll = lm_nll_sum(self._train_logits(params, batch), batch["targets"],
+                         batch.get("mask"), self.cfg.vocab) / count
+        return nll, nll.detach()
+
+    def _train_logits(self, params: Dict, batch: Dict) -> torch.Tensor:
         enc_out = self.encode(params, batch["embeds"], train=True)
         x, _ = self._decoder_full(params, batch["tokens"], enc_out,
                                   collect_kv=False)
-        return lm_cross_entropy(self.logits(params, x), batch["targets"],
-                                batch.get("mask"), self.cfg.vocab)
+        return self.logits(params, x)
 
     def init_cache(self, batch: int, max_len: int, s_enc: int) -> Dict:
         """Zero cache: self-attention ``k``/``v`` (L, batch, max_len, nkv,

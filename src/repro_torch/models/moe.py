@@ -142,11 +142,18 @@ def moe_aux(probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return e * torch.sum(me * ce)
 
 
-def moe_apply_aux(p: Dict, x: torch.Tensor, top_k: int, act: str,
-                  gated: bool, capacity_factor: float = 1.25
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The training path's MoE layer: (``moe_apply``'s output, the Switch
-    load-balancing loss of its router), the pair the reference's
-    ``moe_apply`` returns."""
-    out, probs, idx = moe_apply(p, x, top_k, act, gated, capacity_factor)
-    return out, moe_aux(probs, idx)
+def moe_aux_shard(probs: torch.Tensor, idx: torch.Tensor, n_tokens: int,
+                  reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]
+                  = None) -> torch.Tensor:
+    """A row shard's part of ``moe_aux`` over a batch of ``n_tokens``
+    tokens split over ranks: E * sum(this shard's summed probabilities /
+    n_tokens * share of first choices over every shard), the shares'
+    counts summed over the shards by ``reduce`` (they carry no gradient).
+    The parts sum over the shards to ``moe_aux`` of the whole batch, and
+    each part's gradient reaches only its rows."""
+    e = probs.shape[-1]
+    me = probs.sum(dim=0) / n_tokens
+    first = torch.nn.functional.one_hot(idx[:, 0], e).float().sum(dim=0)
+    if reduce is not None:
+        first = reduce(first)
+    return e * torch.sum(me * (first / n_tokens))

@@ -66,7 +66,13 @@ heads (``sharding.rules.MixerSplit``, decided by ``resolve`` over the
 layer, the gated RMSNorm's sums of squares and the row-parallel
 ``w_out`` (``models/ssm.py``); the hybrid's shared block splits as a dense
 layer does. The layout and these pieces live in ``TensorParallel``, which
-the encoder-decoder shares.
+the encoder-decoder shares. Under autograd (a mesh train step,
+``launch/train_mesh.py``) each sum passes its gradient through unchanged
+(the ranks then compute the same thing), the gated norm's sums of
+squares send theirs back summed, and each replicated activation entering
+a product whose weight is split sums its gradient over the ranks on the
+way back (``Sharder.enter``); ``loss_shard`` is a rank's share of the
+loss.
 
 The VLM's vision tower is a stub, as in the reference: ``prefill`` takes
 patch embeddings ``inputs["embeds"]`` (B, S, d_model) and M-RoPE position
@@ -90,18 +96,34 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamDef, apply_m_rope, apply_rope,
                                        init_params, lm_cross_entropy,
-                                       make_norm, matmul_fp32, norm_schema,
-                                       param_count, remat, schema_shapes,
-                                       schema_specs, stack_schema,
-                                       unbind_layers)
+                                       lm_nll_sum, make_norm, matmul_fp32,
+                                       norm_schema, param_count, remat,
+                                       schema_shapes, schema_specs,
+                                       stack_schema, unbind_layers)
 from repro_torch.sharding.rules import (Axes, MixerSplit, Sharder,
-                                        shard_leaf, tree_shard)
+                                        leaf_index, shard_leaf, tree_shard)
 
 IntLike = Union[int, torch.Tensor]
 
 
 RECURRENT = ("ssm", "hybrid")       # families whose cache is SSM state
 STATE_KEYS = ("conv", "ssd")        # per-row recurrent state, no seq axis
+
+
+def kv_select(n_heads: int, n_kv: int, n_local: int, h_lo: int
+              ) -> List[int]:
+    """The KV heads a rank whose query heads are ``[h_lo, h_lo +
+    n_local)`` holds where ``kv_heads`` is replicated and ``heads`` split:
+    those its query heads read (global query head i reads KV head i // g),
+    each once where they form equal groups, else one per query head in
+    query order."""
+    g = n_heads // n_kv
+    need = [(h_lo + j) // g for j in range(n_local)]
+    uniq = sorted(set(need))
+    gl = n_local // len(uniq)
+    grouped = gl * len(uniq) == len(need) and all(
+        need[j] == uniq[j // gl] for j in range(len(need)))
+    return uniq if grouped else need
 
 
 class TensorParallel:
@@ -128,13 +150,7 @@ class TensorParallel:
         self._kv_sel: Optional[List[int]] = None
         self.n_kv_local = nkv // sh.size(kv_ax)
         if kv_ax is None and self._heads_ax is not None:
-            g = nh // nkv
-            need = [(h_lo + j) // g for j in range(self.n_heads_local)]
-            uniq = sorted(set(need))
-            gl = self.n_heads_local // len(uniq)
-            grouped = gl * len(uniq) == len(need) and all(
-                need[j] == uniq[j // gl] for j in range(len(need)))
-            self._kv_sel = uniq if grouped else need
+            self._kv_sel = kv_select(nh, nkv, self.n_heads_local, h_lo)
             self.n_kv_local = len(self._kv_sel)
         self._ffn_ax = None
         if c.d_ff:
@@ -158,11 +174,19 @@ class TensorParallel:
         self.ssm_heads_local = self._mixer.hi - self._mixer.lo \
             if self._mixer else 0
 
-    def _reduce(self, axes: Axes):
-        """The partial-sum reduction over ``axes`` (None when unsplit)."""
+    def _reduce(self, axes: Axes, grad: str = "identity"):
+        """The partial-sum reduction over ``axes`` (None when unsplit);
+        ``grad`` as ``Sharder.reduce`` takes it."""
         if axes is None:
             return None
-        return lambda x: self.sharder.reduce(x, axes)
+        return lambda x: self.sharder.reduce(x, axes, grad=grad)
+
+    def _enter(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """``x``, replicated over the ranks of ``axes``, entering products
+        whose weights are split over them (``Sharder.enter``: the
+        gradient summed over the ranks in the backward pass); ``x`` when
+        unsplit."""
+        return x if axes is None else self.sharder.enter(x, axes)
 
     def _row_parallel(self, axes: Axes):
         """``(x, w) -> x @ w`` for a weight whose rows are split over
@@ -183,6 +207,13 @@ class TensorParallel:
         whole heads, the KV heads its query heads read where ``kv_heads``
         is replicated and ``heads`` split, the mixer by SSD head)."""
         return shard_leaf(full, d.names, self.sharder, self._head_dim,
+                          self._kv_sel, self._mixer)
+
+    def local_index(self, d: ParamDef) -> List[torch.Tensor]:
+        """The global indices, per dimension, of the part of a parameter
+        of schema entry ``d`` that ``_local_leaf`` keeps
+        (``sharding.rules.leaf_index``)."""
+        return leaf_index(d.shape, d.names, self.sharder, self._head_dim,
                           self._kv_sel, self._mixer)
 
     def shard_params(self, full: Dict) -> Dict:
@@ -289,6 +320,7 @@ class TensorParallel:
         return self.sharder.reduce(x, self._vocab_ax)
 
     def logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
+        x = self._enter(x, self._vocab_ax)
         if self.cfg.tie_embeddings:
             out = x @ params["embed"]["tok"].T
         else:
@@ -319,7 +351,8 @@ class LM(TensorParallel):
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
                  ssd_chunk: int = 128, kv_probe: bool = False,
                  remat: bool = True, sharder: Optional[Sharder] = None,
-                 batch_axes: Axes = None):
+                 batch_axes: Axes = None,
+                 remat_policy: Optional[str] = None):
         if cfg.family not in ("dense", "moe", "vlm") + RECURRENT \
                 or cfg.is_encdec:
             raise ValueError(f"LM serves decoder-only families, not "
@@ -332,6 +365,12 @@ class LM(TensorParallel):
         # per-layer activation checkpointing in ``loss`` while autograd
         # records (the reference's ``remat``); serving never records
         self.remat = remat
+        # the reference's ``remat_policy``: "save_block_out" keeps each
+        # attention layer's attention and FFN outputs and recomputes the
+        # rest (two checkpoints a layer instead of one; the same gradients)
+        if remat_policy not in (None, "save_block_out"):
+            raise ValueError(f"unknown remat_policy {remat_policy!r}")
+        self.remat_policy = remat_policy
         # KV sanitizer probe on the paged attention calls; their (B, nh)
         # maxima since the last ``take_probe``, on the device
         self.kv_probe = kv_probe
@@ -438,6 +477,7 @@ class LM(TensorParallel):
         M-RoPE; otherwise (B, S) positions (the first stream of (3, B, S)
         ones, as the reference takes them)."""
         c = self.cfg
+        x = self._enter(x, self._heads_ax)
         q = x @ p["wq"]
         k = x @ p["wk"]
         v = x @ p["wv"]
@@ -522,7 +562,7 @@ class LM(TensorParallel):
 
     def _mlp_or_moe(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
-        h = self.norm(x, p["ln_mlp"])
+        h = self._enter(self.norm(x, p["ln_mlp"]), self._ffn_ax)
         if c.n_experts > 0:
             share = (self._queue_share
                      if self.sharder.size(self.batch_axes) > 1 else None)
@@ -533,24 +573,55 @@ class LM(TensorParallel):
         return ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn,
                                  self._row_parallel(self._ffn_ax))
 
-    def _mlp_or_moe_aux(self, p: Dict, x: torch.Tensor
+    def _mlp_or_moe_aux(self, p: Dict, x: torch.Tensor,
+                        aux_tokens: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The training path's FFN sub-block: (``_mlp_or_moe``'s output,
-        the MoE layer's load-balancing loss; 0 for a dense layer)."""
+        the MoE layer's load-balancing loss; 0 for a dense layer). With
+        ``aux_tokens`` (a mesh step: the microbatch's tokens over every
+        row shard) the loss is this rank's share of the whole
+        microbatch's (``moe.moe_aux_shard``: its rows' router
+        probabilities against the first choices of every row)."""
         c = self.cfg
         if c.n_experts == 0:
             return (self._mlp_or_moe(p, x),
                     torch.zeros((), dtype=torch.float32, device=x.device))
-        return moe_mod.moe_apply_aux(p["moe"], self.norm(x, p["ln_mlp"]),
-                                     c.moe_top_k, c.act, c.gated_ffn)
+        split = self.sharder.size(self.batch_axes) > 1
+        h = self._enter(self.norm(x, p["ln_mlp"]), self._ffn_ax)
+        out, probs, idx = moe_mod.moe_apply(
+            p["moe"], h, c.moe_top_k, c.act, c.gated_ffn,
+            reduce=self._reduce(self._ffn_ax),
+            queue_share=self._queue_share if split else None)
+        if aux_tokens is None:
+            return out, moe_mod.moe_aux(probs, idx)
+        return out, moe_mod.moe_aux_shard(
+            probs, idx, aux_tokens,
+            self._reduce(self.batch_axes) if split else None)
 
-    def _dense_layer_train(self, p: Dict, x: torch.Tensor, positions
+    def _attn_block(self, p: Dict, x: torch.Tensor, positions
+                    ) -> torch.Tensor:
+        """An attention layer's attention sub-block (norm, attention, the
+        output projection), without the residual."""
+        a, _, _ = self._attn_full(p["attn"], self.norm(x, p["ln_attn"]),
+                                  positions)
+        return a
+
+    def _dense_layer_train(self, p: Dict, x: torch.Tensor, positions,
+                           aux_tokens: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One attention layer of ``loss``: (x, its MoE aux loss)."""
-        h = self.norm(x, p["ln_attn"])
-        a, _, _ = self._attn_full(p["attn"], h, positions)
-        x = x + a
-        m, aux = self._mlp_or_moe_aux(p, x)
+        x = x + self._attn_block(p, x, positions)
+        m, aux = self._mlp_or_moe_aux(p, x, aux_tokens)
+        return x + m, aux
+
+    def _dense_layer_saving(self, p: Dict, x: torch.Tensor, positions,
+                            aux_tokens: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``_dense_layer_train`` under ``remat_policy="save_block_out"``:
+        the attention and FFN sub-blocks each rematerialised, their
+        outputs (the reference's ``block_out``) kept."""
+        x = x + remat(self.remat, self._attn_block, p, x, positions)
+        m, aux = remat(self.remat, self._mlp_or_moe_aux, p, x, aux_tokens)
         return x + m, aux
 
     @staticmethod
@@ -593,7 +664,7 @@ class LM(TensorParallel):
 
     def _mamba_layer_fwd(self, p: Dict, x: torch.Tensor):
         c = self.cfg
-        h = self.norm(x, p["ln"])
+        h = self._enter(self.norm(x, p["ln"]), self._ssm_ax)
         y, st = ssm_mod.mamba2_prefill(
             p["mixer"], h, c.d_inner, c.ssm_state, c.ssm_heads,
             c.ssm_head_dim, chunk=self.ssd_chunk, **self._mixer_tp())
@@ -602,8 +673,10 @@ class LM(TensorParallel):
     def _mixer_tp(self) -> Dict:
         """The Mamba2 block's cross-rank sums (none when the mixer is
         whole on every rank): the gated norm's sums of squares and the
-        row-parallel ``w_out``."""
-        return dict(reduce=self._reduce(self._ssm_ax),
+        row-parallel ``w_out``. Under autograd the first sends the
+        gradient back summed over the ranks: each rank's heads use the
+        summed squares."""
+        return dict(reduce=self._reduce(self._ssm_ax, grad="sum"),
                     row_parallel=self._row_parallel(self._ssm_ax))
 
     def _mamba_layer_step(self, p: Dict, x: torch.Tensor, conv: torch.Tensor,
@@ -625,7 +698,7 @@ class LM(TensorParallel):
         h = self.norm(torch.cat([x, x0], dim=-1), p["ln_attn"])
         a, k, v = self._attn_full(p["attn"], h, positions)
         x = x + a
-        h = self.norm(x, p["ln_mlp"])
+        h = self._enter(self.norm(x, p["ln_mlp"]), self._ffn_ax)
         return x + ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn,
                                      self._row_parallel(self._ffn_ax)), k, v
 
@@ -638,7 +711,9 @@ class LM(TensorParallel):
                                      self._row_parallel(self._ffn_ax))
 
     def _run_trunk_full(self, params: Dict, x: torch.Tensor, positions,
-                        collect_kv: bool = True) -> Tuple[torch.Tensor, Dict]:
+                        collect_kv: bool = True,
+                        aux_tokens: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, Dict]:
         """Full-sequence pass over all layers (prefill / train). Returns (x,
         the stacked per-layer state): ``k``/``v`` for the attention families;
         ``conv``/``ssd`` for SSM and hybrid, plus the hybrid's shared-block
@@ -646,10 +721,11 @@ class LM(TensorParallel):
         ``hybrid_period`` trunk layers, as the reference's grouped scan
         does). With ``collect_kv=False`` (``loss``) it keeps no state and
         returns ``{"aux": the MoE load-balancing losses summed over the
-        layers}`` (0 without experts), each layer under ``remat``."""
+        layers}`` (0 without experts; ``aux_tokens`` as
+        ``_mlp_or_moe_aux`` takes it), each layer under ``remat``."""
         c = self.cfg
         if not collect_kv:
-            return self._run_trunk_train(params, x, positions)
+            return self._run_trunk_train(params, x, positions, aux_tokens)
         state: Dict[str, list] = {}
         if c.family in RECURRENT:
             fire = c.shared_attn_positions()
@@ -674,7 +750,8 @@ class LM(TensorParallel):
                 state.setdefault("v", []).append(v)
         return x, {key: torch.stack(vals) for key, vals in state.items()}
 
-    def _run_trunk_train(self, params: Dict, x: torch.Tensor, positions
+    def _run_trunk_train(self, params: Dict, x: torch.Tensor, positions,
+                         aux_tokens: Optional[int] = None
                          ) -> Tuple[torch.Tensor, Dict]:
         c = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -693,8 +770,11 @@ class LM(TensorParallel):
                               params["shared"], x, x0)
             return x, {"aux": aux}
         for p in layers:
-            x, a = remat(self.remat, self._dense_layer_train, p, x,
-                         positions)
+            if self.remat_policy == "save_block_out":
+                x, a = self._dense_layer_saving(p, x, positions, aux_tokens)
+            else:
+                x, a = remat(self.remat, self._dense_layer_train, p, x,
+                             positions, aux_tokens)
             aux = aux + a
         return x, {"aux": aux}
 
@@ -721,6 +801,40 @@ class LM(TensorParallel):
         flash forward and backward kernels and the SSD scan through its
         forward and backward kernels."""
         c = self.cfg
+        logits, aux = self._train_logits(params, batch)
+        loss = lm_cross_entropy(logits, batch["targets"], batch.get("mask"),
+                                c.vocab)
+        if c.n_experts > 0:
+            loss = loss + 0.01 * aux["aux"] / max(1, c.n_layers)
+        return loss
+
+    def loss_shard(self, params: Dict, batch: Dict, count: float,
+                   tokens: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's share of a microbatch's ``loss`` in a mesh step
+        (``launch/train_mesh.py``), whose rows ``batch`` holds: the summed
+        NLL of its rows over ``count`` (the microbatch's mask sum over
+        every row, at least 1) plus its share of the MoE loss
+        (``_mlp_or_moe_aux`` over the microbatch's ``tokens``). Returns
+        (the objective to differentiate, its value): the values summed
+        over the row shards are the microbatch's ``loss``; the objective
+        leaves the MoE loss to one rank of the expert FFN's split, since
+        the router's gradient is summed over those ranks."""
+        c = self.cfg
+        logits, aux = self._train_logits(params, batch, tokens)
+        nll = lm_nll_sum(logits, batch["targets"], batch.get("mask"),
+                         c.vocab) / count
+        if c.n_experts == 0:
+            return nll, nll.detach()
+        moe = 0.01 * aux["aux"] / max(1, c.n_layers)
+        owner = self._ffn_ax is None or self.sharder.index(self._ffn_ax) == 0
+        return (nll + moe if owner else nll), (nll + moe).detach()
+
+    def _train_logits(self, params: Dict, batch: Dict,
+                      aux_tokens: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, Dict]:
+        """``loss``'s forward up to the logits: (logits, the trunk's
+        ``aux``)."""
+        c = self.cfg
         if "embeds" in batch:
             x = batch["embeds"].to(self.dtype)
         else:
@@ -732,13 +846,10 @@ class LM(TensorParallel):
                                      )[None].expand(b, s)
             if c.m_rope:
                 positions = positions[None].expand(3, b, s)
-        x, aux = self._run_trunk_full(params, x, positions, collect_kv=False)
+        x, aux = self._run_trunk_full(params, x, positions, collect_kv=False,
+                                      aux_tokens=aux_tokens)
         x = self.norm(x, params["final_norm"])
-        loss = lm_cross_entropy(self.logits(params, x), batch["targets"],
-                                batch.get("mask"), c.vocab)
-        if c.n_experts > 0:
-            loss = loss + 0.01 * aux["aux"] / max(1, c.n_layers)
-        return loss
+        return self.logits(params, x), aux
 
     def init_cache(self, batch: int, max_len: int, kv_layout: str = "contig",
                    n_blocks: int = 0, block_size: int = 16,

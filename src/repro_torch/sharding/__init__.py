@@ -4,8 +4,9 @@ mesh of ``torch.distributed`` ranks (port of ``repro/sharding``)."""
 from repro_torch.sharding.rules import (INFER_RULES, INFER_RULES_MULTIPOD,
                                         TRAIN_RULES, TRAIN_RULES_MULTIPOD,
                                         MixerSplit, Sharder, head_units,
-                                        resolve, shard_leaf, tree_shard)
+                                        leaf_index, resolve, shard_leaf,
+                                        tree_shard)
 
 __all__ = ["INFER_RULES", "INFER_RULES_MULTIPOD", "TRAIN_RULES",
            "TRAIN_RULES_MULTIPOD", "MixerSplit", "Sharder", "head_units",
-           "resolve", "shard_leaf", "tree_shard"]
+           "leaf_index", "resolve", "shard_leaf", "tree_shard"]

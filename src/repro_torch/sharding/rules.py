@@ -11,12 +11,24 @@ equal element by element to the reference's ``PartitionSpec``.
 
 Where the reference hands the spec to GSPMD, which inserts the collectives,
 here a ``Sharder`` on a ``launch.mesh.Mesh`` gives each rank its slice of
-a full tensor (``shard``, ``tree_shard``: the counterpart of
+a full tensor (``shard_leaf``, ``tree_shard``: the counterpart of
 ``in_shardings`` plus ``device_put``) and sums partial results over the
 ranks of a set of mesh axes (``reduce``: ``all_reduce`` SUM). The model
 code calls ``reduce`` where the reference's GSPMD would insert an
 all-reduce; there is no counterpart of ``constrain``. ``Sharder()`` with no
 mesh is the identity, as in the reference.
+
+Under autograd both collectives carry the backward their use implies
+(a bare ``dist.all_reduce`` has no autograd rule, and a backward through
+it silently runs as the identity): ``reduce`` passes the gradient through
+unchanged (every rank then computes the same thing: Megatron's "g"), or,
+with ``grad="sum"``, sums it over the same ranks (ranks go on differently
+from the sum, as the Mamba2 gated norm's sums of squares); ``enter`` is
+the identity forward and sums the gradient over the axes (a replicated
+activation entering a product whose weight is split: Megatron's "f").
+Without autograd recording, ``reduce`` is the in-place ``all_reduce`` and
+``enter`` returns its input. ``leaf_index`` gives the global indices,
+dimension by dimension, of the part of a tensor ``shard_leaf`` keeps.
 
 The Mamba2 mixer's fused leaves are split by SSD head (``MixerSplit``):
 a rank keeps its heads' columns of each segment of ``w_in`` and of the
@@ -187,32 +199,74 @@ class Sharder:
         lo = self.index(e) * n if e is not None else 0
         return lo, lo + n
 
-    def shard(self, full: torch.Tensor, names: Sequence[Optional[str]],
-              unit: Sequence[int] = None) -> torch.Tensor:
-        """This rank's slice of ``full`` (a copy, so that the full tensor
-        can be freed; ``full`` itself where nothing is split)."""
-        if self.mesh is None:
-            return full
-        idx, cut = [], False
-        for i in range(full.ndim):
-            lo, hi = self.local_range(names, full.shape, i, unit)
-            idx.append(slice(lo, hi))
-            cut |= hi - lo != full.shape[i]
-        return full[tuple(idx)].clone() if cut else full
-
-    def reduce(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
-        """``x`` summed over the ranks along ``axes``, in place
-        (``all_reduce`` SUM over that axis group); the identity without a
-        mesh or on a single rank."""
+    def reduce(self, x: torch.Tensor, axes: Axes, grad: str = "identity"
+               ) -> torch.Tensor:
+        """``x`` summed over the ranks along ``axes`` (``all_reduce`` SUM
+        over that axis group); the identity without a mesh or on a single
+        rank. While autograd records ``x``, the sum is a copy and its
+        backward passes the gradient through (``grad="identity"``) or sums
+        it over the same ranks (``grad="sum"``); otherwise ``x`` is summed
+        in place."""
         if self.mesh is None or self.size(axes) == 1:
             return x
+        if grad not in ("identity", "sum"):
+            raise ValueError(f"reduce: grad={grad!r}")
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Sum.apply(x, self, axes, grad == "sum")
+        return self._all_reduce(x.contiguous(), axes)
+
+    def enter(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """``x``, a tensor every rank along ``axes`` holds whole, as it
+        enters products whose weights are split over them: the identity,
+        whose backward sums the ranks' partial gradients over ``axes``.
+        ``x`` itself when autograd does not record it, or on one rank."""
+        if (self.mesh is None or self.size(axes) == 1
+                or not (torch.is_grad_enabled() and x.requires_grad)):
+            return x
+        return _Enter.apply(x, self, axes)
+
+    def _all_reduce(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+        """In-place ``all_reduce`` SUM of the contiguous ``x``, counted in
+        ``stats``."""
         import torch.distributed as dist
-        x = x.contiguous()
         dist.all_reduce(x, group=self.mesh.group(as_axes(axes)))
         self.stats["calls"] += 1
         self.stats["bytes"] += x.numel() * x.element_size()
         self.stats["fp32_calls"] += int(x.dtype == torch.float32)
         return x
+
+
+class _Sum(torch.autograd.Function):
+    """``Sharder.reduce`` under autograd: the sum over the ranks of
+    ``axes``; backward the identity, or the same sum (``grad_sum``)."""
+
+    @staticmethod
+    def forward(ctx, x, sharder, axes, grad_sum):
+        ctx.sharder, ctx.axes, ctx.grad_sum = sharder, axes, grad_sum
+        return sharder._all_reduce(
+            x.clone(memory_format=torch.contiguous_format), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_sum:
+            g = ctx.sharder._all_reduce(
+                g.clone(memory_format=torch.contiguous_format), ctx.axes)
+        return g, None, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """``Sharder.enter``: the identity; backward the sum over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, x, sharder, axes):
+        ctx.sharder, ctx.axes = sharder, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sharder._all_reduce(
+            g.clone(memory_format=torch.contiguous_format), ctx.axes), \
+            None, None
 
 
 def _is_names(x) -> bool:
@@ -256,19 +310,30 @@ class MixerSplit:
         channels ``[x | B | C]`` (``d_inner + 2N``) or ``w_in``'s fused
         ``[z | x | B | C | dt]`` (``2 d_inner + 2N + n_heads``); the rank
         keeps its heads' z, x and dt, and B and C whole."""
+        return [(lo, hi) for lo, hi, _ in self._pieces(name, width)]
+
+    def shared(self, name: str, width: int) -> Optional[Tuple[int, int]]:
+        """The piece of ``ranges`` that every rank keeps whole, B and C, as
+        its global ``[lo, hi)``; None where the dimension has none."""
+        return next(((lo, hi) for lo, hi, whole in self._pieces(name, width)
+                     if whole), None)
+
+    def _pieces(self, name: str, width: int) -> List[Tuple[int, int, bool]]:
+        """``ranges`` with, for each piece, whether every rank keeps it."""
         hd, n, nh = self.head_dim, self.n_state, self.n_heads
         d_inner = nh * hd
-        x = (self.lo * hd, self.hi * hd)
+        x = (self.lo * hd, self.hi * hd, False)
         if name == "ssm_heads" and width == nh:
-            return [(self.lo, self.hi)]
+            return [(self.lo, self.hi, False)]
         if name == "ssm_inner" and width == d_inner:
             return [x]
         if name == "ssm_inner" and width == d_inner + 2 * n:
-            return [x, (d_inner, d_inner + 2 * n)]
+            return [x, (d_inner, d_inner + 2 * n, True)]
         if name == "ssm_inner" and width == 2 * d_inner + 2 * n + nh:
             bc = 2 * d_inner
-            return [x, (d_inner + x[0], d_inner + x[1]), (bc, bc + 2 * n),
-                    (bc + 2 * n + self.lo, bc + 2 * n + self.hi)]
+            return [x, (d_inner + x[0], d_inner + x[1], False),
+                    (bc, bc + 2 * n, True),
+                    (bc + 2 * n + self.lo, bc + 2 * n + self.hi, False)]
         raise ValueError(f"no Mamba2 mixer dimension {name!r} of width "
                          f"{width} ({nh} heads of {hd}, state {n})")
 
@@ -277,29 +342,62 @@ def shard_leaf(full: torch.Tensor, names: Sequence[Optional[str]],
                sharder: Sharder, head_dim: Optional[int] = None,
                kv_sel: Optional[Sequence[int]] = None,
                mixer: Optional[MixerSplit] = None) -> torch.Tensor:
-    """This rank's part of one full tensor: ``sharder.shard`` with heads in
-    whole heads of ``head_dim``; where ``kv_sel`` is given (``kv_heads``
-    replicated, ``heads`` split), the ``kv_heads`` dimension keeps the KV
-    heads it lists, in that order: those the rank's query heads read.
-    With ``mixer``, an ``ssm_inner`` or ``ssm_heads`` dimension keeps the
-    rank's SSD heads' pieces (``MixerSplit.ranges``), never ``resolve``'s
-    cut of the flat dimension."""
+    """This rank's part of one full tensor (a copy, so that the full tensor
+    can be freed; ``full`` itself where nothing is split): the indices
+    ``leaf_index`` gives, heads in whole heads of ``head_dim``; where
+    ``kv_sel`` is given (``kv_heads`` replicated, ``heads`` split), the
+    ``kv_heads`` dimension keeps the KV heads it lists, in that order:
+    those the rank's query heads read. With ``mixer``, an ``ssm_inner`` or
+    ``ssm_heads`` dimension keeps the rank's SSD heads' pieces
+    (``MixerSplit.ranges``), never ``resolve``'s cut of the flat
+    dimension."""
+    out, cut, picked = full, False, False
+    for d, v in enumerate(leaf_index(full.shape, names, sharder, head_dim,
+                                     kv_sel, mixer)):
+        lo = int(v[0]) if len(v) else 0
+        if torch.equal(v, torch.arange(lo, lo + len(v))):
+            cut |= len(v) != full.shape[d]
+            out = out.narrow(d, lo, len(v))
+        else:
+            picked = True
+            out = out.index_select(d, v.to(full.device))
+    if picked:
+        return out.contiguous()
+    return out.clone() if cut else full
+
+
+def leaf_index(shape: Sequence[int], names: Sequence[Optional[str]],
+               sharder: Sharder, head_dim: Optional[int] = None,
+               kv_sel: Optional[Sequence[int]] = None,
+               mixer: Optional[MixerSplit] = None) -> List[torch.Tensor]:
+    """The part of a tensor of ``shape`` that ``shard_leaf`` keeps, as one
+    int64 vector of global indices per dimension (the kept part is
+    ``full[ix]`` with the vectors crossed): the same decisions, on index
+    vectors instead of values."""
+    idx = [torch.arange(n) for n in shape]
+    names = tuple(names)
     if mixer is not None:
         ax = next((i for i, n in enumerate(names)
                    if n in ("ssm_inner", "ssm_heads")), None)
         if ax is not None:
             if not mixer.whole:
-                full = torch.cat([full.narrow(ax, lo, hi - lo) for lo, hi
-                                  in mixer.ranges(names[ax],
-                                                  full.shape[ax])], ax)
+                idx[ax] = torch.cat([idx[ax][lo:hi] for lo, hi in
+                                     mixer.ranges(names[ax], shape[ax])])
             names = tuple(None if i == ax else n
                           for i, n in enumerate(names))
     if kv_sel is not None and "kv_heads" in names:
-        ax = list(names).index("kv_heads")
-        sel = torch.tensor(list(kv_sel), device=full.device)
-        return full.unflatten(ax, (-1, head_dim)).index_select(
-            ax, sel).flatten(ax, ax + 1).contiguous()
-    return sharder.shard(full, names, head_units(names, head_dim))
+        ax = names.index("kv_heads")
+        idx[ax] = torch.cat([torch.arange(h * head_dim, (h + 1) * head_dim)
+                             for h in kv_sel])
+        return idx
+    if sharder.mesh is None:
+        return idx
+    cut = [len(i) for i in idx]
+    unit = head_units(names, head_dim)
+    for i in range(len(cut)):
+        lo, hi = sharder.local_range(names, cut, i, unit)
+        idx[i] = idx[i][lo:hi]
+    return idx
 
 
 def tree_shard(tree: Any, specs: Any, sharder: Sharder,

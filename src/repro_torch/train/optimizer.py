@@ -20,7 +20,7 @@ device-to-host copy.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, NamedTuple, Tuple
+from typing import Any, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,11 +79,16 @@ def _f32(x) -> np.float32:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params
+def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, AdamWState]:
     """One AdamW step; ``params``, ``state.m`` and ``state.v`` are updated
-    in place. Returns (params, the state with ``step + 1``)."""
-    gnorm = global_norm(grads)
+    in place. Returns (params, the state with ``step + 1``). ``gnorm``:
+    the global norm the clip scales by, where ``grads`` are one rank's
+    shards of a tree split over ranks (a mesh step sums each element once
+    over the ranks); by default ``global_norm(grads)``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     # the schedule's scalars in fp32, as the reference computes them

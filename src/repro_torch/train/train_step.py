@@ -29,6 +29,15 @@ def init_train_state(params) -> TrainState:
     return TrainState(params, init_adamw(params))
 
 
+def train_state_specs(param_specs) -> TrainState:
+    """Logical-name tree matching ``TrainState`` (the reference's, for its
+    ``in_shardings``): the moments carry the params' names, ``step`` is
+    replicated."""
+    return TrainState(
+        params=param_specs,
+        opt=AdamWState(step=(), m=param_specs, v=param_specs))
+
+
 def choose_microbatches(global_batch: int, seq_len: int, vocab: int,
                         n_chips: int, logit_budget_bytes: float = 2.68e8
                         ) -> int:

@@ -10,9 +10,9 @@ slices put back together give every full tensor, the Mamba2 mixer's
 fused leaves by SSD head; the mixer split over two ranks (threads)
 equals the unsplit block and a per-rank gated norm does not; the local
 conv widths keep the SSD scan's tensor-core route; the MoE's queue share
-reproduces the unsplit layer's capacity drops; the refusal names its
-ROADMAP item; a one-rank mesh and fp8-stored weights, in the serve step
-and (ignored) in the prefill step.
+reproduces the unsplit layer's capacity drops; the train step builds
+with the reference's microbatches and rules; a one-rank mesh and
+fp8-stored weights, in the serve step and (ignored) in the prefill step.
 
 With ranks: one spawned gloo world per mesh shape, (1,2), (2,2) and (1,4),
 each running ``build_step``'s prefill and four greedy serve steps for a
@@ -392,15 +392,23 @@ def test_moe_row_parallel_partials_stay_fp32():
 
 
 def test_unsupported_steps_name_their_roadmap_item():
-    cfg = get_config("qwen3-32b").reduced()
-    mesh = mesh_for_rank((1, 2), ("data", "model"), 0)
-    cases = [
-        (cfg, ShapeSpec("t", 16, 4, "train_step"), mesh, {}, "A9.4"),
-    ]
-    for c, shape, m, kw, item in cases:
-        with pytest.raises(NotImplementedError, match=item.replace(
-                ".", r"\.")):
-            S.build_step(c, shape, m, device="cpu", **kw)
+    """``build_step`` on a train shape (ROADMAP A9.4, no longer refused)
+    builds this rank's train step on a (1, 2) mesh, whose
+    ``n_microbatches`` and rules equal the reference's build on the same
+    mesh shape, with and without ``n_microbatches`` / ``extra_rules``."""
+    cfg, jcfg = get_config("qwen3-32b").reduced(), jax_config(
+        "qwen3-32b").reduced()
+    shape = ShapeSpec("t", 16, 4, "train_step")
+    for kw in ({}, {"n_microbatches": 2, "extra_rules": {"vocab": None}}):
+        built = S.build_step(cfg, shape, mesh_for_rank((1, 2), ("data",
+                                                                "model"), 0),
+                             device="cpu", **kw)
+        want = jsteps.build_step(jcfg, shape, fake_mesh((1, 2), ("data",
+                                                                 "model")),
+                                 attn_chunk=0, **kw).meta
+        assert built.meta["n_microbatches"] == want["n_microbatches"]
+        assert built.meta["rules"] == want["rules"]
+        assert callable(built.fn)
 
 
 def _greedy_lm(model, params, inputs, steps, max_len):

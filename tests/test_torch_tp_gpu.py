@@ -4,7 +4,9 @@ in fp32 through the CUDA kernels, against the unsplit model on the same
 card; and of reduced mamba2 and zamba2 in bf16 (the SSD scan's
 tensor-core body at the ranks' local heads), against the same ranks on
 the CPU through the plain versions; and a (2, 1, 1) world of the
-rank-side PP step against the in-process PP step on the card. Marked
+rank-side PP step against the in-process PP step on the card; and the
+row-parallel product's derivative (``matmul_fp32`` under autograd)
+against the upcast product on the card. Marked
 ``gpu``; each test skips inside
 its body when there is no card. Imports no JAX (run it with
 ``--noconftest``)."""
@@ -160,3 +162,34 @@ def _numpy(tree):
     if isinstance(tree, dict):
         return {k: _numpy(v) for k, v in tree.items()}
     return tree.float().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes", [((2, 96, 256), (256, 192)),
+                                    ((4, 48, 256), (4, 256, 192))],
+                         ids=["2d", "batched"])
+def test_row_parallel_product_backward_on_the_card(shapes):
+    """``matmul_fp32`` under autograd on the card (cuBLAS's fp32-output
+    bf16 products, forward and backward) against the upcast fp32 product
+    on the same card: the forward within fp32 summation order, the
+    gradients within the bf16 rounding of the incoming gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (cuBLAS's fp32-output product)")
+    from repro_torch.models.common import matmul_fp32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = np.random.default_rng(0)
+    x0 = torch.from_numpy(gen.standard_normal(shapes[0])).cuda().bfloat16()
+    w0 = torch.from_numpy(gen.standard_normal(shapes[1])).cuda().bfloat16()
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    xu, wu = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    y = matmul_fp32(x, w)
+    yu = xu.float() @ wu.float()
+    assert y.dtype == torch.float32
+    assert (y - yu).abs().max().item() <= 1e-4 * yu.abs().max().item()
+    g = torch.from_numpy(gen.standard_normal(tuple(y.shape))).float().cuda()
+    dx, dw = torch.autograd.grad(y, (x, w), g)
+    dxu, dwu = torch.autograd.grad(yu, (xu, wu), g)
+    for got, want in ((dx, dxu), (dw, dwu)):
+        assert got.dtype == want.dtype == torch.bfloat16
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1e-2 * want.float().abs().max().item(), err
