@@ -202,7 +202,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    pp     the paper's pipeline-parallel serve step: main's widths and
           depth, 8 rows of one 1024-token prompt length prefilled by the
           unsplit ``LM.prefill`` (contig, ``max_len`` 2080), the K/V laid
-          into the PP layout, then 32 greedy PP steps in two stage layouts
+          into the PP layout, then 16 greedy PP steps in two stage layouts
           on this card: 2 stages at ``pod_flops`` [1.0, 0.5] (split [5,
           3], m 4) and 3 at [1.0, 0.6, 0.35] with m 4 (split [4, 3, 1]);
           the tokens must equal the unsplit ``LM.decode_step`` run one
@@ -218,7 +218,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           (``build_step(serve_pp=True)`` on a (pod, data, model) mesh,
           ``run_ranks``, gloo, every rank on this card): the unsplit
           prefill's cache (8 rows of a 1024-token prompt, S 2080) goes to
-          every rank, which keeps its layers, rows and KV heads; 16 steps
+          every rank, which keeps its layers, rows and KV heads; 8 steps
           at (2, 1, 1), split [5, 3], on a bf16 and a float8_e4m3fn cache
           (tokens and the last stage's logits bit-equal to the in-process
           step; fp32 at 2 layers: tokens equal to the unsplit decode) and
@@ -231,18 +231,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    tp     tensor parallelism (``launch/steps.py``'s ``build_step`` over a
           ``launch/mesh.py`` mesh of ranks, ``run_ranks``): main's widths,
           8 rows of a 1024-token prompt through ``prefill_step`` (cache
-          S 2080), then 32 greedy ``serve_step``s, on meshes (data 1,
-          model 2), (1, 4) and (2, 2) in turns, every rank a process on
+          S 2080, cut by sequence: ``store_cache`` lays it out by heads),
+          then 16 greedy ``serve_step``s, on meshes (data 1, model 2),
+          (1, 4) and (2, 2) in turns, every rank a process on
           this card (gloo over CUDA tensors, each all_reduce staged
           through the host); the unsplit ``LM`` runs first on the same
           card and weights. fp32 at 2 layers: every rank's tokens must
-          equal the unsplit model's; bf16 at ``--layers``: the prefill's
+          equal the unsplit model's; bf16 at 4 layers: the prefill's
           last logits within 2e-2 of max |logit| of the unsplit bf16
           LM's; the first serve step's, on the fp32 prefill's cache as
           bf16 stores it (sharded) and tokens, at most 1.25 times as far
           from the unsplit LM evaluated in fp32 on the same values (the
           yardstick of phase 3) as the unsplit bf16 LM's (printed, with
-          that LM on its rows in two halves against itself); then 32
+          that LM on its rows in two halves against itself); then 16
           steps from the ranks' own prefill, each fed the
           unsplit bf16 model's token (equal argmaxes and
           the first divergence printed), decode and flash launched at the
@@ -252,6 +253,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           model group (gloo through the host on one card: not a link);
           with four cards, (1, 4) over nccl, one rank per card: contig
           decode, flash;
+   tp_seq the sequence-split KV cache (the reference's ``cache_seq``):
+          qwen2-vl-2b (28 layers, 12/2 heads of 128) and whisper-tiny
+          (6/6 heads) whole on a (1, 4) mesh of ranks on this card, one
+          world for both (gloo); their KV heads do not divide 4, so each
+          rank's cache holds every KV head of a quarter of the positions
+          (whisper's cross cache too); 8 rows of a 1024-token prompt, 8
+          serve steps, the decode kernel with its log-sum-exp output and
+          the partials merged across the ranks; the gates of
+          ``tp_families`` (fp32 tokens equal, bf16 within 1.25x the
+          unsplit bf16 model's error from fp32, launches and all_reduce
+          calls as reckoned), every step's decode with the lse output,
+          the rank's K/V bytes as reckoned (qwen2-vl 119,275,520 at 8
+          rows, S 2080, bf16) and qwen2-vl's first step on a
+          float8_e4m3fn cache within 1.25x the unsplit fp8 step's error;
+          prints the cache bytes beside the heads layout's, collectives a
+          step (all_reduce / all_gather / all_to_all), step wall, host
+          queue, device busy: flash, contig decode (with lse);
    kv_fp8 fp8 KV caches: main's widths and depth through
           ``build_step``'s prefill step and serve steps on a (1, 1) mesh,
           8 rows of a 1024-token prompt, cache S 2080, the prefill's cache
@@ -380,6 +398,7 @@ from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.common import FP8_DTYPES, astype  # noqa: E402
+from repro_torch.models.transformer import KV_KEYS, kv_select  # noqa: E402
 from repro_torch.serving import (Engine, GlobalServer,  # noqa: E402
                                  ServeRequest, TensorStore)
 from repro_torch.serving.kv_blocks import (KV_POISON,  # noqa: E402
@@ -460,10 +479,14 @@ PATHS = {
     # (kv_cache_dtype) in turns
     "kv_fp8": ("qwen3-32b", "contig", ("decode_attention",
                                        "flash_attention")),
-    # the same for mamba2-1.3b, zamba2-2.7b and whisper-tiny whole
+    # the same for mamba2-1.3b and zamba2-2.7b (24 layers) and whisper-tiny
     # (TPF_FAMILIES; the first names the path)
     "tp_families": ("mamba2-1.3b", "contig",
                     ("ssd_scan", "flash_attention", "decode_attention")),
+    # qwen2-vl-2b and whisper-tiny whole on a (1, 4) mesh of ranks: the
+    # serve cache cut by sequence (cache_seq), the decode kernel's lse
+    "tp_seq": ("qwen2-vl-2b", "contig",
+               ("flash_attention", "decode_attention")),
     # main's model with prefix sharing, on shared-system-prompt traffic
     "prefix": ("qwen3-32b", "auto",
                ("decode_attention_paged", "chunk_attention_paged",
@@ -895,7 +918,7 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
     whisper = "whisper MHA 6/6 d64 bf16"
     # a microbatch of the pp path's step: 2 rows at one position
     pp_label = "pp step mb=2 GQA 64/8 one pos bf16"
-    pp_pos = PP_PROMPT + PP_STEPS // 2
+    pp_pos = PP_PROMPT + 16      # half-way through 32 steps
     if not rehearsal:
         # head dim 120 (h2o-danube-3-4b): its own geometry and window with
         # positions on both sides of it, g = 1 and 4, bf16 and fp32, short
@@ -912,7 +935,7 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
              whisper)]
     # a tp path step on one rank: 8 rows at one position, Qwen3-32B's heads
     # split over a model axis of 4 (16/2) and of 2 (32/4)
-    tp_pos = TP_PROMPT + TP_STEPS // 2
+    tp_pos = TP_PROMPT + 16      # half-way through 32 steps
     tp_geo = {m: dict(nh=QWEN["nh"] // m, nkv=QWEN["nkv"] // m, d=QWEN["d"])
               for m in (4, 2)}
     tp_label = {m: f"tp model {m} shard GQA {g['nh']}/{g['nkv']} one pos "
@@ -1046,6 +1069,192 @@ def kernel_decode(cs, dev, rehearsal, paged: bool) -> dict:
     return row
 
 
+VLM = dict(nh=12, nkv=2, d=128)               # qwen2-vl-2b (12 / 2 heads)
+TPS_MESH = (1, 4)             # path tp_seq's mesh: the cache cut into 4
+LSE_REPLACES = da.REPLACES["decode_attention"]
+# the lse rows' (query, KV) heads per head dim: qwen2-vl's 12 / 2 at 128
+# (and the rehearsal's 16), whisper's 6 / 6 at 64, zamba2-like MHA at 80,
+# danube's 32 / 8 at 120
+LSE_HEADS = {16: (12, 2), 64: (6, 6), 80: (8, 8), 120: (32, 8),
+             128: (12, 2)}
+
+
+def _lse_check(label, dtype, got, ref, plain_err: float,
+               vmax: float = 1.0) -> float:
+    """The kernel's (out, lse) against the plain version's evaluated in
+    fp32: the output (over max |V|) and the finite lse within the phase's
+    tolerance, the rows that see no key -inf and 0 on both sides;
+    ``plain_err``: the plain version's own output error in q's dtype."""
+    (o, lse), (ro, rlse) = got, ref
+    dead = torch.isneginf(rlse)
+    same_dead = bool(torch.equal(torch.isneginf(lse), dead) and not o.float(
+    ).reshape(dead.shape + (-1,))[dead].any())
+    ok_lse = torch.allclose(torch.where(dead, 0, lse), torch.where(
+        dead, 0, rlse), atol=TOL[dtype][0], rtol=TOL[dtype][1])
+    err = check("decode_attention_lse", o.float() / vmax, ro.float() / vmax,
+                dtype, f"{label} out", plain_err / vmax)
+    lerr = (torch.where(dead, 0, lse) - torch.where(dead, 0, rlse)
+            ).abs().max().item()
+    log(f"[kernels] decode_attention_lse {label}: lse max_abs_err="
+        f"{lerr:.3e}, rows that see no key -inf with output 0 on both "
+        f"sides: {same_dead} ({int(dead[:, 0].sum())} rows) "
+        f"{'ok' if ok_lse and same_dead else 'FAIL'}")
+    if not (ok_lse and same_dead):
+        raise SystemExit(f"chip_smoke: decode_attention's lse output "
+                         f"disagrees with its plain version ({label})")
+    return max(err, lerr)
+
+
+def kernel_decode_lse(cs, dev, rehearsal) -> dict:
+    """Kernel 4's log-sum-exp output (``lse=``: the partial of one slice of
+    a cache cut by sequence, path tp_seq), held to the plain version's
+    (out, lse) evaluated in fp32: bf16 and fp32 q, head dims 64 / 80 / 120
+    / 128, caches in q's dtype, float8_e4m3fn and float8_e5m2, local
+    positions before the slice (lse -inf, out 0), inside it, at and past
+    its end, and a window. The kernel without ``lse`` gives, bit for bit,
+    the output with it rounded to q's dtype (the null pointer leaves the
+    combine as it was). Then the merge on the card: a (8, 2080, 2, 128)
+    cache cut into 4 slices of 520, the kernel with ``lse`` on each at
+    the local positions, ``merge_partials``, against the kernel on the
+    whole cache (fp32 2e-5, bf16 2e-2). Timed at path tp_seq's shapes on
+    a rank of (1, 4): qwen2-vl's gathered 12 query heads on a 520-key
+    slice, whisper's 6 on its self and cross slices, against the same
+    call without ``lse``."""
+    name = "decode_attention_lse"
+    plain = da.decode_attention_plain
+    run = in_fp32(plain) if rehearsal else da.decode_attention
+    bf, f32 = torch.bfloat16, torch.float32
+    S = 64 if rehearsal else 520
+    b = 8
+    # local positions: before the slice, its first key, inside, its last
+    # key, one past it, far past it, a ragged one, a frozen-row one
+    pos_l = [-700, -1, 0, S // 3, S - 1, S, S + 900, 2 * S // 3]
+    err, specs = 0.0, []
+    for d in ((16,) if rehearsal else (64, 80, 120, 128)):
+        for dtype in (bf, f32):
+            for fmt in (None,) + tuple(FP8_DTYPES):
+                specs.append((dtype, d, fmt, None))
+        specs.append((bf, d, None, 200))
+    for dtype, d, fmt, win in specs:
+        nh, nkv = LSE_HEADS[d]
+        q = cs.randn(b, 1, nh, d, dtype=dtype)
+        if fmt:
+            k, v = (fp8_cache(cs, (b, S, nkv, d), FP8_DTYPES[fmt])
+                    for _ in range(2))
+        else:
+            k, v = (cs.randn(b, S, nkv, d, dtype=dtype) for _ in range(2))
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        lse = torch.empty((b, nh), dtype=f32, device=dev)
+        got = run(q, k, v, pos, window=win, lse=lse)
+        ref_lse = torch.empty_like(lse)
+        ref = in_fp32(plain)(q, k, v, pos, window=win, lse=ref_lse)
+        own = plain(q, k, v, pos, window=win, lse=torch.empty_like(lse))
+        plain_err = (own[0] - ref[0]).abs().max().item()
+        label = (f"q {str(dtype)[6:]} d{d} {nh}/{nkv} cache "
+                 f"{fmt or str(dtype)[6:]}{f' SWA={win}' if win else ''} "
+                 f"S={S} local pos {pos_l}")
+        vmax = max(v.float().abs().max().item(), 1.0) if fmt else 1.0
+        err = max(err, _lse_check(label, dtype, got, ref, plain_err, vmax))
+        if not rehearsal:
+            # without lse: the same kernel's output, rounded once to q's type
+            bare = run(q, k, v, pos, window=win)
+            same = torch.equal(_bits(bare), _bits(got[0].to(dtype)))
+            log(f"[kernels] {name} {label}: the call without lse == its "
+                f"fp32 output rounded to {str(dtype)[6:]}, bit for bit: "
+                f"{same}")
+            if not same:
+                raise SystemExit(f"chip_smoke: decode_attention without "
+                                 f"lse differs from its lse call ({label})")
+    merge_err = kernel_lse_merge(cs, dev, rehearsal, run)
+    row = dict(name=name, route="cuda", source=da.SOURCE,
+               replaces=LSE_REPLACES, max_abs_err=max(err, merge_err),
+               shape=f"q=({b},1,12,128) bf16, cache slice=({b},{S},2,128) "
+                     f"bf16, local positions {pos_l}")
+    if rehearsal:
+        return row
+    timed = [("tp_seq qwen2-vl rank slice", VLM, MAX_LEN // 4,
+              MAX_LEN // 4 - 1),
+             ("tp_seq whisper self slice", WHISPER, MAX_LEN // 4,
+              (TP_PROMPT + 4) % (MAX_LEN // 4)),
+             ("tp_seq whisper cross slice", WHISPER, TP_PROMPT // 4,
+              TP_PROMPT // 4 - 1)]
+    shapes = []
+    for label, geo, s, p in timed:
+        nh, nkv, d = geo["nh"], geo["nkv"], geo["d"]
+        q = cs.randn(b, 1, nh, d, dtype=bf)
+        k, v = (cs.randn(b, s, nkv, d, dtype=bf) for _ in range(2))
+        pos = torch.full((b,), p, dtype=torch.int32, device=dev)
+        lse = torch.empty((b, nh), dtype=f32, device=dev)
+        lib, work, shape = decode_yardstick((q, k, v, pos), b, dev, nh, nkv,
+                                            d, False,
+                                            note=f"local pos {p} every row")
+        # beside the bf16 output: the fp32 output's extra 2 bytes an
+        # element and the lse
+        work = (work[0] + b * nh * d * 2 + b * nh * 4, work[1])
+        t = time_shape(name, run, (q, k, v, pos), lib, work,
+                       f"{label}: {shape} + lse", kw=dict(lse=lse),
+                       plain=plain)
+        t["without_lse_ms"], t["without_lse_device_ms"] = time_both(
+            lambda: run(q, k, v, pos))
+        log(f"[kernels] {name} {label}: with lse {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}), without {t['without_lse_ms']:.4f} ms "
+            f"(device {t['without_lse_device_ms']:.4f})")
+        shapes.append(t)
+    main = shapes[0]
+    row.update(ms=main["ms"], device_ms=main["device_ms"],
+               plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+               bound_by=main["bound_by"], library_ms=main["library_ms"],
+               library_device_ms=main["library_device_ms"],
+               shape=main["shape"], timed_shapes=shapes[1:],
+               without_lse_ms=main["without_lse_ms"],
+               without_lse_device_ms=main["without_lse_device_ms"])
+    return row
+
+
+def kernel_lse_merge(cs, dev, rehearsal, run) -> float:
+    """A (8, 2080, 2, 128) cache (rehearsal: (8, 64, 2, 16)) cut into 4
+    sequence slices: the kernel with ``lse`` on each slice at the local
+    positions, the partials merged by ``attention.merge_partials``,
+    against the kernel on the whole cache; fp32 within 2e-5, bf16 within
+    2e-2 (of max |out|: the merged output is rounded once, the whole
+    call's partials are cut elsewhere). Positions: in the first slice,
+    on each slice boundary and past the end, ragged."""
+    b, s, nh, nkv, d = (8, 64, 12, 2, 16) if rehearsal else \
+        (8, MAX_LEN, 12, 2, 128)
+    w = s // 4
+    pos = torch.tensor([3, w - 1, w, 2 * w + 7, 3 * w - 1, s - 1, s + 5,
+                        s // 2], dtype=torch.int32, device=dev)
+    worst = 0.0
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for win in (None, w // 2 + 3):
+            q = cs.randn(b, 1, nh, d, dtype=dtype)
+            k, v = (cs.randn(b, s, nkv, d, dtype=dtype) for _ in range(2))
+            whole = run(q, k, v, pos, window=win).float()
+            parts, lses = [], []
+            for r in range(4):
+                lse = torch.empty((b, nh), dtype=torch.float32, device=dev)
+                o, lse = run(q, k[:, r * w:(r + 1) * w].contiguous(),
+                             v[:, r * w:(r + 1) * w].contiguous(),
+                             pos - r * w, window=win, lse=lse)
+                parts.append(o)
+                lses.append(lse)
+            merged = attn.merge_partials(torch.stack(parts),
+                                         torch.stack(lses)).to(dtype)
+            err = (merged.float() - whole).abs().max().item()
+            rel = err / max(whole.abs().max().item(), 1e-30)
+            ok = rel <= tol
+            log(f"[kernels] decode_attention_lse merge of 4 slices of "
+                f"({b},{w},{nkv},{d}) {str(dtype)[6:]}"
+                f"{f' SWA={win}' if win else ''} against the kernel on the "
+                f"whole cache: max_abs_err={err:.3e} rel={rel:.3e} (limit "
+                f"{tol:g}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("chip_smoke: the merged slices disagree "
+                                 "with the whole-cache decode")
+            worst = max(worst, err)
+    return worst
+
+
 def decode_yardstick(args, b, dev, nh, nkv, d, paged, window=None,
                      note: str = "ragged pos, one dead row") -> tuple:
     """SDPA on the gathered K/V with the positions' (and window's) mask,
@@ -1160,7 +1369,7 @@ def kernel_decode_fp8(cs, dev, rehearsal) -> list:
     kern = in_fp32(plain) if rehearsal else da.decode_attention
     bf, f32 = torch.bfloat16, torch.float32
     S = 64 if rehearsal else MAX_LEN
-    pp_pos = PP_PROMPT + PP_STEPS // 2
+    pp_pos = PP_PROMPT + 16      # half-way through 32 steps
     ring = 32 if rehearsal else DANUBE_WINDOW
     ring_pos = ring + ring // 2
     # (label, q dtype, geometry, rows, keys, window, positions, timed)
@@ -2283,8 +2492,11 @@ def phase_kernels(dev, rehearsal: bool) -> list:
             kernel_ssd(cs, dev, rehearsal),
             kernel_probe(cs, dev, rehearsal),
             kernel_flash_bwd(cs, dev, rehearsal),
-            kernel_ssd_bwd(cs, dev, rehearsal)]
+            kernel_ssd_bwd(cs, dev, rehearsal),
+            kernel_decode_lse(cs, dev, rehearsal)]
     for r in rows:
+        if "ms" not in r:       # the lse output: timed on the card only
+            continue
         lib = fmt_ms(r["library_ms"], r["library_device_ms"])
         log(f"[kernels] {r['name']:24s} kernel {r['ms']:.4f} ms (device "
             f"{r['device_ms']:.4f})  plain "
@@ -3530,7 +3742,7 @@ PP_LAYOUTS = (("2 stages", [1.0, 0.5], None),
 # the pp path's fp8 run: the first layout on a float8_e4m3fn cache
 PP_FP8 = ("2 stages, float8_e4m3fn cache", [1.0, 0.5], None,
           "float8_e4m3fn")
-PP_ROWS, PP_PROMPT, PP_STEPS = 8, 1024, 32
+PP_ROWS, PP_PROMPT, PP_STEPS = 8, 1024, 16
 
 
 def pp_layout_kv(full: torch.Tensor, split, m: int) -> torch.Tensor:
@@ -3816,8 +4028,11 @@ def phase_pp_parity(dev) -> None:
 # are four cards
 TP_MESHES = ((1, 2), (1, 4), (2, 2))
 TP_AXES = ("data", "model")
-TP_ROWS, TP_PROMPT, TP_STEPS = 8, 1024, 32
+TP_ROWS, TP_PROMPT, TP_STEPS = 8, 1024, 16
 TP_FP32_LAYERS = 2
+# path tp's bf16 depth: below main's --layers, to keep the script in its
+# time limit
+TP_LAYERS = 4
 # bf16 gates. Prefill: the ranks' last-position logits within TP_REL of max
 # |logit| of the unsplit bf16 LM's. First serve step (on one cache and one
 # set of tokens): its error against the unsplit LM evaluated in fp32 on the
@@ -3873,7 +4088,7 @@ def tp_unsplit(cfg, dev, inputs: dict, steps: int, seed: int,
 
 
 def tp_fp32_reference(cfg, dev, inputs: dict, seed: int,
-                      max_len: int) -> dict:
+                      max_len: int, kv_fp8: str | None = None) -> dict:
     """The yardstick of the bf16 gate, as phase 3 holds a bf16 kernel to
     its plain version evaluated in fp32 on the same input values: the
     unsplit ``LM`` in fp32 on the bf16 weights (``init(seed)`` upcast).
@@ -3881,8 +4096,12 @@ def tp_fp32_reference(cfg, dev, inputs: dict, seed: int,
     the bf16 cache stores it (k / v rounded to bf16) and its greedy
     tokens; that step's logits in fp32 on those values, and in bf16 by the
     unsplit bf16 ``LM`` (the unsplit model's own error, printed beside the
-    ranks'). All on the host; the card's memory freed after. Any family:
-    the recurrent ``ssd`` state stays fp32, as the bf16 model keeps it."""
+    ranks'). With ``kv_fp8``, the same step on that cache stored in fp8
+    (the reference's rule: every K/V leaf), in fp32 on the fp8 values
+    (``first8``) and by the unsplit bf16 ``LM`` reading the fp8 cache
+    (``first16_8``). All on the host; the card's memory freed after. Any
+    family: the recurrent ``ssd`` state stays fp32, as the bf16 model
+    keeps it."""
     m16 = build_model(cfg, device=dev)
     p16 = m16.init(seed=seed)
     m32 = build_model(dataclasses.replace(cfg, dtype="float32"), device=dev)
@@ -3901,6 +4120,17 @@ def tp_fp32_reference(cfg, dev, inputs: dict, seed: int,
                   for k, v in cache_in.items()}, tok)
         first16, _ = m16.decode_step(
             p16, {k: v.clone() for k, v in cache_in.items()}, tok)
+        fp8 = {}
+        if kv_fp8:
+            c8 = {k: astype(v, FP8_DTYPES[kv_fp8]) if k in KV_KEYS else
+                  v.clone() for k, v in cache_in.items()}
+            f8, _ = m32.decode_step(p32, {k: v.float() if k in KV_KEYS
+                                          else v.clone()
+                                          for k, v in c8.items()}, tok)
+            f16_8, _ = m16.decode_step(p16, c8, tok)
+            fp8 = dict(first8=f8.float().cpu().numpy(),
+                       first16_8=f16_8.float().cpu().numpy())
+            del c8, f8, f16_8
         # the same unsplit bf16 LM on the rows in two halves: the same
         # function, other GEMM shapes (its own run-to-run floor)
         h = tok.shape[0] // 2
@@ -3918,7 +4148,7 @@ def tp_fp32_reference(cfg, dev, inputs: dict, seed: int,
                tokens=tok.cpu().numpy(), first=first32.float().cpu().numpy(),
                first16=first16.float().cpu().numpy(),
                halves=torch.cat(halves).numpy(),
-               first16_halves=torch.cat(steps).numpy())
+               first16_halves=torch.cat(steps).numpy(), **fp8)
     del m16, p16, m32, p32, logits, cache_in, first32, first16
     _free(dev)
     return out
@@ -3960,6 +4190,7 @@ def _tp_tokens32(mesh, dev, cfg, x, steps: int, max_len: int,
     b = x["tokens"].shape[0]
     pre, srv, params = serving_steps(mesh, dev, cfg, b, max_len, seed=seed)
     tok, cache = pre.fn(params, x)
+    cache = srv.store_cache(cache)
     cur = tok.reshape(b, 1)
     toks = [cur]
     for _ in range(steps):
@@ -3992,6 +4223,7 @@ def tp_rank(mesh, dev, cfg32, cfg16, prompt: np.ndarray, steps: int,
         rows = pre.meta["rows"]
         ops.reset_launch_counts()
         tok, cache = pre.fn(params, x)
+        cache = srv.store_cache(cache)
         keep = {k: v.clone() for k, v in cache.items()}
         out.update(rows=(rows.start, rows.stop),
                    prefill_logits=pre.last_logits.float().cpu().numpy(),
@@ -4048,12 +4280,12 @@ def phase_tp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
                   repeats: int, profile_dir: Path | None = None) -> dict:
     """Tensor parallelism (``launch/steps.py``'s ``build_step`` over a
     ``launch/mesh.py`` mesh): Qwen3-32B widths, 8 rows of one 1024-token
-    prompt through ``prefill_step`` (cache of ``MAX_LEN``), then 32 greedy
-    ``serve_step``s, on meshes (data 1, model 2), (1, 4) and (2, 2) in
+    prompt through ``prefill_step`` (cache of ``MAX_LEN``), then
+    ``TP_STEPS`` greedy ``serve_step``s, on meshes (data 1, model 2), (1, 4) and (2, 2) in
     turns, every rank a process on this card (gloo over CUDA tensors).
     The unsplit ``LM`` runs first on the same card and weights; each rank
     runs ``tp_rank``. Gates: fp32 at 2 of the layers, every rank's tokens
-    equal the unsplit model's; bf16 at ``depth``: the prefill's
+    equal the unsplit model's; bf16 at ``TP_LAYERS``: the prefill's
     last-position logits within ``TP_REL`` (2e-2) of max |logit| of the
     unsplit bf16 LM's; the first serve step, run on the unsplit fp32
     prefill's cache as bf16 stores it (each rank's shard) and its tokens,
@@ -4079,7 +4311,7 @@ def phase_tp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
         rows, prompt_len, steps, s_max = 4, 6, 4, 16
         meshes = ((2, 2),)
     else:
-        cfg16 = dataclasses.replace(base, n_layers=depth)
+        cfg16 = dataclasses.replace(base, n_layers=TP_LAYERS)
         cfg32 = dataclasses.replace(base, n_layers=TP_FP32_LAYERS,
                                     dtype="float32")
         rows, prompt_len, steps, s_max = (TP_ROWS, TP_PROMPT, TP_STEPS,
@@ -4210,29 +4442,41 @@ def phase_tp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
 
 
 # -- tensor parallelism for the SSM, hybrid and encoder-decoder families -------
-# (path ``tp_families``): mamba2-1.3b, zamba2-2.7b and whisper-tiny whole on
-# meshes (1, 2) and (1, 4) of rank processes on this card over gloo, as path
-# ``tp`` runs them, every family in each world; the fp32 gate at a reduced
-# depth (mamba2 2 layers, zamba2 one hybrid_period of 6, whisper whole)
-TPF_FAMILIES = (("mamba2-1.3b", 2), ("zamba2-2.7b", 6), ("whisper-tiny", None))
+# (path ``tp_families``): mamba2-1.3b, zamba2-2.7b and whisper-tiny at full
+# width on meshes (1, 2) and (1, 4) of rank processes on this card over
+# gloo, as path ``tp`` runs them, every family in each world; per family the
+# fp32 gate's depth (mamba2 2 layers, zamba2 one hybrid_period of 6, whisper
+# whole) and the bf16 depth (None: whole), cut to keep the script in its
+# time limit: mamba2 24 of 48 layers, zamba2 24 of 54 (4 shared-block
+# applications), whisper whole
+TPF_FAMILIES = (("mamba2-1.3b", 2, 24), ("zamba2-2.7b", 6, 24),
+                ("whisper-tiny", None, None))
 TPF_MESHES = ((1, 2), (1, 4))
 # serve steps per family and world: a (1, 4) step of mamba2 / zamba2 takes
 # ~0.8-0.9 s on gloo, and every phase shares the script's time limit
-TPF_STEPS = 16
-TPF_BUSY_STEPS = 4            # steps of the device-only profiled pass
+TPF_STEPS = 8
+TPF_BUSY_STEPS = 2            # steps of the device-only profiled pass
 
 
-def tpf_launches(cfg, steps: int) -> dict:
+def tpf_launches(cfg, steps: int, model_n: int) -> dict:
     """The kernel launches of one rank's prefill and ``steps`` serve steps
-    of ``cfg``, from the model code (every other kernel: none). Mamba2: one
-    SSD scan a layer in the prefill; the hybrid's shared block: one flash a
-    application in the prefill, one decode a application a step; the
-    encoder-decoder: flash over each encoder layer and the decoder's self
-    and cross attention in the prefill, its cross attention each step, and
-    its self-attention decode each step."""
+    of ``cfg`` on a model axis of ``model_n``, from the model code (every
+    other kernel: none). Mamba2: one SSD scan a layer in the prefill; the
+    hybrid's shared block: one flash a application in the prefill, one
+    decode a application a step; a dense / VLM decoder: one flash a layer
+    in the prefill, one decode a layer a step; the encoder-decoder: flash
+    over each encoder layer and the decoder's self and cross attention in
+    the prefill, its self-attention decode each step, and its cross
+    attention each step by flash, or, on a cross cache cut by sequence
+    (the KV heads do not divide the model axis), by the decode kernel with
+    its log-sum-exp output."""
+    seq = model_n > 1 and cfg.n_kv_heads % model_n != 0
     if cfg.is_encdec:
         return {"flash_attention": cfg.n_encoder_layers
-                + (2 + steps) * cfg.n_layers,
+                + (2 + steps * (not seq)) * cfg.n_layers,
+                "decode_attention": steps * cfg.n_layers * (1 + seq)}
+    if cfg.family not in ("ssm", "hybrid"):
+        return {"flash_attention": cfg.n_layers,
                 "decode_attention": steps * cfg.n_layers}
     apps = len(cfg.shared_attn_positions())
     out = {"ssd_scan": cfg.n_layers}
@@ -4254,6 +4498,8 @@ def tpf_reduces(cfg, model_n: int) -> int:
     blocks = 2 * split(cfg.n_heads) + split(cfg.d_ff)   # encoder-decoder
     if cfg.is_encdec:
         return n + cfg.n_layers * blocks
+    if cfg.family not in ("ssm", "hybrid"):
+        return n + cfg.n_layers * (split(cfg.n_heads) + split(cfg.d_ff))
     n += 2 * cfg.n_layers * split(cfg.ssm_heads)
     return n + len(cfg.shared_attn_positions()) * (split(cfg.n_heads)
                                                    + split(cfg.d_ff))
@@ -4283,7 +4529,8 @@ def tpf_rank(mesh, dev, cases: list, steps: int, max_len: int,
 
 def _tpf_family(mesh, dev, cfg32, cfg16, cfg16r, inputs: dict,
                 forced: np.ndarray, first_step: tuple, steps: int,
-                max_len: int, seed: int) -> dict:
+                max_len: int, seed: int, kv_fp8: str | None = None
+                ) -> dict:
     """One family on one rank. fp32 (``cfg32``): the greedy tokens. bf16
     at ``cfg32``'s depth (``cfg16r``, None where that is ``cfg16``'s): the
     prefill's last-position logits. bf16 (``cfg16``): the prefill's
@@ -4293,8 +4540,11 @@ def _tpf_family(mesh, dev, cfg32, cfg16, cfg16r, inputs: dict,
     host queue seconds), with the kernel launches of the prefill and those
     steps, the steps' all_reduce calls and bytes and the peak memory; the
     logits of one serve step from this rank's shard of ``first_step`` =
-    (a full cache, tokens (B, 1)); the device's busy seconds over
-    ``TPF_BUSY_STEPS`` steps from the prefill's cache in a profiled pass."""
+    (a full cache, tokens (B, 1)), and with ``kv_fp8`` of the same step on
+    that shard stored in fp8 (``build_step(kv_cache_dtype=)``); the
+    decode launches with the log-sum-exp output, the K/V bytes of the
+    rank's cache; the device's busy seconds over ``TPF_BUSY_STEPS`` steps
+    from the prefill's cache in a profiled pass."""
     b = inputs["tokens"].shape[0]
     x = _on(inputs, dev)
     cuda = dev.type == "cuda"
@@ -4318,6 +4568,7 @@ def _tpf_family(mesh, dev, cfg32, cfg16, cfg16r, inputs: dict,
         ops.reset_launch_counts()
         ssd.reset_bodies()
         tok, cache = pre.fn(params, x)
+        cache = srv.store_cache(cache)
         keep = {k: v.clone() for k, v in cache.items()}
         first = tok.reshape(b, 1)
         out.update(rows=(rows.start, rows.stop),
@@ -4338,6 +4589,10 @@ def _tpf_family(mesh, dev, cfg32, cfg16, cfg16r, inputs: dict,
             toks.append(cur)
         out.update(tokens=torch.cat(toks, 1).cpu().numpy(),
                    launches=ops.launch_counts(),
+                   decode_lse=ops.decode_lse_launches(),
+                   cache_bytes=sum(v.numel() * v.element_size()
+                                   for k, v in keep.items()
+                                   if k in KV_KEYS),
                    allreduce=dict(sharder.stats), step_wall_s=walls,
                    host_queue_s=queued,
                    peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
@@ -4347,6 +4602,15 @@ def _tpf_family(mesh, dev, cfg32, cfg16, cfg16r, inputs: dict,
         srv.fn(params, shard, torch.from_numpy(tokens).to(
             device=dev, dtype=torch.int32))
         out["first_logits"] = srv.last_logits.float().cpu().numpy()
+        if kv_fp8:
+            srv8 = build_step(cfg16, ShapeSpec("fp8", max_len, b,
+                                               "serve_step"), mesh,
+                              kv_cache_dtype=kv_fp8, device=dev)
+            srv8.fn(params, srv8.store_cache(
+                {k: v.to(dev) for k, v in srv8.shard_cache(full).items()}),
+                torch.from_numpy(tokens).to(device=dev, dtype=torch.int32))
+            out["first8_logits"] = srv8.last_logits.float().cpu().numpy()
+            del srv8
         del shard, cache, toks
         if cuda:
             def run():
@@ -4363,10 +4627,12 @@ def phase_tp_families(dev, path: str, depth: int, seed: int,
                       rehearsal: bool, repeats: int,
                       profile_dir: Path | None = None) -> dict:
     """Tensor parallelism for the SSM, hybrid and encoder-decoder families
-    (``build_step`` over a ``launch/mesh.py`` mesh): mamba2-1.3b (48
-    layers, 64 SSD heads), zamba2-2.7b (54 layers, 80 SSD heads, a shared
-    block of 32 heads of 80) and whisper-tiny (6 heads: whole at model 4)
-    whole, 8 rows of a 1024-token prompt (whisper: as many encoder frames)
+    (``build_step`` over a ``launch/mesh.py`` mesh): mamba2-1.3b (64 SSD
+    heads), zamba2-2.7b (80 SSD heads, a shared block of 32 heads of 80)
+    at full width and the depths ``TPF_FAMILIES`` gives (24 of 48 and 24
+    of 54 layers) and whisper-tiny (6 heads: the cache cut by sequence at
+    model 4) whole, 8 rows of a 1024-token prompt (whisper: as many
+    encoder frames)
     through ``prefill_step`` (cache of ``MAX_LEN``), then ``TPF_STEPS``
     serve steps, on meshes (1, 2) and (1, 4), every rank a process on this
     card (gloo), each world running every family in turn (``tpf_rank``).
@@ -4396,13 +4662,14 @@ def phase_tp_families(dev, path: str, depth: int, seed: int,
             MAX_LEN
         meshes = TPF_MESHES
     fams, cases = [], []
-    for arch, fp32_layers in TPF_FAMILIES:
+    for arch, fp32_layers, bf16_layers in TPF_FAMILIES:
         base = get_config(arch)
         if rehearsal:
             cfg32 = base.reduced()
             cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
         else:
-            cfg16 = base
+            cfg16 = dataclasses.replace(base, n_layers=(
+                bf16_layers or base.n_layers))
             cfg32 = dataclasses.replace(base, dtype="float32", n_layers=(
                 fp32_layers or base.n_layers))
         # bf16 at the fp32 gate's depth, where rounding is not amplified
@@ -4454,6 +4721,9 @@ def phase_tp_families(dev, path: str, depth: int, seed: int,
                                   f"{fail}")
                 for k, v in o["launches"].items():
                     counts[k] = counts.get(k, 0) + v
+                # whisper at model 4: its caches are cut by sequence
+                counts["decode_attention_lse"] = (
+                    counts.get("decode_attention_lse", 0) + o["decode_lse"])
     if failed:
         raise SystemExit(f"chip_smoke: tensor parallelism of the SSM, hybrid "
                          f"or encoder-decoder family failed a gate: {failed}")
@@ -4485,7 +4755,7 @@ def tpf_check(tag: str, where: str, dev, cfg32, cfg, model_n: int,
         return n // model_n if n % model_n == 0 else n
     want_heads = (local(cfg.n_heads), local(cfg.n_kv_heads),
                   local(cfg.ssm_heads) if cfg.ssm_state else 0)
-    want_launch = tpf_launches(cfg, steps)
+    want_launch = tpf_launches(cfg, steps, model_n)
     launched = o["launches"]
     launch_ok = not cuda or all(v == want_launch.get(k, 0)
                                 for k, v in launched.items())
@@ -4542,6 +4812,164 @@ def tpf_check(tag: str, where: str, dev, cfg32, cfg, model_n: int,
     return fail
 
 
+# -- the sequence-split KV cache (path ``tp_seq``) ---------------------------------
+# qwen2-vl-2b (12 / 2 heads) and whisper-tiny (6 / 6) whole on TPS_MESH: the
+# KV heads do not divide the model axis, so the serve cache is cut by
+# sequence (the reference's cache_seq); the fp32 gate's depth per model
+TPS_FAMILIES = (("qwen2-vl-2b", 4), ("whisper-tiny", None))
+TPS_STEPS = 8
+TPS_FP8 = "float8_e4m3fn"
+
+
+def tps_cache_bytes(cfg, rows: int, s_max: int, s_enc: int, model_n: int,
+                    rank: int) -> tuple:
+    """A rank's K/V bytes (bf16) reckoned from the shapes: (cut by
+    sequence: every KV head of S / model_n positions of each leaf; the
+    layout by heads the port used before: the KV heads the rank's query
+    heads read, or every head where the query heads are whole, at full
+    length)."""
+    lens = [s_max, s_max] + ([s_enc, s_enc] if cfg.is_encdec else [])
+    nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    n_heads = nkv
+    if nh % model_n == 0:
+        n_heads = len(kv_select(nh, nkv, nh // model_n,
+                                rank * (nh // model_n)))
+    per = cfg.n_layers * rows * cfg.hd * 2
+    return (sum(per * (s // model_n) * nkv for s in lens),
+            sum(per * s * n_heads for s in lens))
+
+
+def phase_tp_seq(dev, path: str, depth: int, seed: int, rehearsal: bool,
+                 repeats: int, profile_dir: Path | None = None) -> dict:
+    """The sequence-split KV cache (the reference's ``cache_seq`` rule,
+    ``build_step`` over a ``launch/mesh.py`` mesh): qwen2-vl-2b (28
+    layers, 12 / 2 heads of 128) and whisper-tiny (6 / 6 heads) whole on a
+    (1, 4) mesh of rank processes on this card (gloo), one world running
+    both (``tpf_rank``). Their KV heads do not divide 4, so each rank's
+    serve cache holds every KV head of a quarter of the positions (the
+    prefill step's cache already does), qwen2-vl's query heads stay split
+    (3 a rank: q gathered, the partials sent to their heads' rank by one
+    all_to_all) and whisper's attention is whole on every rank (the
+    partials gathered), its cross cache cut too. 8 rows of a 1024-token
+    prompt (whisper: as many encoder frames), ``TPS_STEPS`` serve steps.
+    Gates, per model and rank, those of path ``tp_families``
+    (``tpf_check``: fp32 tokens at ``TPS_FAMILIES``' depth equal to the
+    unsplit model's, the bf16 prefill and first step at most
+    ``TP_STEP_RATIO`` times as far from the model in fp32 as the unsplit
+    bf16 model's, launches and all_reduce calls as reckoned) and: every
+    decode of the steps launched with the log-sum-exp output; the rank's
+    K/V bytes equal to ``tps_cache_bytes``; qwen2-vl's first step on a
+    float8_e4m3fn serve cache at most ``TP_STEP_RATIO`` times as far from
+    the fp32 model on the fp8 values as the unsplit fp8 step is. Per
+    rank: the cache bytes beside the layout by heads, all_gather /
+    all_to_all / all_reduce calls and bytes a step, step wall, host queue,
+    device busy."""
+    tag = f"[{path}]"
+    mesh = TPS_MESH
+    model_n = mesh[1]
+    if rehearsal:           # 8 encoder frames: they cut into 4 slices
+        rows, prompt_len, steps, s_max = 4, 8, 4, 16
+    else:
+        rows, prompt_len, steps, s_max = TP_ROWS, TP_PROMPT, TPS_STEPS, \
+            MAX_LEN
+    fams, cases = [], []
+    for arch, fp32_layers in TPS_FAMILIES:
+        base = get_config(arch)
+        if rehearsal:
+            cfg32 = base.reduced()
+            if base.is_encdec:          # 6 heads: none divides the axis
+                cfg32 = dataclasses.replace(cfg32, n_heads=6, n_kv_heads=6,
+                                            head_dim=16)
+            cfg16 = dataclasses.replace(cfg32, dtype="bfloat16")
+        else:
+            cfg16 = base
+            cfg32 = dataclasses.replace(base, dtype="float32", n_layers=(
+                fp32_layers or base.n_layers))
+        cfg16r = dataclasses.replace(cfg32, dtype=cfg16.dtype)
+        if cfg16r.n_layers == cfg16.n_layers:
+            cfg16r = None
+        fp8 = None if cfg16.is_encdec else TPS_FP8
+        inputs = tpf_inputs(cfg16, rows, prompt_len, seed)
+        t0 = time.perf_counter()
+        ref32 = tp_unsplit(cfg32, dev, inputs, steps, seed, s_max)
+        ref16 = tp_unsplit(cfg16, dev, inputs, steps, seed, s_max)
+        ref16r = ref16 if cfg16r is None else tp_unsplit(
+            cfg16r, dev, inputs, 1, seed, s_max)
+        exact = tp_fp32_reference(cfg16, dev, inputs, seed, s_max,
+                                  kv_fp8=fp8)
+        log(f"{tag} {cfg16.name}: {cfg16.n_heads} / {cfg16.n_kv_heads} "
+            f"heads of {cfg16.hd} on a model axis of {model_n}; fp32 at "
+            f"{cfg32.n_layers} layers, {cfg16.dtype} at {cfg16.n_layers}; "
+            f"{rows} rows of a {prompt_len}-token prompt, cache S={s_max}, "
+            f"{steps} steps; unsplit model on this card "
+            f"{time.perf_counter() - t0:.1f} s")
+        fams.append((cfg32, cfg16, ref32, ref16, ref16r, exact, fp8))
+        cases.append(dict(cfg32=cfg32, cfg16=cfg16, cfg16r=cfg16r,
+                          inputs=inputs,
+                          forced=ref16["tokens"][:, :steps].copy(),
+                          first_step=(exact.pop("cache"), exact["tokens"]),
+                          kv_fp8=fp8))
+    where = "cuda" if dev.type == "cuda" else "cpu"
+    t1 = time.perf_counter()
+    outs = run_ranks(tpf_rank, mesh, TP_AXES, backend="gloo", device=where,
+                     args=(cases, steps, s_max, seed))
+    name = f"mesh (data {mesh[0]}, model {mesh[1]}) gloo"
+    log(f"{tag} {name}: {len(outs)} ranks, {time.perf_counter() - t1:.1f} "
+        f"s with the ranks' start")
+    cuda = dev.type == "cuda"
+    counts: dict = {}
+    failed = []
+    for rank, per_family in enumerate(outs):
+        for (cfg32, cfg16, ref32, ref16, ref16r, exact, fp8), o in zip(
+                fams, per_family):
+            where_r = f"{name} rank {rank}"
+            fail = tpf_check(tag, where_r, dev, cfg32, cfg16, model_n,
+                             steps, o, ref32, ref16, ref16r, exact)
+            lo, hi = o["rows"]
+            want_b, heads_b = tps_cache_bytes(
+                cfg16, hi - lo, s_max, prompt_len if cfg16.is_encdec else 0,
+                model_n, rank)
+            dec = o["launches"]["decode_attention"]
+            gates = {"cache bytes": o["cache_bytes"] == want_b,
+                     "decode with lse": not cuda or (
+                         dec > 0 and o["decode_lse"] == dec)}
+            line = ""
+            if fp8:
+                f8 = _rel(o["first8_logits"][:, 0], exact["first8"][lo:hi, 0])
+                own8 = _rel(exact["first16_8"][lo:hi, 0],
+                            exact["first8"][lo:hi, 0])
+                gates[f"{fp8} first step"] = f8 <= TP_STEP_RATIO * own8
+                line = (f"; first step on a {fp8} serve cache against the "
+                        f"fp32 model on the fp8 values rel {f8:.3e} (limit "
+                        f"{TP_STEP_RATIO} x the unsplit {fp8} step's own "
+                        f"{own8:.3e} = {TP_STEP_RATIO * own8:.3e})")
+            more = ", ".join(k for k, v in gates.items() if not v)
+            ar = o["allreduce"]
+            log(f"{tag} {cfg16.name} {where_r}: K/V cache {o['cache_bytes']:,}"
+                f" B (reckoned {want_b:,}; laid out by heads {heads_b:,}); "
+                f"decode launches {dec} in the prefill and {steps} steps, "
+                f"{o['decode_lse']} with the lse output; a step: all_reduce "
+                f"{ar['calls'] / steps:g} calls {ar['bytes'] / steps:.0f} B, "
+                f"all_gather {ar['gather_calls'] / steps:g} calls "
+                f"{ar['gather_bytes'] / steps:.0f} B, all_to_all "
+                f"{ar['a2a_calls'] / steps:g} calls {ar['a2a_bytes'] / steps:.0f}"
+                f" B{line} {'ok' if not more else 'FAIL: ' + more}")
+            fail = ", ".join(f for f in (fail, more) if f)
+            if fail:
+                failed.append(f"{cfg16.name} {where_r}: {fail}")
+            for k, v in o["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+            counts["decode_attention_lse"] = (
+                counts.get("decode_attention_lse", 0) + o["decode_lse"])
+    if failed:
+        raise SystemExit(f"chip_smoke: the sequence-split cache failed a "
+                         f"gate: {failed}")
+    if cuda:
+        log(f"{tag} nvidia-smi: {smi_line()}")
+    return dict(counts=counts, tokens=[f[2]["tokens"].tolist()
+                                       for f in fams])
+
+
 # -- the multi-process pipeline-parallel serve step (path ``pp_ranks``) -----------
 # worlds of rank processes, one rank per stage (the mesh's pod coordinate),
 # tensor parallel inside a stage over model; every rank on this card over
@@ -4552,7 +4980,7 @@ def tpf_check(tag: str, where: str, dev, cfg32, cfg, model_n: int,
 # card.
 PPR_AXES = ("pod", "data", "model")
 PPR_WORLDS = ((2, 1, 1), (2, 1, 2))
-PPR_STEPS = 16
+PPR_STEPS = 8
 PPR_BUSY_STEPS = 4            # steps of the device-only profiled pass
 PPR_FP32_LAYERS = 2
 PPR_LOGIT_REL = 2e-2          # the logits gate if they are not bit-equal
@@ -5175,7 +5603,8 @@ def phase_kv_fp8_path(dev, path: str, depth: int, seed: int,
 
 
 PATH_PHASE = {"server": phase_server_path, "pp": phase_pp_path,
-              "pp_ranks": phase_pp_ranks_path, "tp": phase_tp_path, "tp_families": phase_tp_families,
+              "pp_ranks": phase_pp_ranks_path, "tp": phase_tp_path,
+              "tp_families": phase_tp_families, "tp_seq": phase_tp_seq,
               "kv_fp8": phase_kv_fp8_path}
 
 
@@ -6074,7 +6503,7 @@ def main(argv=None) -> int:
     for r in rows:
         # launches: each path's first timed run, summed over the paths
         r["launches_by_path"] = {p: c[r["name"]] for p, c in counts.items()
-                                 if c[r["name"]]}
+                                 if c.get(r["name"])}
         r["launches"] = sum(r["launches_by_path"].values())
         if r["name"] == "decode_attention":
             # the paths that count the contiguous kernel's launches by the

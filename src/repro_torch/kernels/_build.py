@@ -48,7 +48,7 @@ SIGNATURES: Dict[str, List] = {
     "rt_decode_attention_paged":
         [_P] * 8 + [_I] * 9 + [_F, _I, _P],
     "rt_decode_attention":
-        [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
+        [_P] * 8 + [_I] * 8 + [_F, _I, _I, _P],
     "rt_chunk_attention_paged":
         [_P, _P, _P, _P, _P, _P] + [_I] * 8 + [_F, _I, _P],
     "rt_chunk_attention":

@@ -90,7 +90,8 @@ extern "C" int rt_decode_attention_paged(
   DecodeArgs a{q, k, v, static_cast<const int*>(tbl),
                static_cast<const int*>(pos), out,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-               B, nh, nkv, bs, mb, window, split, nsplit, mb * bs, scale};
+               B, nh, nkv, bs, mb, window, split, nsplit, mb * bs, scale,
+               nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e =
       !is_bf16 ? RT_DISPATCH_D(d, float, run_paged, a, s)
@@ -101,16 +102,19 @@ extern "C" int rt_decode_attention_paged(
 }
 
 // kv_fmt: the cache's element type, kKvLikeQ (q's: fp32 or bf16), kKvE4M3
-// (float8_e4m3fn) or kKvE5M2 (float8_e5m2)
+// (float8_e4m3fn) or kKvE5M2 (float8_e5m2). lse: null, or a (B, nh) fp32
+// buffer for each row's log-sum-exp, and then `out` is an fp32 buffer
 extern "C" int rt_decode_attention(
     const void* q, const void* k, const void* v, const void* pos, void* out,
-    void* part_acc, void* part_ml, int B, int nh, int nkv, int d, int S,
+    void* part_acc, void* part_ml, void* lse, int B, int nh, int nkv, int d,
+    int S,
     int window, int split, int nsplit, float scale, int is_bf16, int kv_fmt,
     void* stream) {
   cudaGetLastError();  // clear a stale error so the return is this launch's
   DecodeArgs a{q, k, v, nullptr, static_cast<const int*>(pos), out,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-               B, nh, nkv, 0, 0, window, split, nsplit, S, scale};
+               B, nh, nkv, 0, 0, window, split, nsplit, S, scale,
+               static_cast<float*>(lse)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = kv_fmt == kKvLikeQ
                       ? run_contig<void>(a, d, is_bf16, s)

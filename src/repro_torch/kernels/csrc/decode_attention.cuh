@@ -35,6 +35,9 @@ struct DecodeArgs {
   int B, nh, nkv, bs, mb, window, split, nsplit;
   int S;               // keys a row can hold: mb * bs paged, S contiguous
   float scale;
+  // contiguous only: (B, nh) fp32 log-sum-exp of each row's visible scores
+  // (natural log; -inf where the row sees no key); when set, `out` is fp32
+  float* lse;
 };
 
 template <typename T, int D, bool kPaged>
@@ -94,6 +97,8 @@ decode_split_kernel(DecodeArgs a) {
 
 // Pass 2: one CTA per (query head, row), one thread per dim, merges the
 // splits' partials: out = sum_s e^{m_s - M} acc_s / sum_s e^{m_s - M} l_s.
+// With `lse` it writes `out` in fp32 and lse = M + log L (-inf at L = 0),
+// so partials over a cache cut by sequence merge unrounded.
 template <typename T, int D>
 __global__ void decode_combine_kernel(DecodeArgs a) {
   const int h = blockIdx.x, b = blockIdx.y, c = threadIdx.x;
@@ -108,7 +113,13 @@ __global__ void decode_combine_kernel(DecodeArgs a) {
     L += w * ml[2 * s + 1];
     A += w * acc[s * D + c];
   }
-  static_cast<T*>(a.out)[row * D + c] = rt::from_f<T>(A / fmaxf(L, 1e-30f));
+  if (a.lse == nullptr) {
+    static_cast<T*>(a.out)[row * D + c] = rt::from_f<T>(A / fmaxf(L, 1e-30f));
+    return;
+  }
+  static_cast<float*>(a.out)[row * D + c] = A / fmaxf(L, 1e-30f);
+  if (c == 0)   // -inf (0xff800000) where the row saw no key
+    a.lse[row] = L > 0.f ? M + logf(L) : __int_as_float(0xff800000);
 }
 
 template <typename T, typename KV, int D, bool kPaged>
@@ -138,7 +149,7 @@ cudaError_t run_sm90(const DecodeArgs& d, cudaStream_t s) {
       static_cast<const __nv_bfloat16*>(d.q), d.k, d.v, d.pos,
       static_cast<__nv_bfloat16*>(d.out), d.part_acc, d.part_ml, d.B, d.nh,
       d.nkv, d.nh / d.nkv, d.S, d.window, d.split, d.nsplit,
-      d.scale * rt::dec::kLog2e, d.tbl, d.mb, d.bs};
+      d.scale * rt::dec::kLog2e, d.tbl, d.mb, d.bs, d.lse};
   cudaError_t e = rt::launch<decode_sm90_kernel<D, Keys, KV>>(
       dim3(d.nsplit, d.nkv, d.B), rt::dec::kThreads,
       rt::dec::smem_bytes<D, KV>(), a, s);

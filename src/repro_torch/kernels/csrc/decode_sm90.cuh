@@ -107,7 +107,8 @@ struct Args {
   float scale_log2;         // softmax scale * log2(e)
   const int* tbl;           // paged: (B, mb) block table; contiguous: null
   int mb, bs;               // paged: table width, block size (S = mb bs)
-};
+  float* lse;               // contiguous: (B, nh) log-sum-exp or null;
+};                          // when set, `out` holds fp32
 
 // The row's visible keys start at `lo`; splits of `len` keys (whole
 // tiles), `used` of them. A row that sees no key (a frozen dead row with a
@@ -400,7 +401,9 @@ __device__ __forceinline__ void split_body(const Args& a) {
 }
 
 // one CTA per (query head, row), one thread per dim: merge the splits the
-// row used, out = sum_s 2^{m_s - M} acc_s / max(sum_s 2^{m_s - M} l_s, 1e-30)
+// row used, out = sum_s 2^{m_s - M} acc_s / max(sum_s 2^{m_s - M} l_s, 1e-30);
+// with `lse`, out in fp32 and lse = M ln 2 + ln L, natural log (M is in log2
+// units), -inf where the row saw no key (L = 0)
 template <int D>
 __global__ void __launch_bounds__(D) combine_kernel(Args a) {
   const int h = blockIdx.x, b = blockIdx.y, col = threadIdx.x;
@@ -418,7 +421,14 @@ __global__ void __launch_bounds__(D) combine_kernel(Args a) {
     L += f * ml[2 * s + 1];
     A += f * acc[s * D + col];
   }
-  a.out[row * D + col] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+  if (a.lse == nullptr) {
+    a.out[row * D + col] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+    return;
+  }
+  reinterpret_cast<float*>(a.out)[row * D + col] = A / fmaxf(L, 1e-30f);
+  if (col == 0)
+    a.lse[row] = L > 0.f ? M * 0.6931471805599453f + logf(L)
+                         : __int_as_float(0xff800000);
 }
 
 }  // namespace dec

@@ -4,7 +4,9 @@ and their plain PyTorch versions.
 Replaces the Pallas TPU kernels of ``repro/kernels/decode_attention.py``:
 ``decode_attention_paged`` (``_dec_paged_kernel``) against a block pool
 through per-row tables, and ``decode_attention`` (``_dec_kernel``) against a
-contiguous ``(B, S, nkv, d)`` cache. Both kernels live in
+contiguous ``(B, S, nkv, d)`` cache, which can also return each row's
+log-sum-exp beside an fp32 output (``lse=``), the partial that a cache cut
+by sequence over ranks merges. Both kernels live in
 ``csrc/decode_attention.cu``, whose header note says what bounds them on the
 card and what the design does about that; bf16 decode of either layout with
 up to 16 query heads per KV head runs the tensor-core body of
@@ -41,6 +43,8 @@ launch_counts = {name: 0 for name in REPLACES}
 # decode_attention's launches by the cache's dtype ("bfloat16",
 # "float8_e4m3fn", ...)
 launches_by_cache_dtype: Dict[str, int] = {}
+# of decode_attention's launches, those with the log-sum-exp output
+lse_launches = [0]
 
 
 @functools.lru_cache(maxsize=None)
@@ -140,20 +144,42 @@ def decode_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,
 def decode_attention_plain(q: torch.Tensor, cache_k: torch.Tensor,
                            cache_v: torch.Tensor,
                            pos: Union[int, torch.Tensor],
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None,
+                           lse: Optional[torch.Tensor] = None):
     """Plain version: mask the linear cache by position, softmax (the
-    oracle in ``models/attention.py``)."""
-    return _attn.decode_attention(q, cache_k, cache_v, pos, window=window)
+    oracle in ``models/attention.py``). With ``lse`` (a (B, nh) fp32
+    tensor), as the kernel: (out in fp32, ``lse`` filled with each row's
+    natural log-sum-exp of its visible scores), a row that sees no key
+    giving 0 and -inf."""
+    if lse is None:
+        return _attn.decode_attention(q, cache_k, cache_v, pos,
+                                      window=window)
+    o, m = _attn.decode_attention_lse(q, cache_k, cache_v, pos,
+                                      window=window)
+    lse.copy_(m)
+    return o, lse
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: Union[int, torch.Tensor],
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     lse: Optional[torch.Tensor] = None):
     """Kernel launch. q: (B,1,nh,d); cache_k/v: (B, S, nkv, d) contiguous,
     any S, in q's dtype or one fp8 dtype (read as stored, upcast exactly
     on load); pos scalar or (B,), position of the current (already
     written) token; a row whose pos is past the cache end reads the whole
-    cache. CUDA tensors only."""
+    cache. CUDA tensors only.
+
+    With ``lse`` (a (B, nh) fp32 tensor) the kernel also stores each row's
+    natural log-sum-exp of its visible scores there (-inf where it sees
+    none, and then its output is 0), writes the output in fp32 and returns
+    (out, lse): the partial of one slice of a cache cut by sequence, which
+    ``models.attention.merge_partials`` merges over the slices. The kernel
+    takes no offset: a slice holding positions [off, off + S) is read at
+    the local position ``pos - off``, so a row whose position lies before
+    the slice (negative) sees nothing, one past its end sees all of it,
+    and a window counts back from the shifted position as it does from the
+    global one."""
     name = "decode_attention"
     _build.refuse_grad(name, q, cache_k, cache_v, missing=_build.SERVING)
     _build.require_cuda(name, q, cache_k, cache_v)
@@ -167,20 +193,30 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     _build.expect(cache_k.data_ptr() % 16 == 0
                   and cache_v.data_ptr() % 16 == 0,
                   f"{name}: K/V must start 16-byte aligned")
+    if lse is not None:
+        _build.require_cuda(name, q, lse)
+        _build.expect(lse.dtype == torch.float32
+                      and tuple(lse.shape) == (b, nh),
+                      f"{name}: lse must be fp32 ({b}, {nh})")
     pos = _build.row_vector(pos, b, q.device)
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, device=q.device,
+                      dtype=q.dtype if lse is None else torch.float32)
     if b == 0:
-        return out
+        return out if lse is None else (out, lse)
     split, nsplit, part_acc, part_ml = _partials(q, nkv, s, window)
     lib = _build.load()
     rc = lib.rt_decode_attention(
         q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), b, nh, nkv,
-        d, s, window or 0, split, nsplit, 1.0 / math.sqrt(d),
+        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, nh, nkv, d, s,
+        window or 0, split, nsplit, 1.0 / math.sqrt(d),
         int(q.dtype == torch.bfloat16),
         _build.KV_FORMATS.get(cache_k.dtype, 0), _build.stream_ptr(q.device))
     _build.check(rc, name)
     launch_counts[name] += 1
     key = str(cache_k.dtype).removeprefix("torch.")
     launches_by_cache_dtype[key] = launches_by_cache_dtype.get(key, 0) + 1
+    if lse is not None:
+        lse_launches[0] += 1
+        return out, lse
     return out

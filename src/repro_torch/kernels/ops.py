@@ -83,9 +83,13 @@ def chunk_attention_paged(q: torch.Tensor, cache_k: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos: Union[int, torch.Tensor], *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     lse: Optional[torch.Tensor] = None):
+    """With ``lse`` (B, nh) fp32: (the fp32 output, ``lse`` filled), the
+    partial of a slice of a cache cut by sequence, read at the local
+    position (``kernels/decode_attention.py``)."""
     fn = _da.decode_attention if q.is_cuda else _da.decode_attention_plain
-    return fn(q, cache_k, cache_v, pos, window=window)
+    return fn(q, cache_k, cache_v, pos, window=window, lse=lse)
 
 
 def decode_attention_ring(q: torch.Tensor, cache_k: torch.Tensor,
@@ -136,7 +140,14 @@ def decode_launches_by_cache_dtype() -> Dict[str, int]:
     return dict(_da.launches_by_cache_dtype)
 
 
+def decode_lse_launches() -> int:
+    """Of ``decode_attention``'s launches since the last reset, those that
+    also wrote the log-sum-exp output (``lse=``)."""
+    return _da.lse_launches[0]
+
+
 def reset_launch_counts() -> None:
     for n, m in KERNEL_MODULES.items():
         m.launch_counts[n] = 0
     _da.launches_by_cache_dtype.clear()
+    _da.lse_launches[0] = 0

@@ -370,7 +370,8 @@ class PPBuiltStep(BuiltStep):
 
     def shard_cache(self, full: Dict) -> Dict:
         """This rank's cache, {"k", "v": (split[stage], m, mb_local, S,
-        nkv_local, hd), "pos": scalar int32}, on its device, from the
+        nkv_local, hd), "pos": scalar int32} (cut by sequence inside the
+        stage: (..., S_local, nkv, hd)), on its device, from the
         reference's PP cache ({"k", "v": (n_stages, lmax, m, mb, S, nkv,
         hd), "pos": scalar}) or from an unsplit contiguous cache ({"k",
         "v": (L, b, S, nkv, hd), "pos": (b,) or scalar}, the rows in
@@ -394,7 +395,7 @@ class PPBuiltStep(BuiltStep):
                 raise ValueError(f"shard_cache: cache[{key!r}] of shape "
                                  f"{tuple(t.shape)} is neither the PP "
                                  f"layout (7 dims) nor contiguous (5)")
-            t = self.model.shard_kv_heads(t[:, :, rows], 4)
+            t = self.model.cache_part(t[:, :, rows], 3, 4)
             out[key] = t.contiguous().view(dt).to(self.model.device)
         pos = _as_tensor(full["pos"]).reshape(-1)
         if bool((pos != pos[0]).any()):
@@ -464,9 +465,9 @@ def _rank_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
     rules = dict(rules)
     rules["pp_stage"] = ("pod",)
     rules["batch"] = ("data",)              # pod is used by PP, not DP
-    # the port's layout: whole sequences, KV by heads (launch/steps.py)
-    sharder = R.Sharder(mesh=mesh, rules=dict(rules, cache_seq=None,
-                                              seq=None))
+    # every rule but ``seq`` (launch/steps.py): the cache is cut by
+    # sequence inside a stage where ``cache_seq`` takes ``model``
+    sharder = R.Sharder(mesh=mesh, rules=dict(rules, seq=None))
     lo, hi = sharder.local_range(("batch",), (mb,), 0)
     bspec = sharder.spec(("batch",), (mb,))[0]
     batch_axes = bspec if sharder.size(bspec) > 1 else None
@@ -474,7 +475,8 @@ def _rank_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
     model = LM(cfg, device=dev, sharder=sharder, batch_axes=batch_axes)
     kv_dt = FP8_DTYPES[kv_cache_dtype] if kv_cache_dtype else model.dtype
     n, last = split[stage], n_stages - 1
-    kv_local = (n, m, hi - lo, s_max, model.n_kv_local, cfg.hd)
+    kv_local = (n, m, hi - lo, model.seq_slice(s_max)[1], model.n_kv_cache,
+                cfg.hd)
     tok_axes = ("pod",) + R.as_axes(batch_axes)
     hops = {"sends": 0, "recvs": 0, "bytes": 0}
     h_shape = (hi - lo, 1, cfg.d_model)

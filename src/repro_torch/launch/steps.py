@@ -16,11 +16,20 @@ zero-filled buffer). The model runs Megatron-style tensor parallelism over
 ``model`` (``models/transformer.py``), decided by the reference's rule
 tables through ``build_rules``, a copy of the reference's.
 
-Where the reference's rules ask for a sequence-parallel layout (the
-``cache_seq`` rule: KV heads that do not divide ``model``, and every
-prefill; the ``seq`` rule of big prefills) the port keeps the sequence
-whole and lays the KV out by heads, each rank holding the KV heads its
-query heads read: the same function in another memory layout.
+The KV cache follows the reference's ``cache_seq`` rule. A prefill step's
+cache, and a serve step's wherever the KV heads do not divide ``model``,
+is cut by sequence over ``model``: each rank holds every KV head of its
+slice of the positions (``resolve`` gives ``cache_seq`` the axis before
+``kv_heads``). The prefill reaches it by one all_to_all of the K/V heads
+it projected (or by slicing, where every rank projects every KV head); a
+serve step on such a cache writes each token on the rank that holds its
+position, gathers the query heads, runs the decode kernel with its
+log-sum-exp output on the rank's slice and merges the slices' fp32
+partials (``TensorParallel._split_attention``). Where the KV heads divide
+``model`` the serve step lays the cache out by heads, and
+``BuiltStep.store_cache`` moves a prefill's cache there (one all_to_all
+a leaf). The ``seq`` rule of big prefills (sequence-split activations)
+is not followed: the port keeps the prompt's activations whole.
 
 Every family runs: dense, VLM, MoE, the SSM and hybrid (the Mamba2 mixer
 split by whole SSD heads) and the encoder-decoder. ``lower_step`` belongs
@@ -84,7 +93,7 @@ from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.api import TensorSpec, build_model, input_specs
 from repro_torch.models.common import FP8_DTYPES, astype
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import KV_KEYS, LM, cache_seq_axes
 from repro_torch.sharding import rules as R
 
 
@@ -156,10 +165,13 @@ class BuiltStep:
 
     def store_cache(self, cache: Dict) -> Dict:
         """A cache in the model's dtype (a prefill's, or this rank's
-        ``shard_cache``) as the serve step takes it: with
-        ``kv_cache_dtype``, every leaf the reference's rule names cast to
-        it by ``astype`` (its ``maybe_q`` applied to the values), the
-        rest as they are."""
+        ``shard_cache``) as the serve step takes it: a prefill's K/V cut
+        by sequence moved into the serve step's layout by heads, where
+        that is the serve step's (one all_to_all over ``model`` a leaf);
+        then, with ``kv_cache_dtype``, every leaf the reference's rule
+        names cast to it by ``astype`` (its ``maybe_q`` applied to the
+        values), the rest as they are."""
+        cache = self._serve_layout(cache)
         kdt = self.meta.get("kv_cache_dtype")
         if kdt is None:
             return cache
@@ -167,9 +179,23 @@ class BuiltStep:
                 if _quantized(v.dtype, v.ndim, self.model.dtype) else v
                 for k, v in cache.items()}
 
+    def _serve_layout(self, cache: Dict) -> Dict:
+        """``cache`` with every K/V leaf in the prefill step's layout (cut
+        by sequence over ``meta["prefill_seq"]``) laid out by heads where
+        the serve step's differs; leaves already in the serve step's
+        shape stay as they are."""
+        ax = self.meta.get("prefill_seq")
+        if ax is None or self.model._seq_ax is not None:
+            return cache
+        want, sh = self.in_shardings[1], self.meta["sharder"]
+        return {k: sh.all_to_all(v, ax, 3, 2)
+                if k in KV_KEYS and tuple(v.shape) != tuple(want[k]) else v
+                for k, v in cache.items()}
+
     def shard_cache(self, full: Dict) -> Dict:
-        """This rank's part of a full contiguous cache (its rows, its KV
-        heads)."""
+        """This rank's part of a full contiguous cache (its rows; its KV
+        heads, or its slice of the positions where the cache is cut by
+        sequence)."""
         return self.model.shard_cache(full, self.meta["rows"])
 
     def init_params(self, seed: int = 0) -> Dict:
@@ -239,9 +265,8 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
         return build_pp_serve_step(cfg, shape, mesh, rules,
                                    kv_cache_dtype=kv_cache_dtype,
                                    device=device)
-    # the port's layout: whole sequences, KV by heads (module docstring)
-    port_rules = dict(rules, cache_seq=None, seq=None)
-    sharder = R.Sharder(mesh=mesh, rules=port_rules)
+    # the port follows every rule but ``seq`` (module docstring)
+    sharder = R.Sharder(mesh=mesh, rules=dict(rules, seq=None))
     b = shape.global_batch
     lo, hi = sharder.local_range(("batch",), (b,), 0)
     rows = slice(lo, hi)
@@ -290,6 +315,9 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     local_cache = meta_model.init_cache(hi - lo, shape.seq_len, **kw)
     kdt = _kv_cache_dtype(cfg, kv_cache_dtype, local_cache, model.dtype)
     meta["kv_cache_dtype"] = kdt
+    # the prefill step's cache layout, which ``store_cache`` moves from
+    meta["prefill_seq"] = cache_seq_axes(cfg, R.Sharder(
+        mesh=mesh, rules=build_rules(cfg, mesh, False, step="prefill_step")))
     cache_dtypes = {k: kdt if kdt is not None and _quantized(
         v.dtype, v.ndim, model.dtype) else v.dtype
         for k, v in local_cache.items()}
@@ -303,6 +331,16 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
                                  f"the step was built for "
                                  f"{cache_dtypes[k]} (BuiltStep."
                                  f"store_cache stores a prefilled cache)")
+            # the K/V layout: heads (every leaf), positions (the self
+            # caches; a cross cache holds the encoder's frames)
+            want = local_cache[k].shape if k in KV_KEYS else None
+            if want is not None and (v.shape[3] != want[3] or (
+                    k not in ("ck", "cv") and v.shape[2] != want[2])):
+                raise ValueError(f"serve_step: cache[{k!r}] is "
+                                 f"{tuple(v.shape)}, the step was built "
+                                 f"for {tuple(want)} (BuiltStep."
+                                 f"store_cache lays a prefill's cache out "
+                                 f"for it)")
         logits, cache = model.decode_step(params, cache, tokens[rows])
         built.last_logits = logits
         nxt = model.sample_greedy(logits).to(torch.int32)
@@ -415,8 +453,10 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
     leaves' raw bytes (``cache_bytes``, uint8), its local head counts
     (attention and SSD), the kernel ``launches`` (counts zeroed just
     before the prefill, read after the last step) and ``decode_attention``'s
-    by the cache's dtype, and the ``allreduce`` calls and bytes of the
-    serve steps.
+    by the cache's dtype, the collectives of the serve steps
+    (``allreduce``: ``Sharder.stats``) and, in ``layout_collectives``,
+    those of the prefill step (``prefill``) and of ``store_cache``
+    (``store``).
 
     ``serve_pp``: the PP serve step (``serving_steps``) from ``cache``,
     the whole start cache (the reference's PP layout or an unsplit
@@ -443,9 +483,13 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
     sharder = srv.meta["sharder"]
     with torch.no_grad():
         ops.reset_launch_counts()
+        pre.meta["sharder"].reset_stats()
+        sharder.reset_stats()
         tok, cache = pre.fn(local, x)
         cache = srv.store_cache(cache)
         prefill_logits = pre.last_logits.float().cpu().numpy()
+        layout = {"prefill": dict(pre.meta["sharder"].stats),
+                  "store": dict(sharder.stats)}
         sharder.reset_stats()
         cur = tok.reshape(b, 1)
         toks, logits = [cur], []
@@ -457,7 +501,7 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
             toks.append(cur)
             logits.append(srv.last_logits.float())
     return dict(_rank_result(pre.model, srv, cache, toks, ops),
-                rows=(rows.start, rows.stop),
+                rows=(rows.start, rows.stop), layout_collectives=layout,
                 prefill_logits=prefill_logits,
                 logits=torch.cat(logits, 1).cpu().numpy())
 
@@ -475,6 +519,7 @@ def _rank_result(model, srv: BuiltStep, cache: Dict, toks: list,
             "n_kv_local": model.n_kv_local,
             "ssm_heads_local": model.ssm_heads_local,
             "launches": ops.launch_counts(),
+            "decode_lse_launches": ops.decode_lse_launches(),
             "decode_by_cache_dtype": ops.decode_launches_by_cache_dtype(),
             "allreduce": dict(srv.meta["sharder"].stats)}
 

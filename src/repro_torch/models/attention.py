@@ -127,6 +127,52 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     return sdpa(q, cache_k, cache_v, mask)
 
 
+def decode_attention_lse(q: torch.Tensor, cache_k: torch.Tensor,
+                         cache_v: torch.Tensor, pos: IntLike,
+                         window: Optional[int] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``decode_attention``'s function as one slice's partial of a cache
+    cut by sequence: (out (B,1,nh,d) fp32, lse (B,nh) fp32, the natural
+    log-sum-exp of the row's visible scores). A row that sees no key
+    (``pos`` negative: its position lies before the slice) gives 0 and
+    -inf, where the finite-masked ``decode_attention`` averages every
+    value; probabilities are rounded to the cache's compute dtype before
+    the PV product, as ``sdpa`` rounds them."""
+    b, _, nh, d = q.shape
+    pos = _row_vector(pos, b, q.device)
+    kpos = torch.arange(cache_k.shape[1], device=q.device)
+    valid = kpos[None, :] <= pos[:, None]                     # (B, S)
+    if window is not None:
+        valid &= kpos[None, :] > (pos[:, None] - window)
+    if cache_k.dtype != q.dtype:
+        cache_k, cache_v = cache_k.to(q.dtype), cache_v.to(q.dtype)
+    scores = _gqa_scores(q, cache_k) / math.sqrt(d)           # (B,k,g,1,S)
+    mask = valid[:, None, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, -math.inf))
+    lse = torch.logsumexp(scores, dim=-1)                     # (B,k,g,1)
+    probs = torch.where(mask, torch.exp(scores - torch.where(
+        torch.isfinite(lse), lse, torch.zeros_like(lse))[..., None]),
+        torch.zeros_like(scores))
+    o = _gqa_out(probs.to(cache_v.dtype).float(), cache_v.float())
+    return o, lse.reshape(b, nh)
+
+
+def merge_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Merge the partials of R slices of a cache cut by sequence:
+    ``o`` (R, B, 1, nh, d) and ``lse`` (R, B, nh), fp32, as
+    ``decode_attention_lse`` or the kernel with ``lse=`` gives them, into
+    the attention over the whole cache, in fp32: sum_r e^{lse_r - M} o_r /
+    sum_r e^{lse_r - M}, M the largest lse_r; a row whose every lse_r is
+    -inf (it sees no key anywhere) gives 0."""
+    m = lse.amax(dim=0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)                                    # (R, B, nh)
+    den = w.sum(dim=0)
+    num = (w[:, :, None, :, None] * o.float()).sum(dim=0)
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    return num / den[:, None, :, None]
+
+
 def decode_attention_ring(q: torch.Tensor, cache_k: torch.Tensor,
                           cache_v: torch.Tensor, pos: IntLike,
                           slot_pos: torch.Tensor) -> torch.Tensor:
@@ -170,6 +216,43 @@ def cache_write_token(cache_k: torch.Tensor, cache_v: torch.Tensor,
     _put(cache_k, (rows, slot), k[:, 0])
     _put(cache_v, (rows, slot), v[:, 0])
     return cache_k, cache_v
+
+
+def cache_write_token_slice(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                            k: torch.Tensor, v: torch.Tensor, pos: IntLike,
+                            offset: int, length: int) -> None:
+    """``cache_write_token`` on one slice of a cache of ``length``
+    positions cut by sequence, the slice holding positions [offset, offset
+    + S) (S = ``cache_k.shape[1]``): a row writes here only when its slot
+    (``pos`` clamped to ``length - 1``, as the whole cache clamps it)
+    falls in the slice; the other rows keep what they hold. In place,
+    without a host sync (the rows that keep theirs write it back)."""
+    b, s = k.shape[0], cache_k.shape[1]
+    rows = torch.arange(b, device=k.device)
+    at = torch.clamp(_row_vector(pos, b, k.device), max=length - 1) - offset
+    own = ((at >= 0) & (at < s))[:, None, None]
+    slot = at.clamp(0, s - 1)
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        val = astype(new[:, 0], cache.dtype)
+        if cache.dtype in _FP8:
+            cache, val = cache.view(torch.uint8), val.view(torch.uint8)
+        cache[rows, slot] = torch.where(own, val, cache[rows, slot])
+
+
+def cache_write_token_ring_slice(cache_k: torch.Tensor,
+                                 cache_v: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, pos: IntLike,
+                                 slot_pos: torch.Tensor, offset: int) -> None:
+    """``cache_write_token_ring`` on one slice of a ring cut by sequence,
+    the slice holding slots [offset, offset + S) of ``slot_pos``'s
+    ``S_alloc``: the token lands here only when its slot ``pos % S_alloc``
+    falls in the slice, and ``slot_pos`` (every slot's, held whole) records
+    it either way."""
+    pos = _row_vector(pos, k.shape[0], k.device)
+    slot = pos % slot_pos.shape[0]
+    cache_write_token_slice(cache_k, cache_v, k, v, slot, offset,
+                            slot_pos.shape[0])
+    slot_pos[slot] = pos.to(slot_pos.dtype)
 
 
 def cache_write_token_ring(cache_k: torch.Tensor, cache_v: torch.Tensor,

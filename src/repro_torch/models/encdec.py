@@ -160,8 +160,23 @@ class EncDecLM(TensorParallel):
                cv: torch.Tensor) -> torch.Tensor:
         """Cross-attention sub-block: the decoder rows (ln2 applied by the
         caller) against the encoder's K/V, unmasked."""
-        o = kops.flash_attention(self._proj_q(p, h), ck, cv, causal=False)
+        o = kops.flash_attention(self._proj_q(p, h), self._attn_kv(ck),
+                                 self._attn_kv(cv), causal=False)
         return self._out_proj(p, o)
+
+    def _cross_cached(self, p: Dict, h: torch.Tensor, ck: torch.Tensor,
+                      cv: torch.Tensor) -> torch.Tensor:
+        """``_cross`` against the cache's ``ck`` / ``cv`` (one decoder
+        token per row): on a cross cache cut by sequence, the decode
+        kernel with its log-sum-exp output at the slice's last local
+        position (every key visible: the unmasked function) and the
+        slices' partials merged (``_split_attention``)."""
+        if self._seq_ax is None:
+            return self._cross(p, h, ck, cv)
+        last = torch.full((h.shape[0],), ck.shape[1] - 1, dtype=torch.int32,
+                          device=h.device)
+        return self._out_proj(p, self._split_attention(self._proj_q(p, h),
+                                                       ck, cv, last))
 
     def _tail(self, p: Dict, h: torch.Tensor) -> torch.Tensor:
         """The decoder layer's MLP sub-block (residual included)."""
@@ -171,8 +186,8 @@ class EncDecLM(TensorParallel):
     def _enc_layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         a = self._enter(self.norm(x, p["ln1"]), self._heads_ax)
         k, v = self._proj_kv(p["attn"], a)
-        o = kops.flash_attention(self._proj_q(p["attn"], a), k, v,
-                                 causal=False)
+        o = kops.flash_attention(self._proj_q(p["attn"], a), self._attn_kv(k),
+                                 self._attn_kv(v), causal=False)
         x = x + self._out_proj(p["attn"], o)
         return x + self._ffn(p["mlp"], self.norm(x, p["ln2"]))
 
@@ -206,7 +221,8 @@ class EncDecLM(TensorParallel):
         ax = self._heads_ax
         a = self._enter(self.norm(x, p["ln1"]), ax)
         k, v = self._proj_kv(p["self_attn"], a)
-        o = kops.flash_attention(self._proj_q(p["self_attn"], a), k, v,
+        o = kops.flash_attention(self._proj_q(p["self_attn"], a),
+                                 self._attn_kv(k), self._attn_kv(v),
                                  causal=True)
         x = x + self._out_proj(p["self_attn"], o)
         ck, cv = self._proj_kv(p["cross_attn"], self._enter(enc_out, ax))
@@ -280,11 +296,16 @@ class EncDecLM(TensorParallel):
     def init_cache(self, batch: int, max_len: int, s_enc: int) -> Dict:
         """Zero cache: self-attention ``k``/``v`` (L, batch, max_len, nkv,
         d), cross-attention ``ck``/``cv`` (L, batch, s_enc, nkv, d) and
-        per-row positions ``pos`` (batch,); nkv is this rank's KV heads."""
+        per-row positions ``pos`` (batch,); nkv is this rank's KV heads,
+        or, on caches cut by sequence (``cache_seq``, the self and the cross
+        cache alike), every KV head of its slice of the positions."""
         c = self.cfg
         dev = self.device
-        self_shape = (c.n_layers, batch, max_len, self.n_kv_local, c.hd)
-        cross_shape = (c.n_layers, batch, s_enc, self.n_kv_local, c.hd)
+        nkv = self.n_kv_cache
+        self_shape = (c.n_layers, batch, self.seq_slice(max_len)[1], nkv,
+                      c.hd)
+        cross_shape = (c.n_layers, batch, self.seq_slice(s_enc)[1], nkv,
+                       c.hd)
         return {
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "k": torch.zeros(self_shape, dtype=self.dtype, device=dev),
@@ -295,9 +316,7 @@ class EncDecLM(TensorParallel):
 
     def cache_specs(self) -> Dict:
         """Logical sharding names for cache entries (the reference's tree;
-        ``pos`` is per row here). Under a mesh the port lays the K/V out by
-        ``kv_heads`` alone, never by ``cache_seq`` (``models/transformer.py``
-        module docstring)."""
+        ``pos`` is per row here)."""
         kv = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
         return {"pos": (), "k": kv, "v": kv, "ck": kv, "cv": kv}
 
@@ -322,9 +341,15 @@ class EncDecLM(TensorParallel):
         at the prompt's length)."""
         b, s = inputs["tokens"].shape
         logits, kv = self.prefill_kv(params, inputs, last_pos)
-        cache = self.init_cache(b, max_len or s, kv["ck"].shape[2])
+        length = max_len or s
+        cache = self.init_cache(b, length, kv["ck"].shape[2])
         for key, val in kv.items():
-            cache[key][:, :, :val.shape[2]] = val.to(self.dtype)
+            if self._seq_ax is None:
+                cache[key][:, :, :val.shape[2]] = val.to(self.dtype)
+                continue
+            # cut by sequence: the rank's slice of the positions
+            cache[key] = self.kv_to_cache(
+                val.to(self.dtype), length if key in ("k", "v") else None)
         cache["pos"].fill_(s)
         return logits, cache
 
@@ -339,6 +364,9 @@ class EncDecLM(TensorParallel):
         returns (logits at ``last_pos`` (default: last chunk column), the
         cache)."""
         c = self.cfg
+        if self._seq_ax is not None:
+            raise ValueError("chunked prefill needs whole sequences, not a "
+                             "cache cut by sequence (cache_seq)")
         b, cl = tokens.shape
         x = self.embed(params, tokens)
         x = x + self._pe(base + cl, x.device)[base:][None]
@@ -368,6 +396,8 @@ class EncDecLM(TensorParallel):
         c = self.cfg
         pos = cache["pos"]
         max_pos = cache["k"].shape[2]
+        if self._seq_ax is not None:
+            max_pos = self._whole_length(max_pos)[1]
         x = self.embed(params, tokens)
         pe = self._pe(max_pos, x.device)
         x = x + pe[torch.clamp(pos.long(), max=max_pos - 1)][:, None]
@@ -376,12 +406,12 @@ class EncDecLM(TensorParallel):
             ck, cv = cache["k"][i], cache["v"][i]
             a = self.norm(x, p["ln1"])
             k, v = self._proj_kv(p["self_attn"], a)
-            attn.cache_write_token(ck, cv, k, v, pos)
-            o = kops.decode_attention(self._proj_q(p["self_attn"], a), ck,
-                                      cv, pos)
+            o = self._cached_attention(self._proj_q(p["self_attn"], a), k, v,
+                                       pos, ck, cv)
             x = x + self._out_proj(p["self_attn"], o)
-            x = x + self._cross(p["cross_attn"], self.norm(x, p["ln2"]),
-                                cache["ck"][i], cache["cv"][i])
+            x = x + self._cross_cached(p["cross_attn"],
+                                       self.norm(x, p["ln2"]),
+                                       cache["ck"][i], cache["cv"][i])
             x = self._tail(p, x)
         x = self.norm(x, params["final_norm"])
         cache["pos"] = pos + 1

@@ -54,11 +54,19 @@ rounds; the biases added once, after the sum), after the MoE combine,
 after the vocab-parallel embedding lookup (each rank looks up its own
 vocab rows and writes zeros elsewhere) and after the vocab-parallel
 logits (each rank's columns written into a zero buffer of the padded
-vocab): sums with zeros, so the last two are exact. Where ``resolve``
-replicates ``kv_heads`` but splits ``heads``, a rank projects and caches
-only the KV heads its query heads read (global query head i reads KV
-head i // g), all of them in query order when they do not form equal
-groups. With the batch split over ``data`` (``batch_axes``), the MoE's
+vocab): sums with zeros, so the last two are exact. Where the rules cut
+the KV cache by sequence (``cache_seq``, ``cache_seq_axes``: a prefill
+step's cache, and a serve step's where the KV heads do not divide the
+model axis) each rank holds every KV head of its slice of the positions
+(``seq_slice``); a decode writes a token on the rank holding its
+position and merges the slices' partials (``_split_attention``: the
+decode kernel's log-sum-exp output, an all_gather of q and an
+all_to_all of the partials where the query heads are split, an
+all_gather of them where they are whole). Where ``resolve`` replicates
+``kv_heads`` but splits ``heads`` on rules without ``cache_seq`` (the
+train step's), a rank projects only the KV heads its query heads read
+(global query head i reads KV head i // g), all of them in query order
+when they do not form equal groups. With the batch split over ``data`` (``batch_axes``), the MoE's
 capacity queues count the rows of the ranks before this one, so capacity
 and drops are the whole batch's. The Mamba2 mixer splits by whole SSD
 heads (``sharding.rules.MixerSplit``, decided by ``resolve`` over the
@@ -126,6 +134,24 @@ def kv_select(n_heads: int, n_kv: int, n_local: int, h_lo: int
     return uniq if grouped else need
 
 
+# cache leaves holding K/V (the rest is recurrent state and positions)
+KV_KEYS = ("k", "v", "ak", "av", "ck", "cv")
+
+
+def cache_seq_axes(cfg: ArchConfig, sharder: Sharder) -> Axes:
+    """The mesh axes a KV cache's sequence is cut over under
+    ``sharder``'s rules (the reference's ``cache_seq`` rule, as
+    ``resolve`` gives it the axes before ``kv_heads``); None where the
+    cache holds whole sequences (no such rule, no KV heads, one rank)."""
+    if not cfg.n_kv_heads or sharder.mesh is None:
+        return None
+    n = sharder.size(sharder.rules.get("cache_seq"))
+    if n == 1:
+        return None
+    ax = sharder.spec(("cache_seq", "kv_heads"), (n, cfg.n_kv_heads))[0]
+    return ax if sharder.size(ax) > 1 else None
+
+
 class TensorParallel:
     """The tensor-parallel layout and the pieces that run on it, shared by
     ``LM`` and ``encdec.EncDecLM``. The model sets ``cfg``, ``device``,
@@ -149,9 +175,25 @@ class TensorParallel:
         kv_ax = self._kv_axes()
         self._kv_sel: Optional[List[int]] = None
         self.n_kv_local = nkv // sh.size(kv_ax)
+        # a KV cache cut by sequence (``cache_seq``): every rank holds every
+        # KV head of its slice of positions; where ``kv_heads`` is
+        # replicated the rank projects them all (wk / wv whole) and its
+        # query heads' attention reads those they need (``_attn_sel``)
+        self._seq_ax = cache_seq_axes(c, sh)
+        self._attn_sel: Optional[List[int]] = None
         if kv_ax is None and self._heads_ax is not None:
-            self._kv_sel = kv_select(nh, nkv, self.n_heads_local, h_lo)
-            self.n_kv_local = len(self._kv_sel)
+            sel = kv_select(nh, nkv, self.n_heads_local, h_lo)
+            if self._seq_ax is None:
+                self._kv_sel = sel
+                self.n_kv_local = len(sel)
+            elif sel != list(range(nkv)):
+                self._attn_sel = sel
+        self.n_kv_cache = nkv if self._seq_ax is not None else self.n_kv_local
+        if self._seq_ax is not None and self._heads_ax not in (
+                None, self._seq_ax):
+            raise ValueError(f"{c.name}: heads split over {self._heads_ax} "
+                             f"and the cache's sequence over "
+                             f"{self._seq_ax}")
         self._ffn_ax = None
         if c.d_ff:
             names = ("embed", "expert_ffn" if c.n_experts else "ffn")
@@ -238,9 +280,9 @@ class TensorParallel:
 
     def shard_cache(self, full: Dict, rows: slice = slice(None)) -> Dict:
         """This rank's part of a full contiguous (or ring) cache: the
-        ``rows`` it serves, the KV heads its layout holds and, for the
-        recurrent state, its SSD heads' ``conv`` channels (B and C whole)
-        and ``ssd`` state."""
+        ``rows`` it serves, its part of the K/V (``cache_part``) and, for
+        the recurrent state, its SSD heads' ``conv`` channels (B and C
+        whole) and ``ssd`` state."""
         if "block_tbl" in full:
             raise ValueError("shard_cache takes a contiguous cache")
         out = {"pos": full["pos"][rows].clone()}
@@ -256,9 +298,117 @@ class TensorParallel:
                               for n in specs[key])
                 t = shard_leaf(t, names, self.sharder, mixer=self._mixer)
             else:
-                t = self.shard_kv_heads(t, 3)
+                t = self.cache_part(t, 2, 3)
             out[key] = t.contiguous()
         return out
+
+    def cache_part(self, t: torch.Tensor, seq_dim: int, heads_dim: int
+                   ) -> torch.Tensor:
+        """This rank's part of a K/V cache tensor ``t`` holding every
+        position and KV head: its slice of positions along ``seq_dim``
+        (every head) where the cache is cut by sequence, else its KV heads
+        along ``heads_dim`` (``shard_kv_heads``)."""
+        if self._seq_ax is None:
+            return self.shard_kv_heads(t, heads_dim)
+        lo, n = self.seq_slice(t.shape[seq_dim])
+        return t.narrow(seq_dim, lo, n)
+
+    def seq_slice(self, length: int) -> Tuple[int, int]:
+        """(first position, positions) of this rank's slice of a cache of
+        ``length`` positions: (0, length) where sequences are whole."""
+        if self._seq_ax is None:
+            return 0, length
+        n = self.sharder.size(self._seq_ax)
+        if length % n:
+            raise ValueError(f"{self.cfg.name}: a cache of {length} "
+                             f"positions does not cut into {n} slices "
+                             f"(cache_seq over {self._seq_ax})")
+        return self.sharder.index(self._seq_ax) * (length // n), length // n
+
+    def _whole_length(self, local: int) -> Tuple[int, int]:
+        """(this rank's first position, the whole cache's length) for a
+        cache slice of ``local`` positions."""
+        n = self.sharder.size(self._seq_ax)
+        return self.sharder.index(self._seq_ax) * local, n * local
+
+    def kv_to_cache(self, t: torch.Tensor, length: Optional[int] = None
+                    ) -> torch.Tensor:
+        """A prompt's K or V (..., S, nkv_local, d), zero-padded to a cache
+        of ``length`` positions (default S), as this rank's cache holds it:
+        itself where sequences are whole; cut by sequence, the rank's slice
+        of every head, by one all_to_all over the heads it projected where
+        ``kv_heads`` is split, else its slice."""
+        s = t.shape[-3]
+        if length is not None and length != s:
+            full = t.new_zeros(t.shape[:-3] + (length,) + t.shape[-2:])
+            full[..., :s, :, :] = t
+            t = full
+        if self._seq_ax is None:
+            return t
+        if self.n_kv_local == self.n_kv_cache:
+            lo, n = self.seq_slice(t.shape[-3])
+            return t.narrow(-3, lo, n).contiguous()
+        return self.sharder.all_to_all(t, self._seq_ax, t.ndim - 3,
+                                       t.ndim - 2)
+
+    def _attn_kv(self, k: torch.Tensor) -> torch.Tensor:
+        """The projected K or V (B, S, nkv_local, d) that this rank's query
+        heads attend: all of it, or, where the rank projects every KV head
+        for a cache cut by sequence, those its query heads read."""
+        if self._attn_sel is None:
+            return k
+        return k.index_select(2, torch.tensor(self._attn_sel,
+                                              device=k.device))
+
+    def _cached_attention(self, q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, pos: torch.Tensor,
+                          ck: torch.Tensor, cv: torch.Tensor,
+                          window: Optional[int] = None) -> torch.Tensor:
+        """One token's attention against a layer's contiguous cache: its
+        K/V written at ``pos`` (clamped to the cache's end, in place),
+        then the row's keys up to ``pos``. On a cache cut by sequence the
+        rank that holds the position writes it, and the attention is
+        ``_split_attention`` at the local position."""
+        if self._seq_ax is None:
+            attn.cache_write_token(ck, cv, k, v, pos)
+            return kops.decode_attention(q, ck, cv, pos, window=window)
+        lo, length = self._whole_length(ck.shape[1])
+        attn.cache_write_token_slice(ck, cv, k, v, pos, lo, length)
+        return self._split_attention(q, ck, cv, pos - lo, window)
+
+    def _split_attention(self, q: torch.Tensor, ck: torch.Tensor,
+                         cv: torch.Tensor, local: torch.Tensor,
+                         window: Optional[int] = None) -> torch.Tensor:
+        """One token per row against a cache cut by sequence over
+        ``_seq_ax``: every query head runs the decode kernel with its
+        log-sum-exp output on this rank's slice at the local position
+        ``local`` (B,), and the slices' fp32 partials merge
+        (``attention.merge_partials``), rounded once to q's dtype. Where
+        the query heads are split over the same ranks, q is gathered
+        first and each rank receives its heads' partials (one all_gather,
+        one all_to_all); where they are whole, every rank gathers every
+        partial (one all_gather). q: (B, 1, nh_local, d) -> the same."""
+        if self.n_kv_local != self.n_kv_cache:
+            raise NotImplementedError(
+                f"{self.cfg.name}: decode on a cache cut by sequence with "
+                f"the KV heads split (a prefill step's layout; "
+                f"BuiltStep.store_cache lays it out by heads)")
+        ax, sh = self._seq_ax, self.sharder
+        b, _, _, d = q.shape
+        split = self._heads_ax is not None
+        qa = sh.all_gather(q, ax, dim=2) if split else q
+        lse = torch.empty((b, qa.shape[2]), dtype=torch.float32,
+                          device=q.device)
+        o, lse = kops.decode_attention(qa, ck, cv, local, window=window,
+                                       lse=lse)
+        part = torch.cat([o.reshape(b, -1, d), lse[..., None]], dim=-1)
+        if split:       # (n B, nh_local, d + 1): slice r's, my heads
+            part = sh.all_to_all(part, ax, 1, 0)
+        else:           # (n B, nh, d + 1): every slice's, every head
+            part = sh.all_gather(part, ax, dim=0)
+        part = part.reshape((-1, b, 1) + tuple(part.shape[1:]))
+        return attn.merge_partials(part[..., :d], part[:, :, 0, :, d]
+                                   ).to(q.dtype)
 
     def shard_kv_heads(self, t: torch.Tensor, axis: int) -> torch.Tensor:
         """The KV heads this rank's layout holds, along ``axis`` of a cache
@@ -506,8 +656,8 @@ class LM(TensorParallel):
     def _attn_full(self, p: Dict, x: torch.Tensor, positions):
         """Full-sequence causal attention; returns (out, k, v)."""
         q, k, v = self._qkv(p, x, positions)
-        o = kops.flash_attention(q, k, v, causal=True,
-                                 window=self.cfg.swa_window)
+        o = kops.flash_attention(q, self._attn_kv(k), self._attn_kv(v),
+                                 causal=True, window=self.cfg.swa_window)
         return self._out_proj(p, o), k, v
 
     def _probed(self, out):
@@ -544,11 +694,11 @@ class LM(TensorParallel):
     def _attn_decode(self, p: Dict, x: torch.Tensor, pos, ck, cv):
         """One-token attention against this layer's contiguous cache: write
         the token at ``pos`` (clamped to the row end, in place), attend
-        the row's keys up to ``pos``."""
+        the row's keys up to ``pos`` (``_cached_attention``: on a cache
+        cut by sequence, the slices' partials merged over the ranks)."""
         q, k, v = self._qkv(p, x, self._positions(pos[:, None]))
-        attn.cache_write_token(ck, cv, k, v, pos)
-        o = kops.decode_attention(q, ck, cv, pos, window=self.cfg.swa_window)
-        return self._out_proj(p, o)
+        return self._out_proj(p, self._cached_attention(
+            q, k, v, pos, ck, cv, window=self.cfg.swa_window))
 
     def _attn_decode_ring(self, p: Dict, x: torch.Tensor, pos, ck, cv,
                           slot_pos):
@@ -557,8 +707,16 @@ class LM(TensorParallel):
         place), attend every slot the ring holds (the window is in its
         size)."""
         q, k, v = self._qkv(p, x, self._positions(pos[:, None]))
-        attn.cache_write_token_ring(ck, cv, k, v, pos, slot_pos)
-        return self._out_proj(p, kops.decode_attention_ring(q, ck, cv, pos))
+        if self._seq_ax is None:
+            attn.cache_write_token_ring(ck, cv, k, v, pos, slot_pos)
+            return self._out_proj(p, kops.decode_attention_ring(q, ck, cv,
+                                                                pos))
+        # cut by sequence: the rank holding the slot writes it; the visible
+        # slots [0, min(pos, S_alloc - 1)] at the local position
+        lo = self._whole_length(ck.shape[1])[0]
+        attn.cache_write_token_ring_slice(ck, cv, k, v, pos, slot_pos, lo)
+        top = torch.clamp(pos, max=slot_pos.shape[0] - 1)
+        return self._out_proj(p, self._split_attention(q, ck, cv, top - lo))
 
     def _mlp_or_moe(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -873,8 +1031,10 @@ class LM(TensorParallel):
         nheads, head_dim, N) fp32, and for the hybrid ``ak``/``av``
         (n_apps, batch, max_len, nkv, d), one per shared-block
         application. Under tensor parallelism every shape is this rank's:
-        its KV heads, its SSD heads (``d_inner`` and ``nheads`` local, N
-        whole)."""
+        its KV heads, or, on a cache cut by sequence (``cache_seq``), every
+        KV head of its slice of the positions (``seq_slice``; a ring's
+        ``slot_pos`` stays whole); its SSD heads (``d_inner`` and
+        ``nheads`` local, N whole)."""
         c = self.cfg
         dev = self.device
         if kv_layout not in ("contig", "paged"):
@@ -892,19 +1052,23 @@ class LM(TensorParallel):
                 (c.n_layers, batch, nh, c.ssm_head_dim, c.ssm_state),
                 dtype=torch.float32, device=dev)
             if c.family == "hybrid":
-                shape = (len(c.shared_attn_positions()), batch, max_len,
-                         self.n_kv_local, c.hd)
+                shape = (len(c.shared_attn_positions()), batch,
+                         self.seq_slice(max_len)[1], self.n_kv_cache, c.hd)
                 cache["ak"] = torch.zeros(shape, dtype=self.dtype, device=dev)
                 cache["av"] = torch.zeros(shape, dtype=self.dtype, device=dev)
             return cache
         if kv_layout == "contig":
             ring = bool(ring and c.swa_window)
             s_alloc = min(max_len, c.swa_window) if ring else max_len
-            shape = (c.n_layers, batch, s_alloc, self.n_kv_local, c.hd)
+            shape = (c.n_layers, batch, self.seq_slice(s_alloc)[1],
+                     self.n_kv_cache, c.hd)
             if ring:
                 cache["slot_pos"] = torch.full((s_alloc,), -1,
                                                dtype=torch.int32, device=dev)
         else:
+            if self._seq_ax is not None:
+                raise ValueError("a paged cache is not cut by sequence "
+                                 "(cache_seq)")
             max_blocks = -(-max_len // block_size)
             if n_blocks <= 0:
                 n_blocks = batch * max_blocks + 1       # capacity == contig
@@ -918,9 +1082,7 @@ class LM(TensorParallel):
 
     def cache_specs(self) -> Dict:
         """Logical sharding names for cache entries (the reference's tree;
-        ``pos`` is per row here). Under a mesh the port lays the K/V out by
-        ``kv_heads`` alone (see the module docstring), never by
-        ``cache_seq``."""
+        ``pos`` is per row here)."""
         c = self.cfg
         specs: Dict = {"pos": ()}
         if c.family in RECURRENT:
@@ -984,13 +1146,17 @@ class LM(TensorParallel):
             attn.cache_write_prefill_paged(cache["k"], cache["v"], aux["k"],
                                            aux["v"], cache["block_tbl"])
         else:
-            cache = self.init_cache(b, max_len or s, ring=ring)
+            length = max_len or s
+            cache = self.init_cache(b, length, ring=ring)
             for key, val in aux.items():
                 if key in STATE_KEYS:           # recurrent state: whole
                     cache[key].copy_(val)
                 elif "slot_pos" in cache:       # K/V in the ring's layout
-                    cache[key], cache["slot_pos"] = attn.ring_prefill_layout(
-                        val.to(self.dtype), cache[key].shape[2])
+                    full, cache["slot_pos"] = attn.ring_prefill_layout(
+                        val.to(self.dtype), cache["slot_pos"].shape[0])
+                    cache[key] = self.kv_to_cache(full)
+                elif self._seq_ax is not None:  # K/V cut by sequence
+                    cache[key] = self.kv_to_cache(val.to(self.dtype), length)
                 else:                           # K/V: the prompt's positions
                     cache[key][:, :, :s] = val.to(self.dtype)
         cache["pos"] = torch.full_like(cache["pos"], s)
@@ -1018,6 +1184,9 @@ class LM(TensorParallel):
         if "slot_pos" in cache:
             raise ValueError("chunked prefill needs a linear cache, not a "
                              "ring")
+        if self._seq_ax is not None:
+            raise ValueError("chunked prefill needs whole sequences, not a "
+                             "cache cut by sequence (cache_seq)")
         x = self.embed(params, tokens)
         b, cl = tokens.shape
         direct = block_tbl is not None

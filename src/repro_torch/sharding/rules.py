@@ -15,8 +15,10 @@ a full tensor (``shard_leaf``, ``tree_shard``: the counterpart of
 ``in_shardings`` plus ``device_put``) and sums partial results over the
 ranks of a set of mesh axes (``reduce``: ``all_reduce`` SUM). The model
 code calls ``reduce`` where the reference's GSPMD would insert an
-all-reduce; there is no counterpart of ``constrain``. ``Sharder()`` with no
-mesh is the identity, as in the reference.
+all-reduce; there is no counterpart of ``constrain``. For a KV cache cut
+by sequence (the ``cache_seq`` rule) the serving code also gathers
+(``all_gather``) and exchanges (``all_to_all``) over a set of mesh axes.
+``Sharder()`` with no mesh is the identity, as in the reference.
 
 Under autograd both collectives carry the backward their use implies
 (a bare ``dist.all_reduce`` has no autograd rule, and a backward through
@@ -147,13 +149,18 @@ class Sharder:
 
     ``mesh=None`` (unit tests, one device) makes every call the identity.
     With a mesh, ``reduce`` counts its calls, their bytes and the calls
-    on fp32 tensors in ``stats`` (``reset_stats`` zeroes them)."""
+    on fp32 tensors in ``stats`` (``calls``, ``bytes``, ``fp32_calls``),
+    and ``all_gather`` and ``all_to_all`` theirs (``gather_calls`` /
+    ``gather_bytes``, ``a2a_calls`` / ``a2a_bytes``: the bytes of this
+    rank's input); ``reset_stats`` zeroes them."""
 
     mesh: Optional[Any] = None
     rules: Dict[str, Axes] = dataclasses.field(
         default_factory=lambda: dict(INFER_RULES))
     stats: Dict[str, int] = dataclasses.field(
-        default_factory=lambda: {"calls": 0, "bytes": 0, "fp32_calls": 0})
+        default_factory=lambda: {"calls": 0, "bytes": 0, "fp32_calls": 0,
+                                 "gather_calls": 0, "gather_bytes": 0,
+                                 "a2a_calls": 0, "a2a_bytes": 0})
 
     def reset_stats(self) -> None:
         self.stats.update(dict.fromkeys(self.stats, 0))
@@ -225,6 +232,50 @@ class Sharder:
             return x
         return _Enter.apply(x, self, axes)
 
+    def all_gather(self, x: torch.Tensor, axes: Axes, dim: int
+                   ) -> torch.Tensor:
+        """Every rank's ``x`` along ``axes``, concatenated along ``dim`` in
+        rank order (``index(axes)``); ``x`` on one rank or without a mesh.
+        Serving only: no autograd rule."""
+        n = self.size(axes)
+        if self.mesh is None or n == 1:
+            return x
+        import torch.distributed as dist
+        group = self.mesh.group(as_axes(axes))
+        src = _on_wire(x.contiguous(), group)
+        parts = [torch.empty_like(src) for _ in range(n)]
+        dist.all_gather(parts, src, group=group)
+        self.stats["gather_calls"] += 1
+        self.stats["gather_bytes"] += src.numel() * src.element_size()
+        return torch.cat(parts, dim=dim).to(x.device)
+
+    def all_to_all(self, x: torch.Tensor, axes: Axes, split_dim: int,
+                   cat_dim: int) -> torch.Tensor:
+        """``x`` cut along ``split_dim`` into one equal piece per rank of
+        ``axes``, piece r sent to rank r, and the pieces this rank
+        receives concatenated along ``cat_dim`` in rank order (one
+        ``all_to_all_single``); ``x`` on one rank or without a mesh.
+        Serving only: no autograd rule."""
+        n = self.size(axes)
+        if self.mesh is None or n == 1:
+            return x
+        import torch.distributed as dist
+        group = self.mesh.group(as_axes(axes))
+        moved = x.movedim(split_dim, 0)
+        if moved.shape[0] % n:
+            raise ValueError(f"all_to_all: dimension {split_dim} of "
+                             f"{tuple(x.shape)} does not cut into {n}")
+        src = _on_wire(moved.reshape((n, moved.shape[0] // n)
+                                     + tuple(moved.shape[1:])).contiguous(),
+                       group)
+        got = torch.empty_like(src)
+        dist.all_to_all_single(got, src, group=group)
+        self.stats["a2a_calls"] += 1
+        self.stats["a2a_bytes"] += src.numel() * src.element_size()
+        got = got.to(x.device)
+        return torch.cat([got[r].movedim(0, split_dim) for r in range(n)],
+                         dim=cat_dim)
+
     def _all_reduce(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         """In-place ``all_reduce`` SUM of the contiguous ``x``, counted in
         ``stats``."""
@@ -234,6 +285,16 @@ class Sharder:
         self.stats["bytes"] += x.numel() * x.element_size()
         self.stats["fp32_calls"] += int(x.dtype == torch.float32)
         return x
+
+
+def _on_wire(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` where ``group``'s backend takes it for ``all_gather`` and
+    ``all_to_all``: a CUDA tensor of a gloo group through host memory,
+    else ``x``."""
+    import torch.distributed as dist
+    if x.is_cuda and dist.get_backend(group) == "gloo":
+        return x.cpu()
+    return x
 
 
 class _Sum(torch.autograd.Function):

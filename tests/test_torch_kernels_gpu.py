@@ -230,6 +230,74 @@ def test_contig_decode_kernel_matches_plain(cuda, dtype, s, nh, nkv, d,
     torch.testing.assert_close(out.float(), ref, **_tol(dtype))
 
 
+@pytest.mark.parametrize("fmt", [None, "float8_e4m3fn", "float8_e5m2"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nh,nkv,d,window", [(12, 2, 128, None),
+                                             (6, 6, 64, None),
+                                             (8, 8, 80, 40),
+                                             (32, 8, 120, None)])
+def test_contig_decode_lse_output_matches_plain(cuda, dtype, nh, nkv, d,
+                                                window, fmt):
+    """Kernel 4 with ``lse=``: the fp32 output and the natural log-sum-exp
+    equal the plain version's at local positions before a slice (-inf, 0),
+    inside, at and past its end; without ``lse`` the output is the same
+    call's rounded to q's dtype, bit for bit."""
+    rng = np.random.RandomState(11)
+    b, s = 6, 520
+    ck = _rand(rng, (b, s, nkv, d), dtype, cuda)
+    cv = _rand(rng, (b, s, nkv, d), dtype, cuda)
+    if fmt:
+        from repro_torch.models.common import FP8_DTYPES
+        ck, cv = astype(ck, FP8_DTYPES[fmt]), astype(cv, FP8_DTYPES[fmt])
+    q = _rand(rng, (b, 1, nh, d), dtype, cuda)
+    pos = torch.tensor([-300, -1, 0, 200, s - 1, s + 700], dtype=torch.int32,
+                       device=cuda)
+    lse = torch.empty((b, nh), dtype=torch.float32, device=cuda)
+    out, got = ops.decode_attention(q, ck, cv, pos, window=window, lse=lse)
+    assert got is lse and out.dtype == torch.float32
+    ref_lse = torch.empty((b, nh), dtype=torch.float32)
+    ref, _ = _ref(da.decode_attention_plain, q.cpu(), ck.cpu(), cv.cpu(),
+                  pos.cpu(), window=window, lse=ref_lse)
+    dead = torch.isneginf(ref_lse)
+    assert torch.equal(torch.isneginf(lse.cpu()), dead)
+    assert dead[:2].all() and not dead[2:].any()
+    tol = _tol(dtype)
+    scale = max(cv.float().abs().max().item(), 1.0)
+    torch.testing.assert_close(out.cpu() / scale, ref / scale, **tol)
+    torch.testing.assert_close(torch.where(dead, 0, lse.cpu()),
+                               torch.where(dead, 0, ref_lse), **tol)
+    bare = ops.decode_attention(q, ck, cv, pos, window=window)
+    assert torch.equal(bare, out.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_contig_decode_lse_slices_merge_to_the_whole_cache(cuda, dtype):
+    """A (8, 2080, 2, 128) cache cut into 4 sequence slices, each read at
+    its local position with ``lse=``, merged by ``merge_partials``: the
+    kernel on the whole cache (fp32 2e-5, bf16 2e-2 of max |out|)."""
+    rng = np.random.RandomState(12)
+    b, s, nh, nkv, d = 8, 2080, 12, 2, 128
+    w = s // 4
+    ck = _rand(rng, (b, s, nkv, d), dtype, cuda)
+    cv = _rand(rng, (b, s, nkv, d), dtype, cuda)
+    q = _rand(rng, (b, 1, nh, d), dtype, cuda)
+    pos = torch.tensor([3, w - 1, w, 2 * w + 7, 3 * w - 1, s - 1, s + 5,
+                        s // 2], dtype=torch.int32, device=cuda)
+    whole = ops.decode_attention(q, ck, cv, pos).float()
+    parts, lses = [], []
+    for r in range(4):
+        lse = torch.empty((b, nh), dtype=torch.float32, device=cuda)
+        o, _ = ops.decode_attention(q, ck[:, r * w:(r + 1) * w].contiguous(),
+                                    cv[:, r * w:(r + 1) * w].contiguous(),
+                                    pos - r * w, lse=lse)
+        parts.append(o)
+        lses.append(lse)
+    merged = attn.merge_partials(torch.stack(parts), torch.stack(lses))
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    err = (merged.to(dtype).float() - whole).abs().max().item()
+    assert err <= tol * whole.abs().max().item(), err
+
+
 @pytest.mark.parametrize("nh,nkv,d,b,s,window,pos", [
     # split edges at 2080 keys, 8 rows (64-key splits for short rows,
     # 192-key splits at 1535 / 1536), the row's end and the dead row

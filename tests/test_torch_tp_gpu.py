@@ -1,5 +1,5 @@
 """Tensor parallelism on the card: ``(1, 2)`` gloo worlds of two ranks on
-card 0. ``build_step``'s prefill and serve steps of the reduced qwen3-32b
+card 0, and a ``(1, 4)`` world serving from a cache cut by sequence. ``build_step``'s prefill and serve steps of the reduced qwen3-32b
 in fp32 through the CUDA kernels, against the unsplit model on the same
 card; and of reduced mamba2 and zamba2 in bf16 (the SSD scan's
 tensor-core body at the ranks' local heads), against the same ranks on
@@ -21,6 +21,42 @@ from repro_torch.configs import get_config
 from repro_torch.launch.mesh import run_ranks
 from repro_torch.launch.steps import serve_cases, serve_generate
 from repro_torch.models import build_model
+
+
+@pytest.mark.gpu
+def test_sequence_split_world_on_the_card_equals_the_unsplit_model():
+    """A (1, 4) world of reduced qwen3-32b (4 / 2 heads): the serve cache
+    cut by sequence, every decode with the lse output, fp32 tokens and
+    logits against the unsplit model on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the ranks launch CUDA kernels)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-32b").reduced()
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab, (4, 9)).astype(
+        np.int32)
+    model = build_model(cfg)
+    params = model.init(seed=0)
+    with torch.no_grad():
+        logits, cache = model.prefill(
+            params, {"tokens": torch.from_numpy(prompt).cuda()}, max_len=16)
+        cur = model.sample_greedy(logits).reshape(4, 1).to(torch.int32)
+        toks, step = [cur], []
+        for _ in range(3):
+            lg, cache = model.decode_step(params, cache, cur)
+            cur = model.sample_greedy(lg).to(torch.int32)
+            toks.append(cur)
+            step.append(lg)
+    outs = run_ranks(serve_generate, (1, 4), ("data", "model"),
+                     device="cuda", args=(cfg, {"tokens": prompt}, 3, 16))
+    for out in outs:
+        np.testing.assert_array_equal(out["tokens"],
+                                      torch.cat(toks, 1).cpu().numpy())
+        np.testing.assert_allclose(out["logits"],
+                                   torch.cat(step, 1).cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+        assert out["cache"]["k"].shape[2:4] == (16 // 4, cfg.n_kv_heads)
+        dec = out["launches"]["decode_attention"]
+        assert dec == 3 * cfg.n_layers == out["decode_lse_launches"]
 
 
 @pytest.mark.gpu
