@@ -202,7 +202,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    pp     the paper's pipeline-parallel serve step: main's widths and
           depth, 8 rows of one 1024-token prompt length prefilled by the
           unsplit ``LM.prefill`` (contig, ``max_len`` 2080), the K/V laid
-          into the PP layout, then 16 greedy PP steps in two stage layouts
+          into the PP layout, then 8 greedy PP steps in two stage layouts
           on this card: 2 stages at ``pod_flops`` [1.0, 0.5] (split [5,
           3], m 4) and 3 at [1.0, 0.6, 0.35] with m 4 (split [4, 3, 1]);
           the tokens must equal the unsplit ``LM.decode_step`` run one
@@ -232,7 +232,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           ``launch/mesh.py`` mesh of ranks, ``run_ranks``): main's widths,
           8 rows of a 1024-token prompt through ``prefill_step`` (cache
           S 2080, cut by sequence: ``store_cache`` lays it out by heads),
-          then 16 greedy ``serve_step``s, on meshes (data 1, model 2),
+          then 8 greedy ``serve_step``s, on meshes (data 1, model 2),
           (1, 4) and (2, 2) in turns, every rank a process on
           this card (gloo over CUDA tensors, each all_reduce staged
           through the host); the unsplit ``LM`` runs first on the same
@@ -243,7 +243,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           bf16 stores it (sharded) and tokens, at most 1.25 times as far
           from the unsplit LM evaluated in fp32 on the same values (the
           yardstick of phase 3) as the unsplit bf16 LM's (printed, with
-          that LM on its rows in two halves against itself); then 16
+          that LM on its rows in two halves against itself); then 8
           steps from the ranks' own prefill, each fed the
           unsplit bf16 model's token (equal argmaxes and
           the first divergence printed), decode and flash launched at the
@@ -270,6 +270,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           prints the cache bytes beside the heads layout's, collectives a
           step (all_reduce / all_gather / all_to_all), step wall, host
           queue, device busy: flash, contig decode (with lse);
+   prefill_seq the reference's ``seq`` rule (sequence-split
+          activations) in ``build_step``'s prefill step, on gloo worlds of
+          rank processes: (a) qwen3-32b's widths at 1 of 64 layers, bf16,
+          8 rows of a 16384-token prompt on (1, 2), where ``build_rules``
+          turns the rule on by itself (1.34 GB of residual stream); (b)
+          granite-moe-3b-a800m at 4 layers and zamba2-2.7b at 6, fp32, 8
+          rows of a 1024-token prompt on (1, 4), the rule through
+          ``extra_rules``; each against the same step with ``{"seq":
+          None}``, then serve steps on the cache cut by sequence. Gates:
+          the rule on, the residual stream a rank holds cut, tokens equal,
+          prefill logits within 2e-2 of max |logit| (a) or allclose 2e-5
+          (b), (a)'s caches bit for bit, the prefill's collectives as
+          ``pseq_reckoning`` writes them out (calls; (a) bytes too), every
+          decode of the serve steps with its lse output; prints the peak
+          GB of the prefill with and without the rule, its wall and
+          collectives: flash, the SSD scan, contig decode (with lse);
    kv_fp8 fp8 KV caches: main's widths and depth through
           ``build_step``'s prefill step and serve steps on a (1, 1) mesh,
           8 rows of a 1024-token prompt, cache S 2080, the prefill's cache
@@ -479,7 +495,7 @@ PATHS = {
     # (kv_cache_dtype) in turns
     "kv_fp8": ("qwen3-32b", "contig", ("decode_attention",
                                        "flash_attention")),
-    # the same for mamba2-1.3b and zamba2-2.7b (24 layers) and whisper-tiny
+    # the same for mamba2-1.3b and zamba2-2.7b (12 layers) and whisper-tiny
     # (TPF_FAMILIES; the first names the path)
     "tp_families": ("mamba2-1.3b", "contig",
                     ("ssd_scan", "flash_attention", "decode_attention")),
@@ -487,6 +503,12 @@ PATHS = {
     # serve cache cut by sequence (cache_seq), the decode kernel's lse
     "tp_seq": ("qwen2-vl-2b", "contig",
                ("flash_attention", "decode_attention")),
+    # the reference's seq rule in build_step's prefill step: qwen3-32b's
+    # widths at 1 layer on (1, 2), build_rules turning it on by itself at
+    # 8 x 16384 tokens; granite-moe and zamba2 on (1, 4) through
+    # extra_rules; the serve steps on the cache cut by sequence
+    "prefill_seq": ("qwen3-32b", "contig",
+                    ("flash_attention", "ssd_scan", "decode_attention")),
     # main's model with prefix sharing, on shared-system-prompt traffic
     "prefix": ("qwen3-32b", "auto",
                ("decode_attention_paged", "chunk_attention_paged",
@@ -3742,7 +3764,7 @@ PP_LAYOUTS = (("2 stages", [1.0, 0.5], None),
 # the pp path's fp8 run: the first layout on a float8_e4m3fn cache
 PP_FP8 = ("2 stages, float8_e4m3fn cache", [1.0, 0.5], None,
           "float8_e4m3fn")
-PP_ROWS, PP_PROMPT, PP_STEPS = 8, 1024, 16
+PP_ROWS, PP_PROMPT, PP_STEPS = 8, 1024, 8
 
 
 def pp_layout_kv(full: torch.Tensor, split, m: int) -> torch.Tensor:
@@ -4028,7 +4050,7 @@ def phase_pp_parity(dev) -> None:
 # are four cards
 TP_MESHES = ((1, 2), (1, 4), (2, 2))
 TP_AXES = ("data", "model")
-TP_ROWS, TP_PROMPT, TP_STEPS = 8, 1024, 16
+TP_ROWS, TP_PROMPT, TP_STEPS = 8, 1024, 8
 TP_FP32_LAYERS = 2
 # path tp's bf16 depth: below main's --layers, to keep the script in its
 # time limit
@@ -4447,9 +4469,9 @@ def phase_tp_path(dev, path: str, depth: int, seed: int, rehearsal: bool,
 # gloo, as path ``tp`` runs them, every family in each world; per family the
 # fp32 gate's depth (mamba2 2 layers, zamba2 one hybrid_period of 6, whisper
 # whole) and the bf16 depth (None: whole), cut to keep the script in its
-# time limit: mamba2 24 of 48 layers, zamba2 24 of 54 (4 shared-block
+# time limit: mamba2 12 of 48 layers, zamba2 12 of 54 (2 shared-block
 # applications), whisper whole
-TPF_FAMILIES = (("mamba2-1.3b", 2, 24), ("zamba2-2.7b", 6, 24),
+TPF_FAMILIES = (("mamba2-1.3b", 2, 12), ("zamba2-2.7b", 6, 12),
                 ("whisper-tiny", None, None))
 TPF_MESHES = ((1, 2), (1, 4))
 # serve steps per family and world: a (1, 4) step of mamba2 / zamba2 takes
@@ -4629,7 +4651,7 @@ def phase_tp_families(dev, path: str, depth: int, seed: int,
     """Tensor parallelism for the SSM, hybrid and encoder-decoder families
     (``build_step`` over a ``launch/mesh.py`` mesh): mamba2-1.3b (64 SSD
     heads), zamba2-2.7b (80 SSD heads, a shared block of 32 heads of 80)
-    at full width and the depths ``TPF_FAMILIES`` gives (24 of 48 and 24
+    at full width and the depths ``TPF_FAMILIES`` gives (12 of 48 and 12
     of 54 layers) and whisper-tiny (6 heads: the cache cut by sequence at
     model 4) whole, 8 rows of a 1024-token prompt (whisper: as many
     encoder frames)
@@ -4968,6 +4990,336 @@ def phase_tp_seq(dev, path: str, depth: int, seed: int, rehearsal: bool,
         log(f"{tag} nvidia-smi: {smi_line()}")
     return dict(counts=counts, tokens=[f[2]["tokens"].tolist()
                                        for f in fams])
+
+
+# -- sequence-split activations in the prefill step (path ``prefill_seq``) -------
+# (a) qwen3-32b's widths at 1 of 64 layers on a (1, 2) mesh, 8 rows
+# of a 16384-token prompt in bf16: the residual stream passes 1 GB, so the
+# reference's build_rules turns the seq rule on by itself; (b) granite-moe
+# (the reference's granite_prefill cell) and zamba2 (one hybrid_period of
+# 6, the least depth the hybrid builds at) in fp32 on a (1, 4) mesh with
+# the rule switched on through extra_rules, as the reference's hill-climber
+# switches it; each against the same step with extra_rules {"seq": None}.
+# The serve steps after each prefill run on the cache cut by sequence
+# (extra_rules {"cache_seq": ("model",)}), so the decode kernel reads it
+# with its log-sum-exp output.
+PSEQ_BIG = ("qwen3-32b", (1, 2), 1, 8, 16384)   # arch, mesh, layers, rows, S
+PSEQ_SMALL = (("granite-moe-3b-a800m", 4), ("zamba2-2.7b", 6))
+PSEQ_SMALL_MESH, PSEQ_SMALL_ROWS, PSEQ_SMALL_PROMPT = (1, 4), 8, 1024
+PSEQ_STEPS = 4                # serve steps after (a)'s prefills
+PSEQ_SMALL_STEPS = 2          # and after (b)'s
+PSEQ_NEW = 16                 # cache positions past the prompt
+PSEQ_FP32_TOL = 2e-5          # (b): logits allclose, atol = rtol
+SEQ_ON, SEQ_OFF = {"seq": ("model",)}, {"seq": None}
+CACHE_CUT = {"cache_seq": ("model",)}
+
+
+def pseq_rank(mesh, dev, cases: list) -> list:
+    """One rank of path ``prefill_seq`` (``run_ranks`` calls it in every
+    rank): ``_pseq_case`` for each case in turn."""
+    return [_pseq_case(mesh, dev, **case) for case in cases]
+
+
+def _pseq_run(pre, srv, params, x, steps: int, dev) -> tuple:
+    """One prefill step and ``steps`` greedy serve steps: (the greedy
+    tokens (B, 1 + steps) on the host, the prefill's cache moved to the
+    host, its last-position logits, the rank's peak GB of the prefill,
+    the prefill's collectives, its wall seconds)."""
+    b = next(iter(x.values())).shape[0]
+    cuda = dev.type == "cuda"
+    sharder = pre.meta["sharder"]
+    sharder.reset_stats()
+    _free(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    tok, cache = pre.fn(params, x)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    stats = dict(sharder.stats)
+    logits = pre.last_logits.float().cpu().numpy()
+    host = {k: v.cpu() for k, v in cache.items()}
+    cache = srv.store_cache(cache)
+    cur = tok.reshape(b, 1)
+    toks = [cur]
+    for _ in range(steps):
+        cur, cache = srv.fn(params, cache, cur)
+        toks.append(cur)
+    toks = torch.cat(toks, 1).cpu().numpy()
+    del cache, tok, cur
+    return toks, host, logits, peak, stats, wall
+
+
+def _pseq_case(mesh, dev, cfg, inputs: dict, prompt: int, steps: int,
+               seed: int, extra_on) -> dict:
+    """One model on one rank: the prefill step with the ``seq`` rule
+    (``extra_on`` on top of ``build_rules``; None: ``build_rules`` alone)
+    and the same step with ``{"seq": None}``, each followed by ``steps``
+    serve steps on the cache cut by sequence, from the same params. The
+    seq-off run goes first; the kernel launch counts are zeroed just
+    before the seq-on prefill and read after its serve steps."""
+    b = inputs["tokens"].shape[0]
+    x = _on(inputs, dev)
+    max_len = prompt + PSEQ_NEW
+    shape = ShapeSpec("prefill_seq", max_len, b, "prefill_step")
+    with torch.no_grad():
+        pre_on = build_step(cfg, shape, mesh, extra_rules=extra_on,
+                            device=dev)
+        pre_off = build_step(cfg, shape, mesh, extra_rules=SEQ_OFF,
+                             device=dev)
+        srv = build_step(cfg, ShapeSpec("serve", max_len, b, "serve_step"),
+                         mesh, extra_rules=CACHE_CUT, device=dev)
+        params = pre_on.init_params(seed)
+        off = _pseq_run(pre_off, srv, params, x, steps, dev)
+        ops.reset_launch_counts()
+        ssd.reset_bodies()
+        on = _pseq_run(pre_on, srv, params, x, steps, dev)
+        launches = ops.launch_counts()
+        lse = ops.decode_lse_launches()
+        model = pre_on.model
+        same = {k: bool(torch.equal(on[1][k], off[1][k])) for k in on[1]}
+        diff = {k: float((on[1][k].float() - off[1][k].float()).abs().max())
+                for k in on[1] if on[1][k].is_floating_point()}
+        rows = pre_on.meta["rows"]
+        out = dict(rows=(rows.start, rows.stop),
+                   rules_seq=pre_on.meta["rules"]["seq"],
+                   residual=model.residual_shape,
+                   residual_off=pre_off.model.residual_shape,
+                   tokens_on=on[0], tokens_off=off[0],
+                   logits_on=on[2], logits_off=off[2],
+                   peak_on=on[3], peak_off=off[3],
+                   stats_on=on[4], stats_off=off[4],
+                   wall_on=on[5], wall_off=off[5],
+                   cache_equal=same, cache_diff=diff,
+                   cache_shapes={k: tuple(v.shape) for k, v in on[1].items()},
+                   launches=launches, decode_lse=lse,
+                   ssd_bodies=dict(ssd.body_counts),
+                   heads=(model.n_heads_local, model.n_kv_local,
+                          model.ssm_heads_local))
+        del pre_on, pre_off, srv, params, on, off, model
+    _free(dev)
+    return out
+
+
+def pseq_reckoning(cfg, data: int, n: int, rows: int, prompt: int,
+                   seq: bool) -> dict:
+    """The collectives of one rank's prefill step (calls, and the bytes
+    this rank puts in), written out from the model code, with the sequence
+    cut over ``model`` (``seq``) or whole. Cut: a block that needs the
+    whole sequence gathers it first (one all_gather of the rank's slice of
+    (rows, S, d), of (rows, S, 2 d) for zamba2's shared block: every
+    attention and Mamba2 mixer, every MoE, whose router sees every token,
+    an FFN whose columns split); a row-parallel product whose rows split
+    (``wo``, ``w_down``, ``w_out``, the MoE's combine) reduce-scatters its
+    fp32 partials of (rows, S, d), and the vocab-parallel embedding its
+    (rows, S, d) in the model dtype, into the rank's slice; the last
+    position's hidden state is one all_reduce of (rows, 1, d). Whole:
+    those sums are all_reduces of the same tensors. Both: the
+    vocab-parallel logits (rows, Vpad), the Mamba2 gated norm's fp32 sums
+    of squares (rows, S, 1) a layer whose SSD heads split, and one
+    all_to_all a K/V leaf where the KV heads split (the prompt's K/V of
+    the rank's heads padded to the cache's length). A batch split over
+    ``data`` adds the MoE's (data, E) int64 queue tables a layer and the
+    tokens' (rows x data,) int32 buffer."""
+    esz = 2 if cfg.dtype == "bfloat16" else 4
+    d, s = cfg.d_model, prompt
+    max_len = prompt + PSEQ_NEW
+
+    def split(x):
+        return int(n > 1 and x % n == 0)
+    heads, ffn, vocab = split(cfg.n_heads), split(cfg.d_ff), split(
+        cfg.padded_vocab)
+    kv = split(cfg.n_kv_heads) if cfg.n_kv_heads else 0
+    whole = rows * s * d
+    out = dict.fromkeys(("gather_calls", "gather_bytes", "rs_calls",
+                         "rs_bytes", "calls", "bytes", "a2a_calls",
+                         "a2a_bytes"), 0)
+
+    def add(kind, calls, nbytes):
+        key = "" if kind == "ar" else f"{kind}_"
+        out[f"{key}calls"] += calls
+        out[f"{key}bytes"] += calls * nbytes
+
+    def row_parallel(calls, nbytes=whole * 4):
+        add("rs" if seq else "ar", calls, nbytes)
+
+    def gather(calls, width=d):
+        if seq:
+            add("gather", calls, rows * s // n * width * esz)
+    if vocab:
+        row_parallel(1, whole * esz)                    # the embedding
+        add("ar", 1, rows * cfg.padded_vocab * esz)     # the logits
+    if seq:
+        add("ar", 1, rows * d * esz)                    # the last position
+    if data > 1:
+        add("ar", 1, rows * data * 4)                   # the tokens' rows
+    layers, stack = cfg.n_layers, cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        ssm = split(cfg.ssm_heads)
+        gather(layers)
+        row_parallel(layers * ssm)
+        add("ar", layers * ssm, rows * s * 4)           # the gated norm
+        stack = len(cfg.shared_attn_positions()) if cfg.n_heads else 0
+        gather(stack, 2 * d)
+        gather(stack * ffn)
+        row_parallel(stack * (heads + ffn))
+    else:
+        moe = int(cfg.n_experts > 0)
+        gather(layers * (1 + (ffn or moe)))
+        row_parallel(layers * (heads + ffn))
+        if moe and data > 1:
+            add("ar", layers, data * cfg.n_experts * 8)
+    if stack:
+        add("a2a", 2 * kv, stack * rows * max_len * (cfg.n_kv_heads // n)
+            * cfg.hd * esz)
+    return out
+
+
+def phase_prefill_seq(dev, path: str, depth: int, seed: int,
+                      rehearsal: bool, repeats: int,
+                      profile_dir: Path | None = None) -> dict:
+    """The reference's ``seq`` rule in ``build_step``'s prefill step
+    (sequence-split activations, Megatron-style: each block gathers the
+    sequence, computes at its local heads or columns and reduce-scatters
+    its row-parallel sums into the rank's slice; ``models/transformer.py``)
+    on meshes of rank processes on this card (gloo). (a) ``PSEQ_BIG``:
+    qwen3-32b's widths at 1 of 64 layers, bf16, 8 rows of a 16384-token
+    prompt on (1, 2): ``build_rules`` turns ``seq`` on by itself (8 x
+    16400 x 5120 x 2 B = 1.34 GB of residual stream > 1 GB); gates: the
+    rule is on, the residual stream a rank holds is half the prompt, the
+    greedy tokens of the prefill and ``PSEQ_STEPS`` serve steps equal the
+    same step's with ``{"seq": None}``, its prefill logits within
+    ``TP_REL`` (2e-2) of max |logit|, each rank's cache bit for bit the
+    seq-off one's, the collectives of the prefill (calls and bytes) as
+    ``pseq_reckoning`` writes them out; whether the logits are bit-equal
+    is printed. (b) ``PSEQ_SMALL``: granite-moe-3b-a800m at 4 layers and
+    zamba2-2.7b at 6, fp32, 8 rows of a 1024-token prompt on (1, 4), the
+    rule through ``extra_rules``; gates: greedy tokens equal the seq-off
+    step's, prefill logits allclose within ``PSEQ_FP32_TOL``, the
+    collectives' calls as reckoned. Both: the serve steps on the cache cut
+    by sequence (``cache_seq`` forced) launch the contiguous decode with
+    its log-sum-exp output, every time. Per rank: peak GB of the prefill
+    with and without the rule, prefill wall, collectives."""
+    tag = f"[{path}]"
+    where = "cuda" if dev.type == "cuda" else "cpu"
+    arch, big_mesh, big_layers, big_rows, big_prompt = PSEQ_BIG
+    small_mesh, small_rows = PSEQ_SMALL_MESH, PSEQ_SMALL_ROWS
+    small_prompt, steps, small_steps = PSEQ_SMALL_PROMPT, PSEQ_STEPS, \
+        PSEQ_SMALL_STEPS
+    big = dataclasses.replace(get_config(arch), n_layers=big_layers)
+    extra_big = None                   # build_rules alone turns it on
+    if rehearsal:                      # reduced widths: the rule by hand
+        big = get_config(arch).reduced()
+        big = dataclasses.replace(big, dtype="bfloat16")
+        big_rows, big_prompt, extra_big = 4, 16, SEQ_ON
+        small_rows, small_prompt, steps, small_steps = 4, 16, 2, 1
+    runs = [("(a)", big, big_mesh, big_rows, big_prompt, steps, extra_big)]
+    for name, layers in PSEQ_SMALL:
+        cfg = get_config(name)
+        cfg = (cfg.reduced() if rehearsal else
+               dataclasses.replace(cfg, n_layers=layers, dtype="float32"))
+        runs.append(("(b)", cfg, small_mesh, small_rows, small_prompt,
+                     small_steps, SEQ_ON))
+    counts: dict = {}
+    failed = []
+    worlds: dict = {}
+    for label, cfg, mesh, rows, prompt, st, extra in runs:
+        case = dict(cfg=cfg, inputs=tpf_inputs(cfg, rows, prompt, seed),
+                    prompt=prompt, steps=st, seed=seed, extra_on=extra)
+        worlds.setdefault(mesh, []).append((label, case))
+    for mesh, items in worlds.items():
+        t1 = time.perf_counter()
+        outs = run_ranks(pseq_rank, mesh, TP_AXES, backend="gloo",
+                         device=where, args=([c for _, c in items],))
+        name = f"mesh (data {mesh[0]}, model {mesh[1]}) gloo"
+        log(f"{tag} {name}: {len(outs)} ranks, "
+            f"{time.perf_counter() - t1:.1f} s with the ranks' start")
+        for rank, per_case in enumerate(outs):
+            for (label, case), o in zip(items, per_case):
+                fail = pseq_check(tag, f"{name} rank {rank}", dev, label,
+                                  case, mesh, o)
+                if fail:
+                    failed.append(f"{case['cfg'].name} {name} rank {rank}: "
+                                  f"{fail}")
+                for k, v in o["launches"].items():
+                    counts[k] = counts.get(k, 0) + v
+                counts["decode_attention_lse"] = (
+                    counts.get("decode_attention_lse", 0) + o["decode_lse"])
+    if failed:
+        raise SystemExit(f"chip_smoke: the seq rule's prefill failed a "
+                         f"gate: {failed}")
+    if dev.type == "cuda":
+        log(f"{tag} nvidia-smi: {smi_line()}")
+    return dict(counts=counts)
+
+
+def pseq_check(tag: str, where: str, dev, label: str, case: dict, mesh,
+               o: dict) -> str:
+    """Log one model's readings on one rank of ``phase_prefill_seq`` and
+    return the gates it fails (an empty string when it passes them)."""
+    cfg, prompt = case["cfg"], case["prompt"]
+    data, n = mesh
+    lo, hi = o["rows"]
+    cuda = dev.type == "cuda"
+    fp32 = cfg.dtype == "float32"
+    tok_eq = bool(np.array_equal(o["tokens_on"], o["tokens_off"]))
+    rel = _rel(o["logits_on"], o["logits_off"])
+    bits = bool(np.array_equal(o["logits_on"], o["logits_off"]))
+    close = bool(np.allclose(o["logits_on"], o["logits_off"],
+                             atol=PSEQ_FP32_TOL, rtol=PSEQ_FP32_TOL))
+    want_on = pseq_reckoning(cfg, data, n, hi - lo, prompt, True)
+    want_off = pseq_reckoning(cfg, data, n, hi - lo, prompt, False)
+    keys = ("gather_calls", "rs_calls", "calls", "a2a_calls")
+
+    def calls(stats):
+        return {k: stats[k] for k in keys}
+    dec = o["launches"].get("decode_attention", 0)
+    gates = {"seq rule": o["rules_seq"] == ("model",),
+             "residual cut": (o["residual"][1] * n == prompt
+                              and o["residual_off"][1] == prompt),
+             "tokens": tok_eq,
+             "logits": close if fp32 else rel <= TP_REL,
+             "collective calls": (calls(o["stats_on"]) == calls(want_on)
+                                  and calls(o["stats_off"])
+                                  == calls(want_off)),
+             "decode with lse": not cuda or (dec > 0
+                                             and o["decode_lse"] == dec)}
+    if label == "(a)":
+        gates["cache bit-equal"] = all(o["cache_equal"].values())
+        gates["collective bytes"] = (o["stats_on"] == dict(
+            o["stats_on"], **want_on) and o["stats_off"] == dict(
+            o["stats_off"], **want_off))
+    fail = ", ".join(k for k, v in gates.items() if not v)
+
+    def coll(stats):
+        return (f"all_gather {stats['gather_calls']} calls "
+                f"{stats['gather_bytes']:,} B, reduce-scatter "
+                f"{stats['rs_calls']} calls {stats['rs_bytes']:,} B, "
+                f"all_reduce {stats['calls']} calls {stats['bytes']:,} B, "
+                f"all_to_all {stats['a2a_calls']} calls "
+                f"{stats['a2a_bytes']:,} B")
+    peak_on, peak_off = o["peak_on"], o["peak_off"]
+    peaks = ("not measured (CPU)" if peak_on is None else
+             f"{peak_on:.3f} with the rule, {peak_off:.3f} without")
+    log(f"{tag} {label} {cfg.name} {cfg.dtype} {cfg.n_layers} layers "
+        f"{where}: rows [{lo}, {hi}) of a {prompt}-token prompt; rules "
+        f"seq {o['rules_seq']}; residual stream {tuple(o['residual'])} "
+        f"(without the rule {tuple(o['residual_off'])}); heads "
+        f"{o['heads']}; tokens (prefill + {case['steps']} steps) == seq "
+        f"off {tok_eq}; prefill logits rel {rel:.3e}, bit-equal {bits}, "
+        f"allclose {PSEQ_FP32_TOL} {close}; cache bit-equal "
+        f"{o['cache_equal']} (max |diff| {o['cache_diff']}); decode "
+        f"launches {dec}, {o['decode_lse']} with lse; launches "
+        f"{o['launches']}, SSD bodies {o['ssd_bodies']} "
+        f"{'ok' if not fail else 'FAIL: ' + fail}")
+    log(f"{tag} {label} {cfg.name} {where}: prefill with the rule "
+        f"{o['wall_on']:.3f} s, {coll(o['stats_on'])} (reckoned: "
+        f"{coll(want_on)}); without {o['wall_off']:.3f} s, "
+        f"{coll(o['stats_off'])} (reckoned: {coll(want_off)}); "
+        f"peak_mem_GB (prefill) {peaks}")
+    return fail
 
 
 # -- the multi-process pipeline-parallel serve step (path ``pp_ranks``) -----------
@@ -5605,6 +5957,7 @@ def phase_kv_fp8_path(dev, path: str, depth: int, seed: int,
 PATH_PHASE = {"server": phase_server_path, "pp": phase_pp_path,
               "pp_ranks": phase_pp_ranks_path, "tp": phase_tp_path,
               "tp_families": phase_tp_families, "tp_seq": phase_tp_seq,
+              "prefill_seq": phase_prefill_seq,
               "kv_fp8": phase_kv_fp8_path}
 
 

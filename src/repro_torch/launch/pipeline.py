@@ -465,9 +465,9 @@ def _rank_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
     rules = dict(rules)
     rules["pp_stage"] = ("pod",)
     rules["batch"] = ("data",)              # pod is used by PP, not DP
-    # every rule but ``seq`` (launch/steps.py): the cache is cut by
-    # sequence inside a stage where ``cache_seq`` takes ``model``
-    sharder = R.Sharder(mesh=mesh, rules=dict(rules, seq=None))
+    # the cache is cut by sequence inside a stage where ``cache_seq``
+    # takes ``model``; ``seq`` has nothing to cut at one token a row
+    sharder = R.Sharder(mesh=mesh, rules=rules)
     lo, hi = sharder.local_range(("batch",), (mb,), 0)
     bspec = sharder.spec(("batch",), (mb,))[0]
     batch_axes = bspec if sharder.size(bspec) > 1 else None
@@ -475,8 +475,9 @@ def _rank_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh,
     model = LM(cfg, device=dev, sharder=sharder, batch_axes=batch_axes)
     kv_dt = FP8_DTYPES[kv_cache_dtype] if kv_cache_dtype else model.dtype
     n, last = split[stage], n_stages - 1
-    kv_local = (n, m, hi - lo, model.seq_slice(s_max)[1], model.n_kv_cache,
-                cfg.hd)
+    kv_local = (n, m, hi - lo, model.seq_slice(s_max)[1],
+                model.kv_heads_of(s_max), cfg.hd)
+    model.kv_lengths = {"k": s_max, "v": s_max}
     tok_axes = ("pod",) + R.as_axes(batch_axes)
     hops = {"sends": 0, "recvs": 0, "bytes": 0}
     h_shape = (hi - lo, 1, cfg.d_model)

@@ -28,8 +28,20 @@ log-sum-exp output on the rank's slice and merges the slices' fp32
 partials (``TensorParallel._split_attention``). Where the KV heads divide
 ``model`` the serve step lays the cache out by heads, and
 ``BuiltStep.store_cache`` moves a prefill's cache there (one all_to_all
-a leaf). The ``seq`` rule of big prefills (sequence-split activations)
-is not followed: the port keeps the prompt's activations whole.
+a leaf). A leaf whose length the axes do not divide stays whole, as
+``resolve`` keeps it (``TensorParallel.seq_cuts``); a serve step decides
+the cut of the encoder-decoder's cross cache for ``shape.seq_len``
+encoder frames, the length the reference's ``input_specs`` gives it.
+
+The prefill step follows the ``seq`` rule, which ``build_rules`` sets for
+a prefill whose residual stream passes ~1 GB a chip (or ``extra_rules``
+sets): its activations are cut by sequence over ``model``, Megatron-style
+(``models/transformer.py``): each block gathers the whole sequence, runs
+at its local heads or columns, and reduce-scatters its row-parallel
+partials into the rank's slice. At a serve step's one token ``resolve``
+drops the rule. ``extra_rules`` go on top of ``build_rules`` for every
+step, as in the reference; the train step refuses a ``seq`` that
+resolves to a mesh axis (its backward is not ported).
 
 Every family runs: dense, VLM, MoE, the SSM and hybrid (the Mamba2 mixer
 split by whole SSD heads) and the encoder-decoder. ``lower_step`` belongs
@@ -182,14 +194,15 @@ class BuiltStep:
     def _serve_layout(self, cache: Dict) -> Dict:
         """``cache`` with every K/V leaf in the prefill step's layout (cut
         by sequence over ``meta["prefill_seq"]``) laid out by heads where
-        the serve step's differs; leaves already in the serve step's
-        shape stay as they are."""
+        the serve step's differs; leaves already holding the serve step's
+        heads (a leaf the prefill kept whole, whatever its positions) stay
+        as they are."""
         ax = self.meta.get("prefill_seq")
         if ax is None or self.model._seq_ax is not None:
             return cache
         want, sh = self.in_shardings[1], self.meta["sharder"]
         return {k: sh.all_to_all(v, ax, 3, 2)
-                if k in KV_KEYS and tuple(v.shape) != tuple(want[k]) else v
+                if k in KV_KEYS and v.shape[3] != want[k][3] else v
                 for k, v in cache.items()}
 
     def shard_cache(self, full: Dict) -> Dict:
@@ -240,9 +253,13 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     ``PPBuiltStep``), which takes ``kv_cache_dtype`` and, as the
     reference's, no ``weight_dtype``.
 
+    ``extra_rules`` go on top of ``build_rules``' rules for every step
+    (``meta["rules"]``), as in the reference.
+
     A ``train_step`` shape gives this rank's train step
     (``launch/train_mesh.py``'s ``TrainBuiltStep``): the rules of
-    ``build_rules(train=True)`` with ``extra_rules`` on top,
+    ``build_rules(train=True)`` with ``extra_rules`` on top (a ``seq``
+    that resolves to a mesh axis raises ``ValueError``),
     ``n_microbatches`` by default the reference's
     ``choose_microbatches`` over the mesh's chips, ``gather_weights_once``
     gathering the FSDP shards once a step instead of once a microbatch,
@@ -250,23 +267,31 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     encoder-decoder, as in the reference), ``opt_cfg`` the AdamW settings
     (default the reference's ``AdamWConfig()``, which its ``build_step``
     always uses). The serving steps take none of these five."""
-    if shape.step == "train_step":
+    train = shape.step == "train_step"
+    rules = build_rules(cfg, mesh, train, step=shape.step, shape=shape)
+    rules.update(extra_rules or {})
+    if train:
         from repro_torch.launch.train_mesh import build_train_step
-        rules = build_rules(cfg, mesh, True, step=shape.step, shape=shape)
-        rules.update(extra_rules or {})
+        seq = R.resolve(("batch", "seq", None), (shape.global_batch,
+                                                 shape.seq_len, cfg.d_model),
+                        rules, mesh)[1]
+        if R.Sharder(mesh=mesh, rules=rules).size(seq) > 1:
+            raise ValueError(
+                f"build_step: the seq rule {rules['seq']} cuts the train "
+                f"step's sequence over {seq}; the port's train step keeps "
+                f"activations whole (sequence-split training, with its "
+                f"backward, is not ported)")
         return build_train_step(cfg, shape, mesh, rules,
                                 n_microbatches=n_microbatches,
                                 gather_weights_once=gather_weights_once,
                                 remat_policy=remat_policy, opt_cfg=opt_cfg,
                                 device=device)
-    rules = build_rules(cfg, mesh, False, step=shape.step, shape=shape)
     if serve_pp and "pod" in mesh.shape and shape.step == "serve_step":
         from repro_torch.launch.pipeline import build_pp_serve_step
         return build_pp_serve_step(cfg, shape, mesh, rules,
                                    kv_cache_dtype=kv_cache_dtype,
                                    device=device)
-    # the port follows every rule but ``seq`` (module docstring)
-    sharder = R.Sharder(mesh=mesh, rules=dict(rules, seq=None))
+    sharder = R.Sharder(mesh=mesh, rules=rules)
     b = shape.global_batch
     lo, hi = sharder.local_range(("batch",), (b,), 0)
     rows = slice(lo, hi)
@@ -313,11 +338,14 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
                              batch_axes=batch_axes)
     kw = {"s_enc": shape.seq_len} if cfg.is_encdec else {"ring": True}
     local_cache = meta_model.init_cache(hi - lo, shape.seq_len, **kw)
+    model.kv_lengths = dict(meta_model.kv_lengths)
     kdt = _kv_cache_dtype(cfg, kv_cache_dtype, local_cache, model.dtype)
     meta["kv_cache_dtype"] = kdt
     # the prefill step's cache layout, which ``store_cache`` moves from
     meta["prefill_seq"] = cache_seq_axes(cfg, R.Sharder(
-        mesh=mesh, rules=build_rules(cfg, mesh, False, step="prefill_step")))
+        mesh=mesh, rules=dict(build_rules(cfg, mesh, False,
+                                          step="prefill_step"),
+                              **(extra_rules or {}))))
     cache_dtypes = {k: kdt if kdt is not None and _quantized(
         v.dtype, v.ndim, model.dtype) else v.dtype
         for k, v in local_cache.items()}
@@ -393,10 +421,12 @@ def serving_steps(mesh: Any, device: torch.device, cfg: ArchConfig,
                   batch: int, max_len: int, params: Optional[Dict] = None,
                   seed: int = 0, kv_cache_dtype: Optional[str] = None,
                   serve_pp: bool = False,
-                  pod_flops: Optional[Sequence[float]] = None
+                  pod_flops: Optional[Sequence[float]] = None,
+                  extra_rules: Optional[Dict] = None
                   ) -> Tuple[Optional[BuiltStep], BuiltStep, Dict]:
     """This rank's prefill and serve steps for ``batch`` rows and a cache
-    of ``max_len`` positions (the serve step's in ``kv_cache_dtype``), and
+    of ``max_len`` positions (the serve step's in ``kv_cache_dtype``; both
+    with ``extra_rules``), and
     its local params: the full numpy tree ``params`` sharded here, in the
     model's dtype, else the seeded init. With ``serve_pp`` (a mesh with a
     ``pod`` axis) there is no prefill step (None) and the serve step is
@@ -409,21 +439,24 @@ def serving_steps(mesh: Any, device: torch.device, cfg: ArchConfig,
     if serve_pp:
         if pod_flops is None:
             srv = build_step(cfg, srv_shape, mesh, serve_pp=True,
-                             kv_cache_dtype=kv_cache_dtype, device=device)
+                             kv_cache_dtype=kv_cache_dtype,
+                             extra_rules=extra_rules, device=device)
         else:
             from repro_torch.launch.pipeline import build_pp_serve_step
             srv = build_pp_serve_step(
-                cfg, srv_shape, mesh, build_rules(
+                cfg, srv_shape, mesh, dict(build_rules(
                     cfg, mesh, False, step="serve_step", shape=srv_shape),
+                    **(extra_rules or {})),
                 pod_flops=pod_flops, kv_cache_dtype=kv_cache_dtype,
                 device=device)
         local = (srv.shard_params(params) if params is not None
                  else srv.init_params(seed))
         return None, srv, local
     pre = build_step(cfg, ShapeSpec("prefill", max_len, batch,
-                                    "prefill_step"), mesh, device=device)
+                                    "prefill_step"), mesh,
+                     extra_rules=extra_rules, device=device)
     srv = build_step(cfg, srv_shape, mesh, kv_cache_dtype=kv_cache_dtype,
-                     device=device)
+                     extra_rules=extra_rules, device=device)
     if params is not None:
         dt = pre.model.dtype
         local = pre.shard_params(_tree(
@@ -439,7 +472,8 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
                    feed: Optional[np.ndarray] = None,
                    kv_cache_dtype: Optional[str] = None,
                    serve_pp: bool = False, cache: Optional[Dict] = None,
-                   pod_flops: Optional[Sequence[float]] = None
+                   pod_flops: Optional[Sequence[float]] = None,
+                   extra_rules: Optional[Dict] = None
                    ) -> Dict[str, Any]:
     """One rank's prefill of ``inputs`` (numpy, the whole batch) and
     ``steps`` greedy serve steps through ``serving_steps``; with ``feed``
@@ -456,7 +490,8 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
     by the cache's dtype, the collectives of the serve steps
     (``allreduce``: ``Sharder.stats``) and, in ``layout_collectives``,
     those of the prefill step (``prefill``) and of ``store_cache``
-    (``store``).
+    (``store``), and the prefill's ``residual_shape`` (this rank's).
+    ``extra_rules`` go to both steps (``serving_steps``).
 
     ``serve_pp``: the PP serve step (``serving_steps``) from ``cache``,
     the whole start cache (the reference's PP layout or an unsplit
@@ -471,12 +506,13 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
     if serve_pp:
         return _pp_generate(mesh, device, cfg, inputs["tokens"], cache,
                             steps, max_len, params, seed, feed,
-                            kv_cache_dtype, pod_flops)
+                            kv_cache_dtype, pod_flops, extra_rules)
     from repro_torch.kernels import ops
     b = (inputs["tokens"] if "tokens" in inputs else inputs["embeds"]
          ).shape[0]
     pre, srv, local = serving_steps(mesh, device, cfg, b, max_len, params,
-                                    seed, kv_cache_dtype)
+                                    seed, kv_cache_dtype,
+                                    extra_rules=extra_rules)
     x = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
          for k, v in inputs.items()}
     rows = pre.meta["rows"]
@@ -502,6 +538,7 @@ def serve_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
             logits.append(srv.last_logits.float())
     return dict(_rank_result(pre.model, srv, cache, toks, ops),
                 rows=(rows.start, rows.stop), layout_collectives=layout,
+                residual_shape=pre.model.residual_shape,
                 prefill_logits=prefill_logits,
                 logits=torch.cat(logits, 1).cpu().numpy())
 
@@ -528,7 +565,8 @@ def _pp_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
                  tokens: np.ndarray, cache: Dict, steps: int, max_len: int,
                  params: Optional[Dict], seed: int,
                  feed: Optional[np.ndarray], kv_cache_dtype: Optional[str],
-                 pod_flops: Optional[Sequence[float]]) -> Dict[str, Any]:
+                 pod_flops: Optional[Sequence[float]],
+                 extra_rules: Optional[Dict]) -> Dict[str, Any]:
     """``serve_generate`` with ``serve_pp``."""
     from repro_torch.kernels import ops
     if cache is None:
@@ -537,7 +575,8 @@ def _pp_generate(mesh: Any, device: torch.device, cfg: ArchConfig,
     b = tokens.shape[0]
     _, srv, local = serving_steps(mesh, device, cfg, b, max_len, params,
                                   seed, kv_cache_dtype, serve_pp=True,
-                                  pod_flops=pod_flops)
+                                  pod_flops=pod_flops,
+                                  extra_rules=extra_rules)
     model = srv.model
     full = {}
     for k, v in cache.items():

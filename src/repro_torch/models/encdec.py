@@ -33,7 +33,13 @@ self- and cross-attention split by whole heads (``bq`` / ``bk`` / ``bv``
 with them, ``wo`` row-parallel and ``bo`` added after the sum), the FFN
 column- then row-parallel (``b_up`` split, ``b_down`` after the sum), the
 tied embedding and logits vocab-parallel, the sinusoidal positions
-replicated, and the self and cross caches by heads.
+replicated, and the self and cross caches by heads (or by sequence under
+``cache_seq``, each leaf by its own length). Under the ``seq`` rule the
+prefill cuts the encoder's and the decoder's residual streams by
+sequence, each by its own length, as the decoder-only model does
+(``transformer`` module docstring): the encoder's output is gathered
+whole once for the cross K/V, and a cross-attention whose heads are
+whole on every rank runs on the rank's slice of the decoder positions.
 """
 
 from __future__ import annotations
@@ -146,23 +152,18 @@ class EncDecLM(TensorParallel):
         return (self._heads(x @ p["wk"] + p["bk"], n),
                 self._heads(x @ p["wv"] + p["bv"], n))
 
-    def _ffn(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
-        c = self.cfg
-        x = self._enter(x, self._ffn_ax)
-        return ffn_mod.ffn_apply(p, x, c.act, c.gated_ffn,
-                                 self._row_parallel(self._ffn_ax))
-
     def _pe(self, n: int, device) -> torch.Tensor:
         return sinusoidal_positions(n, self.cfg.d_model, device).to(
             self.dtype)
 
     def _cross(self, p: Dict, h: torch.Tensor, ck: torch.Tensor,
-               cv: torch.Tensor) -> torch.Tensor:
+               cv: torch.Tensor, sp=None) -> torch.Tensor:
         """Cross-attention sub-block: the decoder rows (ln2 applied by the
-        caller) against the encoder's K/V, unmasked."""
+        caller) against the encoder's K/V, unmasked; with ``sp``, ``h``
+        holds the whole sequence and the output this rank's slice."""
         o = kops.flash_attention(self._proj_q(p, h), self._attn_kv(ck),
                                  self._attn_kv(cv), causal=False)
-        return self._out_proj(p, o)
+        return self._out_proj(p, o, sp)
 
     def _cross_cached(self, p: Dict, h: torch.Tensor, ck: torch.Tensor,
                       cv: torch.Tensor) -> torch.Tensor:
@@ -171,38 +172,45 @@ class EncDecLM(TensorParallel):
         kernel with its log-sum-exp output at the slice's last local
         position (every key visible: the unmasked function) and the
         slices' partials merged (``_split_attention``)."""
-        if self._seq_ax is None:
+        if not self._kv_cut("ck"):
             return self._cross(p, h, ck, cv)
         last = torch.full((h.shape[0],), ck.shape[1] - 1, dtype=torch.int32,
                           device=h.device)
-        return self._out_proj(p, self._split_attention(self._proj_q(p, h),
-                                                       ck, cv, last))
+        return self._out_proj(p, self._split_attention(
+            self._proj_q(p, h), ck, cv, last, every_head=True))
 
-    def _tail(self, p: Dict, h: torch.Tensor) -> torch.Tensor:
+    def _tail(self, p: Dict, h: torch.Tensor, sp=None) -> torch.Tensor:
         """The decoder layer's MLP sub-block (residual included)."""
-        return h + self._ffn(p["mlp"], self.norm(h, p["ln3"]))
+        return h + self._ffn_block(p["mlp"], h, p["ln3"], sp)
 
     # -- encoder -------------------------------------------------------------
-    def _enc_layer(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
-        a = self._enter(self.norm(x, p["ln1"]), self._heads_ax)
+    def _enc_layer(self, p: Dict, x: torch.Tensor, sp=None) -> torch.Tensor:
+        """One encoder layer; with the sequence cut over ``sp``, ``x`` in
+        and out is this rank's slice of the frames."""
+        a = self._enter(self.norm(self._sp_whole(x, sp), p["ln1"]),
+                        self._heads_ax)
         k, v = self._proj_kv(p["attn"], a)
         o = kops.flash_attention(self._proj_q(p["attn"], a), self._attn_kv(k),
                                  self._attn_kv(v), causal=False)
-        x = x + self._out_proj(p["attn"], o)
-        return x + self._ffn(p["mlp"], self.norm(x, p["ln2"]))
+        x = x + self._out_proj(p["attn"], o, sp)
+        return x + self._ffn_block(p["mlp"], x, p["ln2"], sp)
 
     def encode(self, params: Dict, frames: torch.Tensor,
                train: bool = False) -> torch.Tensor:
         """frames: (B, S_enc, d_model), the stubbed frontend's output.
-        ``train`` (``loss``): each layer under ``remat``."""
+        ``train`` (``loss``): each layer under ``remat``. Serving, the
+        ``seq`` rule cuts the frames by sequence (``_seq_axes`` of
+        S_enc); the output is whole."""
+        sp = None if train else self._seq_axes(frames.shape[0],
+                                               frames.shape[1])
         x = frames.to(self.dtype)
-        x = x + self._pe(x.shape[1], x.device)
+        x = self._sp_cut(x + self._pe(x.shape[1], x.device), sp)
         n = self.cfg.n_encoder_layers
         layers = (unbind_layers(params["encoder"]) if train else
                   [self._layer(params["encoder"], i) for i in range(n)])
         for p in layers:
-            x = remat(train and self.remat, self._enc_layer, p, x)
-        return self.norm(x, params["enc_final_ln"])
+            x = remat(train and self.remat, self._enc_layer, p, x, sp)
+        return self.norm(self._sp_whole(x, sp), params["enc_final_ln"])
 
     def cross_kv(self, params: Dict, enc_out: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -216,30 +224,36 @@ class EncDecLM(TensorParallel):
         return torch.stack(ks), torch.stack(vs)
 
     # -- decoder ---------------------------------------------------------------
-    def _dec_layer(self, p: Dict, x: torch.Tensor, enc_out: torch.Tensor):
-        """One decoder layer over whole prompts: (x, k, v, ck, cv)."""
+    def _dec_layer(self, p: Dict, x: torch.Tensor, enc_out: torch.Tensor,
+                   sp=None):
+        """One decoder layer over whole prompts: (x, k, v, ck, cv); with
+        the sequence cut over ``sp``, ``x`` in and out is this rank's
+        slice (a cross-attention whose heads are whole runs on it)."""
         ax = self._heads_ax
-        a = self._enter(self.norm(x, p["ln1"]), ax)
+        a = self._enter(self.norm(self._sp_whole(x, sp), p["ln1"]), ax)
         k, v = self._proj_kv(p["self_attn"], a)
         o = kops.flash_attention(self._proj_q(p["self_attn"], a),
                                  self._attn_kv(k), self._attn_kv(v),
                                  causal=True)
-        x = x + self._out_proj(p["self_attn"], o)
+        x = x + self._out_proj(p["self_attn"], o, sp)
         ck, cv = self._proj_kv(p["cross_attn"], self._enter(enc_out, ax))
-        x = x + self._cross(p["cross_attn"],
-                            self._enter(self.norm(x, p["ln2"]), ax), ck, cv)
-        return self._tail(p, x), k, v, ck, cv
+        xsp = sp if ax is not None else None
+        x = x + self._cross(p["cross_attn"], self._enter(
+            self.norm(self._sp_whole(x, xsp), p["ln2"]), ax), ck, cv, xsp)
+        return self._tail(p, x, sp), k, v, ck, cv
 
     def _decoder_full(self, params: Dict, tokens: torch.Tensor,
-                      enc_out: torch.Tensor, collect_kv: bool = True
+                      enc_out: torch.Tensor, collect_kv: bool = True,
+                      sp=None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The decoder over whole prompts: (final-normed x, the stacked
         self- and cross-attention K/V ``k``/``v``/``ck``/``cv``); with
         ``collect_kv=False`` (``loss``) no K/V, each layer under
-        ``remat``."""
+        ``remat``. With the sequence cut over ``sp``, x is this rank's
+        slice of the positions."""
         c = self.cfg
-        x = self.embed(params, tokens)
-        x = x + self._pe(x.shape[1], x.device)
+        x = self.embed(params, tokens, sp)
+        x = x + self._sp_cut(self._pe(tokens.shape[1], x.device)[None], sp)
         kv: Dict[str, list] = {"k": [], "v": [], "ck": [], "cv": []}
         layers = (unbind_layers(params["decoder"]) if not collect_kv else
                   [self._layer(params["decoder"], i)
@@ -250,7 +264,7 @@ class EncDecLM(TensorParallel):
                           lambda pl, h, e: self._dec_layer(pl, h, e)[0],
                           p, x, enc_out)
                 continue
-            x, *kvs = self._dec_layer(p, x, enc_out)
+            x, *kvs = self._dec_layer(p, x, enc_out, sp)
             for key, t in zip(("k", "v", "ck", "cv"), kvs):
                 kv[key].append(t)
         x = self.norm(x, params["final_norm"])
@@ -259,13 +273,8 @@ class EncDecLM(TensorParallel):
         return x, {key: torch.stack(ts) for key, ts in kv.items()}
 
     def _last(self, params: Dict, x: torch.Tensor,
-              last_pos: Optional[torch.Tensor]) -> torch.Tensor:
-        if last_pos is None:
-            last = x[:, -1:, :]
-        else:
-            rows = torch.arange(x.shape[0], device=x.device)
-            last = x[rows, last_pos.long()][:, None, :]
-        return self.logits(params, last)[:, 0, :]
+              last_pos: Optional[torch.Tensor], sp=None) -> torch.Tensor:
+        return self.logits(params, self._sp_last(x, last_pos, sp))[:, 0, :]
 
     # -- public: loss / caches / prefill / decode --------------------------------
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
@@ -298,14 +307,17 @@ class EncDecLM(TensorParallel):
         d), cross-attention ``ck``/``cv`` (L, batch, s_enc, nkv, d) and
         per-row positions ``pos`` (batch,); nkv is this rank's KV heads,
         or, on caches cut by sequence (``cache_seq``, the self and the cross
-        cache alike), every KV head of its slice of the positions."""
+        cache each where the axes divide its length), every KV head of its
+        slice of the positions. The leaves' lengths go to
+        ``kv_lengths``."""
         c = self.cfg
         dev = self.device
-        nkv = self.n_kv_cache
-        self_shape = (c.n_layers, batch, self.seq_slice(max_len)[1], nkv,
-                      c.hd)
-        cross_shape = (c.n_layers, batch, self.seq_slice(s_enc)[1], nkv,
-                       c.hd)
+        self_shape = (c.n_layers, batch, self.seq_slice(max_len)[1],
+                      self.kv_heads_of(max_len), c.hd)
+        cross_shape = (c.n_layers, batch, self.seq_slice(s_enc)[1],
+                       self.kv_heads_of(s_enc), c.hd)
+        self.kv_lengths = {"k": max_len, "v": max_len, "ck": s_enc,
+                           "cv": s_enc}
         return {
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "k": torch.zeros(self_shape, dtype=self.dtype, device=dev),
@@ -329,8 +341,11 @@ class EncDecLM(TensorParallel):
         (L,B,S_enc,nkv,d)). Right-padded rows are exact under causal
         masking (the engine's batched prefill)."""
         enc_out = self.encode(params, inputs["embeds"])
-        x, kv = self._decoder_full(params, inputs["tokens"], enc_out)
-        return self._last(params, x, last_pos), kv
+        tokens = inputs["tokens"]
+        sp = self._seq_axes(tokens.shape[0], tokens.shape[1])
+        x, kv = self._decoder_full(params, tokens, enc_out, sp=sp)
+        self.residual_shape = tuple(x.shape)
+        return self._last(params, x, last_pos, sp), kv
 
     def prefill(self, params: Dict, inputs: Dict,
                 max_len: Optional[int] = None,
@@ -396,7 +411,7 @@ class EncDecLM(TensorParallel):
         c = self.cfg
         pos = cache["pos"]
         max_pos = cache["k"].shape[2]
-        if self._seq_ax is not None:
+        if self._kv_cut("k"):
             max_pos = self._whole_length(max_pos)[1]
         x = self.embed(params, tokens)
         pe = self._pe(max_pos, x.device)
@@ -407,7 +422,7 @@ class EncDecLM(TensorParallel):
             a = self.norm(x, p["ln1"])
             k, v = self._proj_kv(p["self_attn"], a)
             o = self._cached_attention(self._proj_q(p["self_attn"], a), k, v,
-                                       pos, ck, cv)
+                                       pos, ck, cv, key="k")
             x = x + self._out_proj(p["self_attn"], o)
             x = x + self._cross_cached(p["cross_attn"],
                                        self.norm(x, p["ln2"]),

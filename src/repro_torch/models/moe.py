@@ -76,9 +76,11 @@ def moe_apply(p: Dict, x: torch.Tensor, top_k: int, act: str, gated: bool,
     Under tensor parallelism the router is whole on every rank (every rank
     routes and drops the same pairs) and the experts' FFNs hold this
     rank's ``expert_ffn`` slice: their ``w_down`` products stay fp32
-    through the combine, ``reduce`` sums the combined output over the
-    ranks, and it is rounded once to the activation dtype (as the dense
-    row-parallel products). When the batch is split over ranks,
+    through the combine, ``reduce`` sums the combined output (B, S, H)
+    over the ranks (or, with the sequence cut by the ``seq`` rule, into
+    this rank's slice of the positions), and it is rounded once to the
+    activation dtype (as the dense row-parallel products). When the batch
+    is split over ranks,
     ``queue_share(counts)`` takes this rank's pairs per expert (E,) and
     returns (the pairs per expert of the ranks whose rows come first, the
     number of such row shards): capacity and queue positions are then
@@ -127,10 +129,10 @@ def moe_apply(p: Dict, x: torch.Tensor, top_k: int, act: str, gated: bool,
     # combine: each pair's slot output, weighted by its gate, summed over k
     weight = (gates.reshape(-1) * keep).to(x.dtype).to(out_buf.dtype)
     per_pair = out_buf[slot] * weight[:, None]
-    out = per_pair.reshape(t, top_k, h).sum(dim=1)
+    out = per_pair.reshape(t, top_k, h).sum(dim=1).reshape(b, s, h)
     if reduce is not None:
         out = reduce(out).to(x.dtype)
-    return out.reshape(b, s, h), probs, idx
+    return out, probs, idx
 
 
 def moe_aux(probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -59,10 +59,33 @@ the KV cache by sequence (``cache_seq``, ``cache_seq_axes``: a prefill
 step's cache, and a serve step's where the KV heads do not divide the
 model axis) each rank holds every KV head of its slice of the positions
 (``seq_slice``); a decode writes a token on the rank holding its
-position and merges the slices' partials (``_split_attention``: the
-decode kernel's log-sum-exp output, an all_gather of q and an
-all_to_all of the partials where the query heads are split, an
-all_gather of them where they are whole). Where ``resolve`` replicates
+position (its KV heads gathered first where they are split) and merges
+the slices' partials (``_split_attention``: the decode kernel's
+log-sum-exp output, an all_gather of q and an all_to_all of the partials
+where the query heads are split, an all_gather of them where they are
+whole). As ``resolve`` does, the cut is decided leaf by leaf from the
+leaf's own length (``seq_cuts``): a leaf the axes do not divide stays
+whole on every rank, at the KV heads the rank projects, and its
+attention runs on the whole leaf. ``init_cache`` records each K/V leaf's
+length in ``kv_lengths``, where a decode reads which leaves are cut.
+
+Where the ``seq`` rule cuts a prefill's activations by sequence (a big
+prefill under the reference's ``build_rules``, or ``extra_rules``;
+``_seq_axes`` decides it from the prompt's own length, as ``resolve``
+decides ``("batch", "seq", None)``), the prefill runs Megatron-style
+sequence parallelism: the residual stream, the norms' inputs, the
+residual adds and the embedding's, attention's, FFN's, MoE's and Mamba2
+mixer's outputs hold the rank's slice of the positions; each block
+gathers the whole sequence first (``all_gather``) and computes at its
+local heads or columns on it, so that flash, the SSD scan and the conv
+see whole sequences and the MoE router every token; a row-parallel
+product's fp32 partials are summed into the rank's slice
+(``Sharder.reduce_scatter``, rounded once after the sum) where the
+all_reduce would sum them whole, as does the vocab-parallel embedding;
+a block whose weights are whole on every rank slices its own result.
+The last position's hidden state comes from the rank that holds it (one
+all_reduce of a zero-filled buffer). The K/V reach the cache as they do
+without the rule. Where ``resolve`` replicates
 ``kv_heads`` but splits ``heads`` on rules without ``cache_seq`` (the
 train step's), a rank projects only the KV heads its query heads read
 (global query head i reads KV head i // g), all of them in query order
@@ -189,6 +212,12 @@ class TensorParallel:
             elif sel != list(range(nkv)):
                 self._attn_sel = sel
         self.n_kv_cache = nkv if self._seq_ax is not None else self.n_kv_local
+        # each K/V leaf's positions, as ``init_cache`` last laid them out
+        # (a decode reads from them which leaves are cut by sequence)
+        self.kv_lengths: Dict[str, int] = {}
+        # the local shape of the residual stream the last prefill ended
+        # with (the rank's slice of the positions under the ``seq`` rule)
+        self.residual_shape: Optional[Tuple[int, ...]] = None
         if self._seq_ax is not None and self._heads_ax not in (
                 None, self._seq_ax):
             raise ValueError(f"{c.name}: heads split over {self._heads_ax} "
@@ -216,11 +245,15 @@ class TensorParallel:
         self.ssm_heads_local = self._mixer.hi - self._mixer.lo \
             if self._mixer else 0
 
-    def _reduce(self, axes: Axes, grad: str = "identity"):
+    def _reduce(self, axes: Axes, grad: str = "identity", sp: Axes = None):
         """The partial-sum reduction over ``axes`` (None when unsplit);
-        ``grad`` as ``Sharder.reduce`` takes it."""
+        ``grad`` as ``Sharder.reduce`` takes it; with the sequence cut over
+        ``sp`` (the same axes), the sum into this rank's slice of the
+        positions (dimension 1)."""
         if axes is None:
             return None
+        if sp is not None:
+            return lambda x: self.sharder.reduce_scatter(x, axes, 1)
         return lambda x: self.sharder.reduce(x, axes, grad=grad)
 
     def _enter(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
@@ -230,19 +263,98 @@ class TensorParallel:
         unsplit."""
         return x if axes is None else self.sharder.enter(x, axes)
 
-    def _row_parallel(self, axes: Axes):
+    def _row_parallel(self, axes: Axes, sp: Axes = None):
         """``(x, w) -> x @ w`` for a weight whose rows are split over
         ``axes``: each rank's partial product in fp32, summed over the
         ranks in fp32 and rounded once to the activation dtype, as the
         unsplit product rounds its fp32 accumulation once (a bf16 partial
         per rank would round twice and drift from the unsplit model over
-        the layers). None when unsplit."""
+        the layers); with the sequence cut over ``sp`` (the same axes),
+        summed into this rank's slice of the positions (dimension 1) by a
+        reduce-scatter. None when unsplit."""
         if axes is None:
             return None
+        total = self._reduce(axes, sp=sp)
 
         def product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-            return self.sharder.reduce(matmul_fp32(x, w), axes).to(x.dtype)
+            return total(matmul_fp32(x, w)).to(x.dtype)
         return product
+
+    # ------------------------------------------------------------------ #
+    # sequence-split activations (the ``seq`` rule)
+    # ------------------------------------------------------------------ #
+    def _seq_axes(self, b: int, s: int) -> Axes:
+        """The mesh axes the ``seq`` rule cuts an activation of ``b``
+        local rows and ``s`` positions over, as ``resolve`` decides
+        ``("batch", "seq", None)`` for the whole batch; None where it
+        stays whole. Refuses axes other than those the tensor-parallel
+        products split over (their partials could not be summed into the
+        slice)."""
+        sh = self.sharder
+        if sh.mesh is None or sh.rules.get("seq") is None:
+            return None
+        rows = b * sh.size(self.batch_axes)
+        ax = sh.spec(("batch", "seq", None), (rows, s, self.cfg.d_model))[1]
+        if sh.size(ax) == 1:
+            return None
+        for name, t in (("heads", self._heads_ax), ("ffn", self._ffn_ax),
+                        ("ssm_heads", self._ssm_ax),
+                        ("vocab", self._vocab_ax)):
+            if t not in (None, ax):
+                raise NotImplementedError(
+                    f"{self.cfg.name}: the sequence cut over {ax} and "
+                    f"{name} split over {t}")
+        return ax
+
+    def _sp_cut(self, x: torch.Tensor, sp: Axes) -> torch.Tensor:
+        """This rank's slice of the positions (dimension 1) of ``x``,
+        which holds the whole sequence; ``x`` where ``sp`` is None."""
+        if sp is None:
+            return x
+        n = x.shape[1] // self.sharder.size(sp)
+        lo = self.sharder.index(sp) * n
+        return x[:, lo:lo + n]
+
+    def _sp_whole(self, x: torch.Tensor, sp: Axes) -> torch.Tensor:
+        """The whole sequence of ``x``, this rank's slice of the positions
+        (one all_gather over ``sp``); ``x`` where ``sp`` is None."""
+        return x if sp is None else self.sharder.all_gather(x, sp, dim=1)
+
+    def _sp_last(self, x: torch.Tensor, last_pos: Optional[torch.Tensor],
+                 sp: Axes) -> torch.Tensor:
+        """Each row's hidden state at ``last_pos`` (default: the last
+        position), (B, 1, d), from ``x``: the rows are taken on the rank
+        whose slice holds the position, into a zero-filled buffer summed
+        over ``sp`` (exact: sums with zeros)."""
+        b, n = x.shape[0], x.shape[1]
+        rows = torch.arange(b, device=x.device)
+        if sp is None:
+            if last_pos is None:
+                return x[:, -1:, :]
+            return x[rows, last_pos.long()][:, None, :]
+        lo = self.sharder.index(sp) * n
+        lp = (torch.full((b,), n * self.sharder.size(sp) - 1,
+                         device=x.device) if last_pos is None
+              else last_pos.long()) - lo
+        mine = (lp >= 0) & (lp < n)
+        got = x[rows, lp.clamp(0, n - 1)]
+        buf = torch.where(mine[:, None], got, torch.zeros(
+            (), dtype=x.dtype, device=x.device))
+        return self.sharder.reduce(buf[:, None, :].contiguous(), sp)
+
+    def _ffn_block(self, p: Dict, x: torch.Tensor, ln: Dict,
+                   sp: Axes = None) -> torch.Tensor:
+        """A dense FFN sub-block, without the residual: ``ffn_apply`` of
+        ``x`` normed by ``ln``. With the sequence cut over ``sp`` (``x``
+        the rank's slice): where the FFN's columns are split, on the
+        gathered sequence with the ``w_down`` partials reduce-scattered;
+        where it is whole, on the slice."""
+        c = self.cfg
+        if self._ffn_ax is None:
+            sp = None
+        h = self._enter(self.norm(self._sp_whole(x, sp), ln), self._ffn_ax)
+        return ffn_mod.ffn_apply(p, h, c.act, c.gated_ffn,
+                                 self._row_parallel(self._ffn_ax, sp))
 
     def _local_leaf(self, d: ParamDef, full: torch.Tensor) -> torch.Tensor:
         """This rank's part of one full parameter (``shard_leaf``: heads in
@@ -308,22 +420,51 @@ class TensorParallel:
         position and KV head: its slice of positions along ``seq_dim``
         (every head) where the cache is cut by sequence, else its KV heads
         along ``heads_dim`` (``shard_kv_heads``)."""
-        if self._seq_ax is None:
+        if not self.seq_cuts(t.shape[seq_dim]):
             return self.shard_kv_heads(t, heads_dim)
         lo, n = self.seq_slice(t.shape[seq_dim])
         return t.narrow(seq_dim, lo, n)
 
+    def seq_cuts(self, length: int) -> bool:
+        """Whether a K/V leaf of ``length`` positions is cut by sequence:
+        ``cache_seq`` over ``cache_seq_axes``, as ``resolve`` decides it
+        for that length. A leaf the axes do not divide stays whole on
+        every rank, holding the KV heads the rank projects (those
+        ``resolve`` gives ``kv_heads`` then)."""
+        if self._seq_ax is None:
+            return False
+        ax = self.sharder.spec(("cache_seq", "kv_heads"),
+                               (length, self.cfg.n_kv_heads))[0]
+        if self.sharder.size(ax) == 1:
+            return False
+        if ax != self._seq_ax:
+            raise NotImplementedError(
+                f"{self.cfg.name}: a cache of {length} positions cut over "
+                f"{ax}, part of cache_seq's {self._seq_ax}")
+        return True
+
     def seq_slice(self, length: int) -> Tuple[int, int]:
         """(first position, positions) of this rank's slice of a cache of
-        ``length`` positions: (0, length) where sequences are whole."""
-        if self._seq_ax is None:
+        ``length`` positions: (0, length) where the leaf is whole."""
+        if not self.seq_cuts(length):
             return 0, length
         n = self.sharder.size(self._seq_ax)
-        if length % n:
-            raise ValueError(f"{self.cfg.name}: a cache of {length} "
-                             f"positions does not cut into {n} slices "
-                             f"(cache_seq over {self._seq_ax})")
         return self.sharder.index(self._seq_ax) * (length // n), length // n
+
+    def kv_heads_of(self, length: int) -> int:
+        """The KV heads this rank holds of a cache leaf of ``length``
+        positions: every head where the leaf is cut by sequence, else
+        the heads it projects."""
+        return self.n_kv_cache if self.seq_cuts(length) else self.n_kv_local
+
+    def _kv_cut(self, key: str) -> bool:
+        """Whether the cache leaf ``key`` this model decodes on is cut by
+        sequence, by its length in ``kv_lengths`` (cut wherever
+        ``cache_seq`` is, when unrecorded)."""
+        length = self.kv_lengths.get(key)
+        if length is None:
+            return self._seq_ax is not None
+        return self.seq_cuts(length)
 
     def _whole_length(self, local: int) -> Tuple[int, int]:
         """(this rank's first position, the whole cache's length) for a
@@ -337,13 +478,14 @@ class TensorParallel:
         of ``length`` positions (default S), as this rank's cache holds it:
         itself where sequences are whole; cut by sequence, the rank's slice
         of every head, by one all_to_all over the heads it projected where
-        ``kv_heads`` is split, else its slice."""
+        ``kv_heads`` is split, else its slice; a leaf the axes do not cut,
+        itself."""
         s = t.shape[-3]
         if length is not None and length != s:
             full = t.new_zeros(t.shape[:-3] + (length,) + t.shape[-2:])
             full[..., :s, :, :] = t
             t = full
-        if self._seq_ax is None:
+        if not self.seq_cuts(t.shape[-3]):
             return t
         if self.n_kv_local == self.n_kv_cache:
             lo, n = self.seq_slice(t.shape[-3])
@@ -363,22 +505,37 @@ class TensorParallel:
     def _cached_attention(self, q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, pos: torch.Tensor,
                           ck: torch.Tensor, cv: torch.Tensor,
-                          window: Optional[int] = None) -> torch.Tensor:
-        """One token's attention against a layer's contiguous cache: its
-        K/V written at ``pos`` (clamped to the cache's end, in place),
-        then the row's keys up to ``pos``. On a cache cut by sequence the
-        rank that holds the position writes it, and the attention is
-        ``_split_attention`` at the local position."""
-        if self._seq_ax is None:
+                          window: Optional[int] = None,
+                          key: str = "k") -> torch.Tensor:
+        """One token's attention against a layer's contiguous cache (the
+        leaf ``key``): its K/V written at ``pos`` (clamped to the cache's
+        end, in place), then the row's keys up to ``pos``. On a leaf cut
+        by sequence the rank that holds the position writes it (the
+        token's KV heads gathered first where they are split), and the
+        attention is ``_split_attention`` at the local position."""
+        if not self._kv_cut(key):
             attn.cache_write_token(ck, cv, k, v, pos)
-            return kops.decode_attention(q, ck, cv, pos, window=window)
+            return kops.decode_attention(q, self._attn_kv(ck),
+                                         self._attn_kv(cv), pos,
+                                         window=window)
         lo, length = self._whole_length(ck.shape[1])
-        attn.cache_write_token_slice(ck, cv, k, v, pos, lo, length)
-        return self._split_attention(q, ck, cv, pos - lo, window)
+        attn.cache_write_token_slice(ck, cv, self._token_heads(k),
+                                     self._token_heads(v), pos, lo, length)
+        return self._split_attention(q, ck, cv, pos - lo, window,
+                                     every_head=True)
+
+    def _token_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """A decoded token's K or V (B, 1, n_kv_local, d) with every KV
+        head, for a cache cut by sequence: gathered over the KV heads'
+        axes where they are split."""
+        if self.n_kv_local == self.n_kv_cache:
+            return t
+        return self.sharder.all_gather(t, self._kv_axes(), dim=2)
 
     def _split_attention(self, q: torch.Tensor, ck: torch.Tensor,
                          cv: torch.Tensor, local: torch.Tensor,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None,
+                         every_head: bool = False) -> torch.Tensor:
         """One token per row against a cache cut by sequence over
         ``_seq_ax``: every query head runs the decode kernel with its
         log-sum-exp output on this rank's slice at the local position
@@ -387,8 +544,11 @@ class TensorParallel:
         the query heads are split over the same ranks, q is gathered
         first and each rank receives its heads' partials (one all_gather,
         one all_to_all); where they are whole, every rank gathers every
-        partial (one all_gather). q: (B, 1, nh_local, d) -> the same."""
-        if self.n_kv_local != self.n_kv_cache:
+        partial (one all_gather). q: (B, 1, nh_local, d) -> the same.
+        ``every_head``: the caller wrote the new token's every KV head into
+        the slices (the serve steps gather them where the KV heads are
+        split); without it a layout whose KV heads are split refuses."""
+        if self.n_kv_local != self.n_kv_cache and not every_head:
             raise NotImplementedError(
                 f"{self.cfg.name}: decode on a cache cut by sequence with "
                 f"the KV heads split (a prefill step's layout; "
@@ -457,16 +617,22 @@ class TensorParallel:
     # ------------------------------------------------------------------ #
     # embedding / logits
     # ------------------------------------------------------------------ #
-    def embed(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    def embed(self, params: Dict, tokens: torch.Tensor, sp: Axes = None
+              ) -> torch.Tensor:
+        """The tokens' embeddings; with the sequence cut over ``sp``, this
+        rank's slice of the positions."""
         tok = params["embed"]["tok"]
         if self._vocab_ax is None:
-            return tok[tokens.long()]
+            return tok[self._sp_cut(tokens, sp).long()]
         # vocab-parallel: this rank's rows, zeros elsewhere, then the sum
+        # (into this rank's slice of the positions under ``sp``)
         t = tokens.long() - self._vocab_lo
         inside = (t >= 0) & (t < tok.shape[0])
         x = tok[t.clamp(0, tok.shape[0] - 1)]
         x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
+        if sp is not None:
+            return self.sharder.reduce_scatter(x, self._vocab_ax, 1)
         return self.sharder.reduce(x, self._vocab_ax)
 
     def logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -486,12 +652,17 @@ class TensorParallel:
         """Greedy next token over the un-padded vocab."""
         return torch.argmax(logits[..., :self.cfg.vocab], dim=-1)
 
-    def _out_proj(self, p: Dict, o: torch.Tensor) -> torch.Tensor:
+    def _out_proj(self, p: Dict, o: torch.Tensor, sp: Axes = None
+                  ) -> torch.Tensor:
+        """The output projection of attention ``o`` over the whole
+        sequence: with the sequence cut over ``sp``, this rank's slice of
+        its positions (the partials reduce-scattered where the heads are
+        split; the rank's rows of ``o`` projected where they are whole)."""
         o = o.reshape(o.shape[0], o.shape[1], -1)
         if self._heads_ax is None:
-            o = o @ p["wo"]
+            o = self._sp_cut(o, sp) @ p["wo"]
         else:                                   # row-parallel: sum, then bo
-            o = self._row_parallel(self._heads_ax)(o, p["wo"])
+            o = self._row_parallel(self._heads_ax, sp)(o, p["wo"])
         if "bo" in p:
             o = o + p["bo"]
         return o
@@ -653,12 +824,15 @@ class LM(TensorParallel):
             return q_pos[None].expand((3,) + tuple(q_pos.shape))
         return q_pos
 
-    def _attn_full(self, p: Dict, x: torch.Tensor, positions):
-        """Full-sequence causal attention; returns (out, k, v)."""
+    def _attn_full(self, p: Dict, x: torch.Tensor, positions,
+                   sp: Axes = None):
+        """Full-sequence causal attention of the normed ``x`` (the whole
+        sequence); returns (out, k, v), ``out`` this rank's slice of the
+        positions where the sequence is cut over ``sp``."""
         q, k, v = self._qkv(p, x, positions)
         o = kops.flash_attention(q, self._attn_kv(k), self._attn_kv(v),
                                  causal=True, window=self.cfg.swa_window)
-        return self._out_proj(p, o), k, v
+        return self._out_proj(p, o, sp), k, v
 
     def _probed(self, out):
         """An attention call's output; with the probe armed the call also
@@ -691,14 +865,16 @@ class LM(TensorParallel):
             probe=self.kv_probe))
         return self._out_proj(p, o)
 
-    def _attn_decode(self, p: Dict, x: torch.Tensor, pos, ck, cv):
-        """One-token attention against this layer's contiguous cache: write
-        the token at ``pos`` (clamped to the row end, in place), attend
-        the row's keys up to ``pos`` (``_cached_attention``: on a cache
-        cut by sequence, the slices' partials merged over the ranks)."""
+    def _attn_decode(self, p: Dict, x: torch.Tensor, pos, ck, cv,
+                     key: str = "k"):
+        """One-token attention against this layer's contiguous cache (the
+        leaf ``key``): write the token at ``pos`` (clamped to the row end,
+        in place), attend the row's keys up to ``pos``
+        (``_cached_attention``: on a leaf cut by sequence, the slices'
+        partials merged over the ranks)."""
         q, k, v = self._qkv(p, x, self._positions(pos[:, None]))
         return self._out_proj(p, self._cached_attention(
-            q, k, v, pos, ck, cv, window=self.cfg.swa_window))
+            q, k, v, pos, ck, cv, window=self.cfg.swa_window, key=key))
 
     def _attn_decode_ring(self, p: Dict, x: torch.Tensor, pos, ck, cv,
                           slot_pos):
@@ -707,29 +883,39 @@ class LM(TensorParallel):
         place), attend every slot the ring holds (the window is in its
         size)."""
         q, k, v = self._qkv(p, x, self._positions(pos[:, None]))
-        if self._seq_ax is None:
+        if not self._kv_cut("k"):
             attn.cache_write_token_ring(ck, cv, k, v, pos, slot_pos)
-            return self._out_proj(p, kops.decode_attention_ring(q, ck, cv,
-                                                                pos))
+            return self._out_proj(p, kops.decode_attention_ring(
+                q, self._attn_kv(ck), self._attn_kv(cv), pos))
         # cut by sequence: the rank holding the slot writes it; the visible
         # slots [0, min(pos, S_alloc - 1)] at the local position
         lo = self._whole_length(ck.shape[1])[0]
-        attn.cache_write_token_ring_slice(ck, cv, k, v, pos, slot_pos, lo)
+        attn.cache_write_token_ring_slice(ck, cv, self._token_heads(k),
+                                          self._token_heads(v), pos,
+                                          slot_pos, lo)
         top = torch.clamp(pos, max=slot_pos.shape[0] - 1)
-        return self._out_proj(p, self._split_attention(q, ck, cv, top - lo))
+        return self._out_proj(p, self._split_attention(q, ck, cv, top - lo,
+                                                       every_head=True))
 
-    def _mlp_or_moe(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    def _mlp_or_moe(self, p: Dict, x: torch.Tensor, sp: Axes = None
+                    ) -> torch.Tensor:
+        """The FFN or MoE sub-block, without the residual. With the
+        sequence cut over ``sp`` (``x`` this rank's slice): the MoE routes
+        the gathered sequence (every token competes for capacity, as
+        unsplit) and its combine is reduce-scattered where the experts'
+        FFN is split, sliced where it is whole; the FFN as
+        ``_ffn_block``."""
         c = self.cfg
-        h = self._enter(self.norm(x, p["ln_mlp"]), self._ffn_ax)
-        if c.n_experts > 0:
-            share = (self._queue_share
-                     if self.sharder.size(self.batch_axes) > 1 else None)
-            out, _, _ = moe_mod.moe_apply(
-                p["moe"], h, c.moe_top_k, c.act, c.gated_ffn,
-                reduce=self._reduce(self._ffn_ax), queue_share=share)
-            return out
-        return ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn,
-                                 self._row_parallel(self._ffn_ax))
+        if c.n_experts == 0:
+            return self._ffn_block(p["mlp"], x, p["ln_mlp"], sp)
+        h = self._enter(self.norm(self._sp_whole(x, sp), p["ln_mlp"]),
+                        self._ffn_ax)
+        share = (self._queue_share
+                 if self.sharder.size(self.batch_axes) > 1 else None)
+        out, _, _ = moe_mod.moe_apply(
+            p["moe"], h, c.moe_top_k, c.act, c.gated_ffn,
+            reduce=self._reduce(self._ffn_ax, sp=sp), queue_share=share)
+        return out if self._ffn_ax is not None else self._sp_cut(out, sp)
 
     def _mlp_or_moe_aux(self, p: Dict, x: torch.Tensor,
                         aux_tokens: Optional[int] = None
@@ -820,22 +1006,30 @@ class LM(TensorParallel):
         x = x + self._out_proj(p["attn"], o)
         return x + self._mlp_or_moe(p, x)
 
-    def _mamba_layer_fwd(self, p: Dict, x: torch.Tensor):
+    def _mamba_layer_fwd(self, p: Dict, x: torch.Tensor, sp: Axes = None):
+        """A Mamba2 layer over whole prompts: (x, its final state). With
+        the sequence cut over ``sp`` the mixer runs on the gathered
+        sequence (the conv and the SSD scan see it whole) and ``x`` and
+        the output are this rank's slice."""
         c = self.cfg
-        h = self._enter(self.norm(x, p["ln"]), self._ssm_ax)
+        h = self._enter(self.norm(self._sp_whole(x, sp), p["ln"]),
+                        self._ssm_ax)
         y, st = ssm_mod.mamba2_prefill(
             p["mixer"], h, c.d_inner, c.ssm_state, c.ssm_heads,
-            c.ssm_head_dim, chunk=self.ssd_chunk, **self._mixer_tp())
+            c.ssm_head_dim, chunk=self.ssd_chunk, **self._mixer_tp(sp))
+        if self._ssm_ax is None:
+            y = self._sp_cut(y, sp)
         return x + y, st
 
-    def _mixer_tp(self) -> Dict:
+    def _mixer_tp(self, sp: Axes = None) -> Dict:
         """The Mamba2 block's cross-rank sums (none when the mixer is
         whole on every rank): the gated norm's sums of squares and the
-        row-parallel ``w_out``. Under autograd the first sends the
-        gradient back summed over the ranks: each rank's heads use the
-        summed squares."""
+        row-parallel ``w_out`` (reduce-scattered into this rank's slice
+        of the positions where the sequence is cut over ``sp``). Under
+        autograd the first sends the gradient back summed over the ranks:
+        each rank's heads use the summed squares."""
         return dict(reduce=self._reduce(self._ssm_ax, grad="sum"),
-                    row_parallel=self._row_parallel(self._ssm_ax))
+                    row_parallel=self._row_parallel(self._ssm_ax, sp))
 
     def _mamba_layer_step(self, p: Dict, x: torch.Tensor, conv: torch.Tensor,
                           ssd: torch.Tensor) -> torch.Tensor:
@@ -850,27 +1044,24 @@ class LM(TensorParallel):
         ssd.copy_(st.ssd)
         return x + y
 
-    def _shared_block_fwd(self, p: Dict, x, x0, positions):
-        """Zamba2 shared block on concat(x, x0); returns (x, k, v)."""
-        c = self.cfg
-        h = self.norm(torch.cat([x, x0], dim=-1), p["ln_attn"])
-        a, k, v = self._attn_full(p["attn"], h, positions)
+    def _shared_block_fwd(self, p: Dict, x, x0, positions, sp: Axes = None):
+        """Zamba2 shared block on concat(x, x0); returns (x, k, v). With
+        the sequence cut over ``sp``, ``x`` and ``x0`` are this rank's
+        slice and the concatenation is gathered once."""
+        h = self.norm(self._sp_whole(torch.cat([x, x0], dim=-1), sp),
+                      p["ln_attn"])
+        a, k, v = self._attn_full(p["attn"], h, positions, sp)
         x = x + a
-        h = self._enter(self.norm(x, p["ln_mlp"]), self._ffn_ax)
-        return x + ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn,
-                                     self._row_parallel(self._ffn_ax)), k, v
+        return x + self._ffn_block(p["mlp"], x, p["ln_mlp"], sp), k, v
 
     def _shared_block_decode(self, p: Dict, x, x0, pos, ck, cv):
-        c = self.cfg
         h = self.norm(torch.cat([x, x0], dim=-1), p["ln_attn"])
-        x = x + self._attn_decode(p["attn"], h, pos, ck, cv)
-        h = self.norm(x, p["ln_mlp"])
-        return x + ffn_mod.ffn_apply(p["mlp"], h, c.act, c.gated_ffn,
-                                     self._row_parallel(self._ffn_ax))
+        x = x + self._attn_decode(p["attn"], h, pos, ck, cv, key="ak")
+        return x + self._ffn_block(p["mlp"], x, p["ln_mlp"])
 
     def _run_trunk_full(self, params: Dict, x: torch.Tensor, positions,
                         collect_kv: bool = True,
-                        aux_tokens: Optional[int] = None
+                        aux_tokens: Optional[int] = None, sp: Axes = None
                         ) -> Tuple[torch.Tensor, Dict]:
         """Full-sequence pass over all layers (prefill / train). Returns (x,
         the stacked per-layer state): ``k``/``v`` for the attention families;
@@ -880,7 +1071,9 @@ class LM(TensorParallel):
         does). With ``collect_kv=False`` (``loss``) it keeps no state and
         returns ``{"aux": the MoE load-balancing losses summed over the
         layers}`` (0 without experts; ``aux_tokens`` as
-        ``_mlp_or_moe_aux`` takes it), each layer under ``remat``."""
+        ``_mlp_or_moe_aux`` takes it), each layer under ``remat``. With
+        the sequence cut over ``sp``, ``x`` in and out is this rank's
+        slice of the positions; the state covers the whole sequence."""
         c = self.cfg
         if not collect_kv:
             return self._run_trunk_train(params, x, positions, aux_tokens)
@@ -889,21 +1082,21 @@ class LM(TensorParallel):
             fire = c.shared_attn_positions()
             x0 = x
             for i in range(c.n_layers):
-                x, st = self._mamba_layer_fwd(self._layer(params, i), x)
+                x, st = self._mamba_layer_fwd(self._layer(params, i), x, sp)
                 state.setdefault("conv", []).append(st.conv)
                 state.setdefault("ssd", []).append(st.ssd)
                 if i in fire:
                     x, k, v = self._shared_block_fwd(params["shared"], x, x0,
-                                                     positions)
+                                                     positions, sp)
                     state.setdefault("ak", []).append(k)
                     state.setdefault("av", []).append(v)
         else:
             for i in range(c.n_layers):
                 p = self._layer(params, i)
-                h = self.norm(x, p["ln_attn"])
-                a, k, v = self._attn_full(p["attn"], h, positions)
+                h = self.norm(self._sp_whole(x, sp), p["ln_attn"])
+                a, k, v = self._attn_full(p["attn"], h, positions, sp)
                 x = x + a
-                x = x + self._mlp_or_moe(p, x)
+                x = x + self._mlp_or_moe(p, x, sp)
                 state.setdefault("k", []).append(k)
                 state.setdefault("v", []).append(v)
         return x, {key: torch.stack(vals) for key, vals in state.items()}
@@ -937,13 +1130,17 @@ class LM(TensorParallel):
         return x, {"aux": aux}
 
     def _last(self, params: Dict, x: torch.Tensor,
-              last_pos: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.norm(x, params["final_norm"])
-        if last_pos is None:
-            last = x[:, -1:, :]
+              last_pos: Optional[torch.Tensor], sp: Axes = None
+              ) -> torch.Tensor:
+        """The logits at ``last_pos`` (default: the last position) of the
+        trunk's output ``x``; under ``sp``, this rank's slice (the rows'
+        hidden states taken from the ranks that hold them, then normed)."""
+        if sp is None:
+            last = self._sp_last(self.norm(x, params["final_norm"]),
+                                 last_pos, None)
         else:
-            rows = torch.arange(x.shape[0], device=x.device)
-            last = x[rows, last_pos.long()][:, None, :]
+            last = self.norm(self._sp_last(x, last_pos, sp),
+                             params["final_norm"])
         return self.logits(params, last)[:, 0, :]
 
     # ------------------------------------------------------------------ #
@@ -1031,10 +1228,11 @@ class LM(TensorParallel):
         nheads, head_dim, N) fp32, and for the hybrid ``ak``/``av``
         (n_apps, batch, max_len, nkv, d), one per shared-block
         application. Under tensor parallelism every shape is this rank's:
-        its KV heads, or, on a cache cut by sequence (``cache_seq``), every
-        KV head of its slice of the positions (``seq_slice``; a ring's
-        ``slot_pos`` stays whole); its SSD heads (``d_inner`` and
-        ``nheads`` local, N whole)."""
+        its KV heads, or, on a leaf cut by sequence (``cache_seq``, where
+        the axes divide its length), every KV head of its slice of the
+        positions (``seq_slice``; a ring's ``slot_pos`` stays whole); its
+        SSD heads (``d_inner`` and ``nheads`` local, N whole). Each K/V
+        leaf's length goes to ``kv_lengths``."""
         c = self.cfg
         dev = self.device
         if kv_layout not in ("contig", "paged"):
@@ -1053,15 +1251,18 @@ class LM(TensorParallel):
                 dtype=torch.float32, device=dev)
             if c.family == "hybrid":
                 shape = (len(c.shared_attn_positions()), batch,
-                         self.seq_slice(max_len)[1], self.n_kv_cache, c.hd)
+                         self.seq_slice(max_len)[1],
+                         self.kv_heads_of(max_len), c.hd)
                 cache["ak"] = torch.zeros(shape, dtype=self.dtype, device=dev)
                 cache["av"] = torch.zeros(shape, dtype=self.dtype, device=dev)
+                self.kv_lengths = {"ak": max_len, "av": max_len}
             return cache
         if kv_layout == "contig":
             ring = bool(ring and c.swa_window)
             s_alloc = min(max_len, c.swa_window) if ring else max_len
             shape = (c.n_layers, batch, self.seq_slice(s_alloc)[1],
-                     self.n_kv_cache, c.hd)
+                     self.kv_heads_of(s_alloc), c.hd)
+            self.kv_lengths = {"k": s_alloc, "v": s_alloc}
             if ring:
                 cache["slot_pos"] = torch.full((s_alloc,), -1,
                                                dtype=torch.int32, device=dev)
@@ -1113,18 +1314,23 @@ class LM(TensorParallel):
 
         ``inputs``: ``tokens`` (B, S), or the stubbed frontend's ``embeds``
         (B, S, d_model); ``positions`` ((3, B, S) under M-RoPE, else (B,
-        S)) default to 0..S-1 in every stream."""
+        S)) default to 0..S-1 in every stream. Under the ``seq`` rule
+        (``_seq_axes``) the residual stream is this rank's slice of the
+        positions (module docstring)."""
+        prompt = inputs["embeds"] if "embeds" in inputs else inputs["tokens"]
+        b, s = prompt.shape[0], prompt.shape[1]
+        sp = self._seq_axes(b, s)
         if "embeds" in inputs:
-            x = inputs["embeds"].to(self.dtype)
+            x = self._sp_cut(inputs["embeds"], sp).to(self.dtype)
         else:
-            x = self.embed(params, inputs["tokens"])
-        b, s = x.shape[0], x.shape[1]
+            x = self.embed(params, inputs["tokens"], sp)
         positions = inputs.get("positions")
         if positions is None:
             positions = self._positions(
                 torch.arange(s, device=x.device)[None].expand(b, s))
-        x, aux = self._run_trunk_full(params, x, positions)
-        return self._last(params, x, last_pos), aux
+        x, aux = self._run_trunk_full(params, x, positions, sp=sp)
+        self.residual_shape = tuple(x.shape)
+        return self._last(params, x, last_pos, sp), aux
 
     def prefill(self, params: Dict, inputs: Dict,
                 last_pos: Optional[torch.Tensor] = None,

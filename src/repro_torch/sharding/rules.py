@@ -17,7 +17,11 @@ ranks of a set of mesh axes (``reduce``: ``all_reduce`` SUM). The model
 code calls ``reduce`` where the reference's GSPMD would insert an
 all-reduce; there is no counterpart of ``constrain``. For a KV cache cut
 by sequence (the ``cache_seq`` rule) the serving code also gathers
-(``all_gather``) and exchanges (``all_to_all``) over a set of mesh axes.
+(``all_gather``) and exchanges (``all_to_all``) over a set of mesh axes,
+and for a prefill whose activations are cut by sequence (the ``seq``
+rule) it gathers them before each column-parallel product and sums each
+row-parallel product's partials into the rank's slice
+(``reduce_scatter``).
 ``Sharder()`` with no mesh is the identity, as in the reference.
 
 Under autograd both collectives carry the backward their use implies
@@ -150,9 +154,10 @@ class Sharder:
     ``mesh=None`` (unit tests, one device) makes every call the identity.
     With a mesh, ``reduce`` counts its calls, their bytes and the calls
     on fp32 tensors in ``stats`` (``calls``, ``bytes``, ``fp32_calls``),
-    and ``all_gather`` and ``all_to_all`` theirs (``gather_calls`` /
-    ``gather_bytes``, ``a2a_calls`` / ``a2a_bytes``: the bytes of this
-    rank's input); ``reset_stats`` zeroes them."""
+    and ``all_gather``, ``all_to_all`` and ``reduce_scatter`` theirs
+    (``gather_calls`` / ``gather_bytes``, ``a2a_calls`` / ``a2a_bytes``,
+    ``rs_calls`` / ``rs_bytes``: the bytes of this rank's input);
+    ``reset_stats`` zeroes them."""
 
     mesh: Optional[Any] = None
     rules: Dict[str, Axes] = dataclasses.field(
@@ -160,7 +165,8 @@ class Sharder:
     stats: Dict[str, int] = dataclasses.field(
         default_factory=lambda: {"calls": 0, "bytes": 0, "fp32_calls": 0,
                                  "gather_calls": 0, "gather_bytes": 0,
-                                 "a2a_calls": 0, "a2a_bytes": 0})
+                                 "a2a_calls": 0, "a2a_bytes": 0,
+                                 "rs_calls": 0, "rs_bytes": 0})
 
     def reset_stats(self) -> None:
         self.stats.update(dict.fromkeys(self.stats, 0))
@@ -259,22 +265,51 @@ class Sharder:
         n = self.size(axes)
         if self.mesh is None or n == 1:
             return x
+        got = self._exchange(x, axes, split_dim, "a2a").to(x.device)
+        return torch.cat([got[r].movedim(0, split_dim) for r in range(n)],
+                         dim=cat_dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axes: Axes, dim: int
+                       ) -> torch.Tensor:
+        """This rank's piece (``index(axes)``) of ``x`` summed over the
+        ranks along ``axes``, ``x`` cut along ``dim`` into one equal piece
+        per rank: one ``all_to_all_single`` of the pieces (a reduce-
+        scatter's traffic), then the n pieces received summed here in rank
+        order, so that the sum's order, and its bits, are the same on
+        every backend (over gloo the sum runs in host memory, and only the
+        slice comes back to the card). ``x`` on one rank or without a
+        mesh. Serving only: no autograd rule."""
+        n = self.size(axes)
+        if self.mesh is None or n == 1:
+            return x
+        got = self._exchange(x, axes, dim, "rs")
+        out = got[0]
+        for r in range(1, n):
+            out = out + got[r]
+        return out.to(x.device).movedim(0, dim).contiguous()
+
+    def _exchange(self, x: torch.Tensor, axes: Axes, dim: int, stat: str
+                  ) -> torch.Tensor:
+        """The pieces this rank receives when ``x``, cut along ``dim``
+        into one equal piece per rank of ``axes``, sends piece r to rank
+        r: (n, ...), piece r from rank r with ``dim`` moved first, where
+        the backend received them (one ``all_to_all_single``, counted in
+        ``stats`` under ``stat``)."""
         import torch.distributed as dist
+        n = self.size(axes)
         group = self.mesh.group(as_axes(axes))
-        moved = x.movedim(split_dim, 0)
+        moved = x.movedim(dim, 0)
         if moved.shape[0] % n:
-            raise ValueError(f"all_to_all: dimension {split_dim} of "
+            raise ValueError(f"all_to_all: dimension {dim} of "
                              f"{tuple(x.shape)} does not cut into {n}")
         src = _on_wire(moved.reshape((n, moved.shape[0] // n)
                                      + tuple(moved.shape[1:])).contiguous(),
                        group)
         got = torch.empty_like(src)
         dist.all_to_all_single(got, src, group=group)
-        self.stats["a2a_calls"] += 1
-        self.stats["a2a_bytes"] += src.numel() * src.element_size()
-        got = got.to(x.device)
-        return torch.cat([got[r].movedim(0, split_dim) for r in range(n)],
-                         dim=cat_dim)
+        self.stats[f"{stat}_calls"] += 1
+        self.stats[f"{stat}_bytes"] += src.numel() * src.element_size()
+        return got
 
     def _all_reduce(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         """In-place ``all_reduce`` SUM of the contiguous ``x``, counted in
