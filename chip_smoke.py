@@ -357,7 +357,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``state_shardings`` and taking step 3, equal to a one-process restore
    within 1e-4); launches per rank and step as ``tm_launches`` reckons
    them; per world and rank: step wall, host queue, device busy,
-   gradient collectives a step, peak GB, global tok/s;
+   gradient collectives a step, peak GB, global tok/s; then, on the (1,
+   2) world, the ``seq`` rule in the train step: internlm2-1.8b widths at
+   2 layers, 4 x 2048 tokens, one fp32 step with ``extra_rules={"seq":
+   ("model",)}`` against one without it from the same init (bit-equal,
+   or loss, grad_norm and every state leaf within 1e-6; printed which),
+   then one timed bf16 step of each (peak GB, step wall, host queue,
+   device busy, the cut's gathers, reduce-scatters and all_to_alls with
+   their bytes, forward and backward; the flash forward with ``lse`` and
+   its backward at the gathered sequence and the local heads); then
+   ``dryrun`` (host only): the port's dry run on fake ranks
+   (``launch/dryrun.py``) of qwen3-32b ``train_4k`` on (16, 16) with and
+   without the ``seq`` rule (a rank's peak must fall), qwen3-32b
+   ``decode_32k`` on (16, 16) and llama-3.1-70b ``decode_32k`` on (2, 16,
+   16) with ``serve_pp``, and ``launch/roofline.py``'s terms for the
+   ``train`` path's configuration on a (1, 1) mesh beside that path's
+   step wall from this run;
 7. a JSON line of per-kernel numbers (``decode_attention``'s row also
    carries its fp8 shapes and its launches by cache dtype in paths
    ``kv_fp8``, ``pp`` and ``pp_ranks``), the nvidia-smi line, and last ``{"ok": true,
@@ -547,7 +562,7 @@ DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers",
               "command-r-plus-104b": "cmdr_layers"}
 DANUBE_RING = (2, 6000, 32)   # the ring generation: rows, prompt, new tokens
 ALL_PHASES = ("build", "calibrate", "kernels", "parity", "cluster") + tuple(
-    PATHS) + ("train", "train_mamba2", "train_mesh")
+    PATHS) + ("train", "train_mamba2", "train_mesh", "dryrun")
 
 
 def log(msg: str = "") -> None:
@@ -6213,6 +6228,13 @@ TM_LAYERS = 2
 TM_STEPS = 1
 TM_FP32_STEPS = 2
 TM_REL = 1e-4                 # fp32: loss, grad_norm, params and m
+# the seq rule's case: internlm2-1.8b widths on (data 1, model 2), 4 rows
+# of 2048 tokens; with the rule against without it in fp32 (bit-equal
+# where the partials sum alike, else within 1e-6 of each leaf's largest
+# element), then one bf16 step of each, timed
+TM_SEQ_RULE = {"seq": ("model",)}
+TM_SEQ_LEN = 2048
+TM_SEQ_REL = 1e-6
 TM_BF16_REL = 2e-2            # bf16: the first step's loss
 
 
@@ -6229,8 +6251,12 @@ def tm_launches(cfg, n_micro: int) -> dict:
 
 
 def tm_rank(mesh, dev, cases: list) -> list:
-    """One rank of phase ``train_mesh``: ``tm_case`` for each case."""
-    return [tm_case(mesh, dev, **case) for case in cases]
+    """One rank of phase ``train_mesh``: ``tm_case`` for each case (a case
+    with ``seq_pair`` set: ``tm_seq_pair``)."""
+    return [tm_seq_pair(mesh, dev, **{k: v for k, v in case.items()
+                                      if k != "seq_pair"})
+            if case.get("seq_pair") else tm_case(mesh, dev, **case)
+            for case in cases]
 
 
 def _host_rss_gb() -> float | None:
@@ -6274,14 +6300,16 @@ def tm_case(mesh, dev, cfg, rows: int, seq: int, steps: int, first: int,
             opt, seed: int = 0, n_micro: int | None = None,
             once: bool = False, timed: bool = False, ref: bool = False,
             ckpt_dir: str | None = None, restore: tuple | None = None,
-            elastic: tuple | None = None, pod: bool = False) -> dict:
+            elastic: tuple | None = None, pod: bool = False,
+            extra_rules: dict | None = None) -> dict:
     """``steps`` train steps of ``build_step``'s train step for ``cfg`` on
     this rank (data: ``SyntheticLM(rows, seq)`` from batch ``first``;
     ``n_micro`` and ``once`` its ``n_microbatches`` and
     ``gather_weights_once``), from ``launch.train_mesh.rank_start``: the
     seeded init, or the checkpoint ``restore = (dir, step)`` onto the
     mesh ``resize_mesh(*elastic)`` builds; ``pod``: on a (pod, data 1,
-    model 1) mesh of the world's ranks instead of ``mesh``. Per step:
+    model 1) mesh of the world's ranks instead of ``mesh``;
+    ``extra_rules`` on the step (the ``seq`` rule). Per step:
     loss, grad_norm, wall and host queue seconds, kernel launches, the
     step's own collectives (FSDP gathers, gradient sums) and the model's
     all_reduces, calls and bytes. ``timed``: peak GB, and the last step
@@ -6302,7 +6330,7 @@ def tm_case(mesh, dev, cfg, rows: int, seq: int, steps: int, first: int,
         mesh, dev, cfg, seq, rows, seed=seed, restore=restore,
         elastic=elastic, step_kw=dict(n_microbatches=n_micro,
                                       gather_weights_once=once,
-                                      opt_cfg=opt)))
+                                      opt_cfg=opt, extra_rules=extra_rules)))
     secs = {"start": time.perf_counter() - t_case}
     model, comm = built.model, built.meta["comm"]
     stats = built.meta["sharder"].stats
@@ -6345,7 +6373,8 @@ def tm_case(mesh, dev, cfg, rows: int, seq: int, steps: int, first: int,
     out.update(n_micro=nm, heads=(model.n_heads_local, model.n_kv_local,
                                   model.ssm_heads_local),
                rows=(built.meta["rows"].start, built.meta["rows"].stop),
-               tokens=rows * seq)
+               tokens=rows * seq, seq=built.layout.seq,
+               residual=model.residual_shape)
     if timed and dev.type == "cuda":
         out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     if ckpt_dir is not None:
@@ -6374,6 +6403,113 @@ def tm_case(mesh, dev, cfg, rows: int, seq: int, steps: int, first: int,
     del state, built
     _free(dev)
     return out
+
+
+def tm_seq_pair(mesh, dev, cfg, rows: int, seq: int, first: int, opt,
+                seed: int = 0) -> dict:
+    """One fp32 step of ``build_step``'s train step with ``TM_SEQ_RULE``
+    and one without it, from the same seeded init on the same batch
+    (``SyntheticLM(rows, seq)`` batch ``first``): both steps' loss,
+    grad_norm, launches, the cut's collectives (``Sharder.stats``) and the
+    layout's ``seq``; over the rank's state leaves, how many are
+    bit-equal and the largest ``_max_rel`` of the rest."""
+    batch = to_torch(SyntheticLM(cfg, DataConfig(rows, seq, 0)).batch_at(
+        first), dev)
+    out, states = {}, {}
+    for name, rules in (("off", None), ("seq", TM_SEQ_RULE)):
+        built, state = rank_start(mesh, dev, cfg, seq, rows, seed=seed,
+                                  step_kw=dict(opt_cfg=opt,
+                                               extra_rules=rules))
+        stats = built.meta["sharder"].stats
+        stats.update(dict.fromkeys(stats, 0))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = built.fn(state, batch)
+        _sync(dev)
+        out[name] = dict(loss=m["loss"].item(),
+                         grad_norm=m["grad_norm"].item(),
+                         wall_s=time.perf_counter() - t0,
+                         launches=ops.launch_counts(), stats=dict(stats),
+                         seq=built.layout.seq,
+                         n_micro=built.meta["n_microbatches"])
+        states[name] = [t for tree in (state.params, state.opt.m,
+                                       state.opt.v) for t in leaves(tree)]
+        del built, state
+    pairs = list(zip(states["seq"], states["off"]))
+    equal = sum(bool(torch.equal(a, b)) for a, b in pairs)
+    worst = max(((a.float() - b.float()).abs().max().item()
+                 / (b.float().abs().max().item() + 1e-3)) for a, b in pairs)
+    out.update(equal=equal, leaves=len(pairs), worst=worst)
+    del states, pairs
+    _free(dev)
+    return out
+
+
+def tm_seq_gates(tag: str, cfg, fp32: list, bf16: dict, dev, seq_len: int,
+                 counts: dict) -> list:
+    """The ``seq`` rule's case: the fp32 step with the rule against the
+    one without it on every rank (loss and grad_norm bit-equal or within
+    ``TM_SEQ_REL`` relative, every state leaf within it; the rule on, the
+    cut's gathers and reduce-scatters run); the bf16 pair's readings
+    printed, both losses finite and within ``TM_BF16_REL``, each rank's
+    launches ``tm_launches`` on the card (added to ``counts``: the flash
+    forward with ``lse`` and its backward at the gathered sequence and the
+    local heads). Returns the failures."""
+    failed = []
+    o = fp32[0]
+    bits = all(r["seq"]["loss"] == r["off"]["loss"]
+               and r["seq"]["grad_norm"] == r["off"]["grad_norm"]
+               and r["equal"] == r["leaves"] for r in fp32)
+    lerr = max(abs(r["seq"]["loss"] - r["off"]["loss"])
+               / abs(r["off"]["loss"]) for r in fp32)
+    nerr = max(abs(r["seq"]["grad_norm"] - r["off"]["grad_norm"])
+               / abs(r["off"]["grad_norm"]) for r in fp32)
+    worst = max(r["worst"] for r in fp32)
+    cut = all(r["seq"]["seq"] == "model" and r["off"]["seq"] is None
+              and r["seq"]["stats"]["gather_calls"] > 0
+              and r["seq"]["stats"]["rs_calls"] > 0 for r in fp32)
+    ok = cut and (bits or (lerr <= TM_SEQ_REL and nerr <= TM_SEQ_REL
+                           and worst <= TM_SEQ_REL))
+    log(f"{tag} seq (1, 2) fp32 {cfg.n_layers} layers, {o['seq']['n_micro']} "
+        f"microbatches: {'BIT-EQUAL' if bits else 'not bit-equal'} to the "
+        f"seq-off step (loss {o['seq']['loss']} vs {o['off']['loss']}, rel "
+        f"{lerr:.2e}; grad_norm {o['seq']['grad_norm']} vs "
+        f"{o['off']['grad_norm']}, rel {nerr:.2e}; state leaves bit-equal "
+        f"{[r['equal'] for r in fp32]} of {o['leaves']}, worst rel "
+        f"{worst:.2e}, limit {TM_SEQ_REL}); the rule on {cut}; cut "
+        f"collectives a step (rank 0, forward and backward) "
+        f"{ {k: v for k, v in o['seq']['stats'].items() if v} }; step "
+        f"walls {o['seq']['wall_s']:.2f} / {o['off']['wall_s']:.2f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append("seq fp32")
+    want = tm_launches(cfg, bf16["seq"][0]["n_micro"])
+    for name in ("off", "seq"):
+        for k, v in tm_report(tag, f"seq pair bf16 ({name})",
+                              bf16[name]).items():
+            if name == "seq":
+                counts[k] = counts.get(k, 0) + v
+    ls = [r["loss"][0] for r in bf16["seq"]]
+    lo = [r["loss"][0] for r in bf16["off"]]
+    got = [{k: c[k] for k in want} for r in bf16["seq"]
+           for c in r["launches"]]
+    launched = dev.type != "cuda" or all(g == want for g in got)
+    rel = abs(ls[0] - lo[0]) / abs(lo[0])
+    finite = bool(np.isfinite(ls + lo).all())
+    peaks = [(r.get("peak_gb"), q.get("peak_gb"))
+             for r, q in zip(bf16["seq"], bf16["off"])]
+    ok = finite and rel <= TM_BF16_REL and launched and all(
+        r["seq"] == "model" and r["residual"][1] == seq_len // 2
+        for r in bf16["seq"])
+    log(f"{tag} seq pair bf16 {cfg.n_layers} layers: loss with the rule "
+        f"{ls[0]} vs without {lo[0]} (rel {rel:.2e}, limit {TM_BF16_REL}); "
+        f"peak GB a rank (with, without) {peaks}; residual a rank "
+        f"{bf16['seq'][0]['residual']}; launches a rank and step "
+        f"{got[0] if got else None} (reckoned {want}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append("seq bf16")
+    return failed
 
 
 def tm_one_process(cfg, dev, rows: int, seq: int, steps: int, first: int,
@@ -6447,7 +6583,11 @@ def tm_report(tag: str, name: str, outs: list) -> dict:
             f"{comm['gather_bytes']} bytes, gradient sums "
             f"{comm['grad_calls']} calls {comm['grad_bytes']} bytes, model "
             f"all_reduces (forward and backward) {ar['calls']} calls "
-            f"{ar['bytes']} bytes; peak_mem_GB="
+            f"{ar['bytes']} bytes, the seq cut's all_gathers "
+            f"{ar['gather_calls']} calls {ar['gather_bytes']} bytes, "
+            f"reduce-scatters {ar['rs_calls']} calls {ar['rs_bytes']} bytes, "
+            f"all_to_alls {ar['a2a_calls']} calls {ar['a2a_bytes']} bytes "
+            f"(forward, remat and backward); peak_mem_GB="
             f"{'not measured (CPU)' if peak is None else round(peak, 3)}; "
             f"global tok/s {o['tokens'] / per:.1f}; seconds "
             f"{ {k: round(v, 1) for k, v in o['secs'].items()} }")
@@ -6607,16 +6747,25 @@ def phase_train_mesh(dev, seed: int, rehearsal: bool) -> dict:
     c32, c16 = cfgs[arch]
     old = el.ElasticState(None, 4, rows)
     shape, batch2 = el.plan_resize(old, 2, model_axis=2)
+    # then, on the (1, 2) mesh, the seq rule's case at 4 x TM_SEQ_LEN
+    seq2 = 32 if rehearsal else TM_SEQ_LEN
     t0 = time.perf_counter()
     outs = run_ranks(tm_rank, shape, TM_AXES, device=where, args=([dict(
         cfg=c32, rows=batch2, seq=seq, steps=1, first=TM_FP32_STEPS,
         opt=fp32_opt, seed=seed + 1, ref=True,
         restore=(str(ck_dir), TM_FP32_STEPS), elastic=(old, 2, 2)), dict(
         cfg=c16, rows=rows, seq=seq, steps=TM_STEPS, first=0, opt=bf16_opt,
-        seed=seed, n_micro=nm[arch], timed=True, pod=True)],))
+        seed=seed, n_micro=nm[arch], timed=True, pod=True), dict(
+        seq_pair=True, cfg=c32, rows=rows, seq=seq2, first=0, opt=fp32_opt,
+        seed=seed), dict(
+        cfg=c16, rows=rows, seq=seq2, steps=1, first=0, opt=bf16_opt,
+        seed=seed, timed=True), dict(
+        cfg=c16, rows=rows, seq=seq2, steps=1, first=0, opt=bf16_opt,
+        seed=seed, timed=True, extra_rules=TM_SEQ_RULE)],))
     log(f"{tag} world of 2 ranks: the elastic {shape} restore and step, "
-        f"then (pod 2, data 1, model 1), {time.perf_counter() - t0:.1f} s "
-        f"with the ranks' start")
+        f"then (pod 2, data 1, model 1), then the seq rule's pair at "
+        f"{rows} x {seq2} on {shape}, {time.perf_counter() - t0:.1f} s with "
+        f"the ranks' start")
     ranks = [o[0] for o in outs]
     planned = shape == (1, 2) and batch2 == 2
     log(f"{tag} elastic: plan_resize(ElasticState(n_devices=4, "
@@ -6638,6 +6787,9 @@ def phase_train_mesh(dev, seed: int, rehearsal: bool) -> dict:
     failed += tm_bf16_gate(tag, f"(2, 1, 1) bf16 {arch}",
                            [o[1] for o in outs], c16, ref16[arch], 1, dev,
                            counts)
+    failed += tm_seq_gates(tag, c16, [o[2] for o in outs],
+                           {"off": [o[3] for o in outs],
+                            "seq": [o[4] for o in outs]}, dev, seq2, counts)
     shutil.rmtree(ck_dir, ignore_errors=True)
     log(f"{tag} phase seconds {time.perf_counter() - t_start:.1f}")
     if dev.type == "cuda":
@@ -6646,6 +6798,96 @@ def phase_train_mesh(dev, seed: int, rehearsal: bool) -> dict:
         raise SystemExit(f"chip_smoke: training over a mesh failed on "
                          f"{failed}")
     return dict(counts=counts)
+
+# -- the dry-run plane on fake ranks (host only) -----------------------------------
+DRY_PROD = [
+    # (label, a cell of dryrun.run_cells)
+    ("qwen3-32b train_4k (16, 16)",
+     dict(arch="qwen3-32b", shape="train_4k")),
+    ("qwen3-32b train_4k (16, 16) seq",
+     dict(arch="qwen3-32b", shape="train_4k",
+          extra_rules={"seq": ["model"]})),
+    ("qwen3-32b decode_32k (16, 16)",
+     dict(arch="qwen3-32b", shape="decode_32k")),
+    ("llama-3.1-70b decode_32k (2, 16, 16) serve_pp",
+     dict(arch="llama-3.1-70b", shape="decode_32k", multi_pod=True,
+          serve_pp=True)),
+]
+
+
+def phase_dryrun(train_wall: float | None) -> None:
+    """Host only: the port's dry run on fake ranks (``launch/dryrun.py``:
+    each traced rank a subprocess in a fake world, ``build_step`` on
+    ``device="cpu"`` traced under ``FakeTensorMode``; every cell at once).
+    ``DRY_PROD``: qwen3-32b ``train_4k`` on (16, 16) without and with the
+    ``seq`` rule (a rank's peak and collective bytes: the rule's gain at
+    production size), qwen3-32b ``decode_32k`` on (16, 16), llama-3.1-70b
+    ``decode_32k`` on (2, 16, 16) with ``serve_pp`` (the first rank of
+    each stage); then the ``train`` path's own configuration
+    (internlm2-1.8b whole, 8 x 2048 tokens in its microbatches) on a (1,
+    1) mesh: ``launch/roofline.py``'s three terms (H100 data-sheet
+    figures, not measurements) beside the path's step wall measured in
+    this run (``train_wall``; None: not measured). Gates: every cell
+    traced with finite positive FLOPs and peak, the train cells'
+    collectives present, the peak with the rule below the one without."""
+    from repro_torch.launch import dryrun, roofline
+    tag = "[dryrun]"
+    t0 = time.perf_counter()
+    own = dict(arch=TRAIN_CASES["train"][0],
+               shape=[TRAIN_SEQ, TRAIN_BATCH, "train_step"],
+               mesh=((1, 1), ("data", "model")))
+    recs = dryrun.run_cells([c for _, c in DRY_PROD] + [own], quiet=True)
+    failed = []
+    for (label, _), rec in zip(DRY_PROD, recs):
+        ma, ca, co = (rec["memory_analysis"], rec["cost_analysis"],
+                      rec["collectives"])
+        kinds = {k: (int(co["counts"][k]), co["rank_bytes"][k], co[k])
+                 for k in co["counts"]}
+        ok = (np.isfinite(ca["flops"]) and ca["flops"] > 0
+              and ma["peak_memory_in_bytes"] > 0 and co["total"] > 0)
+        log(f"{tag} {label}: a rank's peak {ma['peak_memory_in_bytes']} B "
+            f"(args {ma['argument_size_in_bytes']} B), FLOPs "
+            f"{ca['flops']:.6e}, op bytes {ca['bytes accessed']:.6e}, "
+            f"collectives (calls, rank bytes, wire bytes a chip) {kinds}, "
+            f"wire total {co['total']:.6e} (across nodes "
+            f"{co['network']:.6e}); traced {rec['lower_s']} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(label)
+    off, on = (r["memory_analysis"]["peak_memory_in_bytes"]
+               for r in recs[:2])
+    lower = on < off
+    log(f"{tag} seq rule in qwen3-32b train_4k: a rank's peak {on} B with, "
+        f"{off} B without ({(on - off) / off:+.1%}); collective wire bytes "
+        f"a chip {recs[1]['collectives']['total']:.6e} with, "
+        f"{recs[0]['collectives']['total']:.6e} without "
+        f"{'ok' if lower else 'FAIL'}")
+    if not lower:
+        failed.append("seq peak")
+    rec = recs[-1]
+    flops = rec["tw_costs"]["flops"]
+    terms = {"compute_s": flops / roofline.H100_PEAK_FLOPS,
+             "memory_s": (rec["cost_analysis"]["bytes accessed"]
+                          / roofline.H100_HBM_BPS),
+             "collective_s": roofline.collective_seconds(
+                 rec["collectives"])}
+    cfg = get_config(own["arch"])
+    model_s = (6.0 * cfg.to_modelspec().params_active() * TRAIN_BATCH
+               * TRAIN_SEQ / roofline.H100_PEAK_FLOPS)
+    wall = "not measured" if train_wall is None else f"{train_wall:.4f} s"
+    log(f"{tag} train path ({own['arch']} whole, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, {rec['meta']['n_microbatches']} microbatches) on "
+        f"(1, 1): roofline terms (H100 data sheet: 989 TFLOP/s bf16, 3.35 "
+        f"TB/s) compute {terms['compute_s']:.4f} s (traced FLOPs "
+        f"{flops:.6e}, remat included), memory {terms['memory_s']:.4f} s "
+        f"(unfused op bytes {rec['cost_analysis']['bytes accessed']:.6e}), "
+        f"collective {terms['collective_s']:.4f} s; 6 N tokens / peak "
+        f"{model_s:.4f} s; peak {rec['memory_analysis']['peak_memory_in_bytes']} "
+        f"B; the path's measured step wall {wall}")
+    log(f"{tag} phase seconds {time.perf_counter() - t0:.1f} (host only)")
+    if failed:
+        raise SystemExit(f"chip_smoke: the dry run failed on {failed}")
+
 
 # -- optional: profiler breakdown of each path -----------------------------------
 BWD_KERNEL_NAMES = ("bwd::prep_kernel", "bwd::main_kernel",
@@ -6796,6 +7038,8 @@ def main(argv=None) -> int:
                 phase_train(dev, case, args.seed, rehearsal=True)
         if "train_mesh" in phases:
             phase_train_mesh(dev, args.seed, rehearsal=True)
+        if "dryrun" in phases:
+            phase_dryrun(None)
         log("[rehearsal] done")
         return 0
     t0 = time.perf_counter()
@@ -6841,15 +7085,20 @@ def main(argv=None) -> int:
             by_dtype[p] = res[p]["by_cache_dtype"]
         done(p)
     check_paths(res)
+    walls = {}
     for case in TRAIN_CASES:
         if case in phases:
-            counts[case] = phase_train(dev, case, args.seed, rehearsal=False,
-                                       profile_dir=args.profile)["counts"]
+            got = phase_train(dev, case, args.seed, rehearsal=False,
+                              profile_dir=args.profile)
+            counts[case], walls[case] = got["counts"], got["wall"]
             done(case)
     if "train_mesh" in phases:
         counts["train_mesh"] = phase_train_mesh(dev, args.seed,
                                                 rehearsal=False)["counts"]
         done("train_mesh")
+    if "dryrun" in phases:
+        phase_dryrun(walls.get("train"))
+        done("dryrun")
     if phases != set(ALL_PHASES):
         log("[partial] phases run: " + ",".join(sorted(phases)))
         return 0

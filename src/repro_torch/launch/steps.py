@@ -40,12 +40,13 @@ sets): its activations are cut by sequence over ``model``, Megatron-style
 at its local heads or columns, and reduce-scatters its row-parallel
 partials into the rank's slice. At a serve step's one token ``resolve``
 drops the rule. ``extra_rules`` go on top of ``build_rules`` for every
-step, as in the reference; the train step refuses a ``seq`` that
-resolves to a mesh axis (its backward is not ported).
+step, as in the reference; a train step follows an ``extra_rules``
+``seq`` too, each collective with its backward.
 
 Every family runs: dense, VLM, MoE, the SSM and hybrid (the Mamba2 mixer
-split by whole SSD heads) and the encoder-decoder. ``lower_step`` belongs
-to the compile plane (A10) and has no counterpart.
+split by whole SSD heads) and the encoder-decoder. The counterpart of
+``lower_step`` is ``launch/op_costs.py``'s trace of a rank's step on
+fake tensors in a fake world (``launch/dryrun.py``).
 
 A ``train_step`` shape gives THIS rank's train step
 (``launch/train_mesh.py``), ``fn(state, batch) -> (state, metrics)``: FSDP
@@ -259,7 +260,8 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     A ``train_step`` shape gives this rank's train step
     (``launch/train_mesh.py``'s ``TrainBuiltStep``): the rules of
     ``build_rules(train=True)`` with ``extra_rules`` on top (a ``seq``
-    that resolves to a mesh axis raises ``ValueError``),
+    that resolves to the model axis cuts each microbatch's activations
+    by sequence, forward and backward, as the reference's GSPMD does),
     ``n_microbatches`` by default the reference's
     ``choose_microbatches`` over the mesh's chips, ``gather_weights_once``
     gathering the FSDP shards once a step instead of once a microbatch,
@@ -272,15 +274,6 @@ def build_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     rules.update(extra_rules or {})
     if train:
         from repro_torch.launch.train_mesh import build_train_step
-        seq = R.resolve(("batch", "seq", None), (shape.global_batch,
-                                                 shape.seq_len, cfg.d_model),
-                        rules, mesh)[1]
-        if R.Sharder(mesh=mesh, rules=rules).size(seq) > 1:
-            raise ValueError(
-                f"build_step: the seq rule {rules['seq']} cuts the train "
-                f"step's sequence over {seq}; the port's train step keeps "
-                f"activations whole (sequence-split training, with its "
-                f"backward, is not ported)")
         return build_train_step(cfg, shape, mesh, rules,
                                 n_microbatches=n_microbatches,
                                 gather_weights_once=gather_weights_once,

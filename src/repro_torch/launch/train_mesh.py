@@ -33,7 +33,19 @@ microbatch's gradient. The model's collectives carry their own backward
 (``Sharder.reduce`` / ``Sharder.enter``); after the backward a leaf that
 ranks of ``model`` hold in copies whose gradients are partial is summed
 over them (the KV heads that several ranks' queries read, the MoE
-router, the Mamba2 mixer's B / C columns). Each gradient is then summed
+router, the Mamba2 mixer's B / C columns).
+
+Under a ``seq`` rule that cuts a microbatch's positions over ``model``
+(``LM._seq_axes``, as in the prefill) the residual stream holds the
+rank's slice of the positions: each block gathers the sequence
+(``Sharder.all_gather``, backward a reduce-scatter), its row-parallel
+products reduce-scatter their partials (backward an all_gather), the
+vocab-parallel logits come back by one all_to_all, and the rank's
+objective is its slice's NLL. A leaf whole on every rank of ``model``
+then has a partial gradient (the embedding, the norms, the biases added
+after a sum, the final norm and a head whose vocab is not split) and is
+summed over the cut's axes like the router; the loss is summed over
+them too. Each gradient is then summed
 over the batch axes in fp32, the rank keeps its FSDP slice (the
 reduce-scatter, as an ``all_reduce`` and a slice: gloo reduces every
 dtype and layout that way), and only then, with
@@ -134,11 +146,13 @@ def leaf_paths(tree, path: Path = ()) -> List[Path]:
 class StateLayout:
     """Every parameter's ``_Leaf`` on this rank, from the tensor-parallel
     ``model`` (its sharder under the rules with ``embed`` replicated) and
-    the train ``rules``."""
+    the train ``rules``; ``seq``: the axes the ``seq`` rule cuts a
+    microbatch's positions over (None: whole)."""
 
-    def __init__(self, model, rules: Dict, mesh: Any):
+    def __init__(self, model, rules: Dict, mesh: Any, seq: R.Axes = None):
         self.model = model
         self.mesh = mesh
+        self.seq = seq
         self.full = R.Sharder(mesh=mesh, rules=rules)
         self.leaves: Dict[Path, _Leaf] = {
             path: self._leaf(path, d)
@@ -199,6 +213,11 @@ class StateLayout:
                 masks[ax] = mask
         if path[-2:] == ("moe", "router") and m._ffn_ax is not None:
             whole, sum_axes = True, m._ffn_ax
+        # under the seq cut a leaf whole on every rank of its axes sees
+        # only the rank's part of the work (its slice of the positions, or
+        # its columns' partial gradient through a gathered input)
+        if self.seq is not None and not (split_model or whole):
+            whole, sum_axes = True, self.seq
         # the norm counts each element on one rank: its first holder
         owned = 1.0
         split = set()
@@ -410,7 +429,8 @@ def build_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
     model = build_model(cfg, device=dev, sharder=sharder,
                         batch_axes=batch_axes, remat=True,
                         remat_policy=None if cfg.is_encdec else remat_policy)
-    layout = StateLayout(model, rules, mesh)
+    seq = model._seq_axes(hi - lo, shape.seq_len)
+    layout = StateLayout(model, rules, mesh, seq)
     comm = {"gather_calls": 0, "gather_bytes": 0, "grad_calls": 0,
             "grad_bytes": 0}
 
@@ -504,8 +524,9 @@ def build_train_step(cfg: ArchConfig, shape: ShapeSpec, mesh: Any,
                 gsum = [fix(p, g) for p, g in zip(order, gsum)]
             for s in gsum:
                 s.div_(nm)
-            if batch_axes is not None:
-                _sum(lsum, mesh, batch_axes, comm)
+            for axes in (batch_axes, seq):
+                if axes is not None:
+                    _sum(lsum, mesh, axes, comm)
             gnorm = norm(order, gsum)
             it = iter(gsum)
             grads = _map_paths(state.params, lambda p, t: next(it))
@@ -574,8 +595,10 @@ def train_run(mesh: Any, device: torch.device, cfg: ArchConfig,
     checkpoint of the result from the mesh. Returns the ``loss`` and
     ``grad_norm`` of each step, ``n_microbatches``, the step's ``comm``
     and the model sharder's ``stats``, the full state on rank ``dst``
-    (None elsewhere), and every warning raised while it ran
-    (``warnings``)."""
+    (None elsewhere), the residual stream's local shape in the last
+    forward (``residual``: the rank's slice of the positions under the
+    ``seq`` rule), the layout's ``seq`` axes, and every warning raised
+    while it ran (``warnings``)."""
     import warnings
 
     from repro_torch.train import checkpoint as ckpt
@@ -597,6 +620,8 @@ def train_run(mesh: Any, device: torch.device, cfg: ArchConfig,
             "n_microbatches": built.meta["n_microbatches"],
             "comm": dict(built.meta["comm"]),
             "stats": dict(built.meta["sharder"].stats),
+            "residual": built.model.residual_shape,
+            "seq": built.layout.seq,
             "warnings": [str(w.message) for w in caught]}
 
 

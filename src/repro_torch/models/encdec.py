@@ -54,7 +54,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.common import (ParamDef, lm_cross_entropy,
-                                       lm_nll_sum, make_norm, norm_schema,
+                                       make_norm, norm_schema,
                                        remat, sinusoidal_positions,
                                        stack_schema, unbind_layers)
 from repro_torch.models.transformer import TensorParallel
@@ -188,7 +188,7 @@ class EncDecLM(TensorParallel):
         """One encoder layer; with the sequence cut over ``sp``, ``x`` in
         and out is this rank's slice of the frames."""
         a = self._enter(self.norm(self._sp_whole(x, sp), p["ln1"]),
-                        self._heads_ax)
+                        self._heads_ax, sp)
         k, v = self._proj_kv(p["attn"], a)
         o = kops.flash_attention(self._proj_q(p["attn"], a), self._attn_kv(k),
                                  self._attn_kv(v), causal=False)
@@ -198,11 +198,10 @@ class EncDecLM(TensorParallel):
     def encode(self, params: Dict, frames: torch.Tensor,
                train: bool = False) -> torch.Tensor:
         """frames: (B, S_enc, d_model), the stubbed frontend's output.
-        ``train`` (``loss``): each layer under ``remat``. Serving, the
-        ``seq`` rule cuts the frames by sequence (``_seq_axes`` of
-        S_enc); the output is whole."""
-        sp = None if train else self._seq_axes(frames.shape[0],
-                                               frames.shape[1])
+        ``train`` (``loss``): each layer under ``remat``. The ``seq`` rule
+        cuts the frames by sequence (``_seq_axes`` of S_enc); the output
+        is whole."""
+        sp = self._seq_axes(frames.shape[0], frames.shape[1])
         x = frames.to(self.dtype)
         x = self._sp_cut(x + self._pe(x.shape[1], x.device), sp)
         n = self.cfg.n_encoder_layers
@@ -230,16 +229,19 @@ class EncDecLM(TensorParallel):
         the sequence cut over ``sp``, ``x`` in and out is this rank's
         slice (a cross-attention whose heads are whole runs on it)."""
         ax = self._heads_ax
-        a = self._enter(self.norm(self._sp_whole(x, sp), p["ln1"]), ax)
+        a = self._enter(self.norm(self._sp_whole(x, sp), p["ln1"]), ax, sp)
         k, v = self._proj_kv(p["self_attn"], a)
         o = kops.flash_attention(self._proj_q(p["self_attn"], a),
                                  self._attn_kv(k), self._attn_kv(v),
                                  causal=True)
         x = x + self._out_proj(p["self_attn"], o, sp)
-        ck, cv = self._proj_kv(p["cross_attn"], self._enter(enc_out, ax))
+        # under the cut (training needs the encoder cut with the decoder)
+        # ``enc_out`` comes gathered, and its gather sums the gradient
+        ck, cv = self._proj_kv(p["cross_attn"], self._enter(enc_out, ax, sp))
         xsp = sp if ax is not None else None
         x = x + self._cross(p["cross_attn"], self._enter(
-            self.norm(self._sp_whole(x, xsp), p["ln2"]), ax), ck, cv, xsp)
+            self.norm(self._sp_whole(x, xsp), p["ln2"]), ax, xsp), ck, cv,
+            xsp)
         return self._tail(p, x, sp), k, v, ck, cv
 
     def _decoder_full(self, params: Dict, tokens: torch.Tensor,
@@ -261,7 +263,7 @@ class EncDecLM(TensorParallel):
         for p in layers:
             if not collect_kv:
                 x = remat(self.remat,
-                          lambda pl, h, e: self._dec_layer(pl, h, e)[0],
+                          lambda pl, h, e: self._dec_layer(pl, h, e, sp)[0],
                           p, x, enc_out)
                 continue
             x, *kvs = self._dec_layer(p, x, enc_out, sp)
@@ -290,17 +292,30 @@ class EncDecLM(TensorParallel):
     def loss_shard(self, params: Dict, batch: Dict, count: float,
                    tokens: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """This rank's share of a microbatch's ``loss`` in a mesh step, as
-        ``LM.loss_shard``: its rows' summed NLL over ``count``, as (the
+        ``LM.loss_shard``: its rows' summed NLL over ``count`` (over its
+        slice of the positions under the ``seq`` rule), as (the
         objective, its value); ``tokens`` is unused (no MoE)."""
-        nll = lm_nll_sum(self._train_logits(params, batch), batch["targets"],
-                         batch.get("mask"), self.cfg.vocab) / count
+        sp = self.train_seq_axes(batch)
+        nll = self._nll_sum(self._train_logits(params, batch, sp), batch,
+                            sp) / count
         return nll, nll.detach()
 
-    def _train_logits(self, params: Dict, batch: Dict) -> torch.Tensor:
-        enc_out = self.encode(params, batch["embeds"], train=True)
+    def _train_logits(self, params: Dict, batch: Dict, sp=None
+                      ) -> torch.Tensor:
+        """The decoder's logits, of this rank's slice of the positions
+        where the sequence is cut over ``sp``; the encoder must then be
+        cut over the same axes (each rank's objective is its slice's, so
+        an encoder kept whole would sum its gradient once too often)."""
+        frames = batch["embeds"]
+        if sp != self._seq_axes(frames.shape[0], frames.shape[1]):
+            raise NotImplementedError(
+                f"{self.cfg.name}: training with the decoder's sequence cut "
+                f"over {sp} and the encoder's frames cut otherwise")
+        enc_out = self.encode(params, frames, train=True)
         x, _ = self._decoder_full(params, batch["tokens"], enc_out,
-                                  collect_kv=False)
-        return self.logits(params, x)
+                                  collect_kv=False, sp=sp)
+        self.residual_shape = tuple(x.shape)
+        return self.logits(params, x, sp)
 
     def init_cache(self, batch: int, max_len: int, s_enc: int) -> Dict:
         """Zero cache: self-attention ``k``/``v`` (L, batch, max_len, nkv,

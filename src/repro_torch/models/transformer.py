@@ -85,7 +85,11 @@ all_reduce would sum them whole, as does the vocab-parallel embedding;
 a block whose weights are whole on every rank slices its own result.
 The last position's hidden state comes from the rank that holds it (one
 all_reduce of a zero-filled buffer). The K/V reach the cache as they do
-without the rule. Where ``resolve`` replicates
+without the rule. A train step (``loss_shard``) follows the same cut:
+each gather, reduce-scatter and all_to_all carries its backward, the
+replicated input of a split product is not summed again on the way back
+(the gather's backward sums it), the vocab-parallel logits of the rank's
+slice come by one all_to_all, and the rank's NLL is its slice's. Where ``resolve`` replicates
 ``kv_heads`` but splits ``heads`` on rules without ``cache_seq`` (the
 train step's), a rank projects only the KV heads its query heads read
 (global query head i reads KV head i // g), all of them in query order
@@ -215,8 +219,9 @@ class TensorParallel:
         # each K/V leaf's positions, as ``init_cache`` last laid them out
         # (a decode reads from them which leaves are cut by sequence)
         self.kv_lengths: Dict[str, int] = {}
-        # the local shape of the residual stream the last prefill ended
-        # with (the rank's slice of the positions under the ``seq`` rule)
+        # the local shape of the residual stream of the last prefill or
+        # training forward (the rank's slice of the positions under the
+        # ``seq`` rule)
         self.residual_shape: Optional[Tuple[int, ...]] = None
         if self._seq_ax is not None and self._heads_ax not in (
                 None, self._seq_ax):
@@ -256,12 +261,17 @@ class TensorParallel:
             return lambda x: self.sharder.reduce_scatter(x, axes, 1)
         return lambda x: self.sharder.reduce(x, axes, grad=grad)
 
-    def _enter(self, x: torch.Tensor, axes: Axes) -> torch.Tensor:
+    def _enter(self, x: torch.Tensor, axes: Axes, sp: Axes = None
+               ) -> torch.Tensor:
         """``x``, replicated over the ranks of ``axes``, entering products
         whose weights are split over them (``Sharder.enter``: the
         gradient summed over the ranks in the backward pass); ``x`` when
-        unsplit."""
-        return x if axes is None else self.sharder.enter(x, axes)
+        unsplit, and where the sequence is cut over ``sp`` (``x`` then
+        comes from an all_gather, whose backward sums the ranks' partial
+        gradients instead)."""
+        if axes is None or sp is not None:
+            return x
+        return self.sharder.enter(x, axes)
 
     def _row_parallel(self, axes: Axes, sp: Axes = None):
         """``(x, w) -> x @ w`` for a weight whose rows are split over
@@ -305,6 +315,23 @@ class TensorParallel:
                     f"{self.cfg.name}: the sequence cut over {ax} and "
                     f"{name} split over {t}")
         return ax
+
+    def train_seq_axes(self, batch: Dict) -> Axes:
+        """The mesh axes the ``seq`` rule cuts a training ``batch`` (this
+        rank's rows) over (``_seq_axes`` of its targets); None where the
+        positions stay whole."""
+        b, s = batch["targets"].shape
+        return self._seq_axes(b, s)
+
+    def _nll_sum(self, logits: torch.Tensor, batch: Dict, sp: Axes
+                 ) -> torch.Tensor:
+        """The summed NLL of ``logits`` against the batch's ``targets``
+        under its ``mask``, over this rank's slice of the positions where
+        the sequence is cut over ``sp``."""
+        mask = batch.get("mask")
+        return lm_nll_sum(logits, self._sp_cut(batch["targets"], sp),
+                          None if mask is None else self._sp_cut(mask, sp),
+                          self.cfg.vocab)
 
     def _sp_cut(self, x: torch.Tensor, sp: Axes) -> torch.Tensor:
         """This rank's slice of the positions (dimension 1) of ``x``,
@@ -352,7 +379,8 @@ class TensorParallel:
         c = self.cfg
         if self._ffn_ax is None:
             sp = None
-        h = self._enter(self.norm(self._sp_whole(x, sp), ln), self._ffn_ax)
+        h = self._enter(self.norm(self._sp_whole(x, sp), ln), self._ffn_ax,
+                        sp)
         return ffn_mod.ffn_apply(p, h, c.act, c.gated_ffn,
                                  self._row_parallel(self._ffn_ax, sp))
 
@@ -635,14 +663,24 @@ class TensorParallel:
             return self.sharder.reduce_scatter(x, self._vocab_ax, 1)
         return self.sharder.reduce(x, self._vocab_ax)
 
-    def logits(self, params: Dict, x: torch.Tensor) -> torch.Tensor:
-        x = self._enter(x, self._vocab_ax)
+    def logits(self, params: Dict, x: torch.Tensor, sp: Axes = None
+               ) -> torch.Tensor:
+        """The padded-vocab logits of ``x``; with the sequence cut over
+        ``sp`` (the training path), of this rank's slice of the positions:
+        where the vocab is split, the gathered sequence's columns of this
+        rank exchanged for every column of the slice (one all_to_all)."""
+        if sp is not None and self._vocab_ax is not None:
+            x = self._sp_whole(x, sp)
+        else:
+            x = self._enter(x, self._vocab_ax)
         if self.cfg.tie_embeddings:
             out = x @ params["embed"]["tok"].T
         else:
             out = x @ params["lm_head"]
         if self._vocab_ax is None:
             return out
+        if sp is not None:
+            return self.sharder.all_to_all(out, sp, 1, out.ndim - 1)
         # vocab-parallel: this rank's columns of a zero padded-vocab buffer
         full = out.new_zeros(out.shape[:-1] + (self.cfg.padded_vocab,))
         full[..., self._vocab_lo:self._vocab_lo + out.shape[-1]] = out
@@ -793,12 +831,14 @@ class LM(TensorParallel):
     # ------------------------------------------------------------------ #
     # attention layer bodies
     # ------------------------------------------------------------------ #
-    def _qkv(self, p: Dict, x: torch.Tensor, positions: torch.Tensor):
+    def _qkv(self, p: Dict, x: torch.Tensor, positions: torch.Tensor,
+             sp: Axes = None):
         """Projections and rotary positions: (3, B, S) streams under
         M-RoPE; otherwise (B, S) positions (the first stream of (3, B, S)
-        ones, as the reference takes them)."""
+        ones, as the reference takes them). ``sp``: ``x`` was gathered
+        over it (``_enter``)."""
         c = self.cfg
-        x = self._enter(x, self._heads_ax)
+        x = self._enter(x, self._heads_ax, sp)
         q = x @ p["wq"]
         k = x @ p["wk"]
         v = x @ p["wv"]
@@ -829,7 +869,7 @@ class LM(TensorParallel):
         """Full-sequence causal attention of the normed ``x`` (the whole
         sequence); returns (out, k, v), ``out`` this rank's slice of the
         positions where the sequence is cut over ``sp``."""
-        q, k, v = self._qkv(p, x, positions)
+        q, k, v = self._qkv(p, x, positions, sp)
         o = kops.flash_attention(q, self._attn_kv(k), self._attn_kv(v),
                                  causal=True, window=self.cfg.swa_window)
         return self._out_proj(p, o, sp), k, v
@@ -909,7 +949,7 @@ class LM(TensorParallel):
         if c.n_experts == 0:
             return self._ffn_block(p["mlp"], x, p["ln_mlp"], sp)
         h = self._enter(self.norm(self._sp_whole(x, sp), p["ln_mlp"]),
-                        self._ffn_ax)
+                        self._ffn_ax, sp)
         share = (self._queue_share
                  if self.sharder.size(self.batch_axes) > 1 else None)
         out, _, _ = moe_mod.moe_apply(
@@ -918,54 +958,64 @@ class LM(TensorParallel):
         return out if self._ffn_ax is not None else self._sp_cut(out, sp)
 
     def _mlp_or_moe_aux(self, p: Dict, x: torch.Tensor,
-                        aux_tokens: Optional[int] = None
+                        aux_tokens: Optional[int] = None, sp: Axes = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The training path's FFN sub-block: (``_mlp_or_moe``'s output,
         the MoE layer's load-balancing loss; 0 for a dense layer). With
         ``aux_tokens`` (a mesh step: the microbatch's tokens over every
         row shard) the loss is this rank's share of the whole
         microbatch's (``moe.moe_aux_shard``: its rows' router
-        probabilities against the first choices of every row)."""
+        probabilities against the first choices of every row). With the
+        sequence cut over ``sp`` the router sees the gathered sequence,
+        as in ``_mlp_or_moe``, and the loss covers every position."""
         c = self.cfg
         if c.n_experts == 0:
-            return (self._mlp_or_moe(p, x),
+            return (self._mlp_or_moe(p, x, sp),
                     torch.zeros((), dtype=torch.float32, device=x.device))
         split = self.sharder.size(self.batch_axes) > 1
-        h = self._enter(self.norm(x, p["ln_mlp"]), self._ffn_ax)
+        h = self._enter(self.norm(self._sp_whole(x, sp), p["ln_mlp"]),
+                        self._ffn_ax, sp)
         out, probs, idx = moe_mod.moe_apply(
             p["moe"], h, c.moe_top_k, c.act, c.gated_ffn,
-            reduce=self._reduce(self._ffn_ax),
+            reduce=self._reduce(self._ffn_ax, sp=sp),
             queue_share=self._queue_share if split else None)
+        if self._ffn_ax is None:
+            out = self._sp_cut(out, sp)
         if aux_tokens is None:
             return out, moe_mod.moe_aux(probs, idx)
         return out, moe_mod.moe_aux_shard(
             probs, idx, aux_tokens,
             self._reduce(self.batch_axes) if split else None)
 
-    def _attn_block(self, p: Dict, x: torch.Tensor, positions
-                    ) -> torch.Tensor:
+    def _attn_block(self, p: Dict, x: torch.Tensor, positions,
+                    sp: Axes = None) -> torch.Tensor:
         """An attention layer's attention sub-block (norm, attention, the
-        output projection), without the residual."""
-        a, _, _ = self._attn_full(p["attn"], self.norm(x, p["ln_attn"]),
-                                  positions)
+        output projection), without the residual; with the sequence cut
+        over ``sp``, ``x`` and the output are this rank's slice."""
+        a, _, _ = self._attn_full(
+            p["attn"], self.norm(self._sp_whole(x, sp), p["ln_attn"]),
+            positions, sp)
         return a
 
     def _dense_layer_train(self, p: Dict, x: torch.Tensor, positions,
-                           aux_tokens: Optional[int] = None
+                           aux_tokens: Optional[int] = None,
+                           sp: Axes = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One attention layer of ``loss``: (x, its MoE aux loss)."""
-        x = x + self._attn_block(p, x, positions)
-        m, aux = self._mlp_or_moe_aux(p, x, aux_tokens)
+        x = x + self._attn_block(p, x, positions, sp)
+        m, aux = self._mlp_or_moe_aux(p, x, aux_tokens, sp)
         return x + m, aux
 
     def _dense_layer_saving(self, p: Dict, x: torch.Tensor, positions,
-                            aux_tokens: Optional[int] = None
+                            aux_tokens: Optional[int] = None,
+                            sp: Axes = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``_dense_layer_train`` under ``remat_policy="save_block_out"``:
         the attention and FFN sub-blocks each rematerialised, their
         outputs (the reference's ``block_out``) kept."""
-        x = x + remat(self.remat, self._attn_block, p, x, positions)
-        m, aux = remat(self.remat, self._mlp_or_moe_aux, p, x, aux_tokens)
+        x = x + remat(self.remat, self._attn_block, p, x, positions, sp)
+        m, aux = remat(self.remat, self._mlp_or_moe_aux, p, x, aux_tokens,
+                       sp)
         return x + m, aux
 
     @staticmethod
@@ -1013,7 +1063,7 @@ class LM(TensorParallel):
         the output are this rank's slice."""
         c = self.cfg
         h = self._enter(self.norm(self._sp_whole(x, sp), p["ln"]),
-                        self._ssm_ax)
+                        self._ssm_ax, sp)
         y, st = ssm_mod.mamba2_prefill(
             p["mixer"], h, c.d_inner, c.ssm_state, c.ssm_heads,
             c.ssm_head_dim, chunk=self.ssd_chunk, **self._mixer_tp(sp))
@@ -1076,7 +1126,8 @@ class LM(TensorParallel):
         slice of the positions; the state covers the whole sequence."""
         c = self.cfg
         if not collect_kv:
-            return self._run_trunk_train(params, x, positions, aux_tokens)
+            return self._run_trunk_train(params, x, positions, aux_tokens,
+                                         sp)
         state: Dict[str, list] = {}
         if c.family in RECURRENT:
             fire = c.shared_attn_positions()
@@ -1102,7 +1153,7 @@ class LM(TensorParallel):
         return x, {key: torch.stack(vals) for key, vals in state.items()}
 
     def _run_trunk_train(self, params: Dict, x: torch.Tensor, positions,
-                         aux_tokens: Optional[int] = None
+                         aux_tokens: Optional[int] = None, sp: Axes = None
                          ) -> Tuple[torch.Tensor, Dict]:
         c = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -1112,20 +1163,21 @@ class LM(TensorParallel):
             x0 = x
             for i, p in enumerate(layers):
                 x = remat(self.remat,
-                          lambda pl, h: self._mamba_layer_fwd(pl, h)[0],
+                          lambda pl, h: self._mamba_layer_fwd(pl, h, sp)[0],
                           p, x)
                 if i in fire:
                     x = remat(self.remat,
                               lambda pl, h, h0: self._shared_block_fwd(
-                                  pl, h, h0, positions)[0],
+                                  pl, h, h0, positions, sp)[0],
                               params["shared"], x, x0)
             return x, {"aux": aux}
         for p in layers:
             if self.remat_policy == "save_block_out":
-                x, a = self._dense_layer_saving(p, x, positions, aux_tokens)
+                x, a = self._dense_layer_saving(p, x, positions, aux_tokens,
+                                                sp)
             else:
                 x, a = remat(self.remat, self._dense_layer_train, p, x,
-                             positions, aux_tokens)
+                             positions, aux_tokens, sp)
             aux = aux + a
         return x, {"aux": aux}
 
@@ -1173,38 +1225,50 @@ class LM(TensorParallel):
         (the objective to differentiate, its value): the values summed
         over the row shards are the microbatch's ``loss``; the objective
         leaves the MoE loss to one rank of the expert FFN's split, since
-        the router's gradient is summed over those ranks."""
+        the router's gradient is summed over those ranks. With the
+        sequence cut over the ``seq`` rule's axes (``train_seq_axes``)
+        the NLL is over this rank's slice of the positions, one rank of
+        those axes adds the MoE loss, and the values summed over the row
+        shards and those axes are the microbatch's ``loss``."""
         c = self.cfg
-        logits, aux = self._train_logits(params, batch, tokens)
-        nll = lm_nll_sum(logits, batch["targets"], batch.get("mask"),
-                         c.vocab) / count
+        sp = self.train_seq_axes(batch)
+        logits, aux = self._train_logits(params, batch, tokens, sp)
+        nll = self._nll_sum(logits, batch, sp) / count
         if c.n_experts == 0:
             return nll, nll.detach()
         moe = 0.01 * aux["aux"] / max(1, c.n_layers)
+        # the other ranks add it times 0: every rank's backward graph, and
+        # so the order of its collectives, is the same
+        if sp is not None:
+            obj = nll + moe * float(self.sharder.index(sp) == 0)
+            return obj, obj.detach()
         owner = self._ffn_ax is None or self.sharder.index(self._ffn_ax) == 0
-        return (nll + moe if owner else nll), (nll + moe).detach()
+        return nll + moe * float(owner), (nll + moe).detach()
 
     def _train_logits(self, params: Dict, batch: Dict,
-                      aux_tokens: Optional[int] = None
+                      aux_tokens: Optional[int] = None, sp: Axes = None
                       ) -> Tuple[torch.Tensor, Dict]:
         """``loss``'s forward up to the logits: (logits, the trunk's
-        ``aux``)."""
+        ``aux``); with the sequence cut over ``sp``, the logits of this
+        rank's slice of the positions (the M-RoPE positions stay whole:
+        attention runs on the gathered sequence)."""
         c = self.cfg
         if "embeds" in batch:
-            x = batch["embeds"].to(self.dtype)
+            x = self._sp_cut(batch["embeds"], sp).to(self.dtype)
         else:
-            x = self.embed(params, batch["tokens"])
+            x = self.embed(params, batch["tokens"], sp)
+        self.residual_shape = tuple(x.shape)
         positions = batch.get("positions")
         if positions is None:
-            b, s = x.shape[0], x.shape[1]
+            b, s = batch["targets"].shape
             positions = torch.arange(s, dtype=torch.int32, device=x.device
                                      )[None].expand(b, s)
             if c.m_rope:
                 positions = positions[None].expand(3, b, s)
         x, aux = self._run_trunk_full(params, x, positions, collect_kv=False,
-                                      aux_tokens=aux_tokens)
+                                      aux_tokens=aux_tokens, sp=sp)
         x = self.norm(x, params["final_norm"])
-        return self.logits(params, x), aux
+        return self.logits(params, x, sp), aux
 
     def init_cache(self, batch: int, max_len: int, kv_layout: str = "contig",
                    n_blocks: int = 0, block_size: int = 16,

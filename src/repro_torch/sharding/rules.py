@@ -24,7 +24,7 @@ row-parallel product's partials into the rank's slice
 (``reduce_scatter``).
 ``Sharder()`` with no mesh is the identity, as in the reference.
 
-Under autograd both collectives carry the backward their use implies
+Under autograd every collective carries the backward its use implies
 (a bare ``dist.all_reduce`` has no autograd rule, and a backward through
 it silently runs as the identity): ``reduce`` passes the gradient through
 unchanged (every rank then computes the same thing: Megatron's "g"), or,
@@ -32,6 +32,11 @@ with ``grad="sum"``, sums it over the same ranks (ranks go on differently
 from the sum, as the Mamba2 gated norm's sums of squares); ``enter`` is
 the identity forward and sums the gradient over the axes (a replicated
 activation entering a product whose weight is split: Megatron's "f").
+Under the ``seq`` rule in training, ``all_gather``'s backward is a
+reduce-scatter of the gradient, ``reduce_scatter``'s an all_gather of it,
+and ``all_to_all``'s the exchange back (the vocab-parallel logits of a
+rank's slice of the positions); each backward collective is counted in
+``stats`` as the forward one is.
 Without autograd recording, ``reduce`` is the in-place ``all_reduce`` and
 ``enter`` returns its input. ``leaf_index`` gives the global indices,
 dimension by dimension, of the part of a tensor ``shard_leaf`` keeps.
@@ -242,11 +247,19 @@ class Sharder:
                    ) -> torch.Tensor:
         """Every rank's ``x`` along ``axes``, concatenated along ``dim`` in
         rank order (``index(axes)``); ``x`` on one rank or without a mesh.
-        Serving only: no autograd rule."""
+        Under autograd its backward reduce-scatters the gradient (each
+        rank's piece summed over the ranks in rank order)."""
         n = self.size(axes)
         if self.mesh is None or n == 1:
             return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Gather.apply(x, self, axes, dim)
+        return self._all_gather(x, axes, dim)
+
+    def _all_gather(self, x: torch.Tensor, axes: Axes, dim: int
+                    ) -> torch.Tensor:
         import torch.distributed as dist
+        n = self.size(axes)
         group = self.mesh.group(as_axes(axes))
         src = _on_wire(x.contiguous(), group)
         parts = [torch.empty_like(src) for _ in range(n)]
@@ -261,10 +274,18 @@ class Sharder:
         ``axes``, piece r sent to rank r, and the pieces this rank
         receives concatenated along ``cat_dim`` in rank order (one
         ``all_to_all_single``); ``x`` on one rank or without a mesh.
-        Serving only: no autograd rule."""
+        Under autograd its backward sends the gradient's pieces back (the
+        same exchange with the two dimensions swapped)."""
         n = self.size(axes)
         if self.mesh is None or n == 1:
             return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Exchange.apply(x, self, axes, split_dim, cat_dim)
+        return self._all_to_all(x, axes, split_dim, cat_dim)
+
+    def _all_to_all(self, x: torch.Tensor, axes: Axes, split_dim: int,
+                    cat_dim: int) -> torch.Tensor:
+        n = self.size(axes)
         got = self._exchange(x, axes, split_dim, "a2a").to(x.device)
         return torch.cat([got[r].movedim(0, split_dim) for r in range(n)],
                          dim=cat_dim)
@@ -278,10 +299,17 @@ class Sharder:
         order, so that the sum's order, and its bits, are the same on
         every backend (over gloo the sum runs in host memory, and only the
         slice comes back to the card). ``x`` on one rank or without a
-        mesh. Serving only: no autograd rule."""
+        mesh. Under autograd its backward all_gathers the gradient."""
         n = self.size(axes)
         if self.mesh is None or n == 1:
             return x
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Scatter.apply(x, self, axes, dim)
+        return self._reduce_scatter(x, axes, dim)
+
+    def _reduce_scatter(self, x: torch.Tensor, axes: Axes, dim: int
+                        ) -> torch.Tensor:
+        n = self.size(axes)
         got = self._exchange(x, axes, dim, "rs")
         out = got[0]
         for r in range(1, n):
@@ -363,6 +391,53 @@ class _Enter(torch.autograd.Function):
         return ctx.sharder._all_reduce(
             g.clone(memory_format=torch.contiguous_format), ctx.axes), \
             None, None
+
+
+class _Gather(torch.autograd.Function):
+    """``Sharder.all_gather`` under autograd; backward the reduce-scatter
+    of the gradient along the same dimension."""
+
+    @staticmethod
+    def forward(ctx, x, sharder, axes, dim):
+        ctx.sharder, ctx.axes, ctx.dim = sharder, axes, dim
+        return sharder._all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sharder._reduce_scatter(g, ctx.axes, ctx.dim), \
+            None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """``Sharder.reduce_scatter`` under autograd; backward the all_gather
+    of the gradient along the same dimension."""
+
+    @staticmethod
+    def forward(ctx, x, sharder, axes, dim):
+        ctx.sharder, ctx.axes, ctx.dim = sharder, axes, dim
+        return sharder._reduce_scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sharder._all_gather(g, ctx.axes, ctx.dim), \
+            None, None, None
+
+
+class _Exchange(torch.autograd.Function):
+    """``Sharder.all_to_all`` under autograd; backward the exchange of the
+    gradient with ``split_dim`` and ``cat_dim`` swapped."""
+
+    @staticmethod
+    def forward(ctx, x, sharder, axes, split_dim, cat_dim):
+        ctx.sharder, ctx.axes = sharder, axes
+        ctx.dims = split_dim, cat_dim
+        return sharder._all_to_all(x, axes, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return ctx.sharder._all_to_all(g, ctx.axes, cat_dim, split_dim), \
+            None, None, None, None
 
 
 def _is_names(x) -> bool:

@@ -12,7 +12,8 @@ Without ranks:
   them; the same for the PP serve step on (2, 1, 2);
 - (b) a leaf whose length the ``cache_seq`` axes do not divide stays
   whole, at the heads ``resolve`` gives it;
-- (c) the train step refuses a ``seq`` that resolves to a mesh axis.
+- (c) the train step builds with a ``seq`` that resolves to a mesh axis
+  and records the cut (``tests/test_torch_seq_train.py`` runs it).
 
 With ranks, one gloo world per mesh shape running every case:
 
@@ -173,17 +174,25 @@ def test_a_leaf_the_axes_do_not_divide_stays_whole(arch, mesh_shape,
 
 # (c) -----------------------------------------------------------------------------
 def test_the_train_step_refuses_a_seq_rule():
+    """Named for the refusal the train step made before it followed the
+    rule: it now builds with a ``seq`` rule and records the cut (the
+    layout's ``seq`` axes, the model's cut of a microbatch's rows)."""
     cfg = get_config("qwen3-32b").reduced()
     shape = ShapeSpec("t", 16, 4, "train_step")
     mesh = mesh_for_rank((1, 2), AXES, 0)
-    with pytest.raises(ValueError, match="seq rule"):
-        S.build_step(cfg, shape, mesh, extra_rules={"seq": ("model",)},
-                     device="cpu")
+    built = S.build_step(cfg, shape, mesh, extra_rules={"seq": ("model",)},
+                         device="cpu")
+    assert built.meta["rules"]["seq"] == ("model",)
+    assert built.layout.seq == "model"
+    rows = built.meta["rows"]
+    assert built.model.train_seq_axes(
+        {"targets": torch.zeros((rows.stop - rows.start, 16))}) == "model"
     # a seq rule that resolves to no axis (the sequence does not divide
     # it) is no cut, and builds
     built = S.build_step(cfg, ShapeSpec("t", 15, 4, "train_step"), mesh,
                          extra_rules={"seq": ("model",)}, device="cpu")
     assert built.meta["rules"]["seq"] == ("model",)
+    assert built.layout.seq is None
 
 
 # (d), (e) -------------------------------------------------------------------------
