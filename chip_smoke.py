@@ -181,12 +181,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
           experts top-2, expert d_ff 6400, vocab 32064), depth
           ``--moe-layers``, auto (contig) layout, batch-1 exact-length
           admission: contig decode, flash;
-   ssm    mamba2-1.3b at full width and full depth (48 layers, 64 SSD
-          heads of 64, state 128), auto (contig) layout, exact-length
-          groups: the SSD scan;
-   hybrid zamba2-2.7b at full width and full depth (54 Mamba2 layers, 9
-          shared-block applications, 32/32 heads of dim 80), auto (contig)
-          layout, exact-length groups: the SSD scan, flash, contig decode;
+   ssm    mamba2-1.3b at full width, depth ``--ssm-layers`` (24 of 48
+          layers; 64 SSD heads of 64, state 128), auto (contig) layout,
+          exact-length groups: the SSD scan;
+   hybrid zamba2-2.7b at full width, depth ``--hybrid-layers`` (24 of 54
+          Mamba2 layers: 4 shared-block applications, 32/32 heads of dim
+          80), auto (contig) layout, exact-length groups: the SSD scan,
+          flash, contig decode;
    server main's model, weights and traffic through a ``GlobalServer``
           (``dispatch="cost"``, ``use_kv_migration=True``, default
           ``FTTimes``) over three paged pipelines that carry the first
@@ -372,7 +373,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    ``decode_32k`` on (16, 16) and llama-3.1-70b ``decode_32k`` on (2, 16,
    16) with ``serve_pp``, and ``launch/roofline.py``'s terms for the
    ``train`` path's configuration on a (1, 1) mesh beside that path's
-   step wall from this run;
+   step wall from this run; then ``lint``: (a) on the host,
+   ``repro_torch.analysis`` (torchlint) over ``src/repro_torch`` against
+   ``.torchlint-baseline``: no new finding and no stale entry, the
+   findings printed by check; (b) on the card, a census of the host syncs
+   PyTorch itself reports (``torch.cuda.set_sync_debug_mode("warn")``:
+   the syncs that go through its sync hooks, ``memcpy_and_sync`` and
+   ``stream_synchronize``, and no other) in three engines at 2 layers,
+   the paged and the contig engine at Qwen3-32B widths and mamba2-1.3b,
+   each serving the first 8 of main's requests (chunked admission
+   included) for 16 new tokens: syncs per decode step and per admission
+   by ``file:line`` and function (each at its innermost frame under
+   ``src/repro_torch``, with the frame that called it), one JSON line;
+   every site must lie on a line torchlint reports, baselined or
+   suppressed with a reason, and the tokens must equal the same run's
+   with the mode off;
 7. a JSON line of per-kernel numbers (``decode_attention``'s row also
    carries its fp8 shapes and its launches by cache dtype in paths
    ``kv_fp8``, ``pp`` and ``pp_ranks``), the nvidia-smi line, and last ``{"ok": true,
@@ -390,6 +405,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -399,6 +415,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis import torchlint  # noqa: E402
+from repro_torch.analysis.baseline import load_baseline  # noqa: E402
 from repro_torch.cluster import (PAPER_POOLS, ClusterSim,  # noqa: E402
                                  FTConfig, Topology,
                                  azure_conversation_like, generate_trace,
@@ -559,10 +577,11 @@ PATH_KW = {"sanitize": dict(kv_sanitize=True),
 # block-aligned, 1000 and 1500 are not
 PREFIX_SYSTEM = (300, 1000, 1024, 1500)
 DEPTH_FLAG = {"qwen3-32b": "layers", MOE: "moe_layers",
-              "command-r-plus-104b": "cmdr_layers"}
+              "command-r-plus-104b": "cmdr_layers",
+              "mamba2-1.3b": "ssm_layers", "zamba2-2.7b": "hybrid_layers"}
 DANUBE_RING = (2, 6000, 32)   # the ring generation: rows, prompt, new tokens
 ALL_PHASES = ("build", "calibrate", "kernels", "parity", "cluster") + tuple(
-    PATHS) + ("train", "train_mamba2", "train_mesh", "dryrun")
+    PATHS) + ("train", "train_mamba2", "train_mesh", "dryrun", "lint")
 
 
 def log(msg: str = "") -> None:
@@ -6889,6 +6908,204 @@ def phase_dryrun(train_wall: float | None) -> None:
         raise SystemExit(f"chip_smoke: the dry run failed on {failed}")
 
 
+# -- torchlint's gate and a census of the host syncs on the card -----------------
+# the census's engines (chip_smoke paths): paged and contig Qwen3-32B widths,
+# mamba2-1.3b; each at LINT_LAYERS layers on the first LINT_REQUESTS of the
+# path's requests, LINT_NEW new tokens each
+LINT_PATHS = ("main", "contig", "ssm")
+LINT_LAYERS = 2
+LINT_REQUESTS = 8
+LINT_NEW = 16
+PORT_SRC = ROOT / "src" / "repro_torch"
+# the engine functions whose syncs are admission work (the rest of
+# Engine.step is the decode step)
+ADMISSION_FNS = ("Engine.admit_many", "Engine._advance_pending",
+                 "Engine._readmit_preempted")
+
+
+def lint_gate(tag: str) -> list:
+    """torchlint over ``src/repro_torch`` against ``.torchlint-baseline``
+    (the CLI's gate with ``--fail-on-stale``); returns every finding,
+    the suppressed ones included."""
+    config = torchlint.LintConfig(tests_dir=str(ROOT / "tests"),
+                                  smoke_file=str(ROOT / "chip_smoke.py"))
+    found = torchlint.analyze_paths([str(PORT_SRC)], config,
+                                    suppressed=True)
+    accepted = load_baseline(str(ROOT / ".torchlint-baseline"))
+    kept = [f for f in found if f.suppressed is None]
+    new = [f for f in kept if f.fingerprint not in accepted]
+    stale = sorted(accepted - {f.fingerprint for f in kept})
+    by_check: dict = {}
+    for f in found:
+        row = by_check.setdefault(f.check, [0, 0])
+        row[f.suppressed is not None] += 1
+    log(f"{tag} torchlint on {PORT_SRC.relative_to(ROOT)}: "
+        + ", ".join(f"{c} {b} baselined / {s} suppressed"
+                    for c, (b, s) in sorted(by_check.items()))
+        + f"; new {len(new)}, stale {len(stale)}")
+    for f in new:
+        log(f"{tag} NEW {f.render()}")
+    if new or stale:
+        raise SystemExit(f"chip_smoke: torchlint found {len(new)} new "
+                         f"finding(s) and {len(stale)} stale baseline "
+                         f"entr{'y' if len(stale) == 1 else 'ies'} {stale}")
+    return found
+
+
+def _port_frames(frame) -> list:
+    """(path as torchlint reports it, line, qualname) of each frame under
+    ``src/repro_torch``, innermost first."""
+    out = []
+    while frame is not None:
+        path = Path(frame.f_code.co_filename)
+        if path.is_relative_to(PORT_SRC):
+            rel = f"repro_torch/{path.relative_to(PORT_SRC).as_posix()}"
+            out.append((rel, frame.f_lineno, frame.f_code.co_qualname))
+        frame = frame.f_back
+    return out
+
+
+def _census_run(cfg, params, dev, eng_kw, prompts, count: bool) -> tuple:
+    """Serve ``prompts`` for LINT_NEW tokens on a fresh Engine; with
+    ``count``, under the sync debug mode, every reported sync attributed
+    to its innermost port frame. Returns (tokens, engine stats, syncs)."""
+    reqs = [ServeRequest(prompt=list(p), max_new_tokens=LINT_NEW)
+            for p in prompts]
+    eng = Engine(cfg, params, device=dev, **eng_kw)
+    syncs = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            log(f"[lint] warning: {message}")
+            return
+        frames = _port_frames(sys._getframe(1))
+        quals = {q for _, _, q in frames}
+        where = ("admission" if quals & set(ADMISSION_FNS) else
+                 "decode" if "Engine.step" in quals else "other")
+        if not frames:      # no port frame: the innermost frames as "via"
+            log(f"[lint] a sync outside the port: {message}")
+            f, stack = sys._getframe(1), []
+            while f is not None and len(stack) < 6:
+                stack.append(f"{f.f_code.co_filename}:{f.f_lineno} "
+                             f"{f.f_code.co_qualname}")
+                f = f.f_back
+            frames = [(filename, lineno, "?"),
+                      ("stack", 0, " <- ".join(stack))]
+        syncs.append((where, frames[:2]))
+    _sync(dev)
+    if not count:
+        _serve(eng, reqs)
+    else:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                _serve(eng, reqs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    _sync(dev)
+    if not all(r.done and len(r.generated) == LINT_NEW for r in reqs):
+        raise SystemExit(f"chip_smoke: the {cfg.name} census run left a "
+                         f"request unfinished")
+    return [list(r.generated) for r in reqs], eng.stats, syncs
+
+
+def _census_sites(syncs: list, stats) -> dict:
+    sites: dict = {}
+    totals = {"decode": 0, "admission": 0, "other": 0}
+    for where, frames in syncs:
+        totals[where] += 1
+        rel, line, qual = frames[0]
+        site = sites.setdefault(f"{rel}:{line} {qual}", {
+            "decode": 0, "admission": 0, "other": 0, "via": {}})
+        site[where] += 1
+        if len(frames) > 1:
+            via = "{}:{} {}".format(*frames[1])
+            site["via"][via] = site["via"].get(via, 0) + 1
+    return {"per_decode_step": totals["decode"] / max(stats.decode_steps, 1),
+            "decode_steps": stats.decode_steps, "decode": totals["decode"],
+            "admission": totals["admission"], "admissions": stats.prefills,
+            "per_admission": totals["admission"] / max(stats.prefills, 1),
+            "chunks": stats.prefill_chunks,
+            "prefill_batches": stats.prefill_batches,
+            "other": totals["other"], "sites": sites}
+
+
+def phase_lint(dev, seed: int, rehearsal: bool) -> None:
+    """(a) torchlint's gate on the host; (b) the census of host syncs by
+    site on the card (``LINT_PATHS``), held to torchlint's findings and
+    to the tokens of the same run with the mode off. The CPU rehearsal
+    runs (a) and the census's traffic at reduced width without counting:
+    the sync debug mode is the card's."""
+    tag = "[lint]"
+    t0 = time.perf_counter()
+    found = lint_gate(tag)
+    # the lines a sync may lie on: each finding's, baselined or
+    # suppressed with a reason
+    known = {(f.path, f.line) for f in found
+             if f.suppressed is None or f.suppressed.strip()}
+    census, unseen = {}, []
+    for path in LINT_PATHS:
+        cfg, eng_kw, make_requests, _, _ = path_workload(
+            path, LINT_LAYERS, seed, rehearsal)
+        prompts = [r.prompt for r in make_requests()[:LINT_REQUESTS]]
+        params = build_model(cfg, device=dev).init(seed=seed)
+        ref, _, _ = _census_run(cfg, params, dev, eng_kw, prompts, False)
+        if rehearsal:
+            again, _, _ = _census_run(cfg, params, dev, eng_kw, prompts,
+                                      False)
+            if again != ref:
+                raise SystemExit(f"chip_smoke: the {path} census traffic "
+                                 f"is not deterministic")
+            log(f"{tag} {path}: {cfg.name} reduced, {len(prompts)} "
+                f"requests, tokens equal on a second run (no count: the "
+                f"sync debug mode needs the card)")
+            continue
+        toks, stats, syncs = _census_run(cfg, params, dev, eng_kw, prompts,
+                                         True)
+        del params
+        if toks != ref:
+            raise SystemExit(f"chip_smoke: the {path} census run's tokens "
+                             f"differ from the same run with the mode off")
+        row = census[path] = _census_sites(syncs, stats)
+        lens = [len(p) for p in prompts]
+        log(f"{tag} {path}: {cfg.name} widths, {cfg.n_layers} layers, "
+            f"{eng_kw.get('kv_layout')} layout, {len(prompts)} requests of "
+            f"{min(lens)}-{max(lens)} prompt tokens, {LINT_NEW} new each: "
+            f"{row['per_decode_step']:.4f} syncs per decode step "
+            f"({row['decode']} over {row['decode_steps']} steps), "
+            f"{row['admission']} in admission ({row['admissions']} "
+            f"requests, {row['prefill_batches']} group prefills, "
+            f"{row['chunks']} chunks), {row['other']} elsewhere; tokens "
+            f"equal to the mode-off run")
+        for name, site in sorted(row["sites"].items(),
+                                 key=lambda kv: -kv[1]["decode"]
+                                 - kv[1]["admission"]):
+            rel, line = name.split(" ")[0].rsplit(":", 1)
+            # a sync with no port frame on the stack (turning the mode on)
+            # is not the port's: printed, not held to torchlint
+            port = rel.startswith("repro_torch/")
+            seen = (rel, int(line)) in known
+            log(f"{tag} {path}   {site['decode']:5d} decode "
+                f"{site['admission']:5d} admission {site['other']:3d} "
+                f"other  {name}  via {site['via']}  "
+                + ("torchlint" if seen else "UNSEEN" if port
+                   else "outside the port"))
+            if port and not seen:
+                unseen.append(f"{path}: {name}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    if not rehearsal:
+        log(f"{tag} the census counts the syncs PyTorch routes through its "
+            f"sync hooks (memcpy_and_sync, stream_synchronize), no other")
+        print(json.dumps({"syncs": census}), flush=True)
+    log(f"{tag} phase seconds {time.perf_counter() - t0:.1f}")
+    if unseen:
+        raise SystemExit(f"chip_smoke: syncs at lines torchlint does not "
+                         f"report: {unseen}")
+
+
 # -- optional: profiler breakdown of each path -----------------------------------
 BWD_KERNEL_NAMES = ("bwd::prep_kernel", "bwd::main_kernel",
                     "bwd::post_kernel", "dkdv_fma", "dq_fma",
@@ -6982,6 +7199,13 @@ def main(argv=None) -> int:
                     help="depth of the full-width command-r-plus-104b model "
                          "on the cmdr path (phase 5; 64 layers need the "
                          "multi-device plane)")
+    ap.add_argument("--ssm-layers", type=int, default=24,
+                    help="depth of the full-width mamba2-1.3b model (48 "
+                         "layers) on the ssm path (phase 5)")
+    ap.add_argument("--hybrid-layers", type=int, default=24,
+                    help="depth of the full-width zamba2-2.7b model (54 "
+                         "layers) on the hybrid path (phase 5; a multiple "
+                         "of its shared block's period of 6)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run the phases that need no card on the CPU at a "
@@ -6991,7 +7215,7 @@ def main(argv=None) -> int:
                     help="comma list of phases after 'device'; the serving "
                          "paths run in the order given (a partial run "
                          "never prints the ok line)")
-    ap.add_argument("--repeats", type=int, default=3,
+    ap.add_argument("--repeats", type=int, default=2,
                     help="timed runs of each serving path after its warm-up "
                          "pass (phase 5); the median wall is reported")
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
@@ -7040,6 +7264,8 @@ def main(argv=None) -> int:
             phase_train_mesh(dev, args.seed, rehearsal=True)
         if "dryrun" in phases:
             phase_dryrun(None)
+        if "lint" in phases:
+            phase_lint(dev, args.seed, rehearsal=True)
         log("[rehearsal] done")
         return 0
     t0 = time.perf_counter()
@@ -7099,6 +7325,9 @@ def main(argv=None) -> int:
     if "dryrun" in phases:
         phase_dryrun(walls.get("train"))
         done("dryrun")
+    if "lint" in phases:
+        phase_lint(dev, args.seed, rehearsal=False)
+        done("lint")
     if phases != set(ALL_PHASES):
         log("[partial] phases run: " + ",".join(sorted(phases)))
         return 0

@@ -262,6 +262,8 @@ class Engine:
     def _dev(self, x, dtype=torch.int32) -> torch.Tensor:
         """Host array -> a fresh tensor on the engine's device (a copy,
         never a view of the host ledger)."""
+        # torchlint: disable=host-sync -- the upload helper: each call
+        # site is a finding of its own
         return torch.tensor(x, dtype=dtype, device=self.device)
 
     def _frames(self, g: int) -> torch.Tensor:
@@ -366,6 +368,7 @@ class Engine:
         worst = self.model.take_probe()
         if worst is None:
             return
+        # torchlint: disable=host-sync -- the sanitizer's one read a dispatch
         worst = float(worst)
         if not worst < self._poison:
             raise KVSanitizerError(
@@ -533,7 +536,7 @@ class Engine:
                                               self._dev(lens - 1))
         self._scatter_group({key: val[:, :n] for key, val in state.items()},
                             slots[:n], lens[:n])
-        # host sync (intended): first tokens fill req.generated
+        # torchlint: disable=host-sync -- first tokens fill req.generated
         first = self.model.sample_greedy(logits).tolist()
         self.stats.prefill_batches += 1
         for j, (r, toks, slot) in enumerate(items):
@@ -575,7 +578,7 @@ class Engine:
         self.cache["pos"][slots_t] = self._dev(bases[:n] + lens[:n])
         # the device table row of each slot follows on the next dispatch
         # (``_sync_block_tbl``: the reservation marked it dirty)
-        # host sync (intended): first tokens fill req.generated
+        # torchlint: disable=host-sync -- first tokens fill req.generated
         first = self.model.sample_greedy(logits).tolist()
         self.stats.prefill_batches += 1
         for j, (r, toks, slot, n_sh, cow) in enumerate(items):
@@ -654,6 +657,7 @@ class Engine:
             else:
                 self.cache[key][:, slot] = val[:, 0].to(self.cache[key].dtype)
         self.stats.prefill_batches += 1
+        # torchlint: disable=host-sync -- the baseline's first token
         self._install(req, slot, self.model.sample_greedy(logits)[0].item())
 
     # -- chunked prefill --------------------------------------------------------
@@ -705,8 +709,8 @@ class Engine:
             finishers = [(j, m) for j, m in enumerate(grp.members)
                          if not m.done and grp.base >= len(m.tokens)]
             if finishers:
-                # host sync (intended): finishers' first tokens fill
-                # req.generated
+                # torchlint: disable=host-sync -- finishers' first tokens
+                # fill req.generated
                 first = self.model.sample_greedy(logits).tolist()
                 self._finish_pending(grp, finishers, first)
             if not all(m.done for m in grp.members):
@@ -902,8 +906,8 @@ class Engine:
                                     self.slots[i].ctx_len)
         self._sync_block_tbl()
         logits = self._decode(self._dev(tokens), self._dev(mask, torch.bool))
-        # host sync (intended): THE per-step sync point. Sampled tokens
-        # feed the next step's host-side scheduling.
+        # torchlint: disable=host-sync -- THE per-step sync point: sampled
+        # tokens feed the next step's host-side scheduling
         nxt = self.model.sample_greedy(logits)[:, 0].tolist()
         for i in live:
             req = self.slots[i]
